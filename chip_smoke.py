@@ -1,0 +1,557 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch / H100 port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
+toolkit's ``nvcc``; without a card it exits non-zero and prints no result.
+Phases, each of which fails the run on error:
+
+  1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
+  2. the build: every kernel source of ``kernels/csrc`` compiled from this
+     checkout (one nvcc per source, in parallel), ptxas's register /
+     shared-memory / spill report per kernel;
+  3. kernel vs plain, bitwise: K1, K2 and K5 against their plain PyTorch
+     versions (and K1/K2 against the reference backend's twin) at the full
+     TinyLlama-1.1B shapes, on tables from real selections at sparsity 0.4,
+     bf16 and int8, prefetch depths 0/1/2, plus the edge cases of the
+     reference's kernel suite (all-padded table, one 512-row chunk,
+     K >> real chunks, ±127 int8 saturation); and the reduced model on the
+     card against the same model on the CPU;
+  4. the serve run: full-width tinyllama-1.1b, all 22 layers, random
+     weights from a seed, ``--method chunk --backend kernel``, batch 2,
+     prompt 32, 16 decode tokens, at wbits 16 and 8 — the launch counters
+     must equal the per-step counts, and the same settings on the reference
+     backend must give byte-identical tokens;
+  5. the timings: each kernel over the serve run's own per-layer tables and
+     weights (device time, from replays of a CUDA graph of the calls),
+     beside its plain version (host clock), the dense library
+     product where there is one, and its bound (the larger of the bytes the
+     call must move over 3.35 TB/s and its flops over the fp32 peak).
+
+Prints the kernel table as one JSON line, then, as the last line,
+``{"ok": true, "device": {...}}``. A fuller report goes to
+``chiprun_out/chip_smoke_report.json``.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 outside
+# the tensor cores (the kernels contract in fp32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+BATCH, PROMPT, DECODE, REF_DECODE, PROFILE_TOKENS = 2, 32, 16, 4, 4
+DEPTHS = (0, 1, 2)
+TIME_SELECTION_LAUNCHES = 6  # SparseExecution.time_selection: 1 warm-up + 5 timed
+
+
+def fail(msg):
+    print(f"[FAIL] {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
+        fail("src/repro_torch is not beside chip_smoke.py: run it from a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    report = {}
+
+    # -- 1. the card --------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    report["card"] = card
+
+    # -- 2. the build ---------------------------------------------------------
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(p.name for p in paths.values())})")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in build.BUILD_LOG.items()))
+    for src, text in build.BUILD_LOG.items():
+        fn = spill = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+                for kernel in ("k1_kernel", "k2_gate_up_kernel", "k5_kernel"):
+                    if kernel in fn:  # kernel + its mangled template args
+                        fn = kernel + fn.split(kernel, 1)[1].split("EEv")[0]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and fn:
+                log(f"[ptxas] {src} {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+    for src in paths:
+        build.library(src)
+
+    from repro_torch.configs import get_config
+
+    kernels = run(dev, get_config("tinyllama-1.1b"), card, report)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def profile_decode(eng, token, card):
+    """A profiled decode call of PROFILE_TOKENS steps: device time by
+    kernel, the device's busy share of the call's wall, and the host ops
+    that take the most time. The profiler's own overhead inflates the wall,
+    so the shares are of the profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decode(token, PROFILE_TOKENS)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, cpu_ops = {}, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
+        if ev.self_cpu_time_total > 0:
+            cpu_ops[ev.key] = (ev.self_cpu_time_total, ev.count)
+    busy = sum(kernels.values())
+    if busy == 0:
+        log("[profile] the profiler recorded no device time")
+        return {"wall_us": wall_us}
+    out = {"wall_us": wall_us, "device_busy_us": busy, "device_busy_share": busy / wall_us,
+           "device_us": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15]),
+           "host_ops": dict(sorted(cpu_ops.items(), key=lambda kv: -kv[1][0])[:15])}
+    ours = {name: sum(v for k, v in kernels.items() if name in k)
+            for name in ("k1_kernel", "k2_gate_up_kernel", "k5_kernel")}
+    log(f"[profile] {PROFILE_TOKENS} steps, wall {wall_us / 1e3:.1f} ms (profiled): device busy "
+        f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}; "
+        + ", ".join(f"{k} {v / wall_us:.1%}" for k, v in ours.items())
+        + f"; other device work {(busy - sum(ours.values())) / wall_us:.1%}  ({card})")
+    top = sorted(cpu_ops.items(), key=lambda kv: -kv[1][0])[:8]
+    log("[profile] host self time: " + ", ".join(
+        f"{k} {v[0] / 1e3:.1f} ms/{v[1]}" for k, v in top))
+    return out
+
+
+def run(dev, cfg, card, report):
+    """Phases 3-5 on ``dev`` for ``cfg``; returns the kernel table. On a CPU
+    device (a rehearsal of the script's own code at a reduced config) the
+    wrappers take their plain versions, so the launch counts are not
+    checked and times are host times."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels.backend import ExecutionBackend
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine, SparseExecution
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    # -- 3. kernel vs plain, bitwise ------------------------------------------
+    errs = {"chunk_gather_matmul_dma": 0.0, "chunk_gather_mlp_dma": 0.0, "greedy_select": 0.0}
+    n_checks = 0
+    failures = []
+
+    def check(kernel, what, got, want):
+        nonlocal n_checks
+        n_checks += 1
+        if got.shape != want.shape:
+            failures.append(f"{kernel} {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+            return
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        errs[kernel] = max(errs[kernel], err)
+        if not torch.equal(got, want):
+            failures.append(f"{kernel} {what}: not bitwise equal (max abs err {err:.3e})")
+
+    d, f = cfg.d_model, cfg.d_ff
+    hd_all = cfg.n_heads * cfg.resolved_head_dim
+    kv_all = cfg.n_kv_heads * cfg.resolved_head_dim
+    w16 = {"wq": randn(d, hd_all, std=d ** -0.5), "wk": randn(d, kv_all, std=d ** -0.5),
+           "wv": randn(d, kv_all, std=d ** -0.5), "wo": randn(hd_all, d, std=hd_all ** -0.5),
+           "w_gate": randn(d, f, std=d ** -0.5), "w_up": randn(d, f, std=d ** -0.5),
+           "w_down": randn(f, d, std=f ** -0.5)}
+    w16 = {k: v.to(torch.bfloat16) for k, v in w16.items()}
+    w8 = {k: quantize_rows(v, 8) for k, v in w16.items()}
+    x_attn = randn(BATCH, d).to(torch.bfloat16)
+    x_o = randn(BATCH, hd_all).to(torch.bfloat16)
+    x_mlp = randn(BATCH, d).to(torch.bfloat16)
+    walked_full = {}
+    for wbits in (16, 8):
+        sp = SparseExecution(cfg, sparsity=0.4, wbits=wbits, torch_device=dev)
+        vs = randn(sp.batched.n_sites, sp.batched.n_max).abs()
+        starts_s, sizes_s = sp.batched.sorted_candidates(vs)
+        masks_k, sel_k = chunking.greedy_select(starts_s, sizes_s, sp._budgets,
+                                                sp.batched.min_sizes, sp.batched.n_max)
+        walked = []
+        masks_p, sel_p = chunking.greedy_select_plain(starts_s, sizes_s, sp._budgets,
+                                                      sp.batched.min_sizes, sp.batched.n_max,
+                                                      walked)
+        walked_full[wbits] = walked
+        check("greedy_select", f"w{wbits} masks", masks_k, masks_p)
+        check("greedy_select", f"w{wbits} selected", sel_k, sel_p)
+        masks = masks_k & sp.batched.row_valid
+        st, sz = cg.masks_to_block_tables(masks, 8, 512)
+        lane = {k: i for i, k in enumerate(sp.site_order)}
+        m = {k: masks[lane[k], : sp.sites[k].n] for k in sp.site_order}
+        tab = {k: (st[lane[k]], sz[lane[k]]) for k in sp.site_order}
+        mlp_st = torch.stack([st[lane["hidden_mlp"]], st[lane["ffn"]]])
+        mlp_sz = torch.stack([sz[lane["hidden_mlp"]], sz[lane["ffn"]]])
+
+        def weight(name):
+            return (w16[name], None) if wbits == 16 else w8[name]
+
+        proj = (("wq", x_attn, "hidden_attn"), ("wk", x_attn, "hidden_attn"),
+                ("wv", x_attn, "hidden_attn"), ("wo", x_o, "attn_out"))
+        ref_backend = ExecutionBackend.create("reference")
+        twin = {name: ref_backend.project(weight(name)[0], x, m[site], *tab[site],
+                                          weight(name)[1]) for name, x, site in proj}
+        gu = [weight(n) for n in ("w_gate", "w_up", "w_down")]
+        scales = None if wbits == 16 else tuple(s for _, s in gu)
+        twin_mlp = ref_backend.swiglu_mlp(gu[0][0], gu[1][0], gu[2][0], x_mlp,
+                                          m["hidden_mlp"], m["ffn"], mlp_st, mlp_sz, scales)
+        for depth in DEPTHS:
+            kern = ExecutionBackend.create("kernel", prefetch_depth=depth)
+            for name, x, site in proj:
+                w, sc = weight(name)
+                y = kern.project(w, x, m[site], *tab[site], sc)
+                check("chunk_gather_matmul_dma", f"w{wbits} d{depth} {name} vs twin", y,
+                      twin[name])
+                xm = (x * m[site].to(x.dtype)).float()
+                check("chunk_gather_matmul_dma", f"w{wbits} d{depth} {name} vs plain", y,
+                      cg.chunk_gather_matmul_plain(w, xm, *tab[site], sc))
+            yk, hk = kern.swiglu_mlp(gu[0][0], gu[1][0], gu[2][0], x_mlp, m["hidden_mlp"],
+                                     m["ffn"], mlp_st, mlp_sz, scales)
+            check("chunk_gather_mlp_dma", f"w{wbits} d{depth} y vs twin", yk, twin_mlp[0])
+            check("chunk_gather_mlp_dma", f"w{wbits} d{depth} h vs twin", hk, twin_mlp[1])
+            xm = (x_mlp * m["hidden_mlp"].to(x_mlp.dtype)).float()
+            yp, hp = cg.chunk_gather_mlp_plain(gu[0][0], gu[1][0], gu[2][0], xm, mlp_st,
+                                               mlp_sz, m["ffn"].float(), scales)
+            check("chunk_gather_mlp_dma", f"w{wbits} d{depth} y vs plain", yk, yp)
+            check("chunk_gather_mlp_dma", f"w{wbits} d{depth} h vs plain", hk, hp)
+
+    # edge cases of the reference's kernel suite, at the q-projection shape
+    k_tab = d // 8
+    xe = randn(BATCH, d)
+    sat = torch.zeros(d, hd_all, device=dev)
+    sat[:8], sat[8:16], sat[16:24, 0] = 4.0, -4.0, 1e-3
+    q_sat, s_sat = quantize_rows(sat, 8)
+    if int(q_sat.max()) != 127 or int(q_sat.min()) != -127:
+        failures.append("quantize_rows: saturation blocks are not ±127")
+    zeros = torch.zeros(k_tab, dtype=torch.int32, device=dev)
+    one_st, one_sz = zeros.clone(), zeros.clone()
+    one_st[0], one_sz[0] = 512, 512
+    few_st, few_sz = zeros.clone(), zeros.clone()
+    few_st[:2] = torch.tensor([64, 1024], device=dev)
+    few_sz[:2] = torch.tensor([16, 40], device=dev)
+    full_sz = zeros.clone()
+    full_sz[: d // 512] = 512
+    full_st = zeros.clone()
+    full_st[: d // 512] = torch.arange(0, d, 512, device=dev, dtype=torch.int32)
+    edge = [("all-padded", zeros, zeros), ("one 512-row chunk", one_st, one_sz),
+            ("K >> real chunks", few_st, few_sz)]
+    for depth in DEPTHS:
+        for wname, (w, sc) in (("bf16", (w16["wq"], None)), ("int8", w8["wq"]),
+                               ("int8 ±127", (q_sat, s_sat))):
+            cases = edge + ([("±127 full table", full_st, full_sz)] if "±" in wname else [])
+            for what, s, z in cases:
+                y = cg.chunk_gather_matmul_dma(w, xe, s, z, sc, prefetch_depth=depth)
+                check("chunk_gather_matmul_dma", f"edge {what} {wname} d{depth}", y,
+                      cg.chunk_gather_matmul_plain(w, xe, s, z, sc))
+                if what == "all-padded" and float(y.abs().max()) != 0.0:
+                    failures.append(f"K1 all-padded table is not exact zero ({wname})")
+        empty = torch.zeros((2, f // 8), dtype=torch.int32, device=dev)
+        y = cg.chunk_gather_mlp_dma(w16["w_gate"], w16["w_up"], w16["w_down"], xe, empty,
+                                    empty, prefetch_depth=depth)
+        if float(y.abs().max()) != 0.0:
+            failures.append(f"K2 empty lanes are not exact zero (d{depth})")
+
+    # the reduced model on the card against the same model on the CPU
+    rcfg = cfg.reduced()
+    rmodel = build_model(rcfg)
+    rp_cpu = rmodel.init(seed=7, device="cpu")
+    rp_gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in rp_cpu.items()}
+    rbatch = make_dummy_batch(rcfg, InputShape("small", 16, BATCH, "train"), seed=7)
+    small = {}
+    for name, params, tdev in (("cuda", rp_gpu, dev), ("cpu", rp_cpu, torch.device("cpu"))):
+        eng = ServeEngine(rmodel, params, max_seq=32, batch_size=BATCH, backend="kernel",
+                          torch_device=tdev)
+        last = eng.prefill(rbatch)
+        eng.decode(torch.argmax(last, -1)[:, None], 1)
+        small[name] = (last.float().cpu(), {k: v["mask"].cpu() for k, v in eng._plan.items()})
+    if not torch.allclose(small["cuda"][0], small["cpu"][0], atol=4e-2, rtol=4e-2):
+        failures.append("reduced model: prefill logits on the card differ from the CPU's")
+    for kind, mask in small["cpu"][1].items():
+        if not torch.equal(small["cuda"][1][kind], mask):
+            failures.append(f"reduced model: first-refresh {kind} masks differ from the CPU's")
+
+    log(f"[bitwise] {n_checks} checks, max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    if failures:
+        for msg in failures:
+            log(f"[bitwise] {msg}")
+        fail(f"{len(failures)} kernel checks failed")
+    del w16, w8
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 4. the serve run -------------------------------------------------------
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("smoke", PROMPT, BATCH, "train"), seed=0,
+                             device=dev)
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    serve = {}
+    for wbits in (16, 8):
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          backend="kernel", wbits=wbits, torch_device=dev)
+        last = eng.prefill(batch)
+        if not bool(torch.isfinite(last).all()):
+            fail(f"w{wbits}: prefill logits are not finite")
+        tok0 = torch.argmax(last, dim=-1)[:, None]
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        out = eng.decode(tok0, DECODE)
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        want = {"chunk_gather_matmul_dma": 4 * n_layers * DECODE,
+                "chunk_gather_mlp_dma": n_layers * DECODE,
+                "greedy_select": n_layers * DECODE + TIME_SELECTION_LAUNCHES}
+        if on_card and launches != want:
+            fail(f"w{wbits}: launch counts {launches} != per-step counts {want}")
+        if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            fail(f"w{wbits}: bad tokens {out.tolist()}")
+        loop_wall = sum(s.wall_s for s in eng.stats if s.kind == "decode")
+        io = eng.io_summary()
+        ref = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          backend="reference", wbits=wbits, torch_device=dev)
+        ref.prefill(batch)
+        out_ref = ref.decode(tok0, REF_DECODE)
+        if not torch.equal(out_ref, out[:, : REF_DECODE + 1]):
+            fail(f"w{wbits}: kernel tokens {out[:, :REF_DECODE + 1].tolist()} != reference "
+                 f"backend tokens {out_ref.tolist()}")
+        del ref
+        profile = profile_decode(eng, out[:, -1:].to(dev), card) if on_card else {}
+        serve[wbits] = {"eng": eng, "launches": launches, "loop_wall_s": loop_wall,
+                        "profile": profile,
+                        "tokens_per_s": BATCH * DECODE / loop_wall, "peak_bytes": peak,
+                        "io_bytes": io["io_bytes"], "tokens": out.tolist()}
+        log(f"[serve] w{wbits} {cfg.name} L={n_layers} batch {BATCH} prompt {PROMPT} "
+            f"decode {DECODE}: {BATCH * DECODE / loop_wall:.2f} tokens/s "
+            f"({loop_wall / DECODE * 1e3:.2f} ms/step)  io_bytes {io['io_bytes'] / 1e6:.1f} MB  "
+            f"peak {peak / 2**30:.2f} GiB  launches {launches}  "
+            f"reference-backend tokens identical ({REF_DECODE} steps)")
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- 5. the timings ---------------------------------------------------------
+    def cuda_ms(fn, reps):
+        """Device time of one fn(), from replays of a CUDA graph of fn: no
+        host dispatch gaps between the launches."""
+        fn()
+        if not on_card:
+            return host_ms(fn)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def host_ms(fn):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3
+
+    def rows_of(sizes):
+        z = sizes.cpu().clamp(min=0)
+        return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
+
+    timing = {}
+    for wbits in (16, 8):
+        eng = serve[wbits]["eng"]
+        plan, lp = eng._plan, eng.params["layers"]
+        sp = eng.sparse_ctx
+        el = 2 if wbits == 16 else 1
+        k1_calls, k2_calls, k5_inputs = [], [], []
+        k1_bytes = k1_ops = k2_bytes = k2_ops = 0.0
+        k1_bound = k2_bound = 0.0
+        for layer in range(n_layers):
+            for name, site, n_in in (("wq", "hidden_attn", d), ("wk", "hidden_attn", d),
+                                     ("wv", "hidden_attn", d), ("wo", "attn_out", hd_all)):
+                w = lp[name][layer] if wbits == 16 else lp[name + "_q8"][layer]
+                sc = None if wbits == 16 else lp[name + "_sc"][layer]
+                s, z = sp.kernel_tables(plan, site, layer)
+                xm = randn(BATCH, n_in) * plan[site]["mask"][layer]
+                k1_calls.append((w, xm, s, z, sc))
+                rows = rows_of(z)
+                byts = (rows * w.shape[1] * el + (rows // 8 * 4 if sc is not None else 0)
+                        + BATCH * n_in * 4 + 2 * 4 * s.numel() + BATCH * w.shape[1] * 4)
+                ops = 2.0 * BATCH * rows * w.shape[1]
+                k1_bytes, k1_ops = k1_bytes + byts, k1_ops + ops
+                k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+            ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
+                  for n in ("w_gate", "w_up", "w_down")]
+            scs = None if wbits == 16 else tuple(lp[n + "_sc"][layer]
+                                                 for n in ("w_gate", "w_up", "w_down"))
+            st, sz = sp.mlp_kernel_plan(plan, layer)
+            fm = plan["ffn"]["mask"][layer]
+            xm = randn(BATCH, d) * plan["hidden_mlp"]["mask"][layer]
+            k2_calls.append((*ws, xm, st, sz, fm, scs))
+            rh, rf = rows_of(sz[0]), rows_of(sz[1])
+            byts = (2 * rh * f * el + rf * d * el
+                    + ((2 * rh + rf) // 8 * 4 if scs is not None else 0)
+                    + BATCH * d * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
+                    + BATCH * f * 4 + BATCH * d * 4)
+            ops = 2.0 * BATCH * (2 * rh * f + rf * d)
+            k2_bytes, k2_ops = k2_bytes + byts, k2_ops + ops
+            k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+            vs = torch.zeros((sp.batched.n_sites, sp.batched.n_max), device=dev)
+            for i, kind in enumerate(sp.site_order):
+                vs[i, : sp.sites[kind].n] = plan[kind]["pending"][layer]
+            k5_inputs.append((*sp.batched.sorted_candidates(vs), sp._budgets,
+                              sp.batched.min_sizes, sp.batched.n_max))
+        n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
+
+        def run_k1(plain=False):
+            for w, xm, s, z, sc in k1_calls:
+                if plain:
+                    cg.chunk_gather_matmul_plain(w, xm, s, z, sc)
+                else:
+                    cg.chunk_gather_matmul_dma(w, xm, s, z, sc)
+
+        def run_k1_lib():
+            for w, xm, s, z, sc in k1_calls:
+                if sc is None:
+                    xm.to(w.dtype) @ w
+
+        def run_k2(plain=False):
+            for wg, wu, wd, xm, st, sz, fm, scs in k2_calls:
+                if plain:
+                    cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st, sz, fm, scs)
+                else:
+                    cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, return_h=True)
+
+        def run_k5(plain=False, walked=None):
+            fn = chunking.greedy_select_plain if plain else chunking.greedy_select
+            for args in k5_inputs:
+                if plain:
+                    fn(*args, walked=walked)
+                else:
+                    fn(*args)
+
+        walked = []
+        t_k5_plain = host_ms(lambda: run_k5(True, walked)) / n5
+        k5_bytes = sum(walked) * 8 + n5 * sp.batched.n_sites * (sp.batched.n_max + 12)
+        k5_bound = k5_bytes / HBM_BYTES_PER_S / n5
+        timing[wbits] = {
+            "chunk_gather_matmul_dma": {
+                "ms": cuda_ms(run_k1, 20) / n1, "plain_ms": host_ms(lambda: run_k1(True)) / n1,
+                "library_ms": cuda_ms(run_k1_lib, 20) / n1 if wbits == 16 else None,
+                "bound_ms": k1_bound / n1 * 1e3,
+                "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
+                else "operations",
+                "calls": n1, "bytes_per_call": k1_bytes / n1},
+            "chunk_gather_mlp_dma": {
+                "ms": cuda_ms(run_k2, 20) / n2, "plain_ms": host_ms(lambda: run_k2(True)) / n2,
+                "library_ms": None, "bound_ms": k2_bound / n2 * 1e3,
+                "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
+                else "operations",
+                "calls": n2, "bytes_per_call": k2_bytes / n2},
+            "greedy_select": {
+                "ms": cuda_ms(run_k5, 5) / n5, "plain_ms": t_k5_plain, "library_ms": None,
+                "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5,
+                "walked_per_lane": sum(walked) / max(len(walked), 1)},
+        }
+        wall = serve[wbits]["loop_wall_s"] * 1e3
+        shares = {k: v["ms"] * (serve[wbits]["launches"][k]
+                                - (TIME_SELECTION_LAUNCHES if k == "greedy_select" else 0)) / wall
+                  for k, v in timing[wbits].items()}
+        serve[wbits]["kernel_share"] = shares
+        for k, v in timing[wbits].items():
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"[time] w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} us "
+                f"({v['bound_by']})  share of decode wall {shares[k]:.1%}  ({card})")
+
+    # -- the result ---------------------------------------------------------------
+    meta = {
+        "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                    "src/repro/kernels/chunk_gather_dma.py:284"),
+        "chunk_gather_mlp_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                 "src/repro/kernels/chunk_gather_dma.py:617"),
+        "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
+                          "src/repro/core/chunking.py:362"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        t = timing[16][name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": serve[16]["launches"][name],
+                        "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    report.update({"timing": timing, "errs": errs, "n_checks": n_checks,
+                   "k5_walked_per_lane_full": walked_full,
+                   "serve": {w: {k: v for k, v in s.items() if k != "eng"}
+                             for w, s in serve.items()}})
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
+    return kernels
+
+
+if __name__ == "__main__":
+    main()

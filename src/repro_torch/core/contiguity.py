@@ -1,0 +1,58 @@
+"""Contiguity distribution: the paper's core abstraction (§3).
+
+A selection mask M ∈ {0,1}^N reduces to the multiset of maximal contiguous
+run lengths ("chunks"). Two forms, as in ``repro.core.contiguity``:
+
+  * numpy (``*_np``) — reference semantics for tests and offline tools;
+  * torch (``mask_run_sizes``) — static shapes, no host sync, batched over
+    leading axes; the decode loop prices masks with it on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Chunk:
+    """A maximal contiguous run of selected neuron indices [start, start+size)."""
+
+    start: int
+    size: int
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.size
+
+
+def mask_to_chunks_np(mask: np.ndarray) -> List[Chunk]:
+    """Decompose a binary mask into maximal contiguous chunks (numpy ref)."""
+    mask = np.asarray(mask).astype(bool)
+    if mask.ndim != 1:
+        raise ValueError(f"mask must be 1-D, got shape {mask.shape}")
+    if not mask.any():
+        return []
+    padded = np.concatenate([[False], mask, [False]])
+    diff = np.diff(padded.astype(np.int8))
+    starts = np.nonzero(diff == 1)[0]
+    stops = np.nonzero(diff == -1)[0]
+    return [Chunk(int(a), int(b - a)) for a, b in zip(starts, stops)]
+
+
+def mask_run_sizes(mask: torch.Tensor) -> torch.Tensor:
+    """Run lengths of a (..., N) mask with a static shape: (..., N) int64
+    whose first n_runs entries along the last axis are the runs' sizes in
+    order and the rest are 0 (a mask of length N has at most N runs).
+    Counts are integer scatter-adds, so the result is exact on any device
+    and never syncs with the host."""
+    m = mask.to(torch.bool)
+    n = m.shape[-1]
+    prev = torch.nn.functional.pad(m[..., :-1], (1, 0))
+    run_id = torch.cumsum((m & ~prev).to(torch.int64), dim=-1) - 1
+    dump = torch.where(m, run_id, torch.full_like(run_id, n))
+    sizes = torch.zeros(m.shape[:-1] + (n + 1,), dtype=torch.int64, device=m.device)
+    sizes.scatter_add_(-1, dump, m.to(torch.int64))
+    return sizes[..., :n]

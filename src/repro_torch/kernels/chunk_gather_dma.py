@@ -1,0 +1,347 @@
+"""Chunk-gather kernels K1 and K2 for the H100, their plain PyTorch versions,
+and the mask → block-table bridge.
+
+Both consume block-aligned chunk tables: (starts, sizes) in rows, multiples
+of ``block_rows`` = 8, size 0 = padding, at most ``max_chunk_rows`` rows
+of a chunk visited. A table step is one (chunk, 8-row block); padded
+entries and blocks past a chunk's size issue no load, and a block outside
+[0, N) is skipped the same way.
+
+Exact arithmetic, shared by every kernel and every plain version here and
+by the reference backend's twin (``backend.blocked_masked_matmul``): per
+visited 8-row block, ``part`` is the sequential sum over the block's rows of
+``x·w`` with each product rounded on its own; ``acc += part`` in table
+order. With int8 weights each element is ``q.float() * scale`` before the
+product. The CUDA sources spell these steps out with ``__fmul_rn`` /
+``__fadd_rn`` and build with ``-fmad=false``, so kernel and plain version
+agree bitwise on the same device.
+
+K1 — ``chunk_gather_matmul_dma`` (csrc/chunk_gather.cu, ``k1_kernel``)
+  Replaces ``repro/kernels/chunk_gather_dma.py::chunk_gather_matmul_dma``
+  (body ``_matmul_dma_kernel``, schedule ``_pipelined_steps``). Bound on the
+  H100: bytes — a decode GEMV at batch ≤ 8 does 2·B flops per weight
+  element loaded, far below the ~295 flops/byte ridge. Design: the grid
+  runs over 64-column tiles of D (× slabs of 8 batch rows); each CTA walks
+  its own copy of the table in order and streams the active (8 × 64) tiles
+  through a ring of ``prefetch_depth + 1`` shared-memory stages of up to 8
+  table blocks each, filled by 16-byte ``cp.async`` copies, so the next
+  stages' loads are in flight while the current one is contracted. Only
+  selected rows are read. The
+  contraction stays on the CUDA cores in fp32: a tensor-core (``wgmma``)
+  path would reassociate the sums, and at this batch the FLOPs are not the
+  bound.
+
+K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cu, ``k2_gate_up_kernel``
+  then ``k1_kernel``) Replaces
+  ``repro/kernels/chunk_gather_dma.py::chunk_gather_mlp_dma`` (body
+  ``_mlp_dma_kernel``). Bound: bytes, as K1. On the TPU it is one program
+  because phase 2 needs all of h. Here it is two launches behind one
+  wrapper: phase 1 over F tiles streams each hidden-lane block of W_gate
+  and W_up once into the same ring stage, forms h = (g · 1/(1+e^−g)) · u
+  with ``expf`` and an IEEE reciprocal, and writes h; phase 2 is K1 over the
+  ffn lane with h multiplied by the exact ``ffn_mask`` at the gather. The
+  decode path asks for h anyway (``return_h``), so h leaving the chip adds
+  no traffic there.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+BLOCK_ROWS = 8
+MAX_PREFETCH_DEPTH = 3  # the CUDA ring is compiled for 1..4 stages
+
+LAUNCHES = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0}
+
+_WTYPE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+# ---------------------------------------------------------------------------
+# mask → block-aligned chunk table (no host sync)
+# ---------------------------------------------------------------------------
+
+
+def masks_to_block_tables(masks: torch.Tensor, block_rows: int = 8,
+                          max_chunk_rows: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S, N) bool selection masks → padded kernel chunk tables.
+
+    Each mask is rounded outward to the ``block_rows`` grid (a selected row
+    claims its whole block), then maximal block runs are split at
+    ``max_chunk_rows``. Returns (starts, sizes), each (S, K) int32 with
+    K = ceil(N / block_rows), in rows, size 0 = padding — the reference's
+    ``masks_to_block_tables`` in torch (cummax, cumsum, scatter)."""
+    if masks.ndim != 2:
+        raise ValueError(f"masks must be (n_sites, N), got {tuple(masks.shape)}")
+    if max_chunk_rows % block_rows:
+        raise ValueError("max_chunk_rows must be a multiple of block_rows")
+    s, n = masks.shape
+    nb = -(-n // block_rows)
+    m = torch.nn.functional.pad(masks.to(torch.bool), (0, nb * block_rows - n))
+    bm = m.reshape(s, nb, block_rows).any(dim=2)
+    idx = torch.arange(nb, device=masks.device).repeat(s, 1)
+    prev = torch.nn.functional.pad(bm[:, :-1], (1, 0))
+    run_start = bm & ~prev
+    start_idx = torch.cummax(torch.where(run_start, idx, torch.full_like(idx, -1)), dim=1).values
+    chunk_start = bm & ((idx - start_idx) % (max_chunk_rows // block_rows) == 0)
+    cid = torch.cumsum(chunk_start.to(torch.int64), dim=1) - 1
+    dump = torch.where(bm, cid, torch.full_like(cid, nb))
+    sizes_b = torch.zeros((s, nb + 1), dtype=torch.int64, device=masks.device)
+    sizes_b.scatter_add_(1, dump, bm.to(torch.int64))
+    starts_b = torch.zeros((s, nb + 1), dtype=torch.int64, device=masks.device)
+    starts_b.scatter_reduce_(1, torch.where(chunk_start, cid, torch.full_like(cid, nb)),
+                             idx, reduce="amax")
+    return ((starts_b[:, :nb] * block_rows).to(torch.int32),
+            (sizes_b[:, :nb] * block_rows).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the exact arithmetic, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def block_parts(xb: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """Per-block partial products: xb (nb, B, 8) f32, wb (nb, 8, D) f32 →
+    (nb, B, D), each the sequential sum over the block's 8 rows of x·w with
+    every product rounded on its own (separate mul and add ops — no FMA)."""
+    part = xb[:, :, 0, None] * wb[:, 0, None, :]
+    for r in range(1, xb.shape[2]):
+        part = part + xb[:, :, r, None] * wb[:, r, None, :]
+    return part
+
+
+def swiglu_h(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """h = (g · 1/(1+e^−g)) · u — the literal sigmoid of the reference
+    kernel (its numerically-stable library form rounds differently)."""
+    return g * torch.reciprocal(1.0 + torch.exp(-g)) * u
+
+
+def _table_blocks(starts: torch.Tensor, sizes: torch.Tensor, n_rows: int,
+                  max_chunk_rows: int) -> List[int]:
+    """Row offsets of a table's active (chunk, block) steps, in table order
+    (host list: the plain versions' walk)."""
+    bpc = max_chunk_rows // BLOCK_ROWS
+    offs = []
+    for start, size in zip(starts.tolist(), sizes.tolist()):
+        for bk in range(min(-(-size // BLOCK_ROWS), bpc) if size > 0 else 0):
+            off = start + bk * BLOCK_ROWS
+            if 0 <= off and off + BLOCK_ROWS <= n_rows:
+                offs.append(off)
+    return offs
+
+
+def _gather_contract(w: torch.Tensor, x: torch.Tensor, offs: List[int],
+                     scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """y (B, D) f32 = Σ over the listed 8-row blocks, in order, of the
+    block's exact partial product."""
+    y = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    if not offs:
+        return y
+    rows = torch.tensor(offs, device=x.device)[:, None] + torch.arange(BLOCK_ROWS, device=x.device)
+    wb = w[rows].to(torch.float32)
+    if scales is not None:
+        wb = wb * scales.to(torch.float32)[rows[:, 0] // BLOCK_ROWS][:, None, None]
+    parts = block_parts(x[:, rows].permute(1, 0, 2), wb)
+    for k in range(parts.shape[0]):
+        y = y + parts[k]
+    return y
+
+
+def chunk_gather_matmul_plain(w, x, starts, sizes, scales=None, x_mask=None,
+                              max_chunk_rows: int = 512) -> torch.Tensor:
+    """Plain version of K1 (and of K2's phase 2 with ``x_mask``)."""
+    x = x.to(torch.float32)
+    if x_mask is not None:
+        x = x * x_mask.to(torch.float32)[None, :]
+    return _gather_contract(w, x, _table_blocks(starts, sizes, w.shape[0], max_chunk_rows),
+                            scales)
+
+
+def chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask=None,
+                           scales=None, max_chunk_rows: int = 512):
+    """Plain version of K2: returns (y (B, D) f32, unmasked h (B, F) f32)."""
+    sg, su, sd = scales if scales is not None else (None, None, None)
+    x = x.to(torch.float32)
+    offs = _table_blocks(starts[0], sizes[0], w_gate.shape[0], max_chunk_rows)
+    h = swiglu_h(_gather_contract(w_gate, x, offs, sg), _gather_contract(w_up, x, offs, su))
+    y = chunk_gather_matmul_plain(w_down, h, starts[1], sizes[1], sd, ffn_mask, max_chunk_rows)
+    return y, h
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU tensors → plain version; CUDA tensors → the kernel or raise
+# ---------------------------------------------------------------------------
+
+
+def _check_common(block_rows: int, max_chunk_rows: int, prefetch_depth: int, checksums) -> None:
+    if checksums is not None:
+        raise NotImplementedError(
+            "checksum lanes are not ported yet (robustness slice, ROADMAP.md queue 2)"
+        )
+    if block_rows != BLOCK_ROWS:
+        raise ValueError(f"block_rows must be {BLOCK_ROWS}, got {block_rows}")
+    if max_chunk_rows % BLOCK_ROWS or max_chunk_rows <= 0:
+        raise ValueError("max_chunk_rows must be a positive multiple of block_rows")
+    if not 0 <= prefetch_depth <= MAX_PREFETCH_DEPTH:
+        raise ValueError(f"prefetch_depth must be in [0, {MAX_PREFETCH_DEPTH}], "
+                         f"got {prefetch_depth}")
+
+
+def _same_device(device: torch.device, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device != device:
+            raise ValueError(f"all operands must be on {device}, got one on {t.device}")
+
+
+def _check_dtype(w: torch.Tensor, scales, name: str) -> None:
+    if w.dtype not in _WTYPE:
+        raise ValueError(f"{name}: dtype {w.dtype} not supported (bf16, f32, int8)")
+    if (w.dtype == torch.int8) != (scales is not None):
+        raise ValueError(f"{name}: int8 payloads take per-block scales, other dtypes none")
+
+
+def _check_layout(w: torch.Tensor, name: str) -> None:
+    if not w.is_contiguous() or w.data_ptr() % 16 or (w.shape[1] * w.element_size()) % 16:
+        raise ValueError(f"{name}: the kernel streams 16-byte row segments; needs a "
+                         "contiguous, 16-byte aligned matrix whose rows are a "
+                         "multiple of 16 bytes")
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Contiguous f32 with a 16-byte aligned start: the kernels stage input
+    rows with 16-byte ``cp.async`` copies."""
+    if t is None:
+        return None
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_depth):
+    from .build import check, library, stream_ptr
+
+    _check_layout(w, "chunk_gather_matmul_dma")
+    b, n = x.shape
+    d = w.shape[1]
+    x, scales, x_mask = _f32(x), _f32(scales), _f32(x_mask)
+    starts, sizes = _i32(starts), _i32(sizes)
+    y = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    rc = library("chunk_gather.cu").k1_chunk_gather_matmul(
+        w.data_ptr(), _WTYPE[w.dtype], x.data_ptr(), _ptr(x_mask), starts.data_ptr(),
+        sizes.data_ptr(), _ptr(scales), y.data_ptr(), b, n, d, starts.shape[0],
+        max_chunk_rows // BLOCK_ROWS, prefetch_depth, stream_ptr(x.device),
+    )
+    check(rc, "k1_chunk_gather_matmul")
+    return y
+
+
+def chunk_gather_matmul_dma(
+    w: torch.Tensor,  # (N, D) bf16/f32, or the int8 payload when scales is given
+    x: torch.Tensor,  # (B, N)
+    starts: torch.Tensor,  # (K,) int32, multiples of block_rows
+    sizes: torch.Tensor,  # (K,) int32, multiples of block_rows (0 = padded)
+    scales: Optional[torch.Tensor] = None,  # (N // block_rows,) f32
+    checksums: Optional[torch.Tensor] = None,
+    *,
+    block_rows: int = 8,
+    max_chunk_rows: int = 512,
+    prefetch_depth: int = 1,
+) -> torch.Tensor:
+    """K1: y (B, D) f32 = Σ over the chunk table's blocks of x_blk @ W_blk
+    (dequantized per block when ``scales`` is given). Numerically identical
+    at every ``prefetch_depth``."""
+    _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
+    n, d = w.shape
+    if x.ndim != 2 or x.shape[1] != n:
+        raise ValueError(f"x must be (B, {n}), got {tuple(x.shape)}")
+    if n % BLOCK_ROWS:
+        raise ValueError(f"N={n} must be a multiple of block_rows={BLOCK_ROWS}")
+    if scales is not None and scales.shape != (n // BLOCK_ROWS,):
+        raise ValueError(f"scales must be ({n // BLOCK_ROWS},), got {tuple(scales.shape)}")
+    _same_device(x.device, w, starts, sizes, scales)
+    _check_dtype(w, scales, "chunk_gather_matmul_dma")
+    if x.device.type == "cpu":
+        return chunk_gather_matmul_plain(w, x, starts, sizes, scales, None, max_chunk_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"chunk_gather_matmul_dma: unsupported device {x.device}")
+    y = _launch_k1(w, x, starts, sizes, scales, None, max_chunk_rows, prefetch_depth)
+    LAUNCHES["chunk_gather_matmul_dma"] += 1
+    return y
+
+
+def chunk_gather_mlp_dma(
+    w_gate: torch.Tensor,  # (N, F)
+    w_up: torch.Tensor,  # (N, F)
+    w_down: torch.Tensor,  # (F, D)
+    x: torch.Tensor,  # (B, N)
+    starts: torch.Tensor,  # (2, K): lane 0 = hidden_mlp, lane 1 = ffn
+    sizes: torch.Tensor,  # (2, K)
+    ffn_mask: Optional[torch.Tensor] = None,  # (F,) exact down-input row mask
+    scales: Optional[tuple] = None,  # (sg, su, sd) f32 per-block lanes
+    checksums: Optional[tuple] = None,
+    *,
+    block_rows: int = 8,
+    max_chunk_rows: int = 512,
+    prefetch_depth: int = 1,
+    return_h: bool = False,
+):
+    """K2: fused sparse SwiGLU. y (B, D) f32 = down-projection of
+    h = swish(x@W_gate)·(x@W_up), gate/up gathered off ``starts[0]``, down
+    off ``starts[1]`` with h multiplied by the exact ``ffn_mask`` at the
+    gather. ``return_h=True`` also returns the unmasked h (B, F) f32."""
+    _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
+    n, f = w_gate.shape
+    fd, d = w_down.shape
+    if w_up.shape != (n, f) or w_up.dtype != w_gate.dtype or w_down.dtype != w_gate.dtype:
+        raise ValueError("w_gate/w_up/w_down shape or dtype mismatch")
+    if fd != f:
+        raise ValueError(f"w_down rows {fd} must equal d_ff {f}")
+    if n % BLOCK_ROWS or f % BLOCK_ROWS:
+        raise ValueError(f"N={n} and F={f} must be multiples of block_rows={BLOCK_ROWS}")
+    if starts.ndim != 2 or starts.shape[0] != 2 or starts.shape != sizes.shape:
+        raise ValueError(f"starts/sizes must be (2, K) plan lanes, got "
+                         f"{tuple(starts.shape)}/{tuple(sizes.shape)}")
+    if x.ndim != 2 or x.shape[1] != n:
+        raise ValueError(f"x must be (B, {n}), got {tuple(x.shape)}")
+    if ffn_mask is not None and ffn_mask.shape != (f,):
+        raise ValueError(f"ffn_mask must be ({f},), got {tuple(ffn_mask.shape)}")
+    sg = su = sd = None
+    if scales is not None:
+        sg, su, sd = scales
+        if sg.shape != (n // BLOCK_ROWS,) or su.shape != (n // BLOCK_ROWS,) \
+                or sd.shape != (f // BLOCK_ROWS,):
+            raise ValueError("scales must be ((N/8,), (N/8,), (F/8,))")
+    _same_device(x.device, w_gate, w_up, w_down, starts, sizes, ffn_mask, sg, su, sd)
+    for w, sc, name in ((w_gate, sg, "w_gate"), (w_up, su, "w_up"), (w_down, sd, "w_down")):
+        _check_dtype(w, sc, f"chunk_gather_mlp_dma ({name})")
+    if x.device.type == "cpu":
+        y, h = chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask,
+                                      scales, max_chunk_rows)
+        return (y, h) if return_h else y
+    if x.device.type != "cuda":
+        raise ValueError(f"chunk_gather_mlp_dma: unsupported device {x.device}")
+    from .build import check, library, stream_ptr
+
+    _check_layout(w_gate, "chunk_gather_mlp_dma (w_gate)")
+    _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
+    b = x.shape[0]
+    xf, sg, su = _f32(x), _f32(sg), _f32(su)
+    st, sz = _i32(starts), _i32(sizes)
+    h = torch.empty((b, f), dtype=torch.float32, device=x.device)
+    rc = library("chunk_gather.cu").k2_gate_up(
+        w_gate.data_ptr(), w_up.data_ptr(), _WTYPE[w_gate.dtype], xf.data_ptr(),
+        st[0].data_ptr(), sz[0].data_ptr(), _ptr(sg), _ptr(su), h.data_ptr(),
+        b, n, f, st.shape[1], max_chunk_rows // BLOCK_ROWS, prefetch_depth,
+        stream_ptr(x.device),
+    )
+    check(rc, "k2_gate_up")
+    y = _launch_k1(w_down, h, st[1], sz[1], sd, ffn_mask, max_chunk_rows, prefetch_depth)
+    LAUNCHES["chunk_gather_mlp_dma"] += 1
+    return (y, h) if return_h else y

@@ -1,0 +1,127 @@
+"""Serving launcher of the port: one stream of lockstep requests — prefill,
+then the fused sparse decode loop — with the neuron-chunking policy and the
+flash-offload simulation. Runs on the GPU unless asked otherwise:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --method chunk --backend kernel --decode-tokens 16
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --torch-device cpu --decode-tokens 8 --max-seq 64
+
+``--device`` names the simulated flash profile (nano / agx), as in the
+reference CLI; ``--torch-device`` picks where the model runs. The
+reference CLI's other flags belong to features not ported yet and are
+refused with a pointer to ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import ARCH_IDS, get_config
+from ..configs.base import InputShape
+from ..kernels.backend import BACKENDS
+from ..models import build_model
+from ..models.inputs import make_dummy_batch
+from ..serving import SPARSE_METHODS, ServeEngine
+
+# flags of the reference CLI (repro/launch/serve.py) this slice does not serve
+NOT_PORTED_FLAGS = (
+    "--frames", "--cache-mb", "--kv-page-tokens", "--per-token", "--mesh", "--streams",
+    "--arrival-rate", "--round-tokens", "--fault-profile", "--fault-seed",
+    "--corruption-profile", "--corruption-seed", "--max-reread", "--recover",
+    "--no-recover", "--degrade", "--no-degrade", "--deadline-s",
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="tinyllama-1.1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--method", choices=SPARSE_METHODS, default="chunk")
+    ap.add_argument("--backend", choices=BACKENDS, default="reference",
+                    help="decode execution backend: 'reference' computes the planned "
+                         "sparse projections as the kernels' plain PyTorch schedule "
+                         "twin; 'kernel' launches the CUDA chunk-gather kernels off the "
+                         "decode plan's chunk tables. Tokens are byte-identical.")
+    ap.add_argument("--wbits", type=int, choices=(16, 8), default=16,
+                    help="offloaded chunk storage width: 16 = bf16 payload, 8 = int8 "
+                         "payload + one f32 scale per 8-row block")
+    ap.add_argument("--sparsity", type=float, default=0.4)
+    ap.add_argument("--device", choices=("nano", "agx"), default="nano",
+                    help="simulated flash device profile")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-tokens", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=512)
+    ap.add_argument("--plan-refresh-interval", type=int, default=1,
+                    help="recompute chunk selection every k decode steps")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
+                    help="charge decode steps through the overlapped I/O–compute "
+                         "prefetch pipeline (--no-overlap: the serial charge)")
+    ap.add_argument("--prefetch-depth", type=int, default=1,
+                    help="prefetch depth of the pipeline and the kernels' ring "
+                         "(0..3); tokens are byte-identical at every depth")
+    ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the model runs (default: the GPU)")
+    ap.add_argument("--seed", type=int, default=0, help="weight and prompt seed")
+    return ap
+
+
+def parse_args(argv=None):
+    ap = build_parser()
+    args, unknown = ap.parse_known_args(argv)
+    for tok in unknown:
+        flag = tok.split("=", 1)[0]
+        if flag in NOT_PORTED_FLAGS:
+            ap.error(f"{flag} is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
+                     "(the JAX CLI, python -m repro.launch.serve, still has it)")
+    if unknown:
+        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.torch_device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    params = model.init(seed=args.seed, device=dev)
+    eng = ServeEngine(model, params, max_seq=args.max_seq, batch_size=args.batch,
+                      device=args.device, sparsity=args.sparsity, method=args.method,
+                      plan_refresh_interval=args.plan_refresh_interval, overlap=args.overlap,
+                      prefetch_depth=args.prefetch_depth, backend=args.backend,
+                      wbits=args.wbits, torch_device=dev)
+    batch = make_dummy_batch(cfg, InputShape("cli", args.prompt_len, args.batch, "train"),
+                             seed=args.seed, device=dev)
+    last = eng.prefill(batch)
+    print(f"[prefill] {args.prompt_len} tokens")
+    tok0 = torch.argmax(last, dim=-1)[:, None]
+    out = eng.decode(tok0, args.decode_tokens)
+    dsteps = [s for s in eng.stats if s.kind == "decode"]
+    print(f"[decode:fused] {args.decode_tokens} tokens  "
+          f"mean io_sim {np.mean([s.io_sim_s for s in dsteps]) * 1e3:.2f} ms/token  "
+          f"wall {sum(s.wall_s for s in dsteps) * 1e3:.1f} ms  device={dev}")
+    s = eng.io_summary()
+    print(f"[pipeline] charged={'overlap' if args.overlap else 'serial'} "
+          f"depth={args.prefetch_depth}  serial {s['decode_serial_s'] * 1e3:.2f} ms  "
+          f"overlapped {s['decode_overlap_s'] * 1e3:.2f} ms  "
+          f"stall {s['decode_stall_s'] * 1e3:.2f} ms  "
+          f"overlap_efficiency {s['overlap_efficiency']:.3f}  "
+          f"select_overhead {s['select_overhead_s'] * 1e3:.2f} ms")
+    print(f"[total] method={args.method} backend={args.backend} wbits={args.wbits} "
+          f"sparsity={args.sparsity} refresh_interval={args.plan_refresh_interval} "
+          f"io_est {s['io_est_s'] * 1e3:.1f} ms  io_sim {s['io_sim_s'] * 1e3:.1f} ms  "
+          f"io_bytes {s['io_bytes'] / 1e6:.1f} MB")
+    print(f"[tokens] {out[0].tolist()}")
+    return eng, out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

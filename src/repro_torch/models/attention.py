@@ -1,0 +1,128 @@
+"""GQA attention with RoPE and a linear KV cache (the port's copy of the
+parts of ``repro.models.attention`` the dense decode path uses).
+
+Prefill runs the direct (materialized-scores) attention; the reference's
+blockwise and sequence-sharded paths and rotating windows come with later
+slices. The cache is updated in place (PyTorch idiom; the reference
+returns new arrays).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .common import apply_rope
+
+NEG_INF = -1e30
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(b, s, kv, hd) -> (b, s, kv * n_rep, hd) by head repetition."""
+    if n_rep == 1:
+        return x
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def _direct_attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    if mask is not None:
+        m = mask if mask.ndim == 3 else mask[None]
+        scores = torch.where(m[:, None, :, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
+                         n_kv_heads: int, head_dim: int,
+                         positions: Optional[torch.Tensor] = None,
+                         rope_theta: Optional[float] = 10000.0) -> torch.Tensor:
+    """Causal self-attention sublayer (projections + SDPA): (b, s, d) → (b, s, d)."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (x @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    if rope_theta is not None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    n_rep = n_heads // n_kv_heads
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    qi = torch.arange(s, device=x.device)[:, None]
+    kj = torch.arange(s, device=x.device)[None, :]
+    out = _direct_attention(q, k, v, kj <= qi).reshape(b, s, n_heads * head_dim)
+    return out @ params["wo"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Static geometry of one layer's KV cache (linear: no window)."""
+
+    batch: int
+    max_seq: int
+    n_kv_heads: int
+    head_dim: int
+
+    @property
+    def physical_len(self) -> int:
+        return self.max_seq
+
+
+def init_kv_cache(spec: CacheSpec, n_layers: int, dtype, device=None) -> Dict:
+    shape = (n_layers, spec.batch, spec.physical_len, spec.n_kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "length": 0,  # tokens written so far (host int: never data-dependent)
+    }
+
+
+def cache_layer_update(layer_k: torch.Tensor, layer_v: torch.Tensor, new_k: torch.Tensor,
+                       new_v: torch.Tensor, length: int) -> None:
+    """Write one decode step's (b, 1, kv, hd) entries at ``length`` in place
+    (clamped to the last slot once full, like the reference)."""
+    slot = min(length, layer_k.shape[1] - 1)
+    layer_k[:, slot] = new_k[:, 0]
+    layer_v[:, slot] = new_v[:, 0]
+
+
+def project_kv_for_decode(k: torch.Tensor, v: torch.Tensor, n_kv_heads: int, head_dim: int,
+                          length: int, rope_theta: Optional[float]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Precomputed (b, 1, kv*hd) k/v projections → cache entries, RoPE on k
+    at position ``length``."""
+    b = k.shape[0]
+    k = k.reshape(b, 1, n_kv_heads, head_dim)
+    v = v.reshape(b, 1, n_kv_heads, head_dim)
+    if rope_theta is not None:
+        pos = torch.full((b, 1), length, device=k.device)
+        k = apply_rope(k, pos, rope_theta)
+    return k, v
+
+
+def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                     length: int, n_heads: int, n_kv_heads: int, head_dim: int,
+                     rope_theta: Optional[float], out_dtype) -> torch.Tensor:
+    """Single-token attention of a precomputed q projection (b, 1, h*hd)
+    against the cache; ``length`` counts the current token. Returns the
+    pre-o-projection (b, 1, h*hd) in ``out_dtype``."""
+    b = q.shape[0]
+    phys = layer_k.shape[1]
+    q = q.reshape(b, 1, n_heads, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, torch.full((b, 1), length - 1, device=q.device), rope_theta)
+    n_rep = n_heads // n_kv_heads
+    k = repeat_kv(layer_k, n_rep)
+    v = repeat_kv(layer_v, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * head_dim ** -0.5
+    valid = torch.arange(phys, device=q.device) < length
+    scores = torch.where(valid[None, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32)).to(out_dtype)
+    return out.reshape(b, 1, n_heads * head_dim)

@@ -1,0 +1,160 @@
+"""Decoder block + layer loop for the dense family (the port's copy of the
+prefill and planned-decode parts of ``repro.models.transformer``).
+
+The layer loop is a Python loop over the stacked (L, ...) params; the
+decode plan and the KV cache are updated in place, one layer row at a time.
+On the planned decode path every sparsification site computes through the
+execution backend off the plan's chunk tables: q/k/v and o through
+``backend.project`` (K1 on the kernel backend), the MLP through
+``backend.swiglu_mlp`` (K2).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.quantize import QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
+from .attention import (
+    cache_layer_update,
+    decode_attention,
+    multi_head_attention,
+    project_kv_for_decode,
+)
+from .common import apply_rope, rms_norm
+from .mlp import swiglu_mlp, swiglu_mlp_planned
+
+# the offloaded per-layer matrices governed by sparsification — the set the
+# engine quantizes at wbits=8
+SPARSE_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def site_matrix_names(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    """Which stored matrices stream through each sparsification site."""
+    names = {"hidden_attn": ("wq", "wk", "wv"), "attn_out": ("wo",)}
+    if cfg.d_ff and not cfg.has_moe:
+        names["hidden_mlp"] = ("w_gate", "w_up")
+        names["ffn"] = ("w_down",)
+    return names
+
+
+def layer_slice(stacked: Dict[str, torch.Tensor], layer: int) -> Dict[str, torch.Tensor]:
+    """One layer's params as views of the stacked (L, ...) leaves."""
+    return {name: leaf[layer] for name, leaf in stacked.items()}
+
+
+def _site_weight(params, sparse_ctx, name):
+    """One offloaded matrix as the planned path streams it: (int8 payload,
+    per-block scales) at wbits=8, (bf16 weight, None) at 16."""
+    if sparse_ctx.wbits == 8 and name + QUANT_SUFFIX_PAYLOAD in params:
+        return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
+    return params[name], None
+
+
+def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Dense block over a full sequence; returns (x_out, k, v) where k/v are
+    this layer's cache fill (k roped)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h = rms_norm(x, params["ln1_w"])
+    k = (h @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.rope_theta is not None:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    x = x + multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads, hd,
+                                 positions=positions, rope_theta=cfg.rope_theta)
+    x = x + swiglu_mlp(rms_norm(x, params["ln2_w"]), params)
+    return x, k, v
+
+
+def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  cache: Dict[str, Any]) -> torch.Tensor:
+    """Run every layer over the prompt, filling ``cache`` in place."""
+    s = x.shape[1]
+    for layer in range(cfg.n_layers):
+        x, k, v = block_prefill(layer_slice(stacked, layer), x, cfg, positions)
+        cache["k"][layer, :, :s] = k
+        cache["v"][layer, :, :s] = v
+    cache["length"] = s
+    return x
+
+
+def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
+    """Planned-decode sparse MLP: read this layer's masks and tables, run
+    the backend's fused SwiGLU, record both MLP sites' importances for the
+    next refresh."""
+    mask_g = plan["hidden_mlp"]["mask"][layer]
+    mask_f = plan["ffn"]["mask"][layer]
+    sparse_ctx.record_importance("hidden_mlp", h, plan, layer)
+    starts, sizes = sparse_ctx.mlp_kernel_plan(plan, layer)
+    y, mid = swiglu_mlp_planned(h, params, sparse_ctx.backend, mask_g, mask_f, starts, sizes,
+                                quantized=sparse_ctx.wbits == 8)
+    sparse_ctx.record_importance("ffn", mid, plan, layer)
+    return y
+
+
+def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                 length: int, cfg: ModelConfig, sparse_ctx=None, plan=None, layer: int = 0,
+                 refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode token through one layer. ``length``: tokens in the cache
+    before this one. With a sparse context the decode plan must be given
+    (the planned path); without one the block runs dense. Returns (x_out,
+    io_latency estimate of this layer — nonzero only on refresh steps)."""
+    hd = cfg.resolved_head_dim
+    b = x.shape[0]
+    planned = sparse_ctx is not None
+    if planned and not plan:
+        raise NotImplementedError(
+            "the unplanned sparse decode path (in-step per-site selection) is not "
+            "ported; serve through ServeEngine.decode (ROADMAP.md, queue 1)"
+        )
+    io = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, params["ln1_w"])
+    if planned:
+        io = io + sparse_ctx.refresh_layer(plan, layer, refresh)
+        mask_q = plan["hidden_attn"]["mask"][layer]
+        sparse_ctx.record_importance("hidden_attn", h, plan, layer)
+        hs, hz = sparse_ctx.kernel_tables(plan, "hidden_attn", layer)
+        hflat = h.reshape(b, -1)
+        outs = []
+        for name in ("wq", "wk", "wv"):
+            w, sc = _site_weight(params, sparse_ctx, name)
+            y = sparse_ctx.backend.project(w, hflat, mask_q, hs, hz, sc)
+            outs.append(y.to(h.dtype).reshape(b, 1, -1))
+        q, k, v = outs
+    else:
+        q, k, v = (h @ params[name] for name in ("wq", "wk", "wv"))
+    new_k, new_v = project_kv_for_decode(k, v, cfg.n_kv_heads, hd, length, cfg.rope_theta)
+    cache_layer_update(layer_k, layer_v, new_k, new_v, length)
+    attn = decode_attention(q, layer_k, layer_v, length + 1, cfg.n_heads, cfg.n_kv_heads, hd,
+                            cfg.rope_theta, x.dtype)
+    if planned:
+        mask_o = plan["attn_out"]["mask"][layer]
+        sparse_ctx.record_importance("attn_out", attn, plan, layer)
+        w_o, sc_o = _site_weight(params, sparse_ctx, "wo")
+        y_o = sparse_ctx.backend.project(w_o, attn.reshape(b, -1), mask_o,
+                                         *sparse_ctx.kernel_tables(plan, "attn_out", layer),
+                                         sc_o)
+        attn = y_o.to(attn.dtype).reshape(b, 1, -1)
+    else:
+        attn = attn @ params["wo"]
+    x = x + attn
+    h = rms_norm(x, params["ln2_w"])
+    y = _planned_mlp(h, params, sparse_ctx, plan, layer) if planned else swiglu_mlp(h, params)
+    return x + y, io
+
+
+def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
+                 sparse_ctx=None, plan=None, refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode token through every layer; the cache (and plan) update in
+    place and ``cache["length"]`` advances by one. Returns (x, io (L,)) —
+    the per-layer I/O estimates the engine's prefetch timeline prices."""
+    length = cache["length"]
+    ios = []
+    for layer in range(cfg.n_layers):
+        x, io = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
+                             cache["v"][layer], length, cfg, sparse_ctx, plan, layer, refresh)
+        ios.append(io)
+    cache["length"] = length + 1
+    return x, torch.stack(ios)

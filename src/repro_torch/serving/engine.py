@@ -1,0 +1,258 @@
+"""ServeEngine: one stream of lockstep requests with flash-offload
+simulation (the port's copy of the classic single-stream mode of
+``repro.serving.engine``).
+
+``prefill(batch)`` runs the dense prompt forward; ``decode(tok, n)`` runs
+the fused decode loop: n greedy steps on the device — the plan refresh is
+the host-known ``step % plan_refresh_interval == 0``, the kernel tables
+have a static width, and the greedy selection exits early on the device —
+then ONE host sync brings back every step's per-layer I/O estimates and
+plan counters, which the simulator, the prefetch pipeline and ``StepStats``
+price exactly as the reference does after its ``lax.scan``.
+
+Not ported yet: slot mode / the scheduler, paged KV, frame append, the
+per-token loop, faults, degradation, corruption and sharded meshes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.offload import ComputeModel, FlashOffloadSimulator
+from ..core.pipeline import PipelineModel, overlap_efficiency
+from ..kernels.backend import validate_backend
+from ..kernels.quantize import quantize_params
+from ..models.model import Model
+from ..models.transformer import SPARSE_WEIGHT_NAMES
+from .sparse_exec import (
+    WBITS_CHOICES,
+    SparseExecution,
+    plan_hit_miss,
+    plan_transfer_bytes,
+    reset_plan_counters,
+)
+
+
+@dataclasses.dataclass
+class StepStats:
+    kind: str  # prefill | decode
+    tokens: int
+    io_est_s: float
+    io_sim_s: float
+    select_overhead_s: float
+    wall_s: float
+    hit_rows: float = 0.0
+    miss_rows: float = 0.0
+    nbytes: float = 0.0
+    compute_s: float = 0.0
+    serial_s: float = 0.0
+    overlap_s: float = 0.0
+    stall_s: float = 0.0
+    bubble_s: float = 0.0
+
+
+# the io_summary() keys this slice fills — the reference's IO_SUMMARY_KEYS
+# minus the scheduler, fault, corruption and paged-KV lanes
+IO_SUMMARY_KEYS = (
+    "io_est_s",
+    "io_sim_s",
+    "steps",
+    "hit_rows",
+    "miss_rows",
+    "cache_hit_rate",
+    "io_bytes",
+    "select_overhead_s",
+    "decode_compute_s",
+    "decode_serial_s",
+    "decode_overlap_s",
+    "decode_stall_s",
+    "decode_bubble_s",
+    "overlap_efficiency",
+)
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params, max_seq: int, batch_size: int,
+                 device: str = "nano", sparsity=0.4, method: str = "chunk", seed: int = 0,
+                 plan_refresh_interval: int = 1, overlap: bool = True,
+                 prefetch_depth: int = 1, backend: str = "reference", wbits: int = 16,
+                 torch_device=None):
+        """``device``: the simulated flash profile ("nano" | "agx").
+        ``torch_device``: where the model runs — ``cuda`` unless the caller
+        passes another device (the weights must already live there).
+        ``backend``: "reference" (the kernels' schedule twin) or "kernel"
+        (K1/K2 off the decode plan's chunk tables); tokens are
+        byte-identical across the two. ``wbits=8`` quantizes the offloaded
+        matrices once (int8 payload + per-8-row scales)."""
+        validate_backend(backend)
+        if wbits not in WBITS_CHOICES:
+            raise ValueError(f"wbits must be one of {WBITS_CHOICES}, got {wbits!r}")
+        if plan_refresh_interval < 1:
+            raise ValueError("plan_refresh_interval must be >= 1")
+        self.torch_device = resolve_device(torch_device)
+        self.backend = backend
+        self.model = model
+        self.max_seq = max_seq
+        self.batch_size = batch_size
+        self.prefetch_depth = prefetch_depth
+        self.simulator = FlashOffloadSimulator(
+            device, seed=seed, pipeline=PipelineModel(prefetch_depth=prefetch_depth)
+        )
+        self.method = method
+        self.plan_refresh_interval = plan_refresh_interval
+        self.overlap = overlap
+        self.wbits = wbits
+        self.sparse_ctx = SparseExecution(
+            model.cfg, device=device, sparsity=sparsity, method=method, backend=backend,
+            kernel_prefetch_depth=prefetch_depth, wbits=wbits,
+            torch_device=self.torch_device,
+        )
+        self.params = params
+        if wbits == 8:
+            # the int8 payload + scale leaves join the stacked layer params;
+            # prefill keeps the bf16 originals
+            layers = dict(params["layers"])
+            layers.update(quantize_params(layers, SPARSE_WEIGHT_NAMES))
+            self.params = {**params, "layers": layers}
+        self.compute_layer_s = ComputeModel().decode_layer_seconds(
+            model.cfg, sparsity=sparsity, tokens=batch_size
+        )
+        self.cache = model.init_cache(batch_size, max_seq, self.torch_device)
+        self.stats: List[StepStats] = []
+        self._plan: Optional[Dict] = None  # the chunk-plan carry, kept across decode calls
+        self._select_s_per_refresh: Optional[float] = None
+
+    # -- stages ----------------------------------------------------------------
+    def prefill(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Dense prompt forward; returns the last position's logits (b, vocab).
+        Prefill streams every matrix once, contiguously, and is charged so."""
+        t0 = time.perf_counter()
+        batch = {k: v.to(self.torch_device) for k, v in batch.items()}
+        last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
+        wall = time.perf_counter() - t0
+        n = int(batch["tokens"].shape[1])
+        est = self.sparse_ctx.dense_total_latency() * self.model.cfg.n_layers
+        nbytes = self.sparse_ctx.sparsifiable_bytes(self.model.cfg.n_layers)
+        sim = self.simulator.measure_from_estimate(est, name="prefill", nbytes=nbytes)
+        self.stats.append(StepStats("prefill", n, est, sim, 0.0, wall, nbytes=float(nbytes)))
+        self._plan = None  # new sequence → stale plan
+        return last
+
+    def _device_loop(self, token: torch.Tensor, n_tokens: int):
+        """The fused decode loop: n greedy steps with no host sync. Returns
+        device tensors (tokens (b, n), io (n, L), cumulative hit/miss/bytes
+        (n,) each)."""
+        k = self.plan_refresh_interval
+        toks, ios, hits, misses, byts = [], [], [], [], []
+        for i in range(n_tokens):
+            logits, io = self.model.decode_step_planned(
+                self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0
+            )
+            token = torch.argmax(logits, dim=-1)[:, None]
+            h, m = plan_hit_miss(self._plan)
+            toks.append(token[:, 0])
+            ios.append(io)
+            hits.append(h)
+            misses.append(m)
+            byts.append(plan_transfer_bytes(self._plan))
+        return (torch.stack(toks, dim=1), torch.stack(ios), torch.stack(hits),
+                torch.stack(misses), torch.stack(byts))
+
+    def _run_decode(self, tokens: torch.Tensor, n_tokens: int) -> np.ndarray:
+        if self._plan is None:
+            self._plan = self.sparse_ctx.init_plan(self.model.cfg.n_layers)
+        reset_plan_counters(self._plan)
+        tokens = tokens.to(self.torch_device)
+        t0 = time.perf_counter()
+        dev = self._device_loop(tokens, n_tokens)
+        # ONE host transfer for the whole loop (tokens, per-layer estimates,
+        # plan counters)
+        toks, ios, hits, misses, byts = (t.cpu() for t in dev)
+        wall = time.perf_counter() - t0
+        ios = ios.numpy().astype(np.float64)
+        # per-step deltas of the call's cumulative counters
+        hits, misses, byts = (np.diff(x.numpy().astype(np.float64), prepend=0.0)
+                              for x in (hits, misses, byts))
+        io_steps = ios.sum(axis=1)
+        rows = hits + misses
+        hit_rates = np.where(rows > 0, hits / np.maximum(rows, 1.0), 0.0)
+        sims = self.simulator.measure_from_estimate_batch(
+            io_steps, name="decode", hit_rates=hit_rates, nbytes=byts
+        )
+        # spread each step's lift + jitter over its layers so the pipeline
+        # sees simulated time
+        scale = np.where(io_steps > 0, sims / np.maximum(io_steps, 1e-30), 1.0)
+        tl = self.simulator.pipeline.timeline(ios * scale[:, None], self.compute_layer_s)
+        n_refresh = math.ceil(n_tokens / self.plan_refresh_interval)
+        select_amortized = self._selection_seconds_per_refresh() * n_refresh / max(n_tokens, 1)
+        per_step_wall = wall / max(n_tokens, 1)
+        compute_step = float(np.asarray(self.compute_layer_s).sum())
+        for i in range(n_tokens):
+            self.stats.append(StepStats(
+                "decode", 1, float(io_steps[i]), float(sims[i]), select_amortized,
+                per_step_wall, hit_rows=float(hits[i]), miss_rows=float(misses[i]),
+                nbytes=float(byts[i]), compute_s=compute_step,
+                serial_s=float(tl.serial_s[i]), overlap_s=float(tl.overlap_s[i]),
+                stall_s=float(tl.stall_s[i]), bubble_s=float(tl.bubble_s[i]),
+            ))
+        return toks
+
+    def _selection_seconds_per_refresh(self) -> float:
+        """Wall seconds one refresh spends on selection (one layer's batched
+        selection, timed once per engine, × n_layers) — measured after the
+        decode loop, never inside it."""
+        if self._select_s_per_refresh is None:
+            self._select_s_per_refresh = (
+                self.sparse_ctx.time_selection() * self.model.cfg.n_layers
+            )
+        return self._select_s_per_refresh
+
+    def decode(self, first_token: torch.Tensor, n_tokens: int, greedy: bool = True):
+        """Greedy-decode n_tokens; returns (b, n_tokens + 1) including
+        ``first_token`` (on the host)."""
+        if not greedy:
+            raise NotImplementedError("sampled decoding is not implemented: decode "
+                                      "always takes the argmax")
+        toks = self._run_decode(first_token, n_tokens)
+        return torch.cat([first_token.cpu().to(toks.dtype), toks], dim=1)
+
+    # -- accounting -------------------------------------------------------------
+    def io_summary(self) -> Dict[str, float]:
+        """Engine-lifetime I/O / pipeline rollup with exactly the keys of
+        ``IO_SUMMARY_KEYS``, each meaning what it means in the reference's
+        ``io_summary``. Absent in this slice (they come with the features
+        that fill them): admitted_during_stall, stall_hidden_s,
+        bubble_utilization (scheduler); fault_events, fault_spikes,
+        fault_retries, fault_backoff_s, fault_extra_s, min_throttle_scale
+        (faults); corruptions_detected, corruptions_recovered,
+        corruptions_substituted, corruptions_dropped, integrity_reread_s
+        (integrity); kv_cache_mb, weight_cache_mb, kv_pages_in_use,
+        kv_shared_pages (paged KV)."""
+        dec = [s for s in self.stats if s.kind == "decode"]
+        hit = sum(s.hit_rows for s in self.stats)
+        miss = sum(s.miss_rows for s in self.stats)
+        return {
+            "io_est_s": sum(s.io_est_s for s in self.stats),
+            "io_sim_s": sum(s.io_sim_s for s in self.stats),
+            "steps": len(self.stats),
+            "hit_rows": hit,
+            "miss_rows": miss,
+            "cache_hit_rate": hit / (hit + miss) if (hit + miss) > 0 else 0.0,
+            "io_bytes": sum(s.nbytes for s in self.stats),
+            "select_overhead_s": sum(s.select_overhead_s for s in self.stats),
+            "decode_compute_s": sum(s.compute_s for s in dec),
+            "decode_serial_s": sum(s.serial_s for s in dec),
+            "decode_overlap_s": sum(s.overlap_s for s in dec),
+            "decode_stall_s": sum(s.stall_s for s in dec),
+            "decode_bubble_s": sum(s.bubble_s for s in dec),
+            "overlap_efficiency": overlap_efficiency(
+                [s.serial_s for s in dec], [s.overlap_s for s in dec],
+                [s.io_sim_s for s in dec], [s.compute_s for s in dec],
+            ),
+        }

@@ -1,0 +1,257 @@
+"""SparseExecution: the paper's runtime policy wired into the model blocks
+(the port's copy of ``repro.serving.sparse_exec`` for the ``chunk`` and
+``topk`` methods without the residency cache).
+
+The planned decode path batches all of a layer's sites into ONE selection
+per refresh step (``refresh_layer`` → ``BatchedChunkSelector``: torch
+scoring + stable sort, then kernel K5's greedy walk), consuming the
+importances each site recorded on the previous step (``record_importance``;
+the first refresh bootstraps from uniform importance). The new masks become
+block-aligned chunk tables on the device (``masks_to_block_tables``), which
+the kernels K1/K2 read directly. Nothing here syncs with the host, so the
+engine's decode loop runs on the device until its one sync.
+
+The decode plan is a dict {site: {"mask": (L, N) f32, "pending": (L, N)
+f32, "hit"/"miss"/"bytes": (L,) f32, "kstarts"/"ksizes": (L, K) int32}}
+updated in place, one layer row at a time.
+
+Not ported yet (later slices, ROADMAP.md): the residency cache
+(``cache_mb > 0``), static ``cached`` masks, reorderings, the ``dense``
+method, the unplanned per-site ``mask`` path, integrity/corruption lanes,
+degradation budgets and sharded meshes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.baselines import topk_mask
+from ..core.chunking import BatchedChunkSelector, ChunkConfig, ChunkSelector
+from ..core.importance import importance
+from ..core.latency_model import LatencyTable, get_profile, profile_table, row_stream_bytes
+from ..core.offload import decode_site_shapes, normalize_site_sparsity
+from ..kernels.backend import ExecutionBackend, pick_tile
+from ..kernels.chunk_gather_dma import masks_to_block_tables
+
+WBITS_CHOICES = (16, 8)
+KERNEL_BLOCK_ROWS = 8
+KERNEL_MAX_CHUNK_ROWS = 512
+SPARSE_METHODS = ("chunk", "topk")
+
+
+def validate_method(method: str) -> str:
+    if method not in SPARSE_METHODS:
+        raise ValueError(
+            f"method {method!r} is not served by repro_torch yet; have {SPARSE_METHODS} "
+            "(dense / dense_free land in a later slice — ROADMAP.md, queue 1)"
+        )
+    return method
+
+
+def plan_hit_miss(plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Total (hit_rows, miss_rows) accumulated in a decode plan; without
+    the residency tier ``hit`` is 0 and ``miss`` counts every selected row."""
+    hit = sum(state["hit"].sum() for state in plan.values())
+    miss = sum(state["miss"].sum() for state in plan.values())
+    return hit, miss
+
+
+def plan_transfer_bytes(plan) -> torch.Tensor:
+    """Total estimated flash→DRAM bytes accumulated in a decode plan."""
+    return sum(state["bytes"].sum() for state in plan.values())
+
+
+def reset_plan_counters(plan) -> None:
+    """Zero the hit/miss/bytes accumulators in place (once per decode call)."""
+    for state in plan.values():
+        for key in ("hit", "miss", "bytes"):
+            state[key].zero_()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Site:
+    """One sparsification site: selector + one latency table per matrix
+    sharing the input (e.g. q/k/v)."""
+
+    n: int
+    selector: ChunkSelector
+    tables: Tuple[LatencyTable, ...]
+    sparsity: float
+    dense_latency: float
+
+    def budget(self) -> int:
+        return round((1.0 - self.sparsity) * self.n)
+
+
+def _site(n_rows: int, out_cols, device: str, sparsity: float, wbits: int,
+          torch_device) -> _Site:
+    primary_rb = row_stream_bytes(out_cols[0], wbits, KERNEL_BLOCK_ROWS)
+    cfg = ChunkConfig.for_shape(n_rows, out_cols[0], device)
+    selector = ChunkSelector.build(n_rows, primary_rb, device=device, cfg=cfg)
+    tables = tuple(
+        profile_table(device, row_stream_bytes(c, wbits, KERNEL_BLOCK_ROWS),
+                      max_rows=selector.max_size, torch_device=torch_device)
+        for c in out_cols
+    )
+    dense = float(sum(
+        get_profile(device).latency_bytes(n_rows * row_stream_bytes(c, wbits, KERNEL_BLOCK_ROWS))
+        for c in out_cols
+    ))
+    return _Site(n=n_rows, selector=selector, tables=tables, sparsity=sparsity,
+                 dense_latency=dense)
+
+
+class SparseExecution:
+    """sparse_ctx passed into the model blocks on the planned decode path."""
+
+    def __init__(self, cfg: ModelConfig, device: str = "nano", sparsity=0.4,
+                 method: str = "chunk", backend: str | ExecutionBackend = "reference",
+                 kernel_prefetch_depth: int = 1, wbits: int = 16, torch_device=None):
+        """``device``: the flash profile ("nano" | "agx"); ``torch_device``:
+        where the selection runs. ``backend``: "reference" (the kernels'
+        schedule twin) or "kernel" (K1/K2 off the plan's chunk tables)."""
+        validate_method(method)
+        if wbits not in WBITS_CHOICES:
+            raise ValueError(f"wbits must be one of {WBITS_CHOICES}, got {wbits!r}")
+        self.cfg = cfg
+        self.method = method
+        self.wbits = int(wbits)
+        self.torch_device = torch.device("cpu" if torch_device is None else torch_device)
+        sp = normalize_site_sparsity(sparsity)
+        self.sites: Dict[str, _Site] = {
+            kind: _site(n, cols, device, sp[kind], self.wbits, self.torch_device)
+            for kind, n, cols in decode_site_shapes(cfg)
+        }
+        self.site_order: Tuple[str, ...] = tuple(self.sites)
+        self.batched = BatchedChunkSelector.build(
+            [self.sites[k].selector for k in self.site_order], device=self.torch_device
+        )
+        self._budgets = torch.tensor([self.sites[k].budget() for k in self.site_order],
+                                     dtype=torch.int32, device=self.torch_device)
+        self.kernel_k = -(-self.batched.n_max // KERNEL_BLOCK_ROWS)
+        self.backend = backend if isinstance(backend, ExecutionBackend) else \
+            ExecutionBackend.create(backend, prefetch_depth=kernel_prefetch_depth,
+                                    block_rows=KERNEL_BLOCK_ROWS,
+                                    max_chunk_rows=KERNEL_MAX_CHUNK_ROWS)
+        if self.backend.is_kernel:
+            for kind, n, cols in decode_site_shapes(cfg):
+                if n % KERNEL_BLOCK_ROWS:
+                    raise ValueError(f"backend='kernel' needs site {kind!r} input dim {n} "
+                                     f"divisible by block_rows={KERNEL_BLOCK_ROWS}")
+                for c in cols:
+                    pick_tile(c)
+
+    # -- per-step plan maintenance --------------------------------------------
+    def record_importance(self, kind: str, acts: torch.Tensor, plan, layer: int) -> None:
+        """Stash this step's importance of site ``kind`` as the ``pending``
+        vector the next refresh of ``layer`` consumes (in place)."""
+        if kind in plan:
+            plan[kind]["pending"][layer] = importance(acts)
+
+    def refresh_layer(self, plan, layer: int, refresh: bool) -> torch.Tensor:
+        """One batched refresh of every site of ``layer`` (in place). On a
+        refresh step the sites' pending importances are padded into one
+        (n_sites, N_max) problem, selected, turned into kernel tables, and
+        priced; on a reuse step (``refresh`` False — host-known, the engine's
+        ``step % k == 0``) the cached masks and tables stay and cost zero
+        I/O. Returns this layer's estimated I/O seconds (0-dim tensor)."""
+        order = self.site_order
+        if set(plan) != set(order):
+            raise ValueError(f"refresh_layer needs a plan entry per site {order}, "
+                             f"got {tuple(plan)}")
+        if not refresh:
+            return torch.zeros((), dtype=torch.float32, device=self.torch_device)
+        b = self.batched
+        vs = torch.zeros((b.n_sites, b.n_max), dtype=torch.float32, device=self.torch_device)
+        for i, kind in enumerate(order):
+            vs[i, : self.sites[kind].n] = plan[kind]["pending"][layer]
+        if self.method == "topk":
+            masks = topk_mask(vs, self._budgets) & b.row_valid
+        else:
+            masks, _ = b.select(vs, self._budgets)
+        kstarts, ksizes = masks_to_block_tables(masks, KERNEL_BLOCK_ROWS, KERNEL_MAX_CHUNK_ROWS)
+        lat = torch.zeros((), dtype=torch.float32, device=self.torch_device)
+        for i, kind in enumerate(order):
+            site = self.sites[kind]
+            m = masks[i, : site.n]
+            for t in site.tables:
+                lat = lat + t.mask_latency(m)
+            miss = m.sum().to(torch.float32)
+            entry = plan[kind]
+            entry["mask"][layer] = m.to(torch.float32)
+            entry["miss"][layer] += miss
+            entry["bytes"][layer] += miss * self.site_row_bytes(kind)
+            entry["kstarts"][layer] = kstarts[i]
+            entry["ksizes"][layer] = ksizes[i]
+        return lat
+
+    # -- kernel chunk-table plumbing ------------------------------------------
+    def kernel_tables(self, plan, kind: str, layer: int):
+        """One site's (starts, sizes) chunk tables of ``layer``, each (K,)."""
+        if kind not in plan:
+            raise KeyError(f"no plan entry for site {kind!r}")
+        return plan[kind]["kstarts"][layer], plan[kind]["ksizes"][layer]
+
+    def mlp_kernel_plan(self, plan, layer: int):
+        """K2's (2, K) plan lanes: lane 0 = hidden_mlp (gate/up), lane 1 = ffn."""
+        hs, hz = self.kernel_tables(plan, "hidden_mlp", layer)
+        fs, fz = self.kernel_tables(plan, "ffn", layer)
+        return torch.stack([hs, fs]), torch.stack([hz, fz])
+
+    # -- accounting ------------------------------------------------------------
+    def site_row_bytes(self, kind: str) -> float:
+        """Streamed bytes of one row across every matrix sharing the site."""
+        return float(sum(t.row_bytes for t in self.sites[kind].tables))
+
+    def sparsifiable_bytes(self, n_layers: int) -> float:
+        return n_layers * sum(site.n * self.site_row_bytes(kind)
+                              for kind, site in self.sites.items())
+
+    def dense_total_latency(self) -> float:
+        """Full-load I/O latency per layer (all sites dense)."""
+        return float(sum(s.dense_latency for s in self.sites.values()))
+
+    def init_plan(self, n_layers: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """A fresh decode plan: empty masks and tables, uniform pending
+        importance (the first refresh's bootstrap), zero counters."""
+        dev = self.torch_device
+        plan = {}
+        for kind, site in self.sites.items():
+            plan[kind] = {
+                "mask": torch.zeros((n_layers, site.n), dtype=torch.float32, device=dev),
+                "pending": torch.ones((n_layers, site.n), dtype=torch.float32, device=dev),
+                "hit": torch.zeros((n_layers,), dtype=torch.float32, device=dev),
+                "miss": torch.zeros((n_layers,), dtype=torch.float32, device=dev),
+                "bytes": torch.zeros((n_layers,), dtype=torch.float32, device=dev),
+                "kstarts": torch.zeros((n_layers, self.kernel_k), dtype=torch.int32, device=dev),
+                "ksizes": torch.zeros((n_layers, self.kernel_k), dtype=torch.int32, device=dev),
+            }
+        return plan
+
+    def time_selection(self, repeats: int = 5) -> float:
+        """Median wall seconds of ONE layer's refresh-step selection on the
+        serving device (synchronized), amortized by the engine into
+        ``StepStats.select_overhead_s``."""
+        b = self.batched
+        n = torch.arange(b.n_sites * b.n_max, dtype=torch.float32, device=self.torch_device)
+        vs = torch.sin(n).abs().reshape(b.n_sites, b.n_max)
+
+        def run():
+            if self.method == "topk":
+                topk_mask(vs, self._budgets)
+            else:
+                b.select(vs, self._budgets)
+            if self.torch_device.type == "cuda":
+                torch.cuda.synchronize(self.torch_device)
+
+        run()  # warm (builds the kernel on first use)
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        return float(sorted(walls)[len(walls) // 2])

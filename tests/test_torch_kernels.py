@@ -1,0 +1,297 @@
+"""Parity of the port's K1/K2 plain versions with the JAX reference kernels
+(``chunk_gather_matmul_dma`` / ``chunk_gather_mlp_dma`` in interpret mode)
+and the ``kernels/ref.py`` oracles, plus the port's own invariants.
+
+Tolerances: the plain versions and the reference both accumulate in f32
+but sum each 8-row block in another order, so outputs are compared with
+the reference suite's relative error < 1e-5 (|Δ| / max(1, max|ref|)).
+Quantized payloads, scales, padded-table zeros and the port's
+kernel-vs-twin results are compared exactly. The CUDA kernels themselves
+run only on a card (marker ``gpu``; ``python3 chip_smoke.py`` runs them at
+full width).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import chunk_gather_matmul_dma as j_k1
+from repro.kernels import chunk_gather_matmul_ref as j_k1_ref
+from repro.kernels import chunk_gather_mlp_dma as j_k2
+from repro.kernels import chunk_gather_mlp_ref as j_k2_ref
+from repro.kernels import dequantize_rows as j_dequant
+from repro.kernels import quantize_rows as j_quant
+from repro_torch.core import chunking as tchunk
+from repro_torch.kernels import backend as tbackend
+from repro_torch.kernels import chunk_gather_dma as tk
+from repro_torch.kernels import quantize as tq
+
+DEPTHS = (0, 1, 2)
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b))) / max(1.0, float(np.max(np.abs(b))))
+
+
+def _weights(rng, shape, dtype, std=1.0):
+    """The same weights for both packages: f32 numpy → each package's bf16
+    (both round to nearest even) or int8 payload + scales."""
+    w = rng.normal(0, std, shape).astype(np.float32)
+    if dtype == "bf16":
+        return jnp.asarray(w, jnp.bfloat16), torch.from_numpy(w).to(torch.bfloat16), None
+    if dtype == "f32":
+        return jnp.asarray(w), torch.from_numpy(w), None
+    q, s = j_quant(jnp.asarray(w), 8)
+    return q, torch.from_numpy(np.array(q)), (s, torch.from_numpy(np.array(s)))
+
+
+def _table(rng, n, density, max_chunk_rows):
+    mask = rng.random(n) < density
+    s, z = tk.masks_to_block_tables(torch.from_numpy(mask[None]), 8, max_chunk_rows)
+    return s[0], z[0]
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n,d,b", [(128, 128, 1), (256, 256, 4), (64, 128, 8)])
+def test_k1_plain_matches_reference_kernel(depth, dtype, n, d, b):
+    rng = np.random.default_rng(n + d + b)
+    jw, tw, sc = _weights(rng, (n, d), dtype)
+    x = rng.normal(0, 1, (b, n)).astype(np.float32)
+    s, z = _table(rng, n, 0.5, 64)
+    js = jnp.asarray(s.numpy())
+    jz = jnp.asarray(z.numpy())
+    y_ref = j_k1(jw, jnp.asarray(x), js, jz, None if sc is None else sc[0],
+                 max_chunk_rows=64, prefetch_depth=depth, interpret=True)
+    y = tk.chunk_gather_matmul_dma(tw, torch.from_numpy(x), s, z,
+                                   None if sc is None else sc[1],
+                                   max_chunk_rows=64, prefetch_depth=depth)
+    assert y.dtype == torch.float32
+    assert _rel_err(y.numpy(), y_ref) < 1e-5
+    w_f32 = jw.astype(jnp.float32) if sc is None else j_dequant(jw, sc[0])
+    assert _rel_err(y.numpy(), j_k1_ref(w_f32, jnp.asarray(x), js, jz)) < 1e-5
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_k1_all_padded_table_is_exact_zero(depth, dtype):
+    rng = np.random.default_rng(1)
+    _, tw, sc = _weights(rng, (64, 128), dtype)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 64)).astype(np.float32))
+    z = torch.zeros(5, dtype=torch.int32)
+    y = tk.chunk_gather_matmul_dma(tw, x, z, z, None if sc is None else sc[1],
+                                   max_chunk_rows=32, prefetch_depth=depth)
+    assert float(y.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_k1_single_max_chunk(depth):
+    rng = np.random.default_rng(2)
+    jw, tw, _ = _weights(rng, (128, 128), "f32")
+    x = rng.normal(0, 1, (3, 128)).astype(np.float32)
+    s, z = np.array([32], np.int32), np.array([64], np.int32)
+    y_ref = j_k1(jw, jnp.asarray(x), jnp.asarray(s), jnp.asarray(z), max_chunk_rows=64,
+                 prefetch_depth=depth, interpret=True)
+    y = tk.chunk_gather_matmul_dma(tw, torch.from_numpy(x), torch.from_numpy(s),
+                                   torch.from_numpy(z), max_chunk_rows=64, prefetch_depth=depth)
+    assert _rel_err(y.numpy(), y_ref) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_k1_k_far_exceeds_real_chunks(dtype):
+    rng = np.random.default_rng(3)
+    jw, tw, sc = _weights(rng, (64, 128), dtype)
+    x = rng.normal(0, 1, (2, 64)).astype(np.float32)
+    s, z = np.zeros(32, np.int32), np.zeros(32, np.int32)
+    s[0], z[0] = 8, 16
+    y_ref = j_k1(jw, jnp.asarray(x), jnp.asarray(s), jnp.asarray(z),
+                 None if sc is None else sc[0], max_chunk_rows=32, interpret=True)
+    outs = [tk.chunk_gather_matmul_dma(tw, torch.from_numpy(x), torch.from_numpy(s),
+                                       torch.from_numpy(z), None if sc is None else sc[1],
+                                       max_chunk_rows=32, prefetch_depth=depth)
+            for depth in DEPTHS]
+    for y in outs:
+        assert _rel_err(y.numpy(), y_ref) < 1e-5
+        assert torch.equal(y, outs[0])  # depth-invariant, bit for bit
+
+
+def test_k1_int8_saturation_and_zero_block():
+    w = np.zeros((32, 128), np.float32)
+    w[:8] = 4.0
+    w[8:16] = -4.0
+    w[16:24, 0] = 1e-3  # tiny-magnitude block; rows 24..31 stay an all-zero block
+    jq, js = j_quant(jnp.asarray(w), 8)
+    tq8, ts = tq.quantize_rows(torch.from_numpy(w), 8)
+    np.testing.assert_array_equal(tq8.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert int(tq8.max()) == 127 and int(tq8.min()) == -127 and float(ts[3]) == 0.0
+    x = np.ones((1, 32), np.float32)
+    s, z = np.array([0], np.int32), np.array([32], np.int32)
+    y_ref = j_k1_ref(j_dequant(jq, js), jnp.asarray(x), s, z)
+    y = tk.chunk_gather_matmul_dma(tq8, torch.from_numpy(x), torch.from_numpy(s),
+                                   torch.from_numpy(z), ts, max_chunk_rows=32)
+    assert _rel_err(y.numpy(), y_ref) < 1e-6
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (256, 704), (2, 5, 16, 24)])
+def test_quantize_rows_payload_exact(shape):
+    rng = np.random.default_rng(sum(shape))
+    w = rng.normal(0, 0.5, shape).astype(np.float32)
+    tq8, ts = tq.quantize_rows(torch.from_numpy(w), 8)
+    flat = w.reshape(-1, *w.shape[-2:])
+    for i, wi in enumerate(flat):
+        jq, js = j_quant(jnp.asarray(wi), 8)
+        np.testing.assert_array_equal(tq8.reshape(flat.shape)[i].numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.reshape(len(flat), -1)[i].numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tq.dequantize_rows(tq8.reshape(flat.shape)[0], ts.reshape(len(flat), -1)[0]).numpy(),
+        np.asarray(j_dequant(*j_quant(jnp.asarray(flat[0]), 8))))
+
+
+def _mlp_inputs(rng, dtype, n=128, f=256, d=128):
+    wg = _weights(rng, (n, f), dtype, 0.2)
+    wu = _weights(rng, (n, f), dtype, 0.2)
+    wd = _weights(rng, (f, d), dtype, 0.2)
+    x = rng.normal(0, 1, (2, n)).astype(np.float32)
+    hs, hz = _table(rng, n, 0.7, 64)
+    fs, fz = _table(rng, f, 0.3, 64)
+    k = max(n, f) // 8
+    st = torch.zeros((2, k), dtype=torch.int32)
+    sz = torch.zeros((2, k), dtype=torch.int32)
+    st[0, : len(hs)], sz[0, : len(hz)] = hs, hz
+    st[1, : len(fs)], sz[1, : len(fz)] = fs, fz
+    return wg, wu, wd, x, st, sz
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k2_plain_matches_reference_kernel(depth, dtype, masked):
+    rng = np.random.default_rng(10 + depth)
+    wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype)
+    fmask = (rng.random(256) < 0.3).astype(np.float32) if masked else None
+    jscales = tscales = None
+    if dtype == "int8":
+        jscales = (wg[2][0], wu[2][0], wd[2][0])
+        tscales = (wg[2][1], wu[2][1], wd[2][1])
+    y_ref, h_ref = j_k2(wg[0], wu[0], wd[0], jnp.asarray(x), jnp.asarray(st.numpy()),
+                        jnp.asarray(sz.numpy()),
+                        None if fmask is None else jnp.asarray(fmask), jscales,
+                        max_chunk_rows=64, prefetch_depth=depth, interpret=True,
+                        return_h=True)
+    y, h = tk.chunk_gather_mlp_dma(wg[1], wu[1], wd[1], torch.from_numpy(x), st, sz,
+                                   None if fmask is None else torch.from_numpy(fmask),
+                                   tscales, max_chunk_rows=64, prefetch_depth=depth,
+                                   return_h=True)
+    assert _rel_err(h.numpy(), h_ref) < 1e-5
+    assert _rel_err(y.numpy(), y_ref) < 1e-5
+    if not masked:
+        deq = [w[0].astype(jnp.float32) if w[2] is None else j_dequant(w[0], w[2][0])
+               for w in (wg, wu, wd)]
+        oracle = j_k2_ref(*deq, jnp.asarray(x), jnp.asarray(st.numpy()), jnp.asarray(sz.numpy()))
+        assert _rel_err(y.numpy(), oracle) < 1e-5
+
+
+@pytest.mark.parametrize("empty_lane", [0, 1])
+def test_k2_empty_lane_is_exact_zero(empty_lane):
+    rng = np.random.default_rng(20)
+    wg, wu, wd, x, st, sz = _mlp_inputs(rng, "f32", 128, 128, 128)
+    st[empty_lane] = 0
+    sz[empty_lane] = 0
+    y = tk.chunk_gather_mlp_dma(wg[1], wu[1], wd[1], torch.from_numpy(x), st, sz,
+                                max_chunk_rows=64)
+    assert float(y.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_twin_equals_kernel_path_bitwise(dtype):
+    """The reference backend's twin (every block of the pre-masked input)
+    and the kernel path (only the chunk table's blocks) agree bit for bit
+    on tables built from the mask — the port's byte-identity invariant."""
+    rng = np.random.default_rng(30)
+    n, f, d = 256, 704, 256
+    mask = torch.from_numpy(rng.random(n) < 0.6)
+    fmask = torch.from_numpy(rng.random(f) < 0.6)
+    hst, hsz = tk.masks_to_block_tables(mask[None], 8, 512)
+    fst, fsz = tk.masks_to_block_tables(fmask[None], 8, 512)
+    x = torch.from_numpy(rng.normal(0, 1, (2, n)).astype(np.float32)).to(torch.bfloat16)
+    kern = tbackend.ExecutionBackend.create("kernel")
+    ref = tbackend.ExecutionBackend.create("reference")
+    _, w, sc = _weights(rng, (n, d), dtype)
+    s = None if sc is None else sc[1]
+    assert torch.equal(kern.project(w, x, mask, hst[0], hsz[0], s),
+                       ref.project(w, x, mask, hst[0], hsz[0], s))
+    wg, wu, wd = (_weights(rng, shp, dtype, 0.2) for shp in ((n, f), (n, f), (f, d)))
+    st = torch.zeros((2, f // 8), dtype=torch.int32)
+    sz = torch.zeros((2, f // 8), dtype=torch.int32)
+    st[0, : n // 8], sz[0, : n // 8] = hst[0], hsz[0]
+    st[1], sz[1] = fst[0], fsz[0]
+    scales = None if dtype != "int8" else (wg[2][1], wu[2][1], wd[2][1])
+    yk, hk = kern.swiglu_mlp(wg[1], wu[1], wd[1], x, mask, fmask, st, sz, scales)
+    yr, hr = ref.swiglu_mlp(wg[1], wu[1], wd[1], x, mask, fmask, st, sz, scales)
+    assert torch.equal(hk, hr) and torch.equal(yk, yr)
+
+
+def test_wrapper_contract_errors():
+    w = torch.zeros((16, 128))
+    x = torch.zeros((1, 16))
+    s = z = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        tk.chunk_gather_matmul_dma(w, x, s, z, checksums=torch.zeros(2))
+    with pytest.raises(ValueError):
+        tk.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=tk.MAX_PREFETCH_DEPTH + 1)
+    with pytest.raises(ValueError):  # int8 payload without its scales lane
+        tk.chunk_gather_matmul_dma(w.to(torch.int8), x, s, z)
+    before = dict(tk.LAUNCHES)
+    tk.chunk_gather_matmul_dma(w, x, s, z)  # CPU: the plain version, no launch
+    assert tk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (on a card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode "
+                    "(python3 chip_smoke.py runs them at full width)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", (0, 1, 2, 3))
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype):
+    rng = np.random.default_rng(40 + depth)
+    wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype, 256, 704, 256)
+    tw = [w[1].to(cuda) for w in (wg, wu, wd)]
+    sc = None if dtype != "int8" else tuple(w[2][1].to(cuda) for w in (wg, wu, wd))
+    xs = torch.from_numpy(x).to(cuda)
+    y = tk.chunk_gather_matmul_dma(tw[0], xs, st[0].to(cuda), sz[0].to(cuda),
+                                   None if sc is None else sc[0], prefetch_depth=depth)
+    y_plain = tk.chunk_gather_matmul_plain(tw[0], xs, st[0], sz[0],
+                                           None if sc is None else sc[0])
+    assert torch.equal(y, y_plain)
+    yk, hk = tk.chunk_gather_mlp_dma(*tw, xs, st.to(cuda), sz.to(cuda), None, sc,
+                                     prefetch_depth=depth, return_h=True)
+    yp, hp = tk.chunk_gather_mlp_plain(*tw, xs, st, sz, None, sc)
+    assert torch.equal(hk, hp) and torch.equal(yk, yp)
+
+
+@pytest.mark.gpu
+def test_k5_kernel_equals_plain(cuda):
+    from repro_torch.serving.sparse_exec import SparseExecution
+    from repro_torch.configs import get_config
+
+    sp = SparseExecution(get_config("tinyllama-1.1b").reduced(), torch_device=cuda)
+    rng = np.random.default_rng(50)
+    vs = torch.from_numpy(rng.random((sp.batched.n_sites, sp.batched.n_max)).astype(np.float32))
+    masks, sel = sp.batched.select(vs.to(cuda), sp._budgets)
+    cpu = SparseExecution(get_config("tinyllama-1.1b").reduced())
+    masks_p, sel_p = cpu.batched.select(vs, cpu._budgets)
+    assert torch.equal(masks.cpu(), masks_p) and torch.equal(sel.cpu(), sel_p)
+    assert tchunk.LAUNCHES["greedy_select"] >= 1
