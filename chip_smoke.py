@@ -27,7 +27,15 @@ Phases, each of which fails the run on error:
      weights (device time, from replays of a CUDA graph of the calls),
      beside its plain version (host clock), the dense library
      product where there is one, and its bound (the larger of the bytes the
-     call must move over 3.35 TB/s and its flops over the fp32 peak).
+     call must move over 3.35 TB/s and its flops over the fp32 peak);
+  6. the per-matrix library path on phase 4's weights: every offloaded
+     matrix of every layer planned with ``NeuronChunkingPlanner`` (the walk
+     is K5) at sparsity 0.4, K3 on q/k/v/o/down and K4 on gate/up off the
+     plans' tables, then the quickstart entry point — exact launch counts;
+     K3/K4 bitwise against their plain versions, K3 against K1 at depth 1,
+     K4 against K2's h, the tables against ``masks_to_block_tables``, the
+     one-lane walk against the plain walk; planning statistics against
+     top-k; K3/K4 timed as in phase 5.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
@@ -48,6 +56,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 BATCH, PROMPT, DECODE, REF_DECODE, PROFILE_TOKENS = 2, 32, 16, 4, 4
+# phase 6: rows of activations a plan sees, the sparsity, and the output
+# tile the kernels are asked for (the CUDA kernels tile by 64 columns)
+LIB_ROWS, LIB_SPARSITY, LIB_TILE = 16, 0.4, 64
 DEPTHS = (0, 1, 2)
 TIME_SELECTION_LAUNCHES = 6  # SparseExecution.time_selection: 1 warm-up + 5 timed
 
@@ -99,7 +110,8 @@ def main():
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line
-                for kernel in ("k1_kernel", "k2_gate_up_kernel", "k5_kernel"):
+                for kernel in ("k1_kernel", "k2_gate_up_kernel", "k3_kernel", "k4_kernel",
+                               "k5_kernel"):
                     if kernel in fn:  # kernel + its mangled template args
                         fn = kernel + fn.split(kernel, 1)[1].split("EEv")[0]
             elif "spill" in line:
@@ -160,7 +172,7 @@ def profile_decode(eng, token, card):
 
 
 def run(dev, cfg, card, report):
-    """Phases 3-5 on ``dev`` for ``cfg``; returns the kernel table. On a CPU
+    """Phases 3-6 on ``dev`` for ``cfg``; returns the kernel table. On a CPU
     device (a rehearsal of the script's own code at a reduced config) the
     wrappers take their plain versions, so the launch counts are not
     checked and times are host times."""
@@ -187,7 +199,8 @@ def run(dev, cfg, card, report):
         return torch.randn(shape, generator=gen, device=dev) * std
 
     # -- 3. kernel vs plain, bitwise ------------------------------------------
-    errs = {"chunk_gather_matmul_dma": 0.0, "chunk_gather_mlp_dma": 0.0, "greedy_select": 0.0}
+    errs = {"chunk_gather_matmul_dma": 0.0, "chunk_gather_mlp_dma": 0.0, "greedy_select": 0.0,
+            "chunk_gather_matmul": 0.0, "chunk_gather_swiglu": 0.0}
     n_checks = 0
     failures = []
 
@@ -527,6 +540,11 @@ def run(dev, cfg, card, report):
                 f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} us "
                 f"({v['bound_by']})  share of decode wall {shares[k]:.1%}  ({card})")
 
+    # -- 6. the per-matrix library path ------------------------------------------
+    lib_timing, lib_launches, lib_report = library_path(
+        dev, cfg, params["layers"], randn, check, failures, cuda_ms, host_ms, card)
+    errs["greedy_select"] = max(errs["greedy_select"], lib_report.pop("k5_err"))
+
     # -- the result ---------------------------------------------------------------
     meta = {
         "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
@@ -535,15 +553,22 @@ def run(dev, cfg, card, report):
                                  "src/repro/kernels/chunk_gather_dma.py:617"),
         "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
                           "src/repro/core/chunking.py:362"),
+        "chunk_gather_matmul": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                "src/repro/kernels/chunk_gather_matmul.py:69"),
+        "chunk_gather_swiglu": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                "src/repro/kernels/chunk_gather_swiglu.py:63"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        t = timing[16][name]
+        t = timing[16][name] if name in timing[16] else lib_timing[name]
+        launches = (serve[16]["launches"] if name in timing[16] else lib_launches)[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": serve[16]["launches"][name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    report.update({"library_path": {**lib_report, "timing": lib_timing,
+                                    "launches": lib_launches}})
     report.update({"timing": timing, "errs": errs, "n_checks": n_checks,
                    "k5_walked_per_lane_full": walked_full,
                    "serve": {w: {k: v for k, v in s.items() if k != "eng"}
@@ -551,6 +576,241 @@ def run(dev, cfg, card, report):
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     return kernels
+
+
+def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, card):
+    """Phase 6: the per-matrix library path (``NeuronChunkingPlanner`` →
+    ``plan_to_kernel_table`` → K3 / K4) over every offloaded matrix of
+    ``cfg``'s layers, then the quickstart entry point, with the launch counts
+    set to 0 just before and read just after. Then, outside the counted run:
+    K3 and K4 against their plain versions and against K1 / K2 on the same
+    tables, the tables against ``masks_to_block_tables``, the one-lane K5
+    masks against the plain walk, and the timings. Returns (timing per
+    kernel, launches, report)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.core import NeuronChunkingPlanner, chunk_stats_np, chunking
+    from repro_torch.core.importance import importance
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import chunk_table_to_mask
+    from repro_torch.launch import quickstart
+
+    k3 = importlib.import_module("repro_torch.kernels.chunk_gather_matmul")
+    k4 = importlib.import_module("repro_torch.kernels.chunk_gather_swiglu")
+    on_card = dev.type == "cuda"
+    n_layers, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hd_all = cfg.n_heads * cfg.resolved_head_dim
+    kv_all = cfg.n_kv_heads * cfg.resolved_head_dim
+    # one planner per matrix shape (N, n_cols); gate and up share the input
+    # and so one plan and one K4 table
+    shapes = {"wq": (d, hd_all), "wk": (d, kv_all), "wv": (d, kv_all), "wo": (hd_all, d),
+              "gate_up": (d, f), "w_down": (f, d)}
+    planners = {k: NeuronChunkingPlanner.build(n, c, device="nano") for k, (n, c) in shapes.items()}
+
+    def heavy(n):
+        """The quickstart's activations: |N(0, 1)| rows times a log-normal
+        per-neuron scale, LIB_ROWS rows for planning."""
+        return randn(LIB_ROWS, n).abs() * torch.exp(randn(n))
+
+    def plan(kind, acts, x):
+        """Our plan and top-k's for one matrix, and our plan's kernel table
+        (host numpy from the mask, then on the device)."""
+        ours = planners[kind].plan(acts, LIB_SPARSITY)
+        s, z = ops.plan_to_kernel_table(ours.mask)
+        return {"acts": acts, "plan": ours, "topk": planners[kind].plan_topk(acts, LIB_SPARSITY),
+                "table": (torch.from_numpy(s).to(dev), torch.from_numpy(z).to(dev)), "x": x}
+
+    counters = (cg.LAUNCHES, chunking.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    calls = []  # per layer: {kind: {acts, plan, topk, table, x, out}}
+    for layer in range(n_layers):
+        a_attn, a_o, a_mlp = heavy(d), heavy(hd_all), heavy(d)
+        rec = {kind: plan(kind, acts, acts[:BATCH])
+               for kind, acts in (("wq", a_attn), ("wk", a_attn), ("wv", a_attn), ("wo", a_o),
+                                  ("gate_up", a_mlp))}
+        for kind in ("wq", "wk", "wv", "wo"):
+            r = rec[kind]
+            r["out"] = ops.sparse_matmul(layers[kind][layer], r["x"], *r["table"],
+                                         tile_d=LIB_TILE)
+        r = rec["gate_up"]
+        h = r["out"] = ops.sparse_swiglu(layers["w_gate"][layer], layers["w_up"][layer], r["x"],
+                                         *r["table"], tile_f=LIB_TILE)
+        r = rec["w_down"] = plan("w_down", h, h)  # down is planned from importance(h)
+        r["out"] = ops.sparse_matmul(layers["w_down"][layer], h, *r["table"], tile_d=LIB_TILE)
+        calls.append(rec)
+    log("[library] the quickstart entry point:")
+    qs = quickstart.main(["--torch-device", dev.type])
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**cg.LAUNCHES, **chunking.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES}
+    want = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0,
+            "greedy_select": 6 * n_layers + 1, "chunk_gather_matmul": 5 * n_layers + 1,
+            "chunk_gather_swiglu": n_layers}
+    if on_card and launches != want:
+        fail(f"library path: launch counts {launches} != {want}")
+
+    # -- checks, outside the counted run --------------------------------------
+    k5_err = 0.0
+    for layer, rec in enumerate(calls):
+        for kind, r in rec.items():
+            what = f"L{layer} {kind}"
+            ours, (s, z), x, out = r["plan"], r["table"], r["x"], r["out"]
+            bs, bz = cg.masks_to_block_tables(ours.mask[None], 8, 512)
+            keep = bz[0] > 0
+            if not (torch.equal(s, bs[0][keep]) and torch.equal(z, bz[0][keep])):
+                failures.append(f"library path {what}: plan_to_kernel_table != the non-empty "
+                                "entries of masks_to_block_tables")
+            batched, _ = planners[kind].selector.lane(dev)
+            st_s, sz_s = batched.sorted_candidates(importance(r["acts"])[None])
+            budget = torch.tensor([round((1.0 - LIB_SPARSITY) * shapes[kind][0])],
+                                  dtype=torch.int32, device=dev)
+            m_p, sel_p = chunking.greedy_select_plain(st_s, sz_s, budget, batched.min_sizes,
+                                                      batched.n_max)
+            if not (torch.equal(m_p[0] & batched.row_valid[0], ours.mask)
+                    and int(sel_p[0]) == int(ours.n_selected)):
+                failures.append(f"greedy_select {what}: the one-lane walk differs from the "
+                                "plain walk")
+                k5_err = max(k5_err, float((m_p[0].int() - ours.mask.int()).abs().max()))
+            if kind == "gate_up":
+                wg, wu = layers["w_gate"][layer], layers["w_up"][layer]
+                check("chunk_gather_swiglu", f"{what} vs plain", out,
+                      cg.chunk_gather_swiglu_plain(wg, wu, x, s, z))
+                ds, dz = rec["w_down"]["table"]
+                k = max(s.shape[0], ds.shape[0])
+                st = torch.zeros((2, k), dtype=torch.int32, device=dev)
+                sz = torch.zeros_like(st)
+                st[0, : s.shape[0]], sz[0, : z.shape[0]] = s, z
+                st[1, : ds.shape[0]], sz[1, : dz.shape[0]] = ds, dz
+                wd = layers["w_down"][layer]
+                y2, h2 = cg.chunk_gather_mlp_dma(wg, wu, wd, x, st, sz, prefetch_depth=1,
+                                                 return_h=True)
+                check("chunk_gather_swiglu", f"{what} vs K2's h", out, h2)
+                y_site = rec["w_down"]["out"]
+                check("chunk_gather_matmul", f"L{layer} per-site MLP y vs K2", y_site, y2)
+                y_plain, _ = cg.chunk_gather_mlp_plain(wg, wu, wd, x, st, sz, ffn_mask=None)
+                check("chunk_gather_matmul", f"L{layer} per-site MLP y vs plain", y_site,
+                      y_plain)
+            else:
+                w = layers[kind][layer]
+                check("chunk_gather_matmul", f"{what} vs plain", out,
+                      cg.chunk_gather_matmul_plain(w, x, s, z))
+                check("chunk_gather_matmul", f"{what} vs K1 depth 1", out,
+                      cg.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=1))
+    check("chunk_gather_matmul", "quickstart vs plain", qs["y"],
+          cg.chunk_gather_matmul_plain(qs["w"], qs["x"], qs["starts"], qs["sizes"]))
+    check("chunk_gather_matmul", "quickstart vs K1 depth 1", qs["y"],
+          cg.chunk_gather_matmul_dma(qs["w"], qs["x"], qs["starts"], qs["sizes"],
+                                     prefetch_depth=1))
+    if qs["max_err"] / max(1.0, float(qs["y"].abs().max())) >= 1e-5:
+        failures.append(f"quickstart: kernel vs oracle max err {qs['max_err']:.2e}")
+    for rec in calls:
+        for kind, r in rec.items():
+            if not bool(torch.isfinite(r["out"]).all()):
+                failures.append(f"library path {kind}: non-finite output")
+    if failures:
+        for msg in failures:
+            log(f"[library] {msg}")
+        fail(f"{len(failures)} library-path checks failed")
+
+    def mean(xs):
+        xs = [float(v) for v in xs]
+        return sum(xs) / len(xs)
+
+    stats = {}
+    for kind, (n, c) in shapes.items():
+        ours = [rec[kind]["plan"] for rec in calls]
+        topk = [rec[kind]["topk"] for rec in calls]
+        stats[kind] = {
+            "shape": [n, c], "selected": mean(p.n_selected for p in ours),
+            "retention": mean(p.importance_retention for p in ours),
+            "retention_topk": mean(p.importance_retention for p in topk),
+            "est_io_ms": mean(p.est_latency_s for p in ours) * 1e3,
+            "est_io_ms_topk": mean(p.est_latency_s for p in topk) * 1e3,
+            "avg_chunk": mean(chunk_stats_np(p.mask.cpu().numpy())[0] for p in ours),
+            "avg_chunk_topk": mean(chunk_stats_np(p.mask.cpu().numpy())[0] for p in topk)}
+        v = stats[kind]
+        log(f"[library] {kind} ({n}x{c}), mean of {n_layers} layers: selected "
+            f"{v['selected']:.1f}/{n} rows, retention ours {v['retention']:.3f} vs top-k "
+            f"{v['retention_topk']:.3f}, est. I/O ours {v['est_io_ms']:.3f} ms vs top-k "
+            f"{v['est_io_ms_topk']:.3f} ms ({v['est_io_ms_topk'] / v['est_io_ms']:.1f}x), "
+            f"avg chunk {v['avg_chunk']:.1f} rows (top-k {v['avg_chunk_topk']:.1f})")
+    log(f"[library] {n_layers} layers planned and run in {wall:.2f} s (host clock, "
+        f"quickstart included); launches {launches}")
+
+    # -- timings: CUDA-graph replay over the layers' tables -----------------------
+    def rows_of(sizes):
+        z = sizes.cpu().clamp(min=0)
+        return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
+
+    k3_calls, k4_calls = [], []
+    k3_bytes = k3_ops = k4_bytes = k4_ops = k3_bound = k4_bound = 0.0
+    for layer, rec in enumerate(calls):
+        for kind in ("wq", "wk", "wv", "wo", "w_down"):
+            w = layers[kind][layer]
+            (s, z), x = rec[kind]["table"], rec[kind]["x"]
+            xm = x * chunk_table_to_mask(s, z, w.shape[0]).to(x.dtype)
+            k3_calls.append((w, x, s, z, xm.to(w.dtype)))
+            rows = rows_of(z)
+            byts = (rows * w.shape[1] * w.element_size() + x.numel() * 4 + 8 * s.numel()
+                    + x.shape[0] * w.shape[1] * 4)
+            ops_ = 2.0 * x.shape[0] * rows * w.shape[1]
+            k3_bytes, k3_ops = k3_bytes + byts, k3_ops + ops_
+            k3_bound += max(byts / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S)
+        wg, wu = layers["w_gate"][layer], layers["w_up"][layer]
+        (s, z), x = rec["gate_up"]["table"], rec["gate_up"]["x"]
+        k4_calls.append((wg, wu, x, s, z))
+        rows = rows_of(z)
+        byts = (2 * rows * f * wg.element_size() + x.numel() * 4 + 8 * s.numel()
+                + x.shape[0] * f * 4)
+        ops_ = 2.0 * x.shape[0] * 2 * rows * f
+        k4_bytes, k4_ops = k4_bytes + byts, k4_ops + ops_
+        k4_bound += max(byts / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S)
+    n3, n4 = len(k3_calls), len(k4_calls)
+
+    def run_k3(plain=False):
+        for w, x, s, z, _ in k3_calls:
+            if plain:
+                cg.chunk_gather_matmul_plain(w, x, s, z)
+            else:
+                ops.sparse_matmul(w, x, s, z, tile_d=LIB_TILE)
+
+    def run_k3_lib():
+        for w, _, _, _, xm in k3_calls:
+            xm @ w
+
+    def run_k4(plain=False):
+        for wg, wu, x, s, z in k4_calls:
+            if plain:
+                cg.chunk_gather_swiglu_plain(wg, wu, x, s, z)
+            else:
+                ops.sparse_swiglu(wg, wu, x, s, z, tile_f=LIB_TILE)
+
+    timing = {
+        "chunk_gather_matmul": {
+            "ms": cuda_ms(run_k3, 20) / n3, "plain_ms": host_ms(lambda: run_k3(True)) / n3,
+            "library_ms": cuda_ms(run_k3_lib, 20) / n3, "bound_ms": k3_bound / n3 * 1e3,
+            "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S >= k3_ops / F32_OPS_PER_S
+            else "operations", "calls": n3, "bytes_per_call": k3_bytes / n3},
+        "chunk_gather_swiglu": {
+            "ms": cuda_ms(run_k4, 20) / n4, "plain_ms": host_ms(lambda: run_k4(True)) / n4,
+            "library_ms": None, "bound_ms": k4_bound / n4 * 1e3,
+            "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops / F32_OPS_PER_S
+            else "operations", "calls": n4, "bytes_per_call": k4_bytes / n4},
+    }
+    for k, v in timing.items():
+        lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+        log(f"[time] {k}: {v['ms'] * 1e3:.1f} us/launch  plain {v['plain_ms'] * 1e3:.1f} us  "
+            f"library {lib}  bound {v['bound_ms'] * 1e3:.2f} us ({v['bound_by']})  "
+            f"over {v['calls']} calls  ({card})")
+    return timing, launches, {"stats": stats, "wall_s": wall, "k5_err": k5_err,
+                              "quickstart_max_err": qs["max_err"]}
 
 
 if __name__ == "__main__":

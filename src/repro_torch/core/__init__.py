@@ -1,15 +1,26 @@
-"""Neuron Chunking core of the port: selection, latency model, simulator."""
+"""Neuron Chunking core of the port: selection, latency model, simulator,
+and the per-matrix planner."""
+from .api import NeuronChunkingPlanner, SparsePlan
 from .baselines import topk_mask
 from .chunking import (
     BatchedChunkSelector,
     ChunkConfig,
     ChunkSelector,
+    chunk_table_from_mask,
     greedy_select,
     greedy_select_plain,
     select_chunks_np,
 )
-from .contiguity import Chunk, mask_run_sizes, mask_to_chunks_np
-from .importance import importance
+from .contiguity import (
+    Chunk,
+    chunk_stats_np,
+    chunks_to_mask_np,
+    contiguity_distribution_np,
+    mask_run_sizes,
+    mask_to_chunks_np,
+    runs_to_padded_table_np,
+)
+from .importance import coefficient_of_variation, importance, importance_np, retention
 from .latency_model import (
     JETSON_AGX,
     JETSON_NANO,
@@ -27,3 +38,9 @@ from .offload import (
     normalize_site_sparsity,
 )
 from .pipeline import PipelineModel, PipelineTimeline, overlap_efficiency
+from .reorder import (
+    Reordering,
+    activation_frequency,
+    coactivation_reordering,
+    hot_cold_reordering,
+)

@@ -8,6 +8,7 @@ utility taking non-overlapping windows that fit the remaining budget.
 
   * ``select_chunks_np`` — the literal numpy transcription (test oracle),
     identical to the reference's.
+  * ``ChunkSelector.select`` — one site, as a one-lane batched problem.
   * ``BatchedChunkSelector`` — all of a layer's sites as one padded
     problem. Scoring and the stable sort are torch; the sequential greedy
     walk is kernel K5 (``greedy_select``), because as a loop of torch ops it
@@ -16,11 +17,12 @@ utility taking non-overlapping windows that fit the remaining budget.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .contiguity import runs_to_padded_table_np
 from .latency_model import KB, DeviceProfile, LatencyTable, profile_table
 
 
@@ -109,7 +111,9 @@ def select_chunks_np(v: np.ndarray, budget: int, row_bytes: float,
 @dataclasses.dataclass(frozen=True, eq=False)
 class ChunkSelector:
     """One site's static selection problem: candidate schedule + latency
-    table for a fixed (N, device, chunk-config) triple."""
+    table for a fixed (N, device, chunk-config) triple. ``select(v,
+    budget)`` runs it as a one-lane ``BatchedChunkSelector``, so the greedy
+    walk is K5 on the card and its plain version on the CPU."""
 
     n: int
     row_bytes: float
@@ -119,14 +123,18 @@ class ChunkSelector:
     sizes: np.ndarray  # (K,) int32
     max_size: int
     min_size: int
+    # torch device → (one-lane BatchedChunkSelector, LatencyTable) there
+    _lanes: Dict[str, tuple] = dataclasses.field(default_factory=dict, repr=False)
 
     @staticmethod
     def build(n: int, row_bytes: float, device: str | DeviceProfile = "nano",
-              cfg: ChunkConfig | None = None) -> "ChunkSelector":
+              cfg: ChunkConfig | None = None,
+              table: LatencyTable | None = None) -> "ChunkSelector":
         name = device if isinstance(device, str) else device.name
         cfg = cfg or ChunkConfig.for_shape(n, 1, name)
         starts, sizes = _candidate_schedule(n, row_bytes, cfg)
-        table = profile_table(device, row_bytes, max_rows=int(sizes.max()))
+        if table is None:
+            table = profile_table(device, row_bytes, max_rows=int(sizes.max()))
         return ChunkSelector(n=n, row_bytes=row_bytes, table=table, cfg=cfg,
                              starts=starts, sizes=sizes,
                              max_size=int(sizes.max()), min_size=int(sizes.min()))
@@ -134,6 +142,34 @@ class ChunkSelector:
     @property
     def num_candidates(self) -> int:
         return int(self.starts.shape[0])
+
+    def lane(self, device) -> Tuple["BatchedChunkSelector", LatencyTable]:
+        """This selector as a one-lane ``BatchedChunkSelector``, and its
+        latency table, on ``device`` (built once per device)."""
+        key = str(torch.device(device))
+        if key not in self._lanes:
+            table = LatencyTable(self.table.device, self.table.row_bytes,
+                                 self.table.table.to(device))
+            self._lanes[key] = (BatchedChunkSelector.build([self], device=device), table)
+        return self._lanes[key]
+
+    def select(self, v: torch.Tensor, budget, resident=None):
+        """Returns (mask bool (N,), n_selected int32, est_latency_s f32) on
+        ``v``'s device: Algorithm 1 at a row budget, as the reference's
+        ``ChunkSelector.select``."""
+        if resident is not None:
+            raise NotImplementedError(
+                "residency-aware selection (resident=) is not ported yet: ROADMAP.md, "
+                "queue 1 (the residency cache)"
+            )
+        batched, table = self.lane(v.device)
+        budgets = torch.as_tensor(budget).to(device=v.device, dtype=torch.int32).reshape(1)
+        masks, selected = batched.select(v.reshape(1, self.n), budgets)
+        return masks[0], selected[0], table.mask_latency(masks[0])
+
+    def select_for_sparsity(self, v: torch.Tensor, sparsity: float):
+        """``select`` at budget = round((1 - sparsity) * N) rows."""
+        return self.select(v, round((1.0 - float(sparsity)) * self.n))
 
 
 # ---------------------------------------------------------------------------
@@ -304,3 +340,10 @@ class BatchedChunkSelector:
         sizes_s = torch.where(self.valid.gather(1, order), self.sizes.gather(1, order),
                               torch.zeros_like(order)).to(torch.int32)
         return starts_s, sizes_s
+
+
+def chunk_table_from_mask(mask, max_chunks: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Selection mask → (starts, sizes, n) padded chunk table of its runs."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy()
+    return runs_to_padded_table_np(np.asarray(mask), max_chunks)

@@ -10,7 +10,7 @@ run lengths ("chunks"). Two forms, as in ``repro.core.contiguity``:
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,48 @@ def mask_to_chunks_np(mask: np.ndarray) -> List[Chunk]:
     starts = np.nonzero(diff == 1)[0]
     stops = np.nonzero(diff == -1)[0]
     return [Chunk(int(a), int(b - a)) for a, b in zip(starts, stops)]
+
+
+def chunks_to_mask_np(chunks: List[Chunk], n: int) -> np.ndarray:
+    """Inverse of mask_to_chunks_np (chunks may be unsorted but non-overlapping)."""
+    mask = np.zeros(n, dtype=bool)
+    for c in chunks:
+        if c.start < 0 or c.stop > n:
+            raise ValueError(f"chunk {c} out of bounds for n={n}")
+        if mask[c.start: c.stop].any():
+            raise ValueError(f"chunk {c} overlaps a previous chunk")
+        mask[c.start: c.stop] = True
+    return mask
+
+
+def contiguity_distribution_np(mask: np.ndarray) -> Dict[int, int]:
+    """Frequency distribution {chunk_size: count} of a mask's chunks."""
+    dist: Dict[int, int] = {}
+    for c in mask_to_chunks_np(mask):
+        dist[c.size] = dist.get(c.size, 0) + 1
+    return dist
+
+
+def chunk_stats_np(mask: np.ndarray) -> Tuple[float, int]:
+    """(average chunk size, modal chunk size); (0.0, 0) for an empty mask."""
+    sizes = np.array([c.size for c in mask_to_chunks_np(mask)], dtype=np.int64)
+    if sizes.size == 0:
+        return 0.0, 0
+    values, counts = np.unique(sizes, return_counts=True)
+    return float(sizes.mean()), int(values[np.argmax(counts)])
+
+
+def runs_to_padded_table_np(mask: np.ndarray, max_chunks: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(starts, sizes, n) of a mask's runs, padded or truncated to
+    ``max_chunks`` entries; n is the number of real entries."""
+    chunks = mask_to_chunks_np(mask)
+    n = min(len(chunks), max_chunks)
+    starts = np.zeros(max_chunks, np.int32)
+    sizes = np.zeros(max_chunks, np.int32)
+    for i, c in enumerate(chunks[:max_chunks]):
+        starts[i] = c.start
+        sizes[i] = c.size
+    return starts, sizes, n
 
 
 def mask_run_sizes(mask: torch.Tensor) -> torch.Tensor:

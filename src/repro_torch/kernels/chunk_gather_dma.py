@@ -51,6 +51,11 @@ import torch
 
 BLOCK_ROWS = 8
 MAX_PREFETCH_DEPTH = 3  # the CUDA ring is compiled for 1..4 stages
+# a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 16
+# for the kernels' static shared int
+SMEM_LIMIT_BYTES = 232448 - 16
+# the ring's geometry in csrc/chunk_gather.cu (kTile, kStageBlocks, kBatchSlab)
+_TILE, _STAGE_BLOCKS, _BATCH_SLAB = 64, 8, 8
 
 LAUNCHES = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0}
 
@@ -149,7 +154,8 @@ def _gather_contract(w: torch.Tensor, x: torch.Tensor, offs: List[int],
 
 def chunk_gather_matmul_plain(w, x, starts, sizes, scales=None, x_mask=None,
                               max_chunk_rows: int = 512) -> torch.Tensor:
-    """Plain version of K1 (and of K2's phase 2 with ``x_mask``)."""
+    """Plain version of K1 (of K2's phase 2 with ``x_mask``, and of K3 with
+    neither ``scales`` nor ``x_mask``)."""
     x = x.to(torch.float32)
     if x_mask is not None:
         x = x * x_mask.to(torch.float32)[None, :]
@@ -157,13 +163,22 @@ def chunk_gather_matmul_plain(w, x, starts, sizes, scales=None, x_mask=None,
                             scales)
 
 
+def chunk_gather_swiglu_plain(w_gate, w_up, x, starts, sizes, scales=None,
+                              max_chunk_rows: int = 512) -> torch.Tensor:
+    """Plain version of K4 (and of K2's phase 1, with ``scales`` = (sg, su)):
+    h (B, F) f32 = ``swiglu_h`` of two exact gathers off one table."""
+    sg, su = scales if scales is not None else (None, None)
+    x = x.to(torch.float32)
+    offs = _table_blocks(starts, sizes, w_gate.shape[0], max_chunk_rows)
+    return swiglu_h(_gather_contract(w_gate, x, offs, sg), _gather_contract(w_up, x, offs, su))
+
+
 def chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask=None,
                            scales=None, max_chunk_rows: int = 512):
     """Plain version of K2: returns (y (B, D) f32, unmasked h (B, F) f32)."""
-    sg, su, sd = scales if scales is not None else (None, None, None)
-    x = x.to(torch.float32)
-    offs = _table_blocks(starts[0], sizes[0], w_gate.shape[0], max_chunk_rows)
-    h = swiglu_h(_gather_contract(w_gate, x, offs, sg), _gather_contract(w_up, x, offs, su))
+    sd = scales[2] if scales is not None else None
+    h = chunk_gather_swiglu_plain(w_gate, w_up, x, starts[0], sizes[0],
+                                  None if scales is None else scales[:2], max_chunk_rows)
     y = chunk_gather_matmul_plain(w_down, h, starts[1], sizes[1], sd, ffn_mask, max_chunk_rows)
     return y, h
 
@@ -207,6 +222,29 @@ def _check_layout(w: torch.Tensor, name: str) -> None:
                          "multiple of 16 bytes")
 
 
+def table_smem_bytes(k: int, elem_bytes: int, n_mat: int, prefetch_depth: int) -> int:
+    """Dynamic shared memory of one CTA of the chunk-gather kernels: the
+    ring (``Ring::bytes`` in csrc/chunk_gather.cu: ``prefetch_depth + 1``
+    stages of table blocks, each block ``n_mat`` weight tiles, the slab's
+    f32 input rows plus the input mask's, and ``n_mat`` scales; per stage
+    the blocks' offsets and count), then the chunk table, 8 bytes an entry."""
+    stages = prefetch_depth + 1
+    block = (n_mat * BLOCK_ROWS * _TILE * elem_bytes + (_BATCH_SLAB + 1) * BLOCK_ROWS * 4
+             + n_mat * 4)
+    return stages * _STAGE_BLOCKS * block + stages * (_STAGE_BLOCKS + 1) * 4 + 8 * k
+
+
+def check_table_fits(k: int, w: torch.Tensor, n_mat: int, prefetch_depth: int,
+                     name: str) -> None:
+    """The kernels hold the whole chunk table in shared memory: a table too
+    long for the card raises here, before any launch."""
+    need = table_smem_bytes(k, w.element_size(), n_mat, prefetch_depth)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{name}: a chunk table of K={k} entries needs {need} bytes of "
+                         f"shared memory with its ring, over the {SMEM_LIMIT_BYTES}-byte "
+                         "limit; pass a shorter table (fewer, longer chunks)")
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -228,6 +266,7 @@ def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_dep
     from .build import check, library, stream_ptr
 
     _check_layout(w, "chunk_gather_matmul_dma")
+    check_table_fits(starts.shape[0], w, 1, prefetch_depth, "chunk_gather_matmul_dma")
     b, n = x.shape
     d = w.shape[1]
     x, scales, x_mask = _f32(x), _f32(scales), _f32(x_mask)
@@ -331,6 +370,7 @@ def chunk_gather_mlp_dma(
 
     _check_layout(w_gate, "chunk_gather_mlp_dma (w_gate)")
     _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
+    check_table_fits(starts.shape[1], w_gate, 2, prefetch_depth, "chunk_gather_mlp_dma")
     b = x.shape[0]
     xf, sg, su = _f32(x), _f32(sg), _f32(su)
     st, sz = _i32(starts), _i32(sizes)
