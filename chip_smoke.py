@@ -16,8 +16,14 @@ Phases, each of which fails the run on error:
      TinyLlama-1.1B shapes, on tables from real selections at sparsity 0.4,
      bf16 and int8, prefetch depths 0/1/2, plus the edge cases of the
      reference's kernel suite (all-padded table, one 512-row chunk,
-     K >> real chunks, ±127 int8 saturation); and the reduced model on the
-     card against the same model on the CPU;
+     K >> real chunks, ±127 int8 saturation); K1 and K3 on shapes that
+     stress the K1 body's partition of the work (batch 1, 8 and 9, D = 256
+     and a ragged D, fewer blocks than a CTA's lane groups, the empty table,
+     one 512-row chunk, K >> chunks, blocks outside [0, N), a block list
+     longer than its window, x too large to hold whole), bf16/f32/int8 at
+     depths 0-3, and the C and Python shared-memory layouts against each
+     other; and the reduced model on the card against the same model on the
+     CPU;
   4. the serve run: full-width tinyllama-1.1b, all 22 layers, random
      weights from a seed, ``--method chunk --backend kernel``, batch 2,
      prompt 32, 16 decode tokens, at wbits 16 and 8 — the launch counters
@@ -27,7 +33,8 @@ Phases, each of which fails the run on error:
      weights (device time, from replays of a CUDA graph of the calls),
      beside its plain version (host clock), the dense library
      product where there is one, and its bound (the larger of the bytes the
-     call must move over 3.35 TB/s and its flops over the fp32 peak);
+     call must move over 3.35 TB/s and its flops over the fp32 peak); K1
+     also per site (q, k, v, o), since k/v's narrow grid hides in the mean;
   6. the per-matrix library path on phase 4's weights: every offloaded
      matrix of every layer planned with ``NeuronChunkingPlanner`` (the walk
      is K5) at sparsity 0.4, K3 on q/k/v/o/down and K4 on gate/up off the
@@ -35,12 +42,13 @@ Phases, each of which fails the run on error:
      K3/K4 bitwise against their plain versions, K3 against K1 at depth 1,
      K4 against K2's h, the tables against ``masks_to_block_tables``, the
      one-lane walk against the plain walk; planning statistics against
-     top-k; K3/K4 timed as in phase 5.
+     top-k; K3/K4 timed as in phase 5, K3 also per site (q, k, v, o, down).
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
+import importlib
 import json
 import subprocess
 import sys
@@ -61,6 +69,65 @@ BATCH, PROMPT, DECODE, REF_DECODE, PROFILE_TOKENS = 2, 32, 16, 4, 4
 LIB_ROWS, LIB_SPARSITY, LIB_TILE = 16, 0.4, 64
 DEPTHS = (0, 1, 2)
 TIME_SELECTION_LAUNCHES = 6  # SparseExecution.time_selection: 1 warm-up + 5 timed
+
+
+# the K1 body's edge cases of phase 3 (see k1_case)
+K1_CASES = ("b1", "b8", "b9", "d256", "ragged", "few", "empty", "one512", "k_far", "outside",
+            "windows", "records")
+
+
+def k1_case(case, wname, randn, dev):
+    """(w, x, starts, sizes, scales) for one K1-body edge case, on dev."""
+    import torch
+
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels.quantize import quantize_rows
+
+    n, d, b = {"b1": (512, 256, 1), "b8": (512, 256, 8), "b9": (512, 256, 9),
+               "d256": (2048, 256, 2), "ragged": (512, 208 if wname == "int8" else 200, 2),
+               "records": (4096, 256, 8)}.get(case, (1024, 256, 2))
+    k = n // 8
+    st = torch.zeros(k, dtype=torch.int32, device=dev)
+    sz = torch.zeros_like(st)
+    few = {"few": ((64,), (16,)), "one512": ((512,), (512,)), "k_far": ((64, 512), (16, 40)),
+           "outside": ((-24, n - 16, 96), (48, 64, 8)), "windows": ((0,) * 40, (512,) * 40)}
+    if case in few:
+        s0, z0 = few[case]
+        st[: len(s0)] = torch.tensor(s0, dtype=torch.int32, device=dev)
+        sz[: len(z0)] = torch.tensor(z0, dtype=torch.int32, device=dev)
+    elif case != "empty":
+        st, sz = cg.masks_to_block_tables((randn(1, n) > 0.0), 8, 512)
+        st, sz = st[0], sz[0]
+    w = randn(n, d)
+    sc = None
+    if wname == "bf16":
+        w = w.to(torch.bfloat16)
+    elif wname == "int8":
+        w, sc = quantize_rows(w, 8)
+    return w, randn(b, n), st, sz, sc
+
+
+def per_site(calls, sites, bounds_s, run, run_lib, cuda_ms):
+    """Device time per launch of each site's calls (the mean over all sites
+    hides a site's narrow grid), beside its mean bound and one library call
+    per launch (None where there is none)."""
+    out = {}
+    for site in dict.fromkeys(sites):
+        sub = [c for c, s in zip(calls, sites) if s == site]
+        bnd = [b for b, s in zip(bounds_s, sites) if s == site]
+        out[site] = {"calls": len(sub), "ms": cuda_ms(lambda: run(calls=sub), 20) / len(sub),
+                     "library_ms": None if run_lib is None
+                     else cuda_ms(lambda: run_lib(sub), 20) / len(sub),
+                     "bound_ms": sum(bnd) / len(bnd) * 1e3}
+    return out
+
+
+def site_line(sites):
+    return "  ".join(
+        f"{k} {v['ms'] * 1e3:.1f} us (bound {v['bound_ms'] * 1e3:.2f}, "
+        f"{v['bound_ms'] / v['ms']:.0%} of it"
+        + ("" if v["library_ms"] is None else f"; (x·m) @ W {v['library_ms'] * 1e3:.1f}") + ")"
+        for k, v in sites.items())
 
 
 def fail(msg):
@@ -318,13 +385,44 @@ def run(dev, cfg, card, report):
         if float(y.abs().max()) != 0.0:
             failures.append(f"K2 empty lanes are not exact zero (d{depth})")
 
+    # the K1 body's partition of the work (K1 and K3): batch 1, 8 and 9 (two
+    # slabs), D = 256 and a ragged D, fewer blocks than a CTA's lane groups,
+    # the empty table, one 512-row chunk, K >> real chunks, blocks partly
+    # outside [0, N), overlapping chunks whose block list spans several
+    # windows, and an x too large to hold whole; bf16, f32 and int8 at every
+    # depth
+    from repro_torch.kernels.build import library, sm_count
+
+    k3 = importlib.import_module("repro_torch.kernels.chunk_gather_matmul")
+    for case in K1_CASES:
+        for wname in ("bf16", "f32", "int8"):
+            w, xk, s, z, sc = k1_case(case, wname, randn, dev)
+            want = cg.chunk_gather_matmul_plain(w, xk, s, z, sc)
+            for depth in range(cg.MAX_PREFETCH_DEPTH + 1):
+                y = cg.chunk_gather_matmul_dma(w, xk, s, z, sc, prefetch_depth=depth)
+                check("chunk_gather_matmul_dma", f"case {case} {wname} d{depth}", y, want)
+                g = cg.k1_geometry(w.shape[1], xk.shape[0], w.element_size(),
+                                   sm_count(dev) if on_card else 132, depth, w.shape[0])
+                if on_card and library("chunk_gather.cu").k1_smem_bytes(
+                        cg._WTYPE[w.dtype], g["tile"], g["blocks"], xk.shape[0], 0, w.shape[0],
+                        depth, s.shape[0]) != cg.k1_smem_bytes(
+                            s.shape[0], w.element_size(), g["tile"], g["blocks"], xk.shape[0],
+                            depth, w.shape[0]):
+                    failures.append(f"k1_smem_bytes: C and Python differ ({case} {wname})")
+            if case == "empty" and float(y.abs().max()) != 0.0:
+                failures.append(f"K1 empty table is not exact zero ({wname})")
+            if wname != "int8":
+                check("chunk_gather_matmul", f"case {case} {wname}",
+                      k3.chunk_gather_matmul(w, xk, s, z, tile_d=8), want)
+
     # the reduced model on the card against the same model on the CPU
     rcfg = cfg.reduced()
     rmodel = build_model(rcfg)
     rp_cpu = rmodel.init(seed=7, device="cpu")
     rp_gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
               for k, v in rp_cpu.items()}
-    rbatch = make_dummy_batch(rcfg, InputShape("small", 16, BATCH, "train"), seed=7)
+    rbatch = make_dummy_batch(rcfg, InputShape("small", 16, BATCH, "train"), seed=7,
+                              device="cpu")
     small = {}
     for name, params, tdev in (("cuda", rp_gpu, dev), ("cpu", rp_cpu, torch.device("cpu"))):
         eng = ServeEngine(rmodel, params, max_seq=32, batch_size=BATCH, backend="kernel",
@@ -440,6 +538,7 @@ def run(dev, cfg, card, report):
         sp = eng.sparse_ctx
         el = 2 if wbits == 16 else 1
         k1_calls, k2_calls, k5_inputs = [], [], []
+        k1_sites, k1_bounds = [], []
         k1_bytes = k1_ops = k2_bytes = k2_ops = 0.0
         k1_bound = k2_bound = 0.0
         for layer in range(n_layers):
@@ -456,6 +555,8 @@ def run(dev, cfg, card, report):
                 ops = 2.0 * BATCH * rows * w.shape[1]
                 k1_bytes, k1_ops = k1_bytes + byts, k1_ops + ops
                 k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+                k1_sites.append(name)
+                k1_bounds.append(max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S))
             ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
                   for n in ("w_gate", "w_up", "w_down")]
             scs = None if wbits == 16 else tuple(lp[n + "_sc"][layer]
@@ -479,15 +580,15 @@ def run(dev, cfg, card, report):
                               sp.batched.min_sizes, sp.batched.n_max))
         n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
 
-        def run_k1(plain=False):
-            for w, xm, s, z, sc in k1_calls:
+        def run_k1(plain=False, calls=k1_calls):
+            for w, xm, s, z, sc in calls:
                 if plain:
                     cg.chunk_gather_matmul_plain(w, xm, s, z, sc)
                 else:
                     cg.chunk_gather_matmul_dma(w, xm, s, z, sc)
 
-        def run_k1_lib():
-            for w, xm, s, z, sc in k1_calls:
+        def run_k1_lib(calls=k1_calls):
+            for w, xm, s, z, sc in calls:
                 if sc is None:
                     xm.to(w.dtype) @ w
 
@@ -529,6 +630,10 @@ def run(dev, cfg, card, report):
                 "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5,
                 "walked_per_lane": sum(walked) / max(len(walked), 1)},
         }
+        sites = per_site(k1_calls, k1_sites, k1_bounds, run_k1,
+                         run_k1_lib if wbits == 16 else None, cuda_ms)
+        timing[wbits]["chunk_gather_matmul_dma"]["per_site"] = sites
+        log(f"[time] w{wbits} chunk_gather_matmul_dma per site: {site_line(sites)}  ({card})")
         wall = serve[wbits]["loop_wall_s"] * 1e3
         shares = {k: v["ms"] * (serve[wbits]["launches"][k]
                                 - (TIME_SELECTION_LAUNCHES if k == "greedy_select" else 0)) / wall
@@ -587,8 +692,6 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
     tables, the tables against ``masks_to_block_tables``, the one-lane K5
     masks against the plain walk, and the timings. Returns (timing per
     kernel, launches, report)."""
-    import importlib
-
     import torch
 
     from repro_torch.core import NeuronChunkingPlanner, chunk_stats_np, chunking
@@ -749,7 +852,7 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
         z = sizes.cpu().clamp(min=0)
         return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
 
-    k3_calls, k4_calls = [], []
+    k3_calls, k4_calls, k3_sites, k3_bounds = [], [], [], []
     k3_bytes = k3_ops = k4_bytes = k4_ops = k3_bound = k4_bound = 0.0
     for layer, rec in enumerate(calls):
         for kind in ("wq", "wk", "wv", "wo", "w_down"):
@@ -763,6 +866,8 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
             ops_ = 2.0 * x.shape[0] * rows * w.shape[1]
             k3_bytes, k3_ops = k3_bytes + byts, k3_ops + ops_
             k3_bound += max(byts / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S)
+            k3_sites.append(kind)
+            k3_bounds.append(max(byts / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S))
         wg, wu = layers["w_gate"][layer], layers["w_up"][layer]
         (s, z), x = rec["gate_up"]["table"], rec["gate_up"]["x"]
         k4_calls.append((wg, wu, x, s, z))
@@ -774,15 +879,15 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
         k4_bound += max(byts / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S)
     n3, n4 = len(k3_calls), len(k4_calls)
 
-    def run_k3(plain=False):
-        for w, x, s, z, _ in k3_calls:
+    def run_k3(plain=False, calls=k3_calls):
+        for w, x, s, z, _ in calls:
             if plain:
                 cg.chunk_gather_matmul_plain(w, x, s, z)
             else:
                 ops.sparse_matmul(w, x, s, z, tile_d=LIB_TILE)
 
-    def run_k3_lib():
-        for w, _, _, _, xm in k3_calls:
+    def run_k3_lib(calls=k3_calls):
+        for w, _, _, _, xm in calls:
             xm @ w
 
     def run_k4(plain=False):
@@ -804,6 +909,9 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
             "bound_by": "bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops / F32_OPS_PER_S
             else "operations", "calls": n4, "bytes_per_call": k4_bytes / n4},
     }
+    sites = per_site(k3_calls, k3_sites, k3_bounds, run_k3, run_k3_lib, cuda_ms)
+    timing["chunk_gather_matmul"]["per_site"] = sites
+    log(f"[time] chunk_gather_matmul per site: {site_line(sites)}  ({card})")
     for k, v in timing.items():
         lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
         log(f"[time] {k}: {v['ms'] * 1e3:.1f} us/launch  plain {v['plain_ms'] * 1e3:.1f} us  "

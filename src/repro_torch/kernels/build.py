@@ -39,10 +39,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "chunk_gather.cu": {
         "k1_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "k2_gate_up": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
-        "k3_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "k3_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "k1_smem_bytes": [_I, _I, _I, _I, _I, _I, _I, _I],
         "k4_chunk_gather_swiglu": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "greedy_select.cu": {
@@ -123,6 +124,20 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error at launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per device)."""
+    import torch
+
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def stream_ptr(device) -> Optional[int]:

@@ -20,16 +20,23 @@ K1 — ``chunk_gather_matmul_dma`` (csrc/chunk_gather.cu, ``k1_kernel``)
   Replaces ``repro/kernels/chunk_gather_dma.py::chunk_gather_matmul_dma``
   (body ``_matmul_dma_kernel``, schedule ``_pipelined_steps``). Bound on the
   H100: bytes — a decode GEMV at batch ≤ 8 does 2·B flops per weight
-  element loaded, far below the ~295 flops/byte ridge. Design: the grid
-  runs over 64-column tiles of D (× slabs of 8 batch rows); each CTA walks
-  its own copy of the table in order and streams the active (8 × 64) tiles
-  through a ring of ``prefetch_depth + 1`` shared-memory stages of up to 8
-  table blocks each, filled by 16-byte ``cp.async`` copies, so the next
-  stages' loads are in flight while the current one is contracted. Only
-  selected rows are read. The
-  contraction stays on the CUDA cores in fp32: a tensor-core (``wgmma``)
-  path would reassociate the sums, and at this batch the FLOPs are not the
-  bound.
+  element loaded, far below the ~295 flops/byte ridge. What bounded its
+  first form was a serial chain inside each CTA: a table walk, the
+  copy issue and an 8-deep partial sum per 8-row block, on 4 warps and as
+  few as 4 CTAs. Design now (``k1_body``): each CTA turns the table into a
+  flat block list once (per-entry counts, a block-wide scan;
+  ``k1_block_list`` is its mirror); the grid runs over tiles of one 32-byte
+  sector of each weight row (16 bf16 columns; 16 bytes where that would fill
+  under half the SMs) × slabs of 8 batch rows (``k1_geometry``), so even
+  k/v's 256 columns spread over 32 SMs and every copy fills a sector; the
+  CTA's x rows are held whole in shared memory; most of 16 warps form a
+  stage's exact block partials at once (two columns a lane) while the next
+  ``prefetch_depth`` stages of 16-byte ``cp.async`` copies land; the last
+  warps own the outputs, one thread each, and add the partials in table
+  order, the only serial chain left. Only selected rows are read.
+  The contraction stays on the CUDA cores in fp32: a tensor-core
+  (``wgmma``) path would reassociate the sums, and at this batch the FLOPs
+  are not the bound.
 
 K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cu, ``k2_gate_up_kernel``
   then ``k1_kernel``) Replaces
@@ -51,11 +58,19 @@ import torch
 
 BLOCK_ROWS = 8
 MAX_PREFETCH_DEPTH = 3  # the CUDA ring is compiled for 1..4 stages
-# a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 16
-# for the kernels' static shared int
-SMEM_LIMIT_BYTES = 232448 - 16
-# the ring's geometry in csrc/chunk_gather.cu (kTile, kStageBlocks, kBatchSlab)
+# a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 64
+# for the kernels' static shared words (scan sums, stage mbarriers)
+SMEM_LIMIT_BYTES = 232448 - 64
+# K2 phase 1's ring in csrc/chunk_gather.cu (kTile, kStageBlocks, kBatchSlab)
 _TILE, _STAGE_BLOCKS, _BATCH_SLAB = 64, 8, 8
+# the K1 body's (K1, K2 phase 2, K3): 16 warps a CTA, a window of the flat
+# block list of up to K1_WINDOW_BLOCKS entries, the CTA's x rows held whole
+# up to K1_SLAB_BYTES (kK1Threads, kK1WindowBlocks, kK1SlabBytes); column
+# tiles of one 32-byte sector of a weight row, or half of one; ring stages of
+# up to K1_STAGE_BYTES, the ring and the partial buffers within what
+# K1_SMEM_BYTES leaves beside the x slab, the window and a full-width table
+K1_WARPS, K1_WINDOW_BLOCKS, K1_SLAB_BYTES, K1_SECTOR_BYTES = 16, 1024, 80 * 1024, 32
+K1_STAGE_BYTES, K1_SMEM_BYTES = 32 * 1024, 190 * 1024
 
 LAUNCHES = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0}
 
@@ -222,12 +237,109 @@ def _check_layout(w: torch.Tensor, name: str) -> None:
                          "multiple of 16 bytes")
 
 
-def table_smem_bytes(k: int, elem_bytes: int, n_mat: int, prefetch_depth: int) -> int:
-    """Dynamic shared memory of one CTA of the chunk-gather kernels: the
-    ring (``Ring::bytes`` in csrc/chunk_gather.cu: ``prefetch_depth + 1``
-    stages of table blocks, each block ``n_mat`` weight tiles, the slab's
-    f32 input rows plus the input mask's, and ``n_mat`` scales; per stage
-    the blocks' offsets and count), then the chunk table, 8 bytes an entry."""
+def _k1_xrec(batch: int, masked: bool, n: int) -> int:
+    """f32 values of a block's input record: 0 when the CTA holds its x rows
+    (and the mask) whole, else 8 per row (``K1Layout::xrec``)."""
+    xrows = min(batch, _BATCH_SLAB) + int(masked)
+    return 0 if xrows * n * 4 <= K1_SLAB_BYTES else xrows * BLOCK_ROWS
+
+
+def k1_geometry(d: int, batch: int, elem_bytes: int, n_sm: int, prefetch_depth: int = 1,
+                n: int = 0, masked: bool = False) -> dict:
+    """The K1 body's launch geometry for W (n, d): ``tile`` output columns
+    per CTA and ``blocks`` table blocks per ring stage; the grid is
+    ``grid`` = (ceil(D / tile), ceil(B / 8)).
+
+    A CTA's tile is one 32-byte sector of each weight row (16 bf16, 8 f32
+    or 32 int8 columns): copies then fill whole sectors, and the CTAs of
+    neighbouring tiles share the lines in L2. Where that leaves the grid
+    under half the SMs (k/v's 256 columns), the tile halves to one 16-byte
+    copy a row, for twice the CTAs. A stage holds the blocks that fit in
+    ``K1_STAGE_BYTES``, and the ``prefetch_depth + 1`` stages with the two
+    partial halves in what ``K1_SMEM_BYTES`` leaves beside the x slab, in
+    whole rounds of the CTA's lane groups (16 warps x 32 / tile) where it
+    holds one: few stages, so few serial stage latencies."""
+    slabs = -(-batch // _BATCH_SLAB)
+    tile = K1_SECTOR_BYTES // elem_bytes
+    if -(-d // tile) * slabs * 2 <= n_sm:
+        tile //= 2
+    lanes = K1_WARPS * (32 // tile)  # lane groups of a CTA: one block each
+    xrec = _k1_xrec(batch, masked, n)
+    per_block = (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4 + 8
+    per_part = 2 * min(batch, _BATCH_SLAB) * tile * 4  # a block's share of the partials
+    room = (K1_SMEM_BYTES - (0 if xrec else (min(batch, _BATCH_SLAB) + int(masked)) * n * 4)
+            - 36 * per_part)  # the partial rows' padding (_k1_pstride)
+    blocks = max(K1_WARPS, min(K1_STAGE_BYTES // per_block,
+                               room // ((prefetch_depth + 1) * per_block + per_part)))
+    if blocks >= lanes:
+        blocks -= blocks % lanes
+    return {"tile": tile, "blocks": blocks, "grid": (-(-d // tile), slabs)}
+
+
+def k1_block_list(starts: torch.Tensor, sizes: torch.Tensor, n_rows: int,
+                  max_chunk_rows: int) -> List[int]:
+    """The K1 body's flat block list, as ``k1_scan_table`` builds it: per
+    entry the blocks bk in [lo, hi) of its chunk that lie inside [0, N),
+    their first offset, an exclusive prefix of the counts, then the scatter.
+    Equal to the plain versions' walk (``_table_blocks``)."""
+    bpc = max_chunk_rows // BLOCK_ROWS
+    s = starts.to(torch.int64).cpu()
+    z = sizes.to(torch.int64).cpu()
+    nblk = torch.where(z > 0, torch.clamp((z + BLOCK_ROWS - 1) // BLOCK_ROWS, max=bpc), 0)
+    lo = torch.where(s < 0, (-s + BLOCK_ROWS - 1) // BLOCK_ROWS, 0)
+    room = n_rows - BLOCK_ROWS - s
+    hi = torch.where(room < 0, 0, torch.minimum(nblk, room // BLOCK_ROWS + 1))
+    count = torch.clamp(hi - lo, min=0)
+    base = s + lo * BLOCK_ROWS
+    pre = torch.cumsum(count, 0) - count
+    out = [0] * int(count.sum())
+    for e in range(s.shape[0]):
+        for j in range(int(count[e])):
+            out[int(pre[e]) + j] = int(base[e]) + j * BLOCK_ROWS
+    return out
+
+
+def _k1_pstride(blocks: int) -> int:
+    """Floats per output row of the partial buffer (``K1Layout::pstride``):
+    the blocks rounded up to 32, plus 4 (16-byte rows, 4 banks apart)."""
+    return -(-blocks // 32) * 32 + 4
+
+
+def k1_smem_bytes(k: int, elem_bytes: int, tile: int, blocks: int, batch: int,
+                  prefetch_depth: int, n: int = 0, masked: bool = False) -> int:
+    """Dynamic shared memory of one K1/K3 CTA for W (n, D) (``K1Layout`` in
+    csrc/chunk_gather.cu): ``prefetch_depth + 1`` ring stages of ``blocks``
+    blocks, each block a weight tile padded by one row, an input record
+    unless x is held whole, a scale and a row offset; then the partial
+    buffer's two halves (rows x tile outputs x ``_k1_pstride`` blocks), the
+    x slab (the CTA's rows of x and the mask, when
+    they fit in ``K1_SLAB_BYTES``), the block-list window, and 8 bytes a
+    table entry plus 4 (first offsets and the exclusive prefix)."""
+    rows = min(batch, _BATCH_SLAB)
+    xrec = _k1_xrec(batch, masked, n)
+    pad16 = -(-blocks * 4 // 16) * 16
+    stage = blocks * ((BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4) + 2 * pad16
+    slab = 0 if xrec else (rows + int(masked)) * n * 4
+    window = blocks * max(1, K1_WINDOW_BLOCKS // blocks)
+    return ((prefetch_depth + 1) * stage + 2 * rows * tile * _k1_pstride(blocks) * 4 + slab
+            + 4 * window + 8 * k + 4)
+
+
+def table_smem_bytes(k: int, elem_bytes: int, n_mat: int, prefetch_depth: int,
+                     geometry: Optional[dict] = None, batch: int = _BATCH_SLAB, n: int = 0,
+                     masked: bool = False) -> int:
+    """Dynamic shared memory of one CTA of the chunk-gather kernels with a
+    table of ``k`` entries. ``n_mat`` = 1 is the K1 body (``k1_smem_bytes``,
+    at ``geometry``, for W (n, D) and ``batch`` rows; by default a
+    sector-wide tile). ``n_mat`` = 2 is K2 phase 1's ring (``Ring::bytes``:
+    ``prefetch_depth + 1`` stages of table blocks, each block two weight
+    tiles, the slab's f32 input rows plus the mask's, and two scales; per
+    stage the blocks' offsets and count), then the table, 8 bytes an entry."""
+    if n_mat == 1:
+        g = geometry or k1_geometry(K1_SECTOR_BYTES, batch, elem_bytes, 1, prefetch_depth, n,
+                                    masked)
+        return k1_smem_bytes(k, elem_bytes, g["tile"], g["blocks"], batch, prefetch_depth, n,
+                             masked)
     stages = prefetch_depth + 1
     block = (n_mat * BLOCK_ROWS * _TILE * elem_bytes + (_BATCH_SLAB + 1) * BLOCK_ROWS * 4
              + n_mat * 4)
@@ -235,10 +347,12 @@ def table_smem_bytes(k: int, elem_bytes: int, n_mat: int, prefetch_depth: int) -
 
 
 def check_table_fits(k: int, w: torch.Tensor, n_mat: int, prefetch_depth: int,
-                     name: str) -> None:
+                     name: str, geometry: Optional[dict] = None,
+                     batch: int = _BATCH_SLAB, masked: bool = False) -> None:
     """The kernels hold the whole chunk table in shared memory: a table too
     long for the card raises here, before any launch."""
-    need = table_smem_bytes(k, w.element_size(), n_mat, prefetch_depth)
+    need = table_smem_bytes(k, w.element_size(), n_mat, prefetch_depth, geometry, batch,
+                            w.shape[0], masked)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"{name}: a chunk table of K={k} entries needs {need} bytes of "
                          f"shared memory with its ring, over the {SMEM_LIMIT_BYTES}-byte "
@@ -262,11 +376,24 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def k1_launch_geometry(w: torch.Tensor, x: torch.Tensor, k: int, prefetch_depth: int,
+                       masked: bool, name: str) -> dict:
+    """The K1 body's geometry for a call on the card, after the layout and
+    shared-memory checks (a table too long raises here)."""
+    from .build import sm_count
+
+    _check_layout(w, name)
+    g = k1_geometry(w.shape[1], x.shape[0], w.element_size(), sm_count(x.device),
+                    prefetch_depth, w.shape[0], masked)
+    check_table_fits(k, w, 1, prefetch_depth, name, g, x.shape[0], masked)
+    return g
+
+
 def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_depth):
     from .build import check, library, stream_ptr
 
-    _check_layout(w, "chunk_gather_matmul_dma")
-    check_table_fits(starts.shape[0], w, 1, prefetch_depth, "chunk_gather_matmul_dma")
+    g = k1_launch_geometry(w, x, starts.shape[0], prefetch_depth, x_mask is not None,
+                           "chunk_gather_matmul_dma")
     b, n = x.shape
     d = w.shape[1]
     x, scales, x_mask = _f32(x), _f32(scales), _f32(x_mask)
@@ -275,7 +402,8 @@ def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_dep
     rc = library("chunk_gather.cu").k1_chunk_gather_matmul(
         w.data_ptr(), _WTYPE[w.dtype], x.data_ptr(), _ptr(x_mask), starts.data_ptr(),
         sizes.data_ptr(), _ptr(scales), y.data_ptr(), b, n, d, starts.shape[0],
-        max_chunk_rows // BLOCK_ROWS, prefetch_depth, stream_ptr(x.device),
+        max_chunk_rows // BLOCK_ROWS, prefetch_depth, g["tile"], g["blocks"],
+        stream_ptr(x.device),
     )
     check(rc, "k1_chunk_gather_matmul")
     return y

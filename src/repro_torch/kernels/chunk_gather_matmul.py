@@ -9,11 +9,16 @@ K3 — ``chunk_gather_matmul`` (csrc/chunk_gather.cu, ``k3_kernel``)
   Its function is K1's without an input mask, so its plain version is
   K1's (``chunk_gather_matmul_plain`` with no scales and no mask), and on
   the card it is K1's device body (``k1_body``) in a kernel of its own,
-  with the ring at depth 1 (the BlockSpec pipeline double-buffers). Bound on the H100: bytes, as K1;
-  the design and its exact arithmetic are K1's (``chunk_gather_dma.py``), so
-  K3 agrees bitwise with its plain version and with K1 at depth 1. ``tile_d``
-  is validated as the reference does; the CUDA kernel tiles D by 64 columns
-  and handles a ragged edge itself.
+  with the ring at depth 1 (the BlockSpec pipeline double-buffers). Bound
+  on the H100: bytes, as K1; what bounded it, the serial per-block chain of
+  each CTA, and the redesign that removes it (a flat block list, sector-wide
+  column tiles over all SMs, x held whole, 16 warps forming partials while
+  one thread per output adds them in order) are K1's
+  (``chunk_gather_dma.py``), as is the exact arithmetic, so K3 agrees
+  bitwise with its plain version and with K1 at depth 1. No tensor cores:
+  ``wgmma`` would reassociate the sums. ``tile_d`` is validated as the
+  reference does; the CUDA kernel picks its own column tile
+  (``k1_geometry``) and handles a ragged edge itself.
 """
 from __future__ import annotations
 
@@ -26,12 +31,11 @@ from ..core.contiguity import mask_to_chunks_np
 from .chunk_gather_dma import (
     _WTYPE,
     BLOCK_ROWS,
-    _check_layout,
     _f32,
     _i32,
     _same_device,
-    check_table_fits,
     chunk_gather_matmul_plain,
+    k1_launch_geometry,
 )
 
 LAUNCHES = {"chunk_gather_matmul": 0}
@@ -73,15 +77,14 @@ def chunk_gather_matmul(
         raise ValueError(f"chunk_gather_matmul: unsupported device {x.device}")
     from .build import check, library, stream_ptr
 
-    _check_layout(w, "chunk_gather_matmul")
-    check_table_fits(starts.shape[0], w, 1, 1, "chunk_gather_matmul")
+    g = k1_launch_geometry(w, x, starts.shape[0], 1, False, "chunk_gather_matmul")
     b = x.shape[0]
     xf, st, sz = _f32(x), _i32(starts), _i32(sizes)
     y = torch.empty((b, d), dtype=torch.float32, device=x.device)
     rc = library("chunk_gather.cu").k3_chunk_gather_matmul(
         w.data_ptr(), _WTYPE[w.dtype], xf.data_ptr(), st.data_ptr(), sz.data_ptr(),
-        y.data_ptr(), b, n, d, st.shape[0], max_chunk_rows // BLOCK_ROWS,
-        stream_ptr(x.device),
+        y.data_ptr(), b, n, d, st.shape[0], max_chunk_rows // BLOCK_ROWS, g["tile"],
+        g["blocks"], stream_ptr(x.device),
     )
     check(rc, "k3_chunk_gather_matmul")
     LAUNCHES["chunk_gather_matmul"] += 1

@@ -13,6 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import resolve_device
 
 def _leaf(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -24,8 +25,11 @@ def _leaf(a, device) -> torch.Tensor:
 def params_from_reference(params_np: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """Reference param pytree (numpy leaves; stacked (L, ...) layer leaves,
     optional ``_q8``/``_sc`` quantized leaves) → the port's params dict on
-    ``device``. Checks each leaf's shape against the port's model."""
+    ``device`` (default ``cuda``; no card raises). Checks each leaf's shape
+    against the port's model."""
     from .model import Model
+
+    device = resolve_device(device)
 
     want = Model(cfg).param_shapes()
     out: Dict[str, Any] = {}

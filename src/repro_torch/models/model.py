@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import resolve_device
 from ..configs.base import ModelConfig
 from .attention import CacheSpec, init_kv_cache
 from .common import rms_norm
@@ -66,7 +67,9 @@ class Model:
         }
 
     def init(self, seed: int = 0, device=None) -> Dict:
-        """Random weights on ``device`` from a seeded generator."""
+        """Random weights on ``device`` (default ``cuda``; no card raises)
+        from a seeded generator."""
+        device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         params: Dict = {"layers": {}}
         for name, (shape, std) in sorted(self.param_shapes().items()):
@@ -82,6 +85,7 @@ class Model:
         return params
 
     def init_cache(self, batch_size: int, max_seq: int, device=None) -> Dict:
+        device = resolve_device(device)
         cfg = self.cfg
         if cfg.sliding_window and max_seq > WINDOW_ENGAGE_THRESHOLD:
             raise NotImplementedError("rotating-window KV caches are not ported yet")

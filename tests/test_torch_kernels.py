@@ -37,7 +37,10 @@ def _rel_err(a, b):
 def _weights(rng, shape, dtype, std=1.0):
     """The same weights for both packages: f32 numpy → each package's bf16
     (both round to nearest even) or int8 payload + scales."""
-    w = rng.normal(0, std, shape).astype(np.float32)
+    return _weights_from(rng.normal(0, std, shape).astype(np.float32), dtype)
+
+
+def _weights_from(w, dtype):
     if dtype == "bf16":
         return jnp.asarray(w, jnp.bfloat16), torch.from_numpy(w).to(torch.bfloat16), None
     if dtype == "f32":
@@ -262,11 +265,108 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1-body cases that stress its partition of the work: batch 1, 8 and 9
+# (two slabs of 8 rows), D = 256 and a ragged D, a table with fewer blocks
+# than the CTA has lane groups, the empty table, one 512-row chunk, K far
+# above the real chunks, blocks partly outside [0, N), overlapping chunks
+# whose block list spans several windows of the list, and an x too large
+# to hold whole (8 rows of N = 4096: per-block input records).
+K1_CASES = ("b1", "b8", "b9", "d256", "ragged", "few", "empty", "one512", "k_far",
+            "outside", "windows", "records")
+
+
+def k1_case(rng, case, dtype):
+    """(w (N, D) f32 numpy, x (B, N) f32 numpy, starts, sizes) for a case."""
+    n, d, b = {"b1": (512, 256, 1), "b8": (512, 256, 8), "b9": (512, 256, 9),
+               "d256": (2048, 256, 2), "ragged": (512, 208 if dtype == "int8" else 200, 2),
+               "records": (4096, 256, 8)}.get(case, (1024, 256, 2))
+    k = n // 8
+    st, sz = np.zeros(k, np.int32), np.zeros(k, np.int32)
+    if case == "few":
+        st[:1], sz[:1] = 64, 16
+    elif case == "one512":
+        st[0], sz[0] = 512, 512
+    elif case == "k_far":
+        st[:2], sz[:2] = (64, 512), (16, 40)
+    elif case == "outside":
+        st[:3], sz[:3] = (-24, n - 16, 96), (48, 64, 8)
+    elif case == "windows":
+        st[:40], sz[:40] = 0, 512  # 40 x 64 blocks, over K1_WINDOW_BLOCKS
+    elif case != "empty":
+        s, z = _table(rng, n, 0.5, 512)
+        st, sz = s.numpy(), z.numpy()
+    w = rng.normal(0, 1, (n, d)).astype(np.float32)
+    x = rng.normal(0, 1, (b, n)).astype(np.float32)
+    return w, x, torch.from_numpy(st), torch.from_numpy(sz)
+
+
+@pytest.mark.parametrize("case", K1_CASES)
+def test_k1_block_list_equals_plain_walk(case):
+    """The K1 body's closed-form block list (per-entry counts, exclusive
+    scan, scatter) visits the plain walk's blocks, each once, in order."""
+    rng = np.random.default_rng(70)
+    w, _, st, sz = k1_case(rng, case, "bf16")
+    for mcr in (512, 64, 8):
+        assert tk.k1_block_list(st, sz, w.shape[0], mcr) == \
+            tk._table_blocks(st, sz, w.shape[0], mcr)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("n,d,b,masked", [(2048, 2048, 2, False), (2048, 256, 2, False),
+                                          (5632, 2048, 2, True), (2048, 2048, 1, True),
+                                          (512, 208, 9, False), (5632, 2048, 16, True),
+                                          (2048, 16384, 2, False)])
+def test_k1_geometry_covers_every_output_once(dtype, n, d, b, masked):
+    """Every output column lands in exactly one tile and every batch row in
+    one slab; a tile is one 32-byte sector of a weight row, or one 16-byte
+    copy where the grid would fill under half the SMs; a stage is whole
+    rounds of the CTA's lane groups where it holds one; x is held whole where it fits, and the
+    full-width tables fit in shared memory at every depth."""
+    elem = {"bf16": 2, "f32": 4, "int8": 1}[dtype]
+    for depth in range(tk.MAX_PREFETCH_DEPTH + 1):
+        g = tk.k1_geometry(d, b, elem, 132, depth, n, masked)
+        tile, (gx, gy), blocks = g["tile"], g["grid"], g["blocks"]
+        cols = [c for t in range(gx) for c in range(t * tile, min(d, (t + 1) * tile))]
+        assert cols == list(range(d))
+        rows = [r for s in range(gy) for r in range(s * 8, min(b, s * 8 + 8))]
+        assert rows == list(range(b))
+        assert tile * elem == (16 if -(-d // (32 // elem)) * gy * 2 <= 132 else 32)
+        lanes = tk.K1_WARPS * 32 // tile
+        assert 32 % tile == 0 and blocks >= tk.K1_WARPS and (blocks < lanes or blocks % lanes == 0)
+        assert tk.k1_smem_bytes(5632 // 8, elem, tile, blocks, b, depth, n, masked) \
+            <= tk.SMEM_LIMIT_BYTES
+        assert (tk._k1_xrec(b, masked, n) == 0) == ((min(b, 8) + masked) * n * 4 <= 80 * 1024)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ("mlp",) + K1_CASES)
 @pytest.mark.parametrize("depth", (0, 1, 2, 3))
 @pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
-def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype):
+def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype, case):
     rng = np.random.default_rng(40 + depth)
+    if case != "mlp":
+        w, x, st, sz = k1_case(rng, case, dtype)
+        _, tw, sc = _weights_from(w, dtype)
+        xs = torch.from_numpy(x).to(cuda)
+        sc = None if sc is None else sc[1]
+        y = tk.chunk_gather_matmul_dma(tw.to(cuda), xs, st.to(cuda), sz.to(cuda),
+                                       None if sc is None else sc.to(cuda),
+                                       prefetch_depth=depth)
+        assert torch.equal(y, tk.chunk_gather_matmul_plain(tw.to(cuda), xs, st.to(cuda),
+                                                           sz.to(cuda),
+                                                           None if sc is None else sc.to(cuda)))
+        if case == "empty":
+            assert float(y.abs().max()) == 0.0
+        g = tk.k1_geometry(w.shape[1], x.shape[0], tw.element_size(),
+                           torch.cuda.get_device_properties(cuda).multi_processor_count, depth,
+                           w.shape[0])
+        from repro_torch.kernels.build import library
+
+        assert library("chunk_gather.cu").k1_smem_bytes(
+            tk._WTYPE[tw.dtype], g["tile"], g["blocks"], x.shape[0], 0, w.shape[0], depth,
+            st.shape[0]) == tk.k1_smem_bytes(st.shape[0], tw.element_size(), g["tile"],
+                                             g["blocks"], x.shape[0], depth, w.shape[0])
+        return
     wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype, 256, 704, 256)
     tw = [w[1].to(cuda) for w in (wg, wu, wd)]
     sc = None if dtype != "int8" else tuple(w[2][1].to(cuda) for w in (wg, wu, wd))

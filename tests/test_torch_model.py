@@ -43,7 +43,7 @@ def pair():
     jp = {**jp, "layers": layers}
     tp = params_from_reference(jax.device_get(jp), tcfg, "cpu")
     jb = jbatch(jcfg, JShape("t", 12, 2, "train"))
-    tb = tbatch(tcfg, TShape("t", 12, 2, "train"))
+    tb = tbatch(tcfg, TShape("t", 12, 2, "train"), device="cpu")
     return jcfg, tcfg, jm, tm, jp, tp, jb, tb
 
 
@@ -136,3 +136,30 @@ def test_build_model_refuses_unported_families():
         tbuild(cfg)
     with pytest.raises(KeyError):
         tget("internvl2-76b")
+
+
+@pytest.mark.parametrize("entry", ["init", "init_cache", "params_from_reference",
+                                   "make_dummy_batch"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a device the entry points run on ``cuda``: with no card they
+    raise instead of falling back to the CPU; ``device="cpu"`` still runs.
+    Whether there is a card is decided here, by the patched probe."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = tget("tinyllama-1.1b").reduced()
+    model = tbuild(tcfg)
+    calls = {
+        "init": lambda **kw: model.init(seed=0, **kw),
+        "init_cache": lambda **kw: model.init_cache(2, 16, **kw),
+        "params_from_reference": lambda **kw: params_from_reference(
+            {k: v.float().numpy() if not isinstance(v, dict)
+             else {n: t.float().numpy() for n, t in v.items()}
+             for k, v in model.init(seed=0, device="cpu").items()}, tcfg, **kw),
+        "make_dummy_batch": lambda **kw: tbatch(tcfg, TShape("t", 8, 2, "train"), **kw),
+    }
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    leaves = [out] if isinstance(out, torch.Tensor) else [
+        t for v in out.values() for t in (v.values() if isinstance(v, dict) else [v])
+        if isinstance(t, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)

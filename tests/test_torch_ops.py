@@ -36,6 +36,9 @@ from repro_torch.kernels import chunk_gather_dma as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+# the K1-body edge cases, shared with the K1 suite
+from test_torch_kernels import K1_CASES, k1_case  # noqa: E402
+
 # the package exports functions of the same names as these modules
 tk3 = importlib.import_module("repro_torch.kernels.chunk_gather_matmul")
 tk4 = importlib.import_module("repro_torch.kernels.chunk_gather_swiglu")
@@ -206,10 +209,22 @@ def test_port_only_wrapper_errors_and_no_cpu_launch():
 def test_table_smem_guard(n_mat, depth, elem):
     """The kernels hold the whole table in shared memory (8 bytes an
     entry): every full-width TinyLlama table fits, and a table too long
-    raises a ValueError naming K instead of falling back."""
+    raises a ValueError naming K instead of falling back. For the K1 body
+    (n_mat 1) the rest is its ``K1Layout``: ring stages of padded tiles,
+    scales and row offsets, the partial buffer's halves, the x slab (8 rows
+    of W's 8 input values), the block-list window."""
     w = torch.zeros((8, 64), dtype={1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[elem])
-    ring = tk.table_smem_bytes(0, elem, n_mat, depth)
-    assert tk.table_smem_bytes(10, elem, n_mat, depth) == ring + 80
+    ring = tk.table_smem_bytes(0, elem, n_mat, depth, n=8)
+    assert tk.table_smem_bytes(10, elem, n_mat, depth, n=8) == ring + 80
+    if n_mat == 1:
+        g = tk.k1_geometry(32, 8, elem, 1, depth, 8)
+        tile, blocks = g["tile"], g["blocks"]
+        assert tile * elem == 32
+        stage = blocks * 9 * tile * elem + 2 * (-(-blocks * 4 // 16) * 16)
+        window = blocks * max(1, tk.K1_WINDOW_BLOCKS // blocks)
+        pstride = -(-blocks // 32) * 32 + 4
+        assert ring == ((depth + 1) * stage + 2 * 8 * tile * pstride * 4 + 8 * 8 * 4 + 4 * window
+                        + 4)
     tk.check_table_fits(5632 // 8, w, n_mat, depth, "k")
     k_max = (tk.SMEM_LIMIT_BYTES - ring) // 8
     tk.check_table_fits(k_max, w, n_mat, depth, "k")
@@ -373,9 +388,18 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ("mlp",) + K1_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k3_k4_kernels_bitwise_equal_plain_k1_k2(cuda, dtype):
+def test_k3_k4_kernels_bitwise_equal_plain_k1_k2(cuda, dtype, case):
     rng = np.random.default_rng(60)
+    if case != "mlp":
+        w, x, s, z = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                      for a in k1_case(rng, case, "f32"))
+        w, x, s, z = w.to(cuda, dtype), x.to(cuda), s.to(cuda), z.to(cuda)
+        y = tk3.chunk_gather_matmul(w, x, s, z, tile_d=8)
+        assert torch.equal(y, tk.chunk_gather_matmul_plain(w, x, s, z))
+        assert torch.equal(y, tk.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=1))
+        return
     n, f, d = 256, 704, 256
     wg, wu, wd = (torch.from_numpy(rng.normal(0, 1, shp).astype(np.float32)).to(cuda, dtype)
                   for shp in ((n, f), (n, f), (f, d)))

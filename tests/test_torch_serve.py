@@ -39,7 +39,7 @@ def pair():
     jp = jm.init(jax.random.key(0))
     tp = params_from_reference(jax.device_get(jp), tcfg, "cpu")
     jb = jbatch(jcfg, JShape("t", 16, 2, "train"))
-    tb = tbatch(tcfg, TShape("t", 16, 2, "train"))
+    tb = tbatch(tcfg, TShape("t", 16, 2, "train"), device="cpu")
     return jm, tm, jp, tp, jb, tb
 
 
