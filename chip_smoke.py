@@ -11,30 +11,36 @@ Phases, each of which fails the run on error:
   2. the build: every kernel source of ``kernels/csrc`` compiled from this
      checkout (one nvcc per source, in parallel), ptxas's register /
      shared-memory / spill report per kernel;
-  3. kernel vs plain, bitwise: K1, K2 and K5 against their plain PyTorch
-     versions (and K1/K2 against the reference backend's twin) at the full
-     TinyLlama-1.1B shapes, on tables from real selections at sparsity 0.4,
-     bf16 and int8, prefetch depths 0/1/2, plus the edge cases of the
-     reference's kernel suite (all-padded table, one 512-row chunk,
-     K >> real chunks, ±127 int8 saturation); K1 and K3 on shapes that
-     stress the K1 body's partition of the work (batch 1, 8 and 9, D = 256
-     and a ragged D, fewer blocks than a CTA's lane groups, the empty table,
-     one 512-row chunk, K >> chunks, blocks outside [0, N), a block list
-     longer than its window, x too large to hold whole), bf16/f32/int8 at
-     depths 0-3, and the C and Python shared-memory layouts against each
-     other; and the reduced model on the card against the same model on the
-     CPU;
+  3. kernel vs plain, bitwise: K5 over a refresh step's 88 lanes (every
+     site of every layer) against its plain walk; K1 and K2 against their
+     plain PyTorch versions (and against the reference backend's twin) at
+     the full TinyLlama-1.1B shapes, on tables from real selections at
+     sparsity 0.4, bf16 and int8, prefetch depths 0/1/2, plus the edge
+     cases of the reference's kernel suite (all-padded table, one 512-row
+     chunk, K >> real chunks, ±127 int8 saturation); the body of K1-K4 on
+     shapes that stress its partition of the work (batch 1, 8 and 9, D =
+     256 and a ragged D, fewer blocks than a CTA's lane groups, the empty
+     table, one 512-row chunk, K >> chunks, blocks outside [0, N), a block
+     list longer than its window, x too large to hold whole), over one
+     weight stream (K1, K3) and two (K2's phase 1, K4; plus ±127 int8
+     saturation), bf16/f32/int8 at depths 0-3, and the C and Python
+     shared-memory layouts against each other; and the reduced model on
+     the card against the same model on the CPU;
   4. the serve run: full-width tinyllama-1.1b, all 22 layers, random
      weights from a seed, ``--method chunk --backend kernel``, batch 2,
      prompt 32, 16 decode tokens, at wbits 16 and 8 — the launch counters
-     must equal the per-step counts, and the same settings on the reference
-     backend must give byte-identical tokens;
-  5. the timings: each kernel over the serve run's own per-layer tables and
-     weights (device time, from replays of a CUDA graph of the calls),
-     beside its plain version (host clock), the dense library
-     product where there is one, and its bound (the larger of the bytes the
-     call must move over 3.35 TB/s and its flops over the fp32 peak); K1
-     also per site (q, k, v, o), since k/v's narrow grid hides in the mean;
+     must equal the per-step counts (K5 once per refresh step), and the
+     same settings on the reference backend must give byte-identical
+     tokens;
+  5. the timings: each kernel over the serve run's own tables and weights
+     (device time, from replays of a CUDA graph of the calls), beside its
+     plain version (host clock), the dense library product where there is
+     one, and its bound (the larger of the bytes the call must move over
+     3.35 TB/s and its flops over the fp32 peak); K1 also per site (q, k,
+     v, o), since k/v's narrow grid hides in the mean; K2's phase 1 alone
+     beside the whole of K2; K5 over the run's own refresh-step input (all
+     88 lanes in one launch), with each lane's candidates walked,
+     survivors of the batch test and picks;
   6. the per-matrix library path on phase 4's weights: every offloaded
      matrix of every layer planned with ``NeuronChunkingPlanner`` (the walk
      is K5) at sparsity 0.4, K3 on q/k/v/o/down and K4 on gate/up off the
@@ -42,7 +48,8 @@ Phases, each of which fails the run on error:
      K3/K4 bitwise against their plain versions, K3 against K1 at depth 1,
      K4 against K2's h, the tables against ``masks_to_block_tables``, the
      one-lane walk against the plain walk; planning statistics against
-     top-k; K3/K4 timed as in phase 5, K3 also per site (q, k, v, o, down).
+     top-k; K3/K4 timed as in phase 5, K3 also per site (q, k, v, o, down),
+     and K5's one-lane walks of the planner.
 
 Prints the kernel table as one JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
@@ -68,7 +75,9 @@ BATCH, PROMPT, DECODE, REF_DECODE, PROFILE_TOKENS = 2, 32, 16, 4, 4
 # tile the kernels are asked for (the CUDA kernels tile by 64 columns)
 LIB_ROWS, LIB_SPARSITY, LIB_TILE = 16, 0.4, 64
 DEPTHS = (0, 1, 2)
-TIME_SELECTION_LAUNCHES = 6  # SparseExecution.time_selection: 1 warm-up + 5 timed
+# SparseExecution.time_selection: 1 warm-up + 5 timed refresh steps, one K5
+# launch each
+TIME_SELECTION_LAUNCHES = 6
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -105,6 +114,79 @@ def k1_case(case, wname, randn, dev):
     elif wname == "int8":
         w, sc = quantize_rows(w, 8)
     return w, randn(b, n), st, sz, sc
+
+
+def k2_case(case, wname, randn, dev):
+    """(w_gate, x, starts, sizes, gate scales, w_up, up scales) for one edge
+    case of the body over two weight streams: K1's cases with a second
+    matrix of the same shape, and "sat", int8 blocks saturated at ±127 in
+    one 512-row chunk."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize_rows
+
+    if case == "sat":
+        n, d = 512, 256
+        sat = torch.zeros(n, d, device=dev)
+        sat[:8], sat[8:16], sat[16:24, 0] = 4.0, -4.0, 1e-3
+        wg, sg = quantize_rows(sat, 8)
+        wu, su = quantize_rows(-sat, 8)
+        st = torch.zeros(n // 8, dtype=torch.int32, device=dev)
+        sz = st.clone()
+        sz[0] = n
+        return wg, randn(2, n), st, sz, sg, wu, su
+    wg, x, st, sz, sg = k1_case(case, wname, randn, dev)
+    wu, su = randn(*wg.shape), None
+    if wname == "bf16":
+        wu = wu.to(torch.bfloat16)
+    elif wname == "int8":
+        wu, su = quantize_rows(wu, 8)
+    return wg, x, st, sz, sg, wu, su
+
+
+def gate_up(wg, wu, x, starts, sizes, sg, su, depth):
+    """K2's phase 1 alone (``k2_gate_up``: h off one table) at ring depth
+    ``depth``; its plain version on the CPU."""
+    from repro_torch.kernels import chunk_gather_dma as cg
+
+    if x.device.type == "cpu":
+        return cg.chunk_gather_swiglu_plain(wg, wu, x, starts, sizes,
+                                            None if sg is None else (sg, su))
+    return cg._launch_k2_gate_up(wg, wu, x, starts, sizes, sg, su, 512, depth)
+
+
+def walk_stats(starts_s, sizes_s, budgets, min_sizes, n_max):
+    """What K5's walk meets in each lane of one launch, replayed on the host
+    in the kernel's batches of 32: candidates walked (whole batches, to the
+    early exit), survivors of the test against the selection at the batch's
+    start, picks, batches with two or more survivors, and the rows
+    selected."""
+    out = {"walked": [], "survivors": [], "picks": [], "crowded_batches": [], "selected": []}
+    for st, sz, budget, mn in zip(starts_s.cpu().tolist(), sizes_s.cpu().tolist(),
+                                  budgets.cpu().tolist(), min_sizes.cpu().tolist()):
+        m = bytearray(n_max)
+        sel = walked = survivors = picks = crowded = 0
+        done = sel + mn > budget
+        for b0 in range(0, len(st), 32):
+            if done:
+                break
+            batch = list(zip(st[b0:b0 + 32], sz[b0:b0 + 32]))
+            walked += len(batch)
+            live = [(s0, z0) for s0, z0 in batch if 0 < z0 <= budget - sel and s0 >= 0
+                    and s0 + z0 <= n_max and 1 not in m[s0:s0 + z0]]
+            survivors += len(live)
+            crowded += len(live) > 1
+            for s0, z0 in live:  # one by one, in order, against the batch's own picks
+                if z0 > budget - sel or 1 in m[s0:s0 + z0]:
+                    continue
+                m[s0:s0 + z0] = b"\x01" * z0
+                sel, picks = sel + z0, picks + 1
+                if sel + mn > budget:
+                    done = True
+                    break
+        for key, v in zip(out, (walked, survivors, picks, crowded, sel)):
+            out[key].append(v)
+    return out
 
 
 def per_site(calls, sites, bounds_s, run, run_lib, cuda_ms):
@@ -297,19 +379,21 @@ def run(dev, cfg, card, report):
     x_mlp = randn(BATCH, d).to(torch.bfloat16)
     walked_full = {}
     for wbits in (16, 8):
+        # K5 over a refresh step's lanes: every site of every layer
         sp = SparseExecution(cfg, sparsity=0.4, wbits=wbits, torch_device=dev)
-        vs = randn(sp.batched.n_sites, sp.batched.n_max).abs()
-        starts_s, sizes_s = sp.batched.sorted_candidates(vs)
-        masks_k, sel_k = chunking.greedy_select(starts_s, sizes_s, sp._budgets,
-                                                sp.batched.min_sizes, sp.batched.n_max)
+        b = sp.batched
+        lanes = n_layers * b.n_sites
+        vs = randn(n_layers, b.n_sites, b.n_max).abs()
+        starts_s, sizes_s = (t.reshape(lanes, -1) for t in b.sorted_candidates(vs))
+        k5_args = (starts_s, sizes_s, sp.lane_budgets, sp.lane_min_sizes,
+                   b.n_max)
+        masks_k, sel_k = chunking.greedy_select(*k5_args)
         walked = []
-        masks_p, sel_p = chunking.greedy_select_plain(starts_s, sizes_s, sp._budgets,
-                                                      sp.batched.min_sizes, sp.batched.n_max,
-                                                      walked)
+        masks_p, sel_p = chunking.greedy_select_plain(*k5_args, walked)
         walked_full[wbits] = walked
-        check("greedy_select", f"w{wbits} masks", masks_k, masks_p)
-        check("greedy_select", f"w{wbits} selected", sel_k, sel_p)
-        masks = masks_k & sp.batched.row_valid
+        check("greedy_select", f"w{wbits} {lanes} lanes masks", masks_k, masks_p)
+        check("greedy_select", f"w{wbits} {lanes} lanes selected", sel_k, sel_p)
+        masks = masks_k[: b.n_sites] & b.row_valid
         st, sz = cg.masks_to_block_tables(masks, 8, 512)
         lane = {k: i for i, k in enumerate(sp.site_order)}
         m = {k: masks[lane[k], : sp.sites[k].n] for k in sp.site_order}
@@ -405,7 +489,7 @@ def run(dev, cfg, card, report):
                                    sm_count(dev) if on_card else 132, depth, w.shape[0])
                 if on_card and library("chunk_gather.cu").k1_smem_bytes(
                         cg._WTYPE[w.dtype], g["tile"], g["blocks"], xk.shape[0], 0, w.shape[0],
-                        depth, s.shape[0]) != cg.k1_smem_bytes(
+                        depth, s.shape[0], 1) != cg.k1_smem_bytes(
                             s.shape[0], w.element_size(), g["tile"], g["blocks"], xk.shape[0],
                             depth, w.shape[0]):
                     failures.append(f"k1_smem_bytes: C and Python differ ({case} {wname})")
@@ -414,6 +498,36 @@ def run(dev, cfg, card, report):
             if wname != "int8":
                 check("chunk_gather_matmul", f"case {case} {wname}",
                       k3.chunk_gather_matmul(w, xk, s, z, tile_d=8), want)
+
+    # the same body over two weight streams (K2's phase 1, and K4 at depth
+    # 1) on the same shapes, plus int8 ±127 saturation: h bitwise equal to
+    # the plain SwiGLU gather, and the C and Python layouts equal
+    k4 = importlib.import_module("repro_torch.kernels.chunk_gather_swiglu")
+    for case in K1_CASES + ("sat",):
+        for wname in ("bf16", "f32", "int8"):
+            if case == "sat" and wname != "int8":
+                continue
+            wg, xk, s, z, sg, wu, su = k2_case(case, wname, randn, dev)
+            want = cg.chunk_gather_swiglu_plain(wg, wu, xk, s, z,
+                                                None if sg is None else (sg, su))
+            for depth in range(cg.MAX_PREFETCH_DEPTH + 1):
+                h = gate_up(wg, wu, xk, s, z, sg, su, depth)
+                check("chunk_gather_mlp_dma", f"phase 1 case {case} {wname} d{depth}", h, want)
+                g = cg.k1_geometry(wg.shape[1], xk.shape[0], wg.element_size(),
+                                   sm_count(dev) if on_card else 132, depth, wg.shape[0],
+                                   nmat=2)
+                if on_card and library("chunk_gather.cu").k1_smem_bytes(
+                        cg._WTYPE[wg.dtype], g["tile"], g["blocks"], xk.shape[0], 0,
+                        wg.shape[0], depth, s.shape[0], 2) != cg.k1_smem_bytes(
+                            s.shape[0], wg.element_size(), g["tile"], g["blocks"],
+                            xk.shape[0], depth, wg.shape[0], nmat=2):
+                    failures.append(f"k1_smem_bytes (2 streams): C and Python differ "
+                                    f"({case} {wname})")
+            if case == "empty" and float(h.abs().max()) != 0.0:
+                failures.append(f"K2 phase 1: empty table is not exact zero ({wname})")
+            if wname != "int8":
+                check("chunk_gather_swiglu", f"case {case} {wname}",
+                      k4.chunk_gather_swiglu(wg, wu, xk, s, z, tile_f=8), want)
 
     # the reduced model on the card against the same model on the CPU
     rcfg = cfg.reduced()
@@ -471,7 +585,7 @@ def run(dev, cfg, card, report):
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         want = {"chunk_gather_matmul_dma": 4 * n_layers * DECODE,
                 "chunk_gather_mlp_dma": n_layers * DECODE,
-                "greedy_select": n_layers * DECODE + TIME_SELECTION_LAUNCHES}
+                "greedy_select": DECODE + TIME_SELECTION_LAUNCHES}
         if on_card and launches != want:
             fail(f"w{wbits}: launch counts {launches} != per-step counts {want}")
         if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
@@ -539,8 +653,8 @@ def run(dev, cfg, card, report):
         el = 2 if wbits == 16 else 1
         k1_calls, k2_calls, k5_inputs = [], [], []
         k1_sites, k1_bounds = [], []
-        k1_bytes = k1_ops = k2_bytes = k2_ops = 0.0
-        k1_bound = k2_bound = 0.0
+        k1_bytes = k1_ops = k2_bytes = k2_ops = g1_bytes = g1_ops = 0.0
+        k1_bound = k2_bound = g1_bound = 0.0
         for layer in range(n_layers):
             for name, site, n_in in (("wq", "hidden_attn", d), ("wk", "hidden_attn", d),
                                      ("wv", "hidden_attn", d), ("wo", "attn_out", hd_all)):
@@ -573,11 +687,21 @@ def run(dev, cfg, card, report):
             ops = 2.0 * BATCH * (2 * rh * f + rf * d)
             k2_bytes, k2_ops = k2_bytes + byts, k2_ops + ops
             k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-            vs = torch.zeros((sp.batched.n_sites, sp.batched.n_max), device=dev)
-            for i, kind in enumerate(sp.site_order):
-                vs[i, : sp.sites[kind].n] = plan[kind]["pending"][layer]
-            k5_inputs.append((*sp.batched.sorted_candidates(vs), sp._budgets,
-                              sp.batched.min_sizes, sp.batched.n_max))
+            # K2's phase 1 alone: gate and up in, h out
+            byts = (2 * rh * f * el + (2 * rh // 8 * 4 if scs is not None else 0)
+                    + BATCH * d * 4 + 2 * 4 * st.shape[1] + BATCH * f * 4)
+            ops = 2.0 * BATCH * 2 * rh * f
+            g1_bytes, g1_ops = g1_bytes + byts, g1_ops + ops
+            g1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        # K5 over the run's own refresh-step input: every layer's sites from
+        # the importances the last step recorded, one launch
+        b = sp.batched
+        lanes = n_layers * b.n_sites
+        vs = torch.zeros((n_layers, b.n_sites, b.n_max), device=dev)
+        for i, kind in enumerate(sp.site_order):
+            vs[:, i, : sp.sites[kind].n] = plan[kind]["pending"]
+        k5_inputs.append((*(t.reshape(lanes, -1) for t in b.sorted_candidates(vs)),
+                          sp.lane_budgets, sp.lane_min_sizes, b.n_max))
         n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
 
         def run_k1(plain=False, calls=k1_calls):
@@ -599,6 +723,15 @@ def run(dev, cfg, card, report):
                 else:
                     cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, return_h=True)
 
+        def run_gate_up(plain=False):
+            for wg, wu, _, xm, st, sz, _, scs in k2_calls:
+                sg, su = (None, None) if scs is None else scs[:2]
+                if plain:
+                    cg.chunk_gather_swiglu_plain(wg, wu, xm, st[0], sz[0],
+                                                 None if scs is None else (sg, su))
+                else:
+                    gate_up(wg, wu, xm, st[0], sz[0], sg, su, 1)
+
         def run_k5(plain=False, walked=None):
             fn = chunking.greedy_select_plain if plain else chunking.greedy_select
             for args in k5_inputs:
@@ -609,8 +742,11 @@ def run(dev, cfg, card, report):
 
         walked = []
         t_k5_plain = host_ms(lambda: run_k5(True, walked)) / n5
-        k5_bytes = sum(walked) * 8 + n5 * sp.batched.n_sites * (sp.batched.n_max + 12)
+        k5_bytes = sum(walked) * 8 + n5 * lanes * (b.n_max + 12)
         k5_bound = k5_bytes / HBM_BYTES_PER_S / n5
+        k5_lanes = walk_stats(*k5_inputs[0])
+        if k5_lanes["selected"] != chunking.greedy_select(*k5_inputs[0])[1].tolist():
+            fail(f"w{wbits}: the replayed K5 walk selects other rows than the kernel")
         timing[wbits] = {
             "chunk_gather_matmul_dma": {
                 "ms": cuda_ms(run_k1, 20) / n1, "plain_ms": host_ms(lambda: run_k1(True)) / n1,
@@ -627,9 +763,25 @@ def run(dev, cfg, card, report):
                 "calls": n2, "bytes_per_call": k2_bytes / n2},
             "greedy_select": {
                 "ms": cuda_ms(run_k5, 5) / n5, "plain_ms": t_k5_plain, "library_ms": None,
-                "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5,
-                "walked_per_lane": sum(walked) / max(len(walked), 1)},
+                "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5, "lanes": lanes,
+                "walked_per_lane": sum(walked) / max(len(walked), 1), "per_lane": k5_lanes},
         }
+        phase1 = {"ms": cuda_ms(run_gate_up, 20) / n2,
+                  "plain_ms": host_ms(lambda: run_gate_up(True)) / n2,
+                  "bound_ms": g1_bound / n2 * 1e3,
+                  "bound_by": "bytes" if g1_bytes / HBM_BYTES_PER_S >= g1_ops / F32_OPS_PER_S
+                  else "operations"}
+        timing[wbits]["chunk_gather_mlp_dma"]["phase1"] = phase1
+        log(f"[time] w{wbits} chunk_gather_mlp_dma phase 1 alone (k2_gate_up): "
+            f"{phase1['ms'] * 1e3:.1f} us/launch  bound {phase1['bound_ms'] * 1e3:.2f} us "
+            f"({phase1['bound_by']})  plain {phase1['plain_ms'] * 1e3:.1f} us  ({card})")
+        worst = max(range(lanes), key=lambda i: k5_lanes["walked"][i])
+        log(f"[time] w{wbits} greedy_select over {lanes} lanes: per lane walked mean "
+            f"{sum(k5_lanes['walked']) / lanes:.0f} max {k5_lanes['walked'][worst]} (lane {worst}), "
+            f"survivors mean {sum(k5_lanes['survivors']) / lanes:.0f} max "
+            f"{max(k5_lanes['survivors'])}, picks mean {sum(k5_lanes['picks']) / lanes:.1f} max "
+            f"{max(k5_lanes['picks'])}, batches with 2+ survivors "
+            f"{sum(k5_lanes['crowded_batches'])}  ({card})")
         sites = per_site(k1_calls, k1_sites, k1_bounds, run_k1,
                          run_k1_lib if wbits == 16 else None, cuda_ms)
         timing[wbits]["chunk_gather_matmul_dma"]["per_site"] = sites
@@ -761,6 +913,7 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
 
     # -- checks, outside the counted run --------------------------------------
     k5_err = 0.0
+    one_lane = []  # the planner's one-lane K5 inputs, for its timing
     for layer, rec in enumerate(calls):
         for kind, r in rec.items():
             what = f"L{layer} {kind}"
@@ -776,6 +929,7 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
                                   dtype=torch.int32, device=dev)
             m_p, sel_p = chunking.greedy_select_plain(st_s, sz_s, budget, batched.min_sizes,
                                                       batched.n_max)
+            one_lane.append((st_s, sz_s, budget, batched.min_sizes, batched.n_max))
             if not (torch.equal(m_p[0] & batched.row_valid[0], ours.mask)
                     and int(sel_p[0]) == int(ours.n_selected)):
                 failures.append(f"greedy_select {what}: the one-lane walk differs from the "
@@ -911,6 +1065,14 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
     }
     sites = per_site(k3_calls, k3_sites, k3_bounds, run_k3, run_k3_lib, cuda_ms)
     timing["chunk_gather_matmul"]["per_site"] = sites
+
+    def run_k5_one_lane():
+        for args in one_lane:
+            chunking.greedy_select(*args)
+
+    one_lane_ms = cuda_ms(run_k5_one_lane, 5) / len(one_lane)
+    log(f"[time] greedy_select one lane (the planner's walks, mean of {len(one_lane)}): "
+        f"{one_lane_ms * 1e3:.1f} us/launch  ({card})")
     log(f"[time] chunk_gather_matmul per site: {site_line(sites)}  ({card})")
     for k, v in timing.items():
         lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
@@ -918,6 +1080,7 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
             f"library {lib}  bound {v['bound_ms'] * 1e3:.2f} us ({v['bound_by']})  "
             f"over {v['calls']} calls  ({card})")
     return timing, launches, {"stats": stats, "wall_s": wall, "k5_err": k5_err,
+                              "k5_one_lane_ms": one_lane_ms,
                               "quickstart_max_err": qs["max_err"]}
 
 

@@ -9,10 +9,11 @@ utility taking non-overlapping windows that fit the remaining budget.
   * ``select_chunks_np`` — the literal numpy transcription (test oracle),
     identical to the reference's.
   * ``ChunkSelector.select`` — one site, as a one-lane batched problem.
-  * ``BatchedChunkSelector`` — all of a layer's sites as one padded
-    problem. Scoring and the stable sort are torch; the sequential greedy
-    walk is kernel K5 (``greedy_select``), because as a loop of torch ops it
-    would sync with the host once per candidate.
+  * ``BatchedChunkSelector`` — a layer's sites as one padded problem, or
+    every layer's at once (one lane per layer and site). Scoring and the
+    stable sort are torch; the sequential greedy walk is kernel K5
+    (``greedy_select``), because as a loop of torch ops it would sync with
+    the host once per candidate.
 """
 from __future__ import annotations
 
@@ -179,15 +180,18 @@ class ChunkSelector:
 #
 # Kernel: kernels/csrc/greedy_select.cu (not a TPU kernel — the reference's
 # walk is a while_loop, but on this path it is the one sequential step).
-# Bound on the H100: neither bytes nor FLOPs — a dependent chain of one
-# overlap test per candidate, so latency per step. Design: one warp per site
-# lane, the selected-row mask as a bitmask in shared memory (a window of
-# ≤ 128 rows touches ≤ 5 words, tested by the warp's lanes in parallel and
-# combined with __any_sync), candidates read 32 at a time with one coalesced
-# load and broadcast by shuffle, and the walk exits as soon as the remaining
-# budget cannot fit the lane's smallest candidate. A single walk to K with
-# that exit selects exactly what the reference's two segments (top-C, then
-# the rest) select.
+# Bound on the H100: neither bytes nor FLOPs — a dependent chain of overlap
+# tests, and one warp per lane issues one instruction a cycle at best, so
+# the work per candidate walked. Design: one launch per refresh step over
+# every lane of every layer (one warp each, side by side on the SMs); the
+# selection as "the first selected row at or after row i" in shared memory,
+# so testing a window is one load and one compare; candidates staged by
+# cp.async and taken 32 at a time, each lane testing its own against the
+# selection, and the rare survivors of that test taken one by one in
+# candidate order. The walk exits
+# as soon as the remaining budget cannot fit the lane's smallest candidate.
+# A single walk to K with that exit selects exactly what the reference's two
+# segments (top-C, then the rest) select.
 
 LAUNCHES = {"greedy_select": 0}
 
@@ -264,8 +268,10 @@ def greedy_select(starts_s: torch.Tensor, sizes_s: torch.Tensor,
 class BatchedChunkSelector:
     """All of a layer's sparsification sites as ONE padded selection
     problem: per site identical to ``select_chunks_np`` (same utility, same
-    stable tie-breaking, same budget rule) — one scoring pass, one stable
-    sort and one K5 launch per layer refresh."""
+    stable tie-breaking, same budget rule). ``select`` also takes every
+    layer's sites at once — (L·S) lanes, the (S, K) candidate arrays
+    broadcast over the layers — for one scoring pass, one stable sort and
+    one K5 launch per refresh step."""
 
     n_sites: int
     n_max: int
@@ -284,7 +290,8 @@ class BatchedChunkSelector:
             raise ValueError("need at least one ChunkSelector to batch")
         n_sites = len(sels)
         n_max = max(s.n for s in sels)
-        k_max = max(s.num_candidates for s in sels)
+        # K padded to a multiple of 4: K5 stages four candidates a copy
+        k_max = -(-max(s.num_candidates for s in sels) // 4) * 4
         t_max = max(max(s.table.max_rows, s.max_size) for s in sels)
         starts = np.zeros((n_sites, k_max), np.int64)
         sizes = np.zeros((n_sites, k_max), np.int64)
@@ -309,35 +316,50 @@ class BatchedChunkSelector:
             min_sizes=dev(min_sizes), site_ns=tuple(s.n for s in sels),
         )
 
-    def select(self, v: torch.Tensor, budgets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """v: (n_sites, n_max) padded importances; budgets: (n_sites,) int32.
-        Returns (masks (n_sites, n_max) bool, selected (n_sites,) int32)."""
-        starts_s, sizes_s = self.sorted_candidates(v)
-        masks, selected = greedy_select(starts_s, sizes_s, budgets.to(torch.int32),
-                                        self.min_sizes, self.n_max)
-        return masks & self.row_valid, selected
+    def select(self, v: torch.Tensor, budgets: torch.Tensor,
+               min_sizes: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """v: (L·n_sites, n_max) padded importances, layer-major (L = 1 for
+        one layer); budgets: (L·n_sites,) int32; min_sizes: the lanes'
+        smallest candidates, (L·n_sites,) int32 (``min_sizes`` repeated L
+        times if not given). Returns (masks (L·n_sites, n_max) bool,
+        selected (L·n_sites,) int32) from one K5 launch."""
+        lanes = v.shape[0]
+        if v.ndim != 2 or lanes % self.n_sites or v.shape[1] != self.n_max:
+            raise ValueError(f"v must be (L * {self.n_sites}, {self.n_max}), "
+                             f"got {tuple(v.shape)}")
+        n_layers = lanes // self.n_sites
+        if min_sizes is None:
+            min_sizes = self.min_sizes.repeat(n_layers)
+        starts_s, sizes_s = self.sorted_candidates(v.reshape(n_layers, self.n_sites, self.n_max))
+        masks, selected = greedy_select(starts_s.reshape(lanes, -1), sizes_s.reshape(lanes, -1),
+                                        budgets.to(torch.int32), min_sizes, self.n_max)
+        masks = (masks.reshape(n_layers, self.n_sites, self.n_max) & self.row_valid)
+        return masks.reshape(lanes, self.n_max), selected
 
     def sorted_candidates(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every lane's candidates in descending-utility order, ties by
-        candidate index: (starts, sizes), each (n_sites, K) int32, size 0 =
-        padding — K5's input.
+        candidate index: v (..., n_sites, n_max) → (starts, sizes), each
+        (..., n_sites, K) int32, size 0 = padding — K5's input. The (S, K)
+        candidate arrays broadcast over the leading axes (views, no copies).
 
         The window benefits come from a prefix sum accumulated in float64
         and rounded once to float32, so the CPU and the card agree whenever
         the float64 sums are exact (always for the dyadic importances the
         parity tests use)."""
         v = v.to(torch.float32) * self.row_valid
-        csum = torch.cumsum(v, dim=1, dtype=torch.float64).to(torch.float32)
+        csum = torch.cumsum(v, dim=-1, dtype=torch.float64).to(torch.float32)
         cumsum = torch.nn.functional.pad(csum, (1, 0))
-        ends = self.starts + self.sizes
-        benefit = cumsum.gather(1, ends) - cumsum.gather(1, self.starts)
+        shape = cumsum.shape[:-1] + self.starts.shape[-1:]
+        starts = self.starts.expand(shape)
+        benefit = cumsum.gather(-1, (self.starts + self.sizes).expand(shape)) \
+            - cumsum.gather(-1, starts)
         cost_rows = self.sizes.clamp(0, self.tables.shape[1] - 1)
         cost = self.tables.gather(1, cost_rows).clamp_min(1e-30)
-        score = torch.where(self.valid, benefit / cost,
-                            torch.full_like(benefit, -float("inf")))
-        order = torch.argsort(-score, dim=1, stable=True)
-        starts_s = self.starts.gather(1, order).to(torch.int32)
-        sizes_s = torch.where(self.valid.gather(1, order), self.sizes.gather(1, order),
+        score = torch.where(self.valid, benefit / cost, torch.full_like(benefit, -float("inf")))
+        order = torch.argsort(-score, dim=-1, stable=True)
+        starts_s = starts.gather(-1, order).to(torch.int32)
+        sizes_s = torch.where(self.valid.expand(shape).gather(-1, order),
+                              self.sizes.expand(shape).gather(-1, order),
                               torch.zeros_like(order)).to(torch.int32)
         return starts_s, sizes_s
 

@@ -41,10 +41,11 @@ SIGNATURES = {
         "k1_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "k2_gate_up": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "k3_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "k1_smem_bytes": [_I, _I, _I, _I, _I, _I, _I, _I],
-        "k4_chunk_gather_swiglu": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "k1_smem_bytes": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
+        "k4_chunk_gather_swiglu": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P],
     },
     "greedy_select.cu": {
         "k5_greedy_select": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],

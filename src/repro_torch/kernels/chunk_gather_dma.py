@@ -43,12 +43,15 @@ K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cu, ``k2_gate_up_kernel``
   ``repro/kernels/chunk_gather_dma.py::chunk_gather_mlp_dma`` (body
   ``_mlp_dma_kernel``). Bound: bytes, as K1. On the TPU it is one program
   because phase 2 needs all of h. Here it is two launches behind one
-  wrapper: phase 1 over F tiles streams each hidden-lane block of W_gate
-  and W_up once into the same ring stage, forms h = (g · 1/(1+e^−g)) · u
-  with ``expf`` and an IEEE reciprocal, and writes h; phase 2 is K1 over the
-  ffn lane with h multiplied by the exact ``ffn_mask`` at the gather. The
-  decode path asks for h anyway (``return_h``), so h leaving the chip adds
-  no traffic there.
+  wrapper, both on K1's body: phase 1 runs it over two weight streams that
+  share the hidden lane's table (each ring stage carries a block's W_gate
+  tile and its W_up tile; the forming warps write both streams' exact
+  partials; the owners keep two accumulators) and writes
+  h = (g · 1/(1+e^−g)) · u with ``expf`` and an IEEE reciprocal (geometry
+  ``k1_geometry(..., nmat=2)``: F = 5632 in bf16 gives 352 CTAs of 16
+  columns); phase 2 is K1 over the ffn lane with h multiplied by the exact
+  ``ffn_mask`` at the gather. The decode path asks for h anyway
+  (``return_h``), so h leaving the chip adds no traffic there.
 """
 from __future__ import annotations
 
@@ -61,14 +64,15 @@ MAX_PREFETCH_DEPTH = 3  # the CUDA ring is compiled for 1..4 stages
 # a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 64
 # for the kernels' static shared words (scan sums, stage mbarriers)
 SMEM_LIMIT_BYTES = 232448 - 64
-# K2 phase 1's ring in csrc/chunk_gather.cu (kTile, kStageBlocks, kBatchSlab)
-_TILE, _STAGE_BLOCKS, _BATCH_SLAB = 64, 8, 8
-# the K1 body's (K1, K2 phase 2, K3): 16 warps a CTA, a window of the flat
-# block list of up to K1_WINDOW_BLOCKS entries, the CTA's x rows held whole
-# up to K1_SLAB_BYTES (kK1Threads, kK1WindowBlocks, kK1SlabBytes); column
-# tiles of one 32-byte sector of a weight row, or half of one; ring stages of
-# up to K1_STAGE_BYTES, the ring and the partial buffers within what
-# K1_SMEM_BYTES leaves beside the x slab, the window and a full-width table
+# batch rows per CTA (kBatchSlab in csrc/chunk_gather.cu)
+_BATCH_SLAB = 8
+# the body of K1-K4: 16 warps a CTA, a window of the flat block list of up
+# to K1_WINDOW_BLOCKS entries, the CTA's x rows held whole up to
+# K1_SLAB_BYTES (kK1Threads, kK1WindowBlocks, kK1SlabBytes); column tiles of
+# one 32-byte sector of a weight row, or half of one; ring stages of up to
+# K1_STAGE_BYTES per weight stream, the ring and the partial buffers within
+# what K1_SMEM_BYTES leaves beside the x slab, the window and a full-width
+# table
 K1_WARPS, K1_WINDOW_BLOCKS, K1_SLAB_BYTES, K1_SECTOR_BYTES = 16, 1024, 80 * 1024, 32
 K1_STAGE_BYTES, K1_SMEM_BYTES = 32 * 1024, 190 * 1024
 
@@ -245,32 +249,42 @@ def _k1_xrec(batch: int, masked: bool, n: int) -> int:
 
 
 def k1_geometry(d: int, batch: int, elem_bytes: int, n_sm: int, prefetch_depth: int = 1,
-                n: int = 0, masked: bool = False) -> dict:
-    """The K1 body's launch geometry for W (n, d): ``tile`` output columns
-    per CTA and ``blocks`` table blocks per ring stage; the grid is
-    ``grid`` = (ceil(D / tile), ceil(B / 8)).
+                n: int = 0, masked: bool = False, nmat: int = 1) -> dict:
+    """The K1 body's launch geometry for ``nmat`` weight streams W (n, d)
+    sharing one table (1: K1, K3; 2: gate and up, K2's phase 1 and K4):
+    ``tile`` output columns per CTA and ``blocks`` table blocks per ring
+    stage; the grid is ``grid`` = (ceil(D / tile), ceil(B / 8)).
 
     A CTA's tile is one 32-byte sector of each weight row (16 bf16, 8 f32
     or 32 int8 columns): copies then fill whole sectors, and the CTAs of
     neighbouring tiles share the lines in L2. Where that leaves the grid
     under half the SMs (k/v's 256 columns), the tile halves to one 16-byte
-    copy a row, for twice the CTAs. A stage holds the blocks that fit in
-    ``K1_STAGE_BYTES``, and the ``prefetch_depth + 1`` stages with the two
+    copy a row, for twice the CTAs. A stage (every stream's tiles of its
+    blocks) holds the blocks that fit in ``K1_STAGE_BYTES`` per stream,
+    and the ``prefetch_depth + 1`` stages with the two
     partial halves in what ``K1_SMEM_BYTES`` leaves beside the x slab, in
     whole rounds of the CTA's lane groups (16 warps x 32 / tile) where it
-    holds one: few stages, so few serial stage latencies."""
+    holds one: few stages, so few serial stage latencies. Where not even
+    one block per warp would fit (two streams of wide int8 tiles for 8
+    rows), the tile halves too."""
     slabs = -(-batch // _BATCH_SLAB)
     tile = K1_SECTOR_BYTES // elem_bytes
     if -(-d // tile) * slabs * 2 <= n_sm:
         tile //= 2
-    lanes = K1_WARPS * (32 // tile)  # lane groups of a CTA: one block each
     xrec = _k1_xrec(batch, masked, n)
-    per_block = (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4 + 8
-    per_part = 2 * min(batch, _BATCH_SLAB) * tile * 4  # a block's share of the partials
-    room = (K1_SMEM_BYTES - (0 if xrec else (min(batch, _BATCH_SLAB) + int(masked)) * n * 4)
-            - 36 * per_part)  # the partial rows' padding (_k1_pstride)
-    blocks = max(K1_WARPS, min(K1_STAGE_BYTES // per_block,
-                               room // ((prefetch_depth + 1) * per_block + per_part)))
+    slab = 0 if xrec else (min(batch, _BATCH_SLAB) + int(masked)) * n * 4
+
+    def stage_blocks(tile):
+        per_block = nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4 + 4 * (nmat + 1)
+        per_part = 2 * nmat * min(batch, _BATCH_SLAB) * tile * 4  # a block's partials
+        room = K1_SMEM_BYTES - slab - 36 * per_part  # the partial rows' padding (_k1_pstride)
+        return min(nmat * K1_STAGE_BYTES // per_block,
+                   room // ((prefetch_depth + 1) * per_block + per_part))
+
+    while stage_blocks(tile) < K1_WARPS and tile * elem_bytes > 16:
+        tile //= 2
+    lanes = K1_WARPS * (32 // tile)  # lane groups of a CTA: one block each
+    blocks = max(K1_WARPS, stage_blocks(tile))
     if blocks >= lanes:
         blocks -= blocks % lanes
     return {"tile": tile, "blocks": blocks, "grid": (-(-d // tile), slabs)}
@@ -306,53 +320,33 @@ def _k1_pstride(blocks: int) -> int:
 
 
 def k1_smem_bytes(k: int, elem_bytes: int, tile: int, blocks: int, batch: int,
-                  prefetch_depth: int, n: int = 0, masked: bool = False) -> int:
-    """Dynamic shared memory of one K1/K3 CTA for W (n, D) (``K1Layout`` in
-    csrc/chunk_gather.cu): ``prefetch_depth + 1`` ring stages of ``blocks``
-    blocks, each block a weight tile padded by one row, an input record
-    unless x is held whole, a scale and a row offset; then the partial
-    buffer's two halves (rows x tile outputs x ``_k1_pstride`` blocks), the
-    x slab (the CTA's rows of x and the mask, when
-    they fit in ``K1_SLAB_BYTES``), the block-list window, and 8 bytes a
-    table entry plus 4 (first offsets and the exclusive prefix)."""
+                  prefetch_depth: int, n: int = 0, masked: bool = False, nmat: int = 1) -> int:
+    """Dynamic shared memory of one CTA of the body of K1-K4 for ``nmat``
+    weight streams W (n, D) (``K1Layout`` in csrc/chunk_gather.cu):
+    ``prefetch_depth + 1`` ring stages of ``blocks`` blocks, each block per
+    stream a weight tile padded by one row and a scale, an input record
+    unless x is held whole, and a row offset; then the partial buffer's two
+    halves (per stream rows x tile outputs x ``_k1_pstride`` blocks), the x
+    slab (the CTA's rows of x and the mask, when they fit in
+    ``K1_SLAB_BYTES``), the block-list window, and 8 bytes a table entry
+    plus 4 (first offsets and the exclusive prefix)."""
     rows = min(batch, _BATCH_SLAB)
     xrec = _k1_xrec(batch, masked, n)
     pad16 = -(-blocks * 4 // 16) * 16
-    stage = blocks * ((BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4) + 2 * pad16
+    stage = blocks * (nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4) + (nmat + 1) * pad16
     slab = 0 if xrec else (rows + int(masked)) * n * 4
     window = blocks * max(1, K1_WINDOW_BLOCKS // blocks)
-    return ((prefetch_depth + 1) * stage + 2 * rows * tile * _k1_pstride(blocks) * 4 + slab
-            + 4 * window + 8 * k + 4)
-
-
-def table_smem_bytes(k: int, elem_bytes: int, n_mat: int, prefetch_depth: int,
-                     geometry: Optional[dict] = None, batch: int = _BATCH_SLAB, n: int = 0,
-                     masked: bool = False) -> int:
-    """Dynamic shared memory of one CTA of the chunk-gather kernels with a
-    table of ``k`` entries. ``n_mat`` = 1 is the K1 body (``k1_smem_bytes``,
-    at ``geometry``, for W (n, D) and ``batch`` rows; by default a
-    sector-wide tile). ``n_mat`` = 2 is K2 phase 1's ring (``Ring::bytes``:
-    ``prefetch_depth + 1`` stages of table blocks, each block two weight
-    tiles, the slab's f32 input rows plus the mask's, and two scales; per
-    stage the blocks' offsets and count), then the table, 8 bytes an entry."""
-    if n_mat == 1:
-        g = geometry or k1_geometry(K1_SECTOR_BYTES, batch, elem_bytes, 1, prefetch_depth, n,
-                                    masked)
-        return k1_smem_bytes(k, elem_bytes, g["tile"], g["blocks"], batch, prefetch_depth, n,
-                             masked)
-    stages = prefetch_depth + 1
-    block = (n_mat * BLOCK_ROWS * _TILE * elem_bytes + (_BATCH_SLAB + 1) * BLOCK_ROWS * 4
-             + n_mat * 4)
-    return stages * _STAGE_BLOCKS * block + stages * (_STAGE_BLOCKS + 1) * 4 + 8 * k
+    return ((prefetch_depth + 1) * stage + 2 * nmat * rows * tile * _k1_pstride(blocks) * 4
+            + slab + 4 * window + 8 * k + 4)
 
 
 def check_table_fits(k: int, w: torch.Tensor, n_mat: int, prefetch_depth: int,
-                     name: str, geometry: Optional[dict] = None,
-                     batch: int = _BATCH_SLAB, masked: bool = False) -> None:
+                     name: str, geometry: dict, batch: int, masked: bool) -> None:
     """The kernels hold the whole chunk table in shared memory: a table too
-    long for the card raises here, before any launch."""
-    need = table_smem_bytes(k, w.element_size(), n_mat, prefetch_depth, geometry, batch,
-                            w.shape[0], masked)
+    long for the card at ``geometry`` (``k1_smem_bytes`` over ``n_mat``
+    weight streams shaped like ``w``) raises here, before any launch."""
+    need = k1_smem_bytes(k, w.element_size(), geometry["tile"], geometry["blocks"], batch,
+                         prefetch_depth, w.shape[0], masked, n_mat)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"{name}: a chunk table of K={k} entries needs {need} bytes of "
                          f"shared memory with its ring, over the {SMEM_LIMIT_BYTES}-byte "
@@ -377,15 +371,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def k1_launch_geometry(w: torch.Tensor, x: torch.Tensor, k: int, prefetch_depth: int,
-                       masked: bool, name: str) -> dict:
-    """The K1 body's geometry for a call on the card, after the layout and
-    shared-memory checks (a table too long raises here)."""
+                       masked: bool, name: str, nmat: int = 1) -> dict:
+    """The K1 body's geometry for a call on the card over ``nmat`` weight
+    streams shaped like ``w``, after the layout and shared-memory checks (a
+    table too long raises here)."""
     from .build import sm_count
 
     _check_layout(w, name)
     g = k1_geometry(w.shape[1], x.shape[0], w.element_size(), sm_count(x.device),
-                    prefetch_depth, w.shape[0], masked)
-    check_table_fits(k, w, 1, prefetch_depth, name, g, x.shape[0], masked)
+                    prefetch_depth, w.shape[0], masked, nmat)
+    check_table_fits(k, w, nmat, prefetch_depth, name, g, x.shape[0], masked)
     return g
 
 
@@ -407,6 +402,29 @@ def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_dep
     )
     check(rc, "k1_chunk_gather_matmul")
     return y
+
+
+def _launch_k2_gate_up(w_gate, w_up, x, starts, sizes, sg, su, max_chunk_rows,
+                       prefetch_depth):
+    """K2's phase 1 on the card: h (B, F) f32 off one (K,) table."""
+    from .build import check, library, stream_ptr
+
+    _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
+    g = k1_launch_geometry(w_gate, x, starts.shape[0], prefetch_depth, False,
+                           "chunk_gather_mlp_dma (w_gate)", nmat=2)
+    b, n = x.shape
+    f = w_gate.shape[1]
+    xf, sg, su = _f32(x), _f32(sg), _f32(su)
+    st, sz = _i32(starts), _i32(sizes)
+    h = torch.empty((b, f), dtype=torch.float32, device=x.device)
+    rc = library("chunk_gather.cu").k2_gate_up(
+        w_gate.data_ptr(), w_up.data_ptr(), _WTYPE[w_gate.dtype], xf.data_ptr(),
+        st.data_ptr(), sz.data_ptr(), _ptr(sg), _ptr(su), h.data_ptr(),
+        b, n, f, st.shape[0], max_chunk_rows // BLOCK_ROWS, prefetch_depth, g["tile"],
+        g["blocks"], stream_ptr(x.device),
+    )
+    check(rc, "k2_gate_up")
+    return h
 
 
 def chunk_gather_matmul_dma(
@@ -494,22 +512,8 @@ def chunk_gather_mlp_dma(
         return (y, h) if return_h else y
     if x.device.type != "cuda":
         raise ValueError(f"chunk_gather_mlp_dma: unsupported device {x.device}")
-    from .build import check, library, stream_ptr
-
-    _check_layout(w_gate, "chunk_gather_mlp_dma (w_gate)")
-    _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
-    check_table_fits(starts.shape[1], w_gate, 2, prefetch_depth, "chunk_gather_mlp_dma")
-    b = x.shape[0]
-    xf, sg, su = _f32(x), _f32(sg), _f32(su)
-    st, sz = _i32(starts), _i32(sizes)
-    h = torch.empty((b, f), dtype=torch.float32, device=x.device)
-    rc = library("chunk_gather.cu").k2_gate_up(
-        w_gate.data_ptr(), w_up.data_ptr(), _WTYPE[w_gate.dtype], xf.data_ptr(),
-        st[0].data_ptr(), sz[0].data_ptr(), _ptr(sg), _ptr(su), h.data_ptr(),
-        b, n, f, st.shape[1], max_chunk_rows // BLOCK_ROWS, prefetch_depth,
-        stream_ptr(x.device),
-    )
-    check(rc, "k2_gate_up")
-    y = _launch_k1(w_down, h, st[1], sz[1], sd, ffn_mask, max_chunk_rows, prefetch_depth)
+    h = _launch_k2_gate_up(w_gate, w_up, x, starts[0], sizes[0], sg, su, max_chunk_rows,
+                           prefetch_depth)
+    y = _launch_k1(w_down, h, starts[1], sizes[1], sd, ffn_mask, max_chunk_rows, prefetch_depth)
     LAUNCHES["chunk_gather_mlp_dma"] += 1
     return (y, h) if return_h else y

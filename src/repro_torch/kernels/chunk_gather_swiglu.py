@@ -6,13 +6,14 @@ K4 — ``chunk_gather_swiglu`` (csrc/chunk_gather.cu, ``k4_kernel``)
   Replaces ``repro/kernels/chunk_gather_swiglu.py::chunk_gather_swiglu``
   (body ``_kernel``): h (B, F) f32 = g · (1 / (1 + e^−g)) · u, where
   g = Σ x·W_gate and u = Σ x·W_up over one shared chunk table, W bf16 or
-  f32. Its function is K2's phase 1, so on the card it is K2's device body
-  (``k2_gate_up_body``) in a kernel of its own, with the ring at depth 1:
-  each table block of W_gate and W_up is streamed once into the same ring
-  stage, beside the block's x values. Bound on the H100: bytes (two weight
-  tiles per block, 2·B flops per element). It agrees bitwise with its plain
-  version and with K2's returned h. ``tile_f`` is validated as the
-  reference does; the CUDA kernel tiles F by 64 columns.
+  f32. Its function is K2's phase 1, so on the card it is the same device
+  body (``k1_body`` over the two weight streams) in a kernel of its own,
+  with the ring at depth 1: each ring stage carries a table block's W_gate
+  tile and its W_up tile, and the CTA's x rows are held whole. Bound on the
+  H100: bytes (two weight tiles per block, 2·B flops per element). It
+  agrees bitwise with its plain version and with K2's returned h.
+  ``tile_f`` is validated as the reference does; the CUDA kernel tiles F by
+  one 32-byte sector of each row (``k1_geometry(..., nmat=2)``).
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from .chunk_gather_dma import (
     _f32,
     _i32,
     _same_device,
-    check_table_fits,
     chunk_gather_swiglu_plain,
+    k1_launch_geometry,
 )
 from .chunk_gather_matmul import check_fp_weights
 
@@ -65,16 +66,16 @@ def chunk_gather_swiglu(
         raise ValueError(f"chunk_gather_swiglu: unsupported device {x.device}")
     from .build import check, library, stream_ptr
 
-    _check_layout(w_gate, "chunk_gather_swiglu (w_gate)")
     _check_layout(w_up, "chunk_gather_swiglu (w_up)")
-    check_table_fits(starts.shape[0], w_gate, 2, 1, "chunk_gather_swiglu")
+    g = k1_launch_geometry(w_gate, x, starts.shape[0], 1, False, "chunk_gather_swiglu (w_gate)",
+                           nmat=2)
     b = x.shape[0]
     xf, st, sz = _f32(x), _i32(starts), _i32(sizes)
     h = torch.empty((b, f), dtype=torch.float32, device=x.device)
     rc = library("chunk_gather.cu").k4_chunk_gather_swiglu(
         w_gate.data_ptr(), w_up.data_ptr(), _WTYPE[w_gate.dtype], xf.data_ptr(),
         st.data_ptr(), sz.data_ptr(), h.data_ptr(), b, n, f, st.shape[0],
-        max_chunk_rows // BLOCK_ROWS, stream_ptr(x.device),
+        max_chunk_rows // BLOCK_ROWS, g["tile"], g["blocks"], stream_ptr(x.device),
     )
     check(rc, "k4_chunk_gather_swiglu")
     LAUNCHES["chunk_gather_swiglu"] += 1

@@ -1,10 +1,11 @@
-// Chunk-gather kernels for sm_90a: K1 (chunk_gather_matmul_dma) and phase 1
-// of K2 (chunk_gather_mlp_dma); K2's phase 2 is K1 with an input row mask.
-// K3 (chunk_gather_matmul) and K4 (chunk_gather_swiglu) compute K1's function
-// without a mask and K2's phase 1, so they are shells around the same device
-// bodies (k1_body, k2_gate_up_body) with the ring at depth 1: the BlockSpec
-// pipeline of the Pallas versions double-buffers, one block in flight while
-// the last one is contracted.
+// Chunk-gather kernels for sm_90a: K1 (chunk_gather_matmul_dma), K2
+// (chunk_gather_mlp_dma: phase 1 gate/up + SwiGLU, phase 2 K1 with an input
+// row mask), K3 (chunk_gather_matmul: K1 without a mask) and K4
+// (chunk_gather_swiglu: K2's phase 1). All four are shells around one
+// device body, k1_body, over one weight stream (K1, K3, K2's phase 2) or
+// two streams that share a table (gate and up: K2's phase 1, K4). K3 and K4
+// run the ring at depth 1: the BlockSpec pipeline of the Pallas versions
+// double-buffers, one block in flight while the last one is contracted.
 //
 // Replaces repro/kernels/chunk_gather_dma.py::chunk_gather_matmul_dma
 // (_matmul_dma_kernel) and ::chunk_gather_mlp_dma (_mlp_dma_kernel),
@@ -17,23 +18,22 @@
 // flight. No tensor cores: wgmma reassociates the sums, which the bitwise
 // contract below forbids, and at this batch the flops are not the bound.
 //
-// k1_body (K1, K3, K2's phase 2). What bounded its first form was a serial
-// chain inside each CTA — a table walk, copy issue and an 8-deep partial
-// sum per 8-row block, on 4 warps and 4-32 CTAs — not memory. Now: each CTA
-// turns the table into a flat block list once (per-entry counts, a
-// block-wide scan); the CTAs each take one 32-byte sector of every weight row
-// (16 bf16 columns; 16 bytes for narrow matrices, for twice the CTAs), so the
-// grid covers the SMs and every copy fills a sector; the CTA's x rows are
-// loaded once, whole, into shared memory (copying them per block and CTA
-// made every CTA hammer the same few L2 lines); of 16 warps, all but the
-// last one or few form a stage's partials at once, two columns a lane, while
-// later stages land (cp.async tracked by an mbarrier per ring slot); the
-// last warps own the outputs, one thread each, and add the partials in table
-// order — the only serial chain left, one add per block — while the next
-// stage's partials are formed.
-//
-// k2_gate_up_body (K2's phase 1, K4) keeps the first form: the table walk
-// (TableWalk), stages of 8 blocks (Ring, issue_block, block_part).
+// The body. What bounded the first form of these kernels was a serial chain
+// inside each CTA — a table walk, copy issue and an 8-deep partial sum per
+// 8-row block, on 4 warps and 4-88 CTAs — not memory. Now: each CTA turns
+// the table into a flat block list once (per-entry counts, a block-wide
+// scan); the CTAs each take one 32-byte sector of every weight row (16 bf16
+// columns; 16 bytes for narrow matrices, for twice the CTAs), so the grid
+// covers the SMs and every copy fills a sector; the CTA's x rows are loaded
+// once, whole, into shared memory (copying them per block and CTA made
+// every CTA hammer the same few L2 lines); each ring stage holds every
+// stream's tile of its blocks; of 16 warps, all but the last one or few
+// form a stage's partials of every stream at once, two columns a lane,
+// while later stages land (cp.async tracked by an mbarrier per ring slot);
+// the last warps own the outputs, one thread each with one accumulator per
+// stream, and add the partials in table order — the only serial chain
+// left, one add per block and stream — while the next stage's partials are
+// formed. With two streams the owner writes h = swish(g) * u.
 //
 // Exact arithmetic (kept bitwise equal to the plain PyTorch versions): per
 // 8-row block, part = sum over the rows, in order, of x*w, each product and
@@ -49,16 +49,11 @@
 namespace {
 
 constexpr int kBlockRows = 8;
-constexpr int kTile = 64;                        // output columns per CTA
-constexpr int kThreads = 128;                    // 2 groups x 64 columns
-constexpr int kGroups = kThreads / kTile;        // batch rows split over groups
-constexpr int kBatchSlab = 8;                    // batch rows per CTA (grid.y)
-constexpr int kRowsPerThread = kBatchSlab / kGroups;
-constexpr int kStageBlocks = 8;                        // table blocks per ring stage
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+constexpr int kBatchSlab = 8;                // batch rows per CTA (grid.y)
+constexpr int kK1Threads = 512;              // 16 warps
+constexpr int kK1Warps = kK1Threads / 32;
+constexpr int kK1WindowBlocks = 1024;        // block-list entries held at once
+constexpr int kK1SlabBytes = 80 * 1024;      // x slab (and mask) held whole up to this size
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -70,227 +65,29 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Walks a chunk table's active (chunk, block) steps in order, reading the
-// CTA's shared-memory copy of the table. Every thread of the CTA runs the
-// same walk, so the state stays uniform. off < 0 = done.
-struct TableWalk {
-  const int* starts;
-  const int* sizes;
-  int k, bpc, n_rows;
-  int ci, bk, off;
-
-  __device__ void seek() {
-    while (ci < k) {
-      const int size = sizes[ci];
-      const int nblk = size > 0 ? min((size + kBlockRows - 1) / kBlockRows, bpc) : 0;
-      if (bk < nblk) {
-        const int o = starts[ci] + bk * kBlockRows;
-        if (o >= 0 && o + kBlockRows <= n_rows) {
-          off = o;
-          return;
-        }
-        ++bk;  // a block outside [0, N) is skipped like a padded one
-        continue;
-      }
-      ++ci;
-      bk = 0;
-    }
-    off = -1;
-  }
-  __device__ void begin() {
-    ci = 0;
-    bk = 0;
-    seek();
-  }
-  __device__ void next() {
-    ++bk;
-    seek();
-  }
-};
-
-// The ring in dynamic shared memory: NS stages, each holding up to
-// kStageBlocks consecutive table blocks — per block the (8 x kTile) tiles of
-// NMAT matrices, the block's 8 input values of each batch row of the slab,
-// its 8 input-mask values, its NMAT scales — and the blocks' row offsets and
-// count.
-template <typename T, int NMAT>
-struct Ring {
-  static constexpr int kTileElems = kBlockRows * kTile;
-  static constexpr int kBlockBytes =
-      NMAT * kTileElems * sizeof(T) + (kBatchSlab + 1) * kBlockRows * sizeof(float);
-
-  __host__ __device__ static size_t bytes(int ns) {
-    return static_cast<size_t>(ns) * kStageBlocks * (kBlockBytes + NMAT * sizeof(float)) +
-           static_cast<size_t>(ns) * (kStageBlocks + 1) * sizeof(int);
-  }
-
-  unsigned char* blocks;
-  float* scales;
-  int* offs;
-  int* counts;
-
-  __device__ Ring(unsigned char* smem, int ns)
-      : blocks(smem),
-        scales(reinterpret_cast<float*>(smem + static_cast<size_t>(ns) * kStageBlocks *
-                                                   kBlockBytes)),
-        offs(reinterpret_cast<int*>(scales + ns * kStageBlocks * NMAT)),
-        counts(offs + ns * kStageBlocks) {}
-
-  __device__ unsigned char* block(int s, int g) {
-    return blocks + static_cast<size_t>(s * kStageBlocks + g) * kBlockBytes;
-  }
-  __device__ T* tile(int s, int g, int m) {
-    return reinterpret_cast<T*>(block(s, g)) + m * kTileElems;
-  }
-  // x[b0 + i, off:off + 8] at [i * 8], then the input mask's 8 values
-  __device__ float* xrows(int s, int g) {
-    return reinterpret_cast<float*>(block(s, g) + NMAT * kTileElems * sizeof(T));
-  }
-  __device__ float* scale(int s, int g, int m) { return scales + (s * kStageBlocks + g) * NMAT + m; }
-  __device__ int& off(int s, int g) { return offs[s * kStageBlocks + g]; }
-};
-
-// Issue one block's cp.async copies: its NMAT weight tiles (16-byte
-// copies), the slab's x rows and the input mask (16-byte copies) and its
-// scales (4-byte copies).
-template <typename T, bool QUANT, int NMAT>
-__device__ __forceinline__ void issue_block(Ring<T, NMAT>& ring, int s, int g, int off,
-                                            const T* const (&w)[NMAT],
-                                            const float* const (&sc)[NMAT], const float* x,
-                                            const float* xmask, int n, int col0, int d, int b0,
-                                            int b_end) {
-  constexpr int kChunk = 16 / sizeof(T);   // elements per 16-byte copy
-  constexpr int kPerRow = kTile / kChunk;  // copies per tile row
-  constexpr int kTileCopies = NMAT * kBlockRows * kPerRow;
-  const int x_copies = 2 * (b_end - b0) + (xmask != nullptr ? 2 : 0);
-  for (int c = threadIdx.x; c < kTileCopies + x_copies; c += kThreads) {
-    if (c < kTileCopies) {
-      const int m = c / (kBlockRows * kPerRow);
-      const int r = (c / kPerRow) % kBlockRows;
-      const int cc = (c % kPerRow) * kChunk;
-      if (col0 + cc < d) {
-        cp_async16(ring.tile(s, g, m) + r * kTile + cc,
-                   w[m] + static_cast<size_t>(off + r) * d + col0 + cc);
-      }
-    } else {
-      const int i = (c - kTileCopies) / 2;  // slab row, or the mask after the rows
-      const int half = (c - kTileCopies) % 2 * 4;
-      const float* src = (b0 + i < b_end) ? x + static_cast<size_t>(b0 + i) * n + off + half
-                                          : xmask + off + half;
-      cp_async16(ring.xrows(s, g) + (b0 + i < b_end ? i : kBatchSlab) * kBlockRows + half, src);
-    }
-  }
-  if (QUANT && threadIdx.x >= kThreads - NMAT) {
-    const int m = threadIdx.x - (kThreads - NMAT);
-    cp_async4(ring.scale(s, g, m), sc[m] + off / kBlockRows);
-  }
-}
-
-// Fill ring stage s with the walk's next kStageBlocks blocks (fewer at the
-// end, none once the walk is done) and commit them as one cp.async group.
-template <typename T, bool QUANT, int NMAT>
-__device__ __forceinline__ void issue_stage(Ring<T, NMAT>& ring, int s, TableWalk& walk,
-                                            const T* const (&w)[NMAT],
-                                            const float* const (&sc)[NMAT], const float* x,
-                                            const float* xmask, int n, int col0, int d, int b0,
-                                            int b_end) {
-  int c = 0;
-  for (; c < kStageBlocks && walk.off >= 0; ++c) {
-    issue_block<T, QUANT, NMAT>(ring, s, c, walk.off, w, sc, x, xmask, n, col0, d, b0, b_end);
-    if (threadIdx.x == 0) ring.off(s, c) = walk.off;
-    walk.next();
-  }
-  if (threadIdx.x == 0) ring.counts[s] = c;
-  cp_async_commit();
-}
-
-// part[i] = exact partial product of one 8-row block for this thread's
-// column and batch row grp + i * kGroups; the block's inputs come from the
-// stage. The partials of a stage's blocks are independent of each other, so
-// they are all formed first and then added into the accumulators in order.
-template <typename T, bool QUANT>
-__device__ __forceinline__ void block_part(const T* tile, float scale, const float* xrows,
-                                           bool masked, int b0, int b_end, int grp,
-                                           int col_local, float (&part)[kRowsPerThread]) {
-  float wv[kBlockRows];
-#pragma unroll
-  for (int r = 0; r < kBlockRows; ++r) {
-    wv[r] = to_f32(tile[r * kTile + col_local]);
-    if (QUANT) wv[r] = __fmul_rn(wv[r], scale);
-  }
-  const float* mrow = xrows + kBatchSlab * kBlockRows;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    if (b0 + grp + i * kGroups >= b_end) break;
-    const float* xr = xrows + (grp + i * kGroups) * kBlockRows;
-#pragma unroll
-    for (int r = 0; r < kBlockRows; ++r) {
-      float xv = xr[r];
-      if (masked) xv = __fmul_rn(xv, mrow[r]);
-      const float t = __fmul_rn(xv, wv[r]);
-      part[i] = (r == 0) ? t : __fadd_rn(part[i], t);
-    }
-  }
-}
-
-// Copy a chunk table into shared memory (starts, then sizes) and return the
-// number of entries up to the last non-empty one: the walk stops there
-// instead of stepping through the padded tail.
-__device__ __forceinline__ int load_table(const int* starts, const int* sizes, int k, int* table) {
-  __shared__ int used;
-  if (threadIdx.x == 0) used = 0;
-  __syncthreads();
-  int last = 0;
-  for (int i = threadIdx.x; i < k; i += kThreads) {
-    table[i] = __ldg(starts + i);
-    const int size = __ldg(sizes + i);
-    table[k + i] = size;
-    if (size > 0) last = i + 1;
-  }
-  if (last > 0) atomicMax(&used, last);
-  __syncthreads();
-  return used;
-}
-
-// ---------------------------------------------------------------------------
-// K1's body (K1, K2's phase 2, K3): a flat block list, narrow column tiles
-// spread over the SMs, partials formed in parallel and added in table order.
-// ---------------------------------------------------------------------------
-
-constexpr int kK1Threads = 512;              // 16 warps
-constexpr int kK1Warps = kK1Threads / 32;
-constexpr int kK1WindowBlocks = 1024;        // block-list entries held at once
-constexpr int kK1SlabBytes = 80 * 1024;      // x slab (and mask) held whole up to this size
-
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~static_cast<size_t>(15); }
 
 // k1_body's dynamic shared memory (mirrored by k1_smem_bytes in
-// chunk_gather_dma.py). The slab's x rows (and the input mask) are held
-// whole when they fit in kK1SlabBytes: loaded once with coalesced copies,
-// they cost the CTA one pass over x. Otherwise each block carries an input
-// record of its 8 values per row. NS ring stages, each holding `blocks`
-// table blocks: their weight tiles (8 rows x `tile` columns, padded by one
-// row so that the lane groups reading neighbouring blocks hit other banks),
-// their input records, scales and row offsets. Then the partial buffer (two
-// halves of rows x tile outputs x pstride blocks f32: each output's partials
-// contiguous, for vector loads in the ordered add, and pstride = 4 mod 32 so
-// that the columns a lane group writes fall in different banks), the x slab,
-// a window of the flat block list, and the table's per-entry first block
-// offset and exclusive prefix.
+// chunk_gather_dma.py), for `nmat` weight streams sharing one table. The
+// slab's x rows (and the input mask) are held whole when they fit in
+// kK1SlabBytes: loaded once with coalesced copies, they cost the CTA one
+// pass over x. Otherwise each block carries an input record of its 8 values
+// per row. NS ring stages, each holding `blocks` table blocks: per stream
+// their weight tiles (8 rows x `tile` columns, padded by one row so that
+// the lane groups reading neighbouring blocks hit other banks), then their
+// input records, per stream their scales, and their row offsets. Then the
+// partial buffer (two halves, each nmat x rows x tile outputs x pstride
+// blocks f32: each output's partials contiguous, for vector loads in the
+// ordered add, and pstride = 4 mod 32 so that the columns a lane group
+// writes fall in different banks), the x slab, a window of the flat block
+// list, and the table's per-entry first block offset and exclusive prefix.
 struct K1Layout {
-  int tile, blocks, rows, ns, k, window, xrows, xrec, pstride;
+  int tile, blocks, rows, ns, k, window, xrows, xrec, pstride, nmat;
   bool slab;
   size_t tile_bytes, stage_bytes;
 
   __host__ __device__ K1Layout(int elem, int tile_, int blocks_, int rows_, bool masked, int n,
-                               int ns_, int k_)
+                               int ns_, int k_, int nmat_)
       : tile(tile_),
         blocks(blocks_),
         rows(rows_),
@@ -301,17 +98,24 @@ struct K1Layout {
         xrec(static_cast<size_t>(xrows) * n * sizeof(float) <= kK1SlabBytes ? 0
                                                                             : xrows * kBlockRows),
         pstride((blocks_ + 31) / 32 * 32 + 4),
+        nmat(nmat_),
         slab(xrec == 0),
         tile_bytes(static_cast<size_t>(kBlockRows + 1) * tile_ * elem),
-        stage_bytes(blocks_ * (tile_bytes + xrec * sizeof(float)) +
-                    2 * align16(blocks_ * sizeof(int))) {}
+        stage_bytes(blocks_ * (nmat_ * tile_bytes + xrec * sizeof(float)) +
+                    (nmat_ + 1) * align16(blocks_ * sizeof(int))) {}
 
-  __host__ __device__ size_t xrec_off() const { return blocks * tile_bytes; }
-  __host__ __device__ size_t scale_off() const { return xrec_off() + blocks * xrec * sizeof(float); }
-  __host__ __device__ size_t offs_off() const { return scale_off() + align16(blocks * sizeof(int)); }
+  __host__ __device__ size_t tile_off(int m, int g) const {
+    return (static_cast<size_t>(m) * blocks + g) * tile_bytes;
+  }
+  __host__ __device__ size_t xrec_off() const { return static_cast<size_t>(nmat) * blocks * tile_bytes; }
+  __host__ __device__ size_t scale_off(int m) const {
+    return xrec_off() + blocks * xrec * sizeof(float) + m * align16(blocks * sizeof(int));
+  }
+  __host__ __device__ size_t offs_off() const { return scale_off(nmat); }
   __host__ __device__ size_t pbuf_off() const { return ns * stage_bytes; }
-  __host__ __device__ size_t pbuf_half() const { return static_cast<size_t>(rows) * tile * pstride; }
-  __host__ __device__ size_t slab_off() const { return pbuf_off() + 2 * pbuf_half() * sizeof(float); }
+  // one stream's partials of one stage, in floats
+  __host__ __device__ size_t pbuf_mat() const { return static_cast<size_t>(rows) * tile * pstride; }
+  __host__ __device__ size_t slab_off() const { return pbuf_off() + 2 * nmat * pbuf_mat() * sizeof(float); }
   __host__ __device__ size_t slab_floats(int n) const { return slab ? static_cast<size_t>(xrows) * n : 0; }
   __host__ __device__ size_t list_off(int n) const { return slab_off() + slab_floats(n) * sizeof(float); }
   __host__ __device__ size_t base_off(int n) const { return list_off(n) + window * sizeof(int); }
@@ -431,26 +235,32 @@ __device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned
 }
 
 // Issue this thread's share of one stage's copies — `count` blocks from
-// list entry `first` on: the weight tiles' row segments (16-byte cp.async,
-// neighbouring threads on neighbouring segments), the input records when x
-// is not held whole (each block's 8 values per slab row and of the mask, two
-// copies each) and the int8 scales (4 bytes) — note the blocks' row offsets,
-// and arrive on the stage's mbarrier once the copies land.
-template <typename T, bool QUANT>
+// list entry `first` on: every stream's weight tiles' row segments (16-byte
+// cp.async, neighbouring threads on neighbouring segments), the input
+// records when x is not held whole (each block's 8 values per slab row and
+// of the mask, two copies each) and the int8 scales (4 bytes) — note the
+// blocks' row offsets, and arrive on the stage's mbarrier once the copies
+// land.
+template <typename T, bool QUANT, int NMAT>
 __device__ __forceinline__ void k1_issue_stage(const K1Layout& L, unsigned char* stage,
                                                uint64_t* bar, int first, int count,
-                                               const int* list, const T* w, const float* sc,
-                                               const float* x, const float* xmask, int n, int d,
-                                               int col0, int b0, int rows) {
+                                               const int* list, const T* const (&w)[NMAT],
+                                               const float* const (&sc)[NMAT], const float* x,
+                                               const float* xmask, int n, int d, int col0, int b0,
+                                               int rows) {
   constexpr int kChunk = 16 / sizeof(T);              // elements per 16-byte copy
   const int seg_shift = __ffs(L.tile / kChunk) - 1;   // log2(copies per tile row)
   const int seg_mask = (1 << seg_shift) - 1;
-  for (int c = threadIdx.x; c < (count * kBlockRows) << seg_shift; c += kK1Threads) {
-    const int row = c >> seg_shift;  // block row / 8, its row row % 8
-    const int cc = (c & seg_mask) * kChunk;
-    if (col0 + cc < d) {
-      cp_async16(stage + (row >> 3) * L.tile_bytes + ((row & 7) * L.tile + cc) * sizeof(T),
-                 w + static_cast<size_t>(list[first + (row >> 3)] + (row & 7)) * d + col0 + cc);
+#pragma unroll
+  for (int m = 0; m < NMAT; ++m) {
+    for (int c = threadIdx.x; c < (count * kBlockRows) << seg_shift; c += kK1Threads) {
+      const int row = c >> seg_shift;  // block row / 8, its row row % 8
+      const int cc = (c & seg_mask) * kChunk;
+      if (col0 + cc < d) {
+        cp_async16(stage + L.tile_off(m, row >> 3) + ((row & 7) * L.tile + cc) * sizeof(T),
+                   w[m] + static_cast<size_t>(list[first + (row >> 3)] + (row & 7)) * d + col0 +
+                       cc);
+      }
     }
   }
   if (!L.slab) {
@@ -465,9 +275,12 @@ __device__ __forceinline__ void k1_issue_stage(const K1Layout& L, unsigned char*
     }
   }
   if (QUANT) {
-    float* scs = reinterpret_cast<float*>(stage + L.scale_off());
-    for (int g = threadIdx.x; g < count; g += kK1Threads) {
-      cp_async4(scs + g, sc + list[first + g] / kBlockRows);
+#pragma unroll
+    for (int m = 0; m < NMAT; ++m) {
+      float* scs = reinterpret_cast<float*>(stage + L.scale_off(m));
+      for (int g = threadIdx.x; g < count; g += kK1Threads) {
+        cp_async4(scs + g, sc[m] + list[first + g] / kBlockRows);
+      }
     }
   }
   int* offs = reinterpret_cast<int*>(stage + L.offs_off());
@@ -511,12 +324,13 @@ __device__ __forceinline__ void load_cols(const float* p, float (&v)[1]) { v[0] 
 // The exact partials of one landed stage, formed by the CTA's first `warps`
 // warps: a block's `tile` columns go to tile / P lanes, P neighbouring
 // columns each, so a warp works on 32 * P / tile blocks at once, and the
-// CTA's lane groups take blocks q, q + step, ... A block's inputs are its 8
-// values of each slab row (and of the mask) — at stride n in the x slab, or
-// 8 in its input record. For each slab row and column, part = the block's 8
-// products summed in row order, each rounded on its own; rows and columns
-// are independent chains.
-template <typename T, bool QUANT>
+// CTA's lane groups take blocks q, q + step, ... A lane forms its columns
+// of every stream, sharing the x loads. A block's inputs are its 8 values
+// of each slab row (and of the mask) — at stride n in the x slab, or 8 in
+// its input record. For each stream, slab row and column, part = the
+// block's 8 products summed in row order, each rounded on its own; rows,
+// columns and streams are independent chains.
+template <typename T, bool QUANT, int NMAT>
 __device__ __forceinline__ void k1_form_parts(const K1Layout& L, const unsigned char* stage,
                                               int count, int rows, bool masked,
                                               const float* slab, int n, int warps,
@@ -526,19 +340,23 @@ __device__ __forceinline__ void k1_form_parts(const K1Layout& L, const unsigned 
   const int group = L.tile / P;  // lanes per block
   const int nsub = 32 / group;
   const int c = (lane % group) * P;
+  const size_t mat = L.pbuf_mat();
   const float* xr = reinterpret_cast<const float*>(stage + L.xrec_off());
-  const float* scs = reinterpret_cast<const float*>(stage + L.scale_off());
   const int* offs = reinterpret_cast<const int*>(stage + L.offs_off());
   const int stride = L.slab ? n : kBlockRows;
   for (int g = (threadIdx.x >> 5) * nsub + lane / group; g < count; g += warps * nsub) {
-    const T* tile = reinterpret_cast<const T*>(stage + g * L.tile_bytes) + c;
-    float wv[kBlockRows][P];
+    float wv[NMAT][kBlockRows][P];
 #pragma unroll
-    for (int r = 0; r < kBlockRows; ++r) {
-      load_cols(tile + r * L.tile, wv[r]);
+    for (int m = 0; m < NMAT; ++m) {
+      const T* tile = reinterpret_cast<const T*>(stage + L.tile_off(m, g)) + c;
+      const float scale = QUANT ? reinterpret_cast<const float*>(stage + L.scale_off(m))[g] : 1.0f;
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (QUANT) wv[r][p] = __fmul_rn(wv[r][p], scs[g]);
+      for (int r = 0; r < kBlockRows; ++r) {
+        load_cols(tile + r * L.tile, wv[m][r]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (QUANT) wv[m][r][p] = __fmul_rn(wv[m][r][p], scale);
+        }
       }
     }
     const float* xb = L.slab ? slab + offs[g] : xr + g * L.xrec;
@@ -554,61 +372,78 @@ __device__ __forceinline__ void k1_form_parts(const K1Layout& L, const unsigned 
           for (int r = 0; r < kBlockRows; ++r) xv[r] = __fmul_rn(xv[r], mv[r]);
         }
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          float part = __fmul_rn(xv[0], wv[0][p]);
+        for (int m = 0; m < NMAT; ++m) {
 #pragma unroll
-          for (int r = 1; r < kBlockRows; ++r) part = __fadd_rn(part, __fmul_rn(xv[r], wv[r][p]));
-          pbuf[(i * L.tile + c + p) * L.pstride + g] = part;
+          for (int p = 0; p < P; ++p) {
+            float part = __fmul_rn(xv[0], wv[m][0][p]);
+#pragma unroll
+            for (int r = 1; r < kBlockRows; ++r) {
+              part = __fadd_rn(part, __fmul_rn(xv[r], wv[m][r][p]));
+            }
+            pbuf[m * mat + (i * L.tile + c + p) * L.pstride + g] = part;
+          }
         }
       }
     }
   }
 }
 
-// acc += p[g] for g = 0 .. count - 1, in that order, p 16-byte aligned: the
-// partials come four to a load, four loads ahead of the adds, so the chain
-// costs about one add per block.
-__device__ __forceinline__ float k1_ordered_add(float acc, const float* p, int count) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
+// acc[m] += p[m * mat + g] for g = 0 .. count - 1, in that order, for every
+// stream m, p 16-byte aligned: the partials come four to a load, four loads
+// ahead of the adds, and the streams' chains interleave, so the chain costs
+// about one add per block.
+template <int NMAT>
+__device__ __forceinline__ void k1_ordered_add(float (&acc)[NMAT], const float* p, size_t mat,
+                                               int count) {
   int g = 0;
   for (; g + 16 <= count; g += 16) {
-    float4 v[4];
+    float4 v[NMAT][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = p4[g / 4 + u];
+    for (int m = 0; m < NMAT; ++m) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[m][u] = reinterpret_cast<const float4*>(p + m * mat)[g / 4 + u];
+    }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      acc = __fadd_rn(acc, v[u].x);
-      acc = __fadd_rn(acc, v[u].y);
-      acc = __fadd_rn(acc, v[u].z);
-      acc = __fadd_rn(acc, v[u].w);
+#pragma unroll
+      for (int m = 0; m < NMAT; ++m) {
+        acc[m] = __fadd_rn(acc[m], v[m][u].x);
+        acc[m] = __fadd_rn(acc[m], v[m][u].y);
+        acc[m] = __fadd_rn(acc[m], v[m][u].z);
+        acc[m] = __fadd_rn(acc[m], v[m][u].w);
+      }
     }
   }
-  for (; g < count; ++g) acc = __fadd_rn(acc, p[g]);
-  return acc;
+  for (; g < count; ++g) {
+#pragma unroll
+    for (int m = 0; m < NMAT; ++m) acc[m] = __fadd_rn(acc[m], p[m * mat + g]);
+  }
 }
 
-// K1's body: y[b, col] = sum over the table's blocks, in order, of the exact
-// block partial. Grid: (D / tile) x (batch slabs of 8). Each CTA scans the
-// table once into a flat block list and loads its x rows, then streams
-// `blocks`-block stages through a ring of DEPTH + 1 slots: stages t + 1 ..
-// t + DEPTH are in flight while stage t is contracted. The first warps form
-// a stage's partials at once, into one half of a double buffer; the last
-// warps own the outputs: thread (row i, column c) adds the partials into its
-// accumulator in ascending block order while the next stage's partials go to
-// the other half. That add is the only serial chain left: one add per block.
-template <typename T, int DEPTH>
-__device__ __forceinline__ void k1_body(unsigned char* smem, const T* __restrict__ w,
+// The body: per stream m, acc_m[b, col] = sum over the table's blocks, in
+// order, of the exact block partial; one stream writes y = acc_0, two write
+// h = (g * (1 / (1 + exp(-g)))) * u with g = acc_0, u = acc_1. Grid:
+// (D / tile) x (batch slabs of 8). Each CTA scans the table once into a
+// flat block list and loads its x rows, then streams `blocks`-block stages
+// through a ring of DEPTH + 1 slots: stages t + 1 .. t + DEPTH are in flight
+// while stage t is contracted. The first warps form a stage's partials at
+// once, into one half of a double buffer; the last warps own the outputs:
+// thread (row i, column c) adds the partials into its accumulators in
+// ascending block order while the next stage's partials go to the other
+// half. That add is the only serial chain left: one add per block.
+template <typename T, int DEPTH, int NMAT>
+__device__ __forceinline__ void k1_body(unsigned char* smem, const T* const (&w)[NMAT],
                                         const float* __restrict__ x,
                                         const float* __restrict__ xmask,
                                         const int* __restrict__ starts,
                                         const int* __restrict__ sizes,
-                                        const float* __restrict__ scales,
+                                        const float* const (&scales)[NMAT],
                                         float* __restrict__ y, int batch, int n, int d, int k,
                                         int bpc, int tile, int blocks) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
   constexpr int NS = DEPTH + 1;
   const bool masked = xmask != nullptr;
-  const K1Layout L(sizeof(T), tile, blocks, min(batch, kBatchSlab), masked, n, NS, k);
+  const K1Layout L(sizeof(T), tile, blocks, min(batch, kBatchSlab), masked, n, NS, k, NMAT);
   const int col0 = blockIdx.x * tile;
   const int b0 = blockIdx.y * kBatchSlab;
   const int rows = min(kBatchSlab, batch - b0);
@@ -636,9 +471,9 @@ __device__ __forceinline__ void k1_body(unsigned char* smem, const T* __restrict
         list_lo = first - first % L.window;
         k1_fill_window(base, pre, k, list_lo, L.window, list);
       }
-      k1_issue_stage<T, QUANT>(L, smem + (t % NS) * L.stage_bytes, &full[t % NS],
-                               first - list_lo, min(blocks, nb - first), list, w, scales, x,
-                               xmask, n, d, col0, b0, rows);
+      k1_issue_stage<T, QUANT, NMAT>(L, smem + (t % NS) * L.stage_bytes, &full[t % NS],
+                                     first - list_lo, min(blocks, nb - first), list, w, scales, x,
+                                     xmask, n, d, col0, b0, rows);
     }
   };
 #pragma unroll
@@ -652,114 +487,38 @@ __device__ __forceinline__ void k1_body(unsigned char* smem, const T* __restrict
   const int oi = own / tile;  // an owner's output: slab row oi, column oc
   const int oc = own % tile;
   const bool owner = own >= 0 && oi < rows;
-  const size_t half = L.pbuf_half();
-  float acc = 0.0f;
+  const size_t mat = L.pbuf_mat();
+  float acc[NMAT];
+#pragma unroll
+  for (int m = 0; m < NMAT; ++m) acc[m] = 0.0f;
   for (int t = 0; t < n_stages; ++t) {
     const int count = min(blocks, nb - t * blocks);
-    float* part = pbuf + (t & 1) * half;  // the owners may still read the other half
+    float* part = pbuf + (t & 1) * NMAT * mat;  // the owners may still read the other half
     if (own < 0) {
       if (t == 0 && L.slab) mbar_wait(&xbar, 0);
       mbar_wait(&full[t % NS], (t / NS) & 1);  // stage t has landed
-      k1_form_parts<T, QUANT>(L, smem + (t % NS) * L.stage_bytes, count, rows, masked, slab, n,
-                              form_warps, part);
+      k1_form_parts<T, QUANT, NMAT>(L, smem + (t % NS) * L.stage_bytes, count, rows, masked, slab,
+                                    n, form_warps, part);
     }
     __syncthreads();  // the partials are in and stage t's slot is free:
     issue(t + NS);    // refill it (stages t + 1 .. t + DEPTH are in flight)
     if (NS == 1) __syncthreads();  // its block offsets are in
     // the owners add stage t while the forming warps go on to stage t + 1
-    if (owner) acc = k1_ordered_add(acc, part + (oi * tile + oc) * L.pstride, count);
+    if (owner) k1_ordered_add<NMAT>(acc, part + (oi * tile + oc) * L.pstride, mat, count);
   }
-  if (owner && col0 + oc < d) y[static_cast<size_t>(b0 + oi) * d + col0 + oc] = acc;
+  if (owner && col0 + oc < d) {
+    float out = acc[0];
+    if (NMAT == 2) {
+      const float g = acc[0];
+      const float sig = __frcp_rn(__fadd_rn(1.0f, expf(-g)));
+      out = __fmul_rn(__fmul_rn(g, sig), acc[NMAT - 1]);
+    }
+    y[static_cast<size_t>(b0 + oi) * d + col0 + oc] = out;
+  }
   if (L.slab && threadIdx.x == 0) mbar_wait(&xbar, 0);  // an empty table never waited for it
 }
 
-// K2 phase 1's body: gate and up off the hidden lane, each block streamed
-// once into the same stage; h = (g * (1 / (1 + exp(-g)))) * u.
-template <typename T, int DEPTH>
-__device__ __forceinline__ void k2_gate_up_body(unsigned char* smem, const T* __restrict__ wg,
-                                                const T* __restrict__ wu,
-                                                const float* __restrict__ x,
-                                                const int* __restrict__ starts,
-                                                const int* __restrict__ sizes,
-                                                const float* __restrict__ sg,
-                                                const float* __restrict__ su,
-                                                float* __restrict__ h, int batch, int n, int f,
-                                                int k, int bpc) {
-  constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int NS = DEPTH + 1;
-  Ring<T, 2> ring(smem, NS);
-  const T* const ws[2] = {wg, wu};
-  const float* const scs[2] = {sg, su};
-
-  const int col0 = blockIdx.x * kTile;
-  const int b0 = blockIdx.y * kBatchSlab;
-  const int b_end = min(b0 + kBatchSlab, batch);
-  const int col_local = threadIdx.x % kTile;
-  const int grp = threadIdx.x / kTile;
-  const int col = col0 + col_local;
-
-  int* table = reinterpret_cast<int*>(smem + Ring<T, 2>::bytes(NS));
-  const int used = load_table(starts, sizes, k, table);
-  TableWalk walk{table, table + k, used, bpc, n, 0, 0, -1};
-  walk.begin();
-#pragma unroll
-  for (int s = 0; s < DEPTH; ++s) {
-    issue_stage<T, QUANT, 2>(ring, s, walk, ws, scs, x, nullptr, n, col0, f, b0, b_end);
-  }
-
-  float accg[kRowsPerThread], accu[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    accg[i] = 0.0f;
-    accu[i] = 0.0f;
-  }
-
-  for (int slot = 0;; slot = (slot + 1) % NS) {
-    issue_stage<T, QUANT, 2>(ring, (slot + DEPTH) % NS, walk, ws, scs, x, nullptr, n, col0, f,
-                             b0, b_end);
-    cp_async_wait<DEPTH>();
-    __syncthreads();
-    const int count = ring.counts[slot];
-    if (count == 0) break;
-    if (col < f) {
-      float pg[kStageBlocks][kRowsPerThread], pu[kStageBlocks][kRowsPerThread];
-#pragma unroll
-      for (int g = 0; g < kStageBlocks; ++g) {
-        if (g < count) {
-          block_part<T, QUANT>(ring.tile(slot, g, 0), QUANT ? *ring.scale(slot, g, 0) : 1.0f,
-                               ring.xrows(slot, g), false, b0, b_end, grp, col_local, pg[g]);
-          block_part<T, QUANT>(ring.tile(slot, g, 1), QUANT ? *ring.scale(slot, g, 1) : 1.0f,
-                               ring.xrows(slot, g), false, b0, b_end, grp, col_local, pu[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kStageBlocks; ++g) {
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          if (g < count) {
-            accg[i] = __fadd_rn(accg[i], pg[g][i]);
-            accu[i] = __fadd_rn(accu[i], pu[g][i]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (col < f) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int b = b0 + grp + i * kGroups;
-      if (b < b_end) {
-        const float g = accg[i];
-        const float sig = __frcp_rn(__fadd_rn(1.0f, expf(-g)));
-        h[static_cast<size_t>(b) * f + col] = __fmul_rn(__fmul_rn(g, sig), accu[i]);
-      }
-    }
-  }
-}
-
-// The kernels: shells around the bodies, one entry function each, so ptxas
+// The kernels: shells around the body, one entry function each, so ptxas
 // and the profiler name them apart.
 template <typename T, int DEPTH>
 __global__ void __launch_bounds__(kK1Threads)
@@ -769,19 +528,25 @@ __global__ void __launch_bounds__(kK1Threads)
               float* __restrict__ y, int batch, int n, int d, int k, int bpc, int tile,
               int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k1_body<T, DEPTH>(smem, w, x, xmask, starts, sizes, scales, y, batch, n, d, k, bpc, tile,
-                    blocks);
+  const T* const ws[1] = {w};
+  const float* const scs[1] = {scales};
+  k1_body<T, DEPTH, 1>(smem, ws, x, xmask, starts, sizes, scs, y, batch, n, d, k, bpc, tile,
+                       blocks);
 }
 
+// K2's phase 1: gate and up off the hidden lane's table, h = swish(g) * u.
 template <typename T, int DEPTH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK1Threads)
     k2_gate_up_kernel(const T* __restrict__ wg, const T* __restrict__ wu,
                       const float* __restrict__ x, const int* __restrict__ starts,
                       const int* __restrict__ sizes, const float* __restrict__ sg,
                       const float* __restrict__ su, float* __restrict__ h, int batch, int n,
-                      int f, int k, int bpc) {
+                      int f, int k, int bpc, int tile, int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k2_gate_up_body<T, DEPTH>(smem, wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc);
+  const T* const ws[2] = {wg, wu};
+  const float* const scs[2] = {sg, su};
+  k1_body<T, DEPTH, 2>(smem, ws, x, nullptr, starts, sizes, scs, h, batch, n, f, k, bpc, tile,
+                       blocks);
 }
 
 // K3: K1 at depth 1 with no input mask (floating-point weights only).
@@ -792,19 +557,24 @@ __global__ void __launch_bounds__(kK1Threads)
               float* __restrict__ y, int batch, int n, int d, int k, int bpc, int tile,
               int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k1_body<T, 1>(smem, w, x, nullptr, starts, sizes, nullptr, y, batch, n, d, k, bpc, tile,
-                blocks);
+  const T* const ws[1] = {w};
+  const float* const scs[1] = {nullptr};
+  k1_body<T, 1, 1>(smem, ws, x, nullptr, starts, sizes, scs, y, batch, n, d, k, bpc, tile,
+                   blocks);
 }
 
 // K4: K2's phase 1 at depth 1 (floating-point weights only).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK1Threads)
     k4_kernel(const T* __restrict__ wg, const T* __restrict__ wu, const float* __restrict__ x,
               const int* __restrict__ starts, const int* __restrict__ sizes,
-              float* __restrict__ h, int batch, int n, int f, int k, int bpc) {
+              float* __restrict__ h, int batch, int n, int f, int k, int bpc, int tile,
+              int blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k2_gate_up_body<T, 1>(smem, wg, wu, x, starts, sizes, nullptr, nullptr, h, batch, n, f, k,
-                        bpc);
+  const T* const ws[2] = {wg, wu};
+  const float* const scs[2] = {nullptr, nullptr};
+  k1_body<T, 1, 2>(smem, ws, x, nullptr, starts, sizes, scs, h, batch, n, f, k, bpc, tile,
+                   blocks);
 }
 
 // Shared memory above the 48 KB default needs an opt-in per kernel.
@@ -815,24 +585,26 @@ int reserve_smem(Kernel kernel, size_t bytes) {
                                                static_cast<int>(bytes)));
 }
 
-// The K1 body's geometry, chosen by the wrapper (k1_geometry in
+// The body's geometry, chosen by the wrapper (k1_geometry in
 // chunk_gather_dma.py): tile columns per CTA, a power of two from one
 // 16-byte segment up to 32, and blocks per ring stage.
 bool k1_geometry_ok(int elem, int tile, int blocks) {
   return tile * elem >= 16 && tile <= 32 && 32 % tile == 0 && blocks >= 1;
 }
 
-size_t k1_smem(int elem, int tile, int blocks, int batch, bool masked, int n, int ns, int k) {
-  return K1Layout(elem, tile, blocks, batch < kBatchSlab ? batch : kBatchSlab, masked, n, ns, k)
+size_t k1_smem(int elem, int tile, int blocks, int batch, bool masked, int n, int ns, int k,
+               int nmat) {
+  return K1Layout(elem, tile, blocks, batch < kBatchSlab ? batch : kBatchSlab, masked, n, ns, k,
+                  nmat)
       .bytes(n);
 }
 
 template <typename T, typename Kernel, typename... Args>
-int launch_k1_body(Kernel kernel, int ns, bool masked, int batch, int n, int d, int k, int tile,
-                   int blocks, cudaStream_t stream, Args... args) {
+int launch_k1_body(Kernel kernel, int ns, bool masked, int nmat, int batch, int n, int d, int k,
+                   int tile, int blocks, cudaStream_t stream, Args... args) {
   if (!k1_geometry_ok(sizeof(T), tile, blocks)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((d + tile - 1) / tile, (batch + kBatchSlab - 1) / kBatchSlab);
-  const size_t smem = k1_smem(sizeof(T), tile, blocks, batch, masked, n, ns, k);
+  const size_t smem = k1_smem(sizeof(T), tile, blocks, batch, masked, n, ns, k, nmat);
   if (const int rc = reserve_smem(kernel, smem)) return rc;
   kernel<<<grid, kK1Threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
@@ -842,7 +614,7 @@ template <typename T, int DEPTH>
 int launch_k1_t(const void* w, const float* x, const float* xmask, const int* starts,
                 const int* sizes, const float* scales, float* y, int batch, int n, int d,
                 int k, int bpc, int tile, int blocks, cudaStream_t stream) {
-  return launch_k1_body<T>(k1_kernel<T, DEPTH>, DEPTH + 1, xmask != nullptr, batch, n, d, k,
+  return launch_k1_body<T>(k1_kernel<T, DEPTH>, DEPTH + 1, xmask != nullptr, 1, batch, n, d, k,
                            tile, blocks, stream,
                            static_cast<const T*>(w), x, xmask, starts, sizes, scales, y, batch,
                            n, d, k, bpc, tile, blocks);
@@ -851,14 +623,11 @@ int launch_k1_t(const void* w, const float* x, const float* xmask, const int* st
 template <typename T, int DEPTH>
 int launch_k2_t(const void* wg, const void* wu, const float* x, const int* starts,
                 const int* sizes, const float* sg, const float* su, float* h, int batch,
-                int n, int f, int k, int bpc, cudaStream_t stream) {
-  const dim3 grid((f + kTile - 1) / kTile, (batch + kBatchSlab - 1) / kBatchSlab);
-  const size_t smem = Ring<T, 2>::bytes(DEPTH + 1) + 2 * sizeof(int) * k;
-  if (const int rc = reserve_smem(k2_gate_up_kernel<T, DEPTH>, smem)) return rc;
-  k2_gate_up_kernel<T, DEPTH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(wg), static_cast<const T*>(wu), x, starts, sizes, sg, su, h,
-      batch, n, f, k, bpc);
-  return static_cast<int>(cudaGetLastError());
+                int n, int f, int k, int bpc, int tile, int blocks, cudaStream_t stream) {
+  return launch_k1_body<T>(k2_gate_up_kernel<T, DEPTH>, DEPTH + 1, false, 2, batch, n, f, k,
+                           tile, blocks, stream,
+                           static_cast<const T*>(wg), static_cast<const T*>(wu), x, starts,
+                           sizes, sg, su, h, batch, n, f, k, bpc, tile, blocks);
 }
 
 template <typename T>
@@ -878,12 +647,13 @@ int launch_k1_depth(int depth, const void* w, const float* x, const float* xmask
 template <typename T>
 int launch_k2_depth(int depth, const void* wg, const void* wu, const float* x,
                     const int* starts, const int* sizes, const float* sg, const float* su,
-                    float* h, int batch, int n, int f, int k, int bpc, cudaStream_t st) {
+                    float* h, int batch, int n, int f, int k, int bpc, int tile, int blocks,
+                    cudaStream_t st) {
   switch (depth) {
-    case 0: return launch_k2_t<T, 0>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, st);
-    case 1: return launch_k2_t<T, 1>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, st);
-    case 2: return launch_k2_t<T, 2>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, st);
-    case 3: return launch_k2_t<T, 3>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, st);
+    case 0: return launch_k2_t<T, 0>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, tile, blocks, st);
+    case 1: return launch_k2_t<T, 1>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, tile, blocks, st);
+    case 2: return launch_k2_t<T, 2>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, tile, blocks, st);
+    case 3: return launch_k2_t<T, 3>(wg, wu, x, starts, sizes, sg, su, h, batch, n, f, k, bpc, tile, blocks, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -892,28 +662,24 @@ template <typename T>
 int launch_k3_t(const void* w, const float* x, const int* starts, const int* sizes, float* y,
                 int batch, int n, int d, int k, int bpc, int tile, int blocks,
                 cudaStream_t stream) {
-  return launch_k1_body<T>(k3_kernel<T>, 2, false, batch, n, d, k, tile, blocks, stream,
+  return launch_k1_body<T>(k3_kernel<T>, 2, false, 1, batch, n, d, k, tile, blocks, stream,
                            static_cast<const T*>(w), x, starts, sizes, y, batch, n, d, k, bpc,
                            tile, blocks);
 }
 
 template <typename T>
 int launch_k4_t(const void* wg, const void* wu, const float* x, const int* starts,
-                const int* sizes, float* h, int batch, int n, int f, int k, int bpc,
-                cudaStream_t stream) {
-  const dim3 grid((f + kTile - 1) / kTile, (batch + kBatchSlab - 1) / kBatchSlab);
-  const size_t smem = Ring<T, 2>::bytes(2) + 2 * sizeof(int) * k;
-  if (const int rc = reserve_smem(k4_kernel<T>, smem)) return rc;
-  k4_kernel<T><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(wg),
-                                                 static_cast<const T*>(wu), x, starts, sizes, h,
-                                                 batch, n, f, k, bpc);
-  return static_cast<int>(cudaGetLastError());
+                const int* sizes, float* h, int batch, int n, int f, int k, int bpc, int tile,
+                int blocks, cudaStream_t stream) {
+  return launch_k1_body<T>(k4_kernel<T>, 2, false, 2, batch, n, f, k, tile, blocks, stream,
+                           static_cast<const T*>(wg), static_cast<const T*>(wu), x, starts,
+                           sizes, h, batch, n, f, k, bpc, tile, blocks);
 }
 
 }  // namespace
 
 // wtype: 0 = bf16, 1 = f32, 2 = int8 (then scales is the per-block lane).
-// tile, blocks: the K1 body's geometry (k1_geometry in chunk_gather_dma.py).
+// tile, blocks: the body's geometry (k1_geometry in chunk_gather_dma.py).
 extern "C" int k1_chunk_gather_matmul(const void* w, int wtype, const void* x, const void* xmask,
                                       const void* starts, const void* sizes, const void* scales,
                                       void* y, int batch, int n, int d, int k, int bpc, int depth,
@@ -936,8 +702,8 @@ extern "C" int k1_chunk_gather_matmul(const void* w, int wtype, const void* x, c
 
 extern "C" int k2_gate_up(const void* wg, const void* wu, int wtype, const void* x,
                           const void* starts, const void* sizes, const void* sg, const void* su,
-                          void* h, int batch, int n, int f, int k, int bpc, int depth,
-                          void* stream) {
+                          void* h, int batch, int n, int f, int k, int bpc, int depth, int tile,
+                          int blocks, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* st = static_cast<const int*>(starts);
   const auto* sz = static_cast<const int*>(sizes);
@@ -947,9 +713,9 @@ extern "C" int k2_gate_up(const void* wg, const void* wu, int wtype, const void*
   auto s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || f == 0) return 0;
   switch (wtype) {
-    case 0: return launch_k2_depth<__nv_bfloat16>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, s);
-    case 1: return launch_k2_depth<float>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, s);
-    case 2: return launch_k2_depth<int8_t>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, s);
+    case 0: return launch_k2_depth<__nv_bfloat16>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, tile, blocks, s);
+    case 1: return launch_k2_depth<float>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, tile, blocks, s);
+    case 2: return launch_k2_depth<int8_t>(depth, wg, wu, xf, st, sz, g, u, hf, batch, n, f, k, bpc, tile, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -974,7 +740,8 @@ extern "C" int k3_chunk_gather_matmul(const void* w, int wtype, const void* x,
 
 extern "C" int k4_chunk_gather_swiglu(const void* wg, const void* wu, int wtype, const void* x,
                                       const void* starts, const void* sizes, void* h, int batch,
-                                      int n, int f, int k, int bpc, void* stream) {
+                                      int n, int f, int k, int bpc, int tile, int blocks,
+                                      void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* st = static_cast<const int*>(starts);
   const auto* sz = static_cast<const int*>(sizes);
@@ -982,18 +749,19 @@ extern "C" int k4_chunk_gather_swiglu(const void* wg, const void* wu, int wtype,
   auto s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || f == 0) return 0;
   switch (wtype) {
-    case 0: return launch_k4_t<__nv_bfloat16>(wg, wu, xf, st, sz, hf, batch, n, f, k, bpc, s);
-    case 1: return launch_k4_t<float>(wg, wu, xf, st, sz, hf, batch, n, f, k, bpc, s);
+    case 0: return launch_k4_t<__nv_bfloat16>(wg, wu, xf, st, sz, hf, batch, n, f, k, bpc, tile, blocks, s);
+    case 1: return launch_k4_t<float>(wg, wu, xf, st, sz, hf, batch, n, f, k, bpc, tile, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of one K1/K3 CTA (wtype as above; depth = the ring's
-// prefetch depth, 1 for K3), for the wrapper's check against
-// k1_smem_bytes in chunk_gather_dma.py. -1 for a geometry the body refuses.
+// Dynamic shared memory of one CTA of the body (wtype as above; depth = the
+// ring's prefetch depth, 1 for K3/K4; nmat = 1 for K1/K3, 2 for K2's phase
+// 1 and K4), for the wrapper's check against k1_smem_bytes in
+// chunk_gather_dma.py. -1 for a geometry the body refuses.
 extern "C" int k1_smem_bytes(int wtype, int tile, int blocks, int batch, int masked, int n,
-                             int depth, int k) {
+                             int depth, int k, int nmat) {
   const int elem = wtype == 0 ? 2 : wtype == 1 ? 4 : wtype == 2 ? 1 : 0;
-  if (elem == 0 || !k1_geometry_ok(elem, tile, blocks)) return -1;
-  return static_cast<int>(k1_smem(elem, tile, blocks, batch, masked != 0, n, depth + 1, k));
+  if (elem == 0 || (nmat != 1 && nmat != 2) || !k1_geometry_ok(elem, tile, blocks)) return -1;
+  return static_cast<int>(k1_smem(elem, tile, blocks, batch, masked != 0, n, depth + 1, k, nmat));
 }

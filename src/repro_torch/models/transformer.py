@@ -2,11 +2,12 @@
 prefill and planned-decode parts of ``repro.models.transformer``).
 
 The layer loop is a Python loop over the stacked (L, ...) params; the
-decode plan and the KV cache are updated in place, one layer row at a time.
-On the planned decode path every sparsification site computes through the
-execution backend off the plan's chunk tables: q/k/v and o through
-``backend.project`` (K1 on the kernel backend), the MLP through
-``backend.swiglu_mlp`` (K2).
+decode plan and the KV cache are updated in place. On the planned decode
+path the plan of every layer is refreshed once, before the loop
+(``SparseExecution.refresh_step``: one selection over all layers' sites),
+and every sparsification site computes through the execution backend off
+the plan's chunk tables: q/k/v and o through ``backend.project`` (K1 on the
+kernel backend), the MLP through ``backend.swiglu_mlp`` (K2).
 """
 from __future__ import annotations
 
@@ -95,12 +96,12 @@ def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
 
 
 def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
-                 length: int, cfg: ModelConfig, sparse_ctx=None, plan=None, layer: int = 0,
-                 refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                 length: int, cfg: ModelConfig, sparse_ctx=None, plan=None,
+                 layer: int = 0) -> torch.Tensor:
     """One decode token through one layer. ``length``: tokens in the cache
     before this one. With a sparse context the decode plan must be given
-    (the planned path); without one the block runs dense. Returns (x_out,
-    io_latency estimate of this layer — nonzero only on refresh steps)."""
+    (the planned path), already refreshed for this step by
+    ``stack_decode``; without one the block runs dense. Returns x_out."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     planned = sparse_ctx is not None
@@ -109,10 +110,8 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
             "the unplanned sparse decode path (in-step per-site selection) is not "
             "ported; serve through ServeEngine.decode (ROADMAP.md, queue 1)"
         )
-    io = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["ln1_w"])
     if planned:
-        io = io + sparse_ctx.refresh_layer(plan, layer, refresh)
         mask_q = plan["hidden_attn"]["mask"][layer]
         sparse_ctx.record_importance("hidden_attn", h, plan, layer)
         hs, hz = sparse_ctx.kernel_tables(plan, "hidden_attn", layer)
@@ -142,19 +141,25 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
     x = x + attn
     h = rms_norm(x, params["ln2_w"])
     y = _planned_mlp(h, params, sparse_ctx, plan, layer) if planned else swiglu_mlp(h, params)
-    return x + y, io
+    return x + y
 
 
 def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
                  sparse_ctx=None, plan=None, refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode token through every layer; the cache (and plan) update in
-    place and ``cache["length"]`` advances by one. Returns (x, io (L,)) —
-    the per-layer I/O estimates the engine's prefetch timeline prices."""
+    place and ``cache["length"]`` advances by one. On the planned path the
+    plan of every layer is refreshed first, in one selection
+    (``refresh_step``; a refresh of layer l reads only the importances
+    layer l recorded on the previous step). Returns (x, io (L,)) — the
+    per-layer I/O estimates the engine's prefetch timeline prices, nonzero
+    only on refresh steps."""
     length = cache["length"]
-    ios = []
+    if sparse_ctx is not None and plan:
+        io = sparse_ctx.refresh_step(plan, refresh)
+    else:
+        io = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
-        x, io = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
-                             cache["v"][layer], length, cfg, sparse_ctx, plan, layer, refresh)
-        ios.append(io)
+        x = block_decode(layer_slice(stacked, layer), x, cache["k"][layer], cache["v"][layer],
+                         length, cfg, sparse_ctx, plan, layer)
     cache["length"] = length + 1
-    return x, torch.stack(ios)
+    return x, io

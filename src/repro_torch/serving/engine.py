@@ -204,13 +204,11 @@ class ServeEngine:
         return toks
 
     def _selection_seconds_per_refresh(self) -> float:
-        """Wall seconds one refresh spends on selection (one layer's batched
-        selection, timed once per engine, × n_layers) — measured after the
-        decode loop, never inside it."""
+        """Wall seconds one refresh spends on selection (the selection of
+        every layer's sites in one batch, timed once per engine) — measured
+        after the decode loop, never inside it."""
         if self._select_s_per_refresh is None:
-            self._select_s_per_refresh = (
-                self.sparse_ctx.time_selection() * self.model.cfg.n_layers
-            )
+            self._select_s_per_refresh = self.sparse_ctx.time_selection()
         return self._select_s_per_refresh
 
     def decode(self, first_token: torch.Tensor, n_tokens: int, greedy: bool = True):

@@ -2,18 +2,24 @@
 (the port's copy of ``repro.serving.sparse_exec`` for the ``chunk`` and
 ``topk`` methods without the residency cache).
 
-The planned decode path batches all of a layer's sites into ONE selection
-per refresh step (``refresh_layer`` → ``BatchedChunkSelector``: torch
-scoring + stable sort, then kernel K5's greedy walk), consuming the
-importances each site recorded on the previous step (``record_importance``;
-the first refresh bootstraps from uniform importance). The new masks become
-block-aligned chunk tables on the device (``masks_to_block_tables``), which
-the kernels K1/K2 read directly. Nothing here syncs with the host, so the
-engine's decode loop runs on the device until its one sync.
+The planned decode path batches every site of every layer into ONE
+selection per refresh step (``refresh_step`` → ``BatchedChunkSelector``:
+torch scoring + one stable sort over the L·S lanes, then one launch of
+kernel K5's greedy walk), consuming the importances each site recorded on
+the previous step (``record_importance``; the first refresh bootstraps from
+uniform importance). A refresh of layer l reads only layer l's pending
+importances, which step t writes after that refresh, so every layer's
+selection of step t is known when the step starts — the reference says so
+too (layer l+1's chunks must be known while layer l computes). The new
+masks become block-aligned chunk tables on the device
+(``masks_to_block_tables``), which the kernels K1/K2 read directly.
+Nothing here syncs with the host, so the engine's decode loop runs on the
+device until its one sync.
 
 The decode plan is a dict {site: {"mask": (L, N) f32, "pending": (L, N)
 f32, "hit"/"miss"/"bytes": (L,) f32, "kstarts"/"ksizes": (L, K) int32}}
-updated in place, one layer row at a time.
+updated in place: all layers at once by a refresh, one layer's pending row
+at a time by ``record_importance``.
 
 Not ported yet (later slices, ROADMAP.md): the residency cache
 (``cache_mb > 0``), static ``cached`` masks, reorderings, the ``dense``
@@ -28,6 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.baselines import topk_mask
 from ..core.chunking import BatchedChunkSelector, ChunkConfig, ChunkSelector
@@ -112,7 +119,8 @@ class SparseExecution:
                  method: str = "chunk", backend: str | ExecutionBackend = "reference",
                  kernel_prefetch_depth: int = 1, wbits: int = 16, torch_device=None):
         """``device``: the flash profile ("nano" | "agx"); ``torch_device``:
-        where the selection runs. ``backend``: "reference" (the kernels'
+        where the selection runs — ``cuda`` unless the caller passes another
+        device (no card raises). ``backend``: "reference" (the kernels'
         schedule twin) or "kernel" (K1/K2 off the plan's chunk tables)."""
         validate_method(method)
         if wbits not in WBITS_CHOICES:
@@ -120,7 +128,7 @@ class SparseExecution:
         self.cfg = cfg
         self.method = method
         self.wbits = int(wbits)
-        self.torch_device = torch.device("cpu" if torch_device is None else torch_device)
+        self.torch_device = resolve_device(torch_device)
         sp = normalize_site_sparsity(sparsity)
         self.sites: Dict[str, _Site] = {
             kind: _site(n, cols, device, sp[kind], self.wbits, self.torch_device)
@@ -132,6 +140,10 @@ class SparseExecution:
         )
         self._budgets = torch.tensor([self.sites[k].budget() for k in self.site_order],
                                      dtype=torch.int32, device=self.torch_device)
+        # a refresh step's (L·S,) lanes, layer-major: their budgets and the
+        # smallest candidate of each (K5's early exit)
+        self.lane_budgets = self._budgets.repeat(cfg.n_layers)
+        self.lane_min_sizes = self.batched.min_sizes.repeat(cfg.n_layers)
         self.kernel_k = -(-self.batched.n_max // KERNEL_BLOCK_ROWS)
         self.backend = backend if isinstance(backend, ExecutionBackend) else \
             ExecutionBackend.create(backend, prefetch_depth=kernel_prefetch_depth,
@@ -152,41 +164,60 @@ class SparseExecution:
         if kind in plan:
             plan[kind]["pending"][layer] = importance(acts)
 
-    def refresh_layer(self, plan, layer: int, refresh: bool) -> torch.Tensor:
-        """One batched refresh of every site of ``layer`` (in place). On a
-        refresh step the sites' pending importances are padded into one
-        (n_sites, N_max) problem, selected, turned into kernel tables, and
-        priced; on a reuse step (``refresh`` False — host-known, the engine's
-        ``step % k == 0``) the cached masks and tables stay and cost zero
-        I/O. Returns this layer's estimated I/O seconds (0-dim tensor)."""
+    def _select_lanes(self, vs: torch.Tensor) -> torch.Tensor:
+        """(L·S, N_max) padded importances → (L·S, N_max) bool masks."""
+        b = self.batched
+        if self.method == "topk":
+            masks = topk_mask(vs, self.lane_budgets).reshape(-1, b.n_sites, b.n_max) \
+                & b.row_valid
+            return masks.reshape(vs.shape)
+        return b.select(vs, self.lane_budgets, self.lane_min_sizes)[0]
+
+    def refresh_step(self, plan, refresh: bool) -> torch.Tensor:
+        """One batched refresh of every site of every layer (in place) — the
+        port's form of the reference's per-layer ``refresh_layer`` inside
+        its layer scan. On a refresh step the sites' pending importances of
+        all L layers are padded into one (L·n_sites, N_max) problem,
+        selected (one stable sort, one K5 launch), turned into kernel tables
+        (one ``masks_to_block_tables``), and priced, vectorised over the
+        layers; on a reuse step (``refresh`` False — host-known, the
+        engine's ``step % k == 0``) the cached masks and tables stay, cost
+        zero I/O and launch nothing. Returns the per-layer estimated I/O
+        seconds (L,) f32, each layer's sum taken in the per-layer order
+        (sites, then their matrices)."""
         order = self.site_order
         if set(plan) != set(order):
-            raise ValueError(f"refresh_layer needs a plan entry per site {order}, "
+            raise ValueError(f"refresh_step needs a plan entry per site {order}, "
                              f"got {tuple(plan)}")
+        n_layers = plan[order[0]]["pending"].shape[0]
+        if n_layers != self.cfg.n_layers:
+            raise ValueError(f"refresh_step needs a plan of {self.cfg.n_layers} layers, "
+                             f"got {n_layers}")
+        lat = torch.zeros((n_layers,), dtype=torch.float32, device=self.torch_device)
         if not refresh:
-            return torch.zeros((), dtype=torch.float32, device=self.torch_device)
+            return lat
         b = self.batched
-        vs = torch.zeros((b.n_sites, b.n_max), dtype=torch.float32, device=self.torch_device)
+        vs = torch.zeros((n_layers, b.n_sites, b.n_max), dtype=torch.float32,
+                         device=self.torch_device)
         for i, kind in enumerate(order):
-            vs[i, : self.sites[kind].n] = plan[kind]["pending"][layer]
-        if self.method == "topk":
-            masks = topk_mask(vs, self._budgets) & b.row_valid
-        else:
-            masks, _ = b.select(vs, self._budgets)
+            vs[:, i, : self.sites[kind].n] = plan[kind]["pending"]
+        masks = self._select_lanes(vs.reshape(-1, b.n_max))
         kstarts, ksizes = masks_to_block_tables(masks, KERNEL_BLOCK_ROWS, KERNEL_MAX_CHUNK_ROWS)
-        lat = torch.zeros((), dtype=torch.float32, device=self.torch_device)
+        masks = masks.reshape(n_layers, b.n_sites, b.n_max)
+        kstarts = kstarts.reshape(n_layers, b.n_sites, -1)
+        ksizes = ksizes.reshape(n_layers, b.n_sites, -1)
         for i, kind in enumerate(order):
             site = self.sites[kind]
-            m = masks[i, : site.n]
+            m = masks[:, i, : site.n]
             for t in site.tables:
                 lat = lat + t.mask_latency(m)
-            miss = m.sum().to(torch.float32)
+            miss = m.sum(dim=1).to(torch.float32)
             entry = plan[kind]
-            entry["mask"][layer] = m.to(torch.float32)
-            entry["miss"][layer] += miss
-            entry["bytes"][layer] += miss * self.site_row_bytes(kind)
-            entry["kstarts"][layer] = kstarts[i]
-            entry["ksizes"][layer] = ksizes[i]
+            entry["mask"].copy_(m)
+            entry["miss"] += miss
+            entry["bytes"] += miss * self.site_row_bytes(kind)
+            entry["kstarts"].copy_(kstarts[:, i])
+            entry["ksizes"].copy_(ksizes[:, i])
         return lat
 
     # -- kernel chunk-table plumbing ------------------------------------------
@@ -233,18 +264,18 @@ class SparseExecution:
         return plan
 
     def time_selection(self, repeats: int = 5) -> float:
-        """Median wall seconds of ONE layer's refresh-step selection on the
-        serving device (synchronized), amortized by the engine into
+        """Median wall seconds of ONE refresh step's selection — every site
+        of every layer of ``cfg``, one K5 launch — on the serving device
+        (synchronized), amortized by the engine into
         ``StepStats.select_overhead_s``."""
         b = self.batched
-        n = torch.arange(b.n_sites * b.n_max, dtype=torch.float32, device=self.torch_device)
-        vs = torch.sin(n).abs().reshape(b.n_sites, b.n_max)
+        n_layers = self.cfg.n_layers
+        lanes = n_layers * b.n_sites
+        n = torch.arange(lanes * b.n_max, dtype=torch.float32, device=self.torch_device)
+        vs = torch.sin(n).abs().reshape(lanes, b.n_max)
 
         def run():
-            if self.method == "topk":
-                topk_mask(vs, self._budgets)
-            else:
-                b.select(vs, self._budgets)
+            self._select_lanes(vs)
             if self.torch_device.type == "cuda":
                 torch.cuda.synchronize(self.torch_device)
 

@@ -338,6 +338,57 @@ def test_k1_geometry_covers_every_output_once(dtype, n, d, b, masked):
         assert (tk._k1_xrec(b, masked, n) == 0) == ((min(b, 8) + masked) * n * 4 <= 80 * 1024)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("n,f,b", [(2048, 5632, 2), (2048, 5632, 1), (2048, 5632, 9),
+                                   (256, 704, 2), (512, 200, 2), (4096, 256, 8)])
+def test_k2_geometry_covers_every_output_once(dtype, n, f, b):
+    """The body over two weight streams (gate and up: K2's phase 1, K4):
+    every output column in one sector-wide tile (F = 5632 in bf16 gives 352
+    CTAs of 16 columns), stages of at least a round of warps, the shared
+    memory of both streams' tiles and partials within the limit at every
+    depth for a full-width table, and its layout the one-stream layout plus
+    the second stream's tiles, scales and partials."""
+    elem = {"bf16": 2, "f32": 4, "int8": 1}[dtype]
+    ragged = 208 if dtype == "int8" and f == 200 else f
+    for depth in range(tk.MAX_PREFETCH_DEPTH + 1):
+        g = tk.k1_geometry(ragged, b, elem, 132, depth, n, nmat=2)
+        tile, (gx, gy), blocks = g["tile"], g["grid"], g["blocks"]
+        assert [c for t in range(gx) for c in range(t * tile, min(ragged, (t + 1) * tile))] \
+            == list(range(ragged))
+        assert gy == -(-b // 8) and tile * elem in (16, 32) and blocks >= tk.K1_WARPS
+        if (ragged, b, dtype) == (5632, 2, "bf16"):
+            assert (tile, gx) == (16, 352)
+        k = max(n, 5632) // 8
+        two = tk.k1_smem_bytes(k, elem, tile, blocks, b, depth, n, nmat=2)
+        assert two <= tk.SMEM_LIMIT_BYTES
+        one = tk.k1_smem_bytes(k, elem, tile, blocks, b, depth, n)
+        pad16 = -(-blocks * 4 // 16) * 16
+        assert two - one == ((depth + 1) * (blocks * 9 * tile * elem + pad16)
+                             + 2 * min(b, 8) * tile * tk._k1_pstride(blocks) * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K1_CASES)
+@pytest.mark.parametrize("depth", (0, 1, 2, 3))
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+def test_k2_phase1_and_k4_bitwise_equal_plain(cuda, depth, dtype, case):
+    """The body over two streams (K2's phase 1 at every depth, K4 at depth
+    1) on the K1 body's edge shapes: h bitwise equal to the plain gather."""
+    from repro_torch.kernels.chunk_gather_swiglu import chunk_gather_swiglu
+
+    rng = np.random.default_rng(80 + depth)
+    wg, x, st, sz = k1_case(rng, case, dtype)
+    _, tg, sg = _weights_from(wg, dtype)
+    _, tu, su = _weights_from(rng.normal(0, 1, wg.shape).astype(np.float32), dtype)
+    scales = None if sg is None else (sg[1].to(cuda), su[1].to(cuda))
+    tg, tu, xs, st, sz = (t.to(cuda) for t in (tg, tu, torch.from_numpy(x), st, sz))
+    want = tk.chunk_gather_swiglu_plain(tg, tu, xs, st, sz, scales)
+    h = tk._launch_k2_gate_up(tg, tu, xs, st, sz, *(scales or (None, None)), 512, depth)
+    assert torch.equal(h, want)
+    if dtype != "int8" and depth == 1:
+        assert torch.equal(chunk_gather_swiglu(tg, tu, xs, st, sz, tile_f=8), want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ("mlp",) + K1_CASES)
 @pytest.mark.parametrize("depth", (0, 1, 2, 3))
@@ -364,7 +415,7 @@ def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype, case):
 
         assert library("chunk_gather.cu").k1_smem_bytes(
             tk._WTYPE[tw.dtype], g["tile"], g["blocks"], x.shape[0], 0, w.shape[0], depth,
-            st.shape[0]) == tk.k1_smem_bytes(st.shape[0], tw.element_size(), g["tile"],
+            st.shape[0], 1) == tk.k1_smem_bytes(st.shape[0], tw.element_size(), g["tile"],
                                              g["blocks"], x.shape[0], depth, w.shape[0])
         return
     wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype, 256, 704, 256)
@@ -387,11 +438,14 @@ def test_k5_kernel_equals_plain(cuda):
     from repro_torch.serving.sparse_exec import SparseExecution
     from repro_torch.configs import get_config
 
-    sp = SparseExecution(get_config("tinyllama-1.1b").reduced(), torch_device=cuda)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    sp = SparseExecution(cfg, torch_device=cuda)
     rng = np.random.default_rng(50)
-    vs = torch.from_numpy(rng.random((sp.batched.n_sites, sp.batched.n_max)).astype(np.float32))
-    masks, sel = sp.batched.select(vs.to(cuda), sp._budgets)
-    cpu = SparseExecution(get_config("tinyllama-1.1b").reduced())
-    masks_p, sel_p = cpu.batched.select(vs, cpu._budgets)
+    lanes = cfg.n_layers * sp.batched.n_sites
+    vs = torch.from_numpy(rng.random((lanes, sp.batched.n_max)).astype(np.float32))
+    before = tchunk.LAUNCHES["greedy_select"]
+    masks, sel = sp.batched.select(vs.to(cuda), sp.lane_budgets)
+    assert tchunk.LAUNCHES["greedy_select"] == before + 1  # every layer's lanes at once
+    cpu = SparseExecution(cfg, torch_device="cpu")
+    masks_p, sel_p = cpu.batched.select(vs, cpu.lane_budgets)
     assert torch.equal(masks.cpu(), masks_p) and torch.equal(sel.cpu(), sel_p)
-    assert tchunk.LAUNCHES["greedy_select"] >= 1

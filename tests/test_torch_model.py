@@ -86,7 +86,8 @@ def test_teacher_forced_decode_matches_reference(pair, wbits, interval):
     refresh selects identical masks at every layer and site."""
     jcfg, tcfg, jm, tm, jp, tp, jb, tb = pair
     js = JSparse(jcfg, device="nano", sparsity=0.4, method="chunk", wbits=wbits)
-    ts = TSparse(tcfg, device="nano", sparsity=0.4, method="chunk", wbits=wbits)
+    ts = TSparse(tcfg, device="nano", sparsity=0.4, method="chunk", wbits=wbits,
+                torch_device="cpu")
     jl, jcache = jm.prefill(jp, jb, 32)
     _, tcache = tm.prefill(tp, tb, 32)
     jplan = js.init_plan(jcfg.n_layers)
@@ -125,7 +126,7 @@ def test_dense_decode_step_without_sparse_ctx(pair):
     assert float(tio.abs().sum()) == 0.0
     with pytest.raises(NotImplementedError):
         tm.decode_step_planned(tp, torch.from_numpy(np.array(tok)), tcache,
-                               TSparse(tcfg), plan=None)
+                               TSparse(tcfg, torch_device="cpu"), plan=None)
 
 
 def test_build_model_refuses_unported_families():
@@ -139,7 +140,7 @@ def test_build_model_refuses_unported_families():
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "params_from_reference",
-                                   "make_dummy_batch"])
+                                   "make_dummy_batch", "SparseExecution"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a device the entry points run on ``cuda``: with no card they
     raise instead of falling back to the CPU; ``device="cpu"`` still runs.
@@ -155,6 +156,8 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
              else {n: t.float().numpy() for n, t in v.items()}
              for k, v in model.init(seed=0, device="cpu").items()}, tcfg, **kw),
         "make_dummy_batch": lambda **kw: tbatch(tcfg, TShape("t", 8, 2, "train"), **kw),
+        "SparseExecution": lambda **kw: TSparse(
+            tcfg, torch_device=kw.get("device")).init_plan(tcfg.n_layers),
     }
     with pytest.raises(RuntimeError, match="CUDA device by default"):
         calls[entry]()

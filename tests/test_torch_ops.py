@@ -214,22 +214,22 @@ def test_table_smem_guard(n_mat, depth, elem):
     scales and row offsets, the partial buffer's halves, the x slab (8 rows
     of W's 8 input values), the block-list window."""
     w = torch.zeros((8, 64), dtype={1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[elem])
-    ring = tk.table_smem_bytes(0, elem, n_mat, depth, n=8)
-    assert tk.table_smem_bytes(10, elem, n_mat, depth, n=8) == ring + 80
+    g = tk.k1_geometry(tk.K1_SECTOR_BYTES, 8, elem, 1, depth, 8, nmat=n_mat)
+    tile, blocks = g["tile"], g["blocks"]
+    ring = tk.k1_smem_bytes(0, elem, tile, blocks, 8, depth, 8, nmat=n_mat)
+    assert tk.k1_smem_bytes(10, elem, tile, blocks, 8, depth, 8, nmat=n_mat) == ring + 80
     if n_mat == 1:
-        g = tk.k1_geometry(32, 8, elem, 1, depth, 8)
-        tile, blocks = g["tile"], g["blocks"]
         assert tile * elem == 32
         stage = blocks * 9 * tile * elem + 2 * (-(-blocks * 4 // 16) * 16)
         window = blocks * max(1, tk.K1_WINDOW_BLOCKS // blocks)
         pstride = -(-blocks // 32) * 32 + 4
         assert ring == ((depth + 1) * stage + 2 * 8 * tile * pstride * 4 + 8 * 8 * 4 + 4 * window
                         + 4)
-    tk.check_table_fits(5632 // 8, w, n_mat, depth, "k")
+    tk.check_table_fits(5632 // 8, w, n_mat, depth, "k", g, 8, False)
     k_max = (tk.SMEM_LIMIT_BYTES - ring) // 8
-    tk.check_table_fits(k_max, w, n_mat, depth, "k")
+    tk.check_table_fits(k_max, w, n_mat, depth, "k", g, 8, False)
     with pytest.raises(ValueError, match=f"K={k_max + 1} "):
-        tk.check_table_fits(k_max + 1, w, n_mat, depth, "k")
+        tk.check_table_fits(k_max + 1, w, n_mat, depth, "k", g, 8, False)
 
 
 def test_ops_dma_wrappers_match_kernels_and_reference_errors():

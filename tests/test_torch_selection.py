@@ -101,7 +101,8 @@ def _site_vectors(sparse, rng, dyadic):
 @pytest.mark.parametrize("seed", range(3))
 def test_batched_select_equals_reference_on_dyadic(wbits, seed):
     js = JSparse(_jcfg(), device="nano", sparsity=0.4, method="chunk", wbits=wbits)
-    ts = TSparse(CFG, device="nano", sparsity=0.4, method="chunk", wbits=wbits)
+    ts = TSparse(CFG, device="nano", sparsity=0.4, method="chunk", wbits=wbits,
+                torch_device="cpu")
     assert ts.site_order == js.site_order
     np.testing.assert_array_equal(ts._budgets.numpy(), np.asarray(js._budgets))
     vs = _site_vectors(ts, np.random.default_rng(seed), dyadic=True)
@@ -114,7 +115,7 @@ def test_batched_select_equals_reference_on_dyadic(wbits, seed):
 @pytest.mark.parametrize("device", ["nano", "agx"])
 @pytest.mark.parametrize("seed", range(3))
 def test_batched_select_equals_oracle_on_random(device, seed):
-    ts = TSparse(CFG, device=device, sparsity=0.4, method="chunk")
+    ts = TSparse(CFG, device=device, sparsity=0.4, method="chunk", torch_device="cpu")
     vs = _site_vectors(ts, np.random.default_rng(100 + seed), dyadic=False)
     tm, _ = ts.batched.select(torch.from_numpy(vs), ts._budgets)
     for i, kind in enumerate(ts.site_order):
