@@ -24,8 +24,11 @@ Phases, each of which fails the run on error:
      list longer than its window, x too large to hold whole), over one
      weight stream (K1, K3) and two (K2's phase 1, K4; plus ±127 int8
      saturation), bf16/f32/int8 at depths 0-3, and the C and Python
-     shared-memory layouts against each other; and the reduced model on
-     the card against the same model on the CPU;
+     shared-memory layouts against each other; at InternVL2-76B's widths,
+     K1 with an input mask at N = 8192 (the per-block input records) and
+     K2's phase 1 at F = 28672 with a serve-width table (near the
+     shared-memory limit), bf16 and int8 at depths 0-3; and the reduced
+     model on the card against the same model on the CPU;
   4. the serve run: full-width tinyllama-1.1b, all 22 layers, random
      weights from a seed, ``--method chunk --backend kernel``, batch 2,
      prompt 32, 16 decode tokens, at wbits 16 and 8 — the launch counters
@@ -50,11 +53,29 @@ Phases, each of which fails the run on error:
      one-lane walk against the plain walk; planning statistics against
      top-k; K3/K4 timed as in phase 5, K3 also per site (q, k, v, o, down),
      and K5's one-lane walks of the planner.
+  7. the paper's VLM workload: internvl2-76b at full width (d_model 8192,
+     d_ff 28672, vocab 128256), depth cut to 8 of 80 layers (the full
+     model's 137 GB of bf16 layers do not fit one card), random weights
+     from a seed: prefill of a 32-token prompt (16 vision, 16 text), 4
+     frames of 64 tokens appended, 16 decode tokens, ``--method chunk
+     --backend kernel``, batch 2, max_seq 512, at wbits 16 and 8 — exact
+     launch counts (K5 once per refresh step and once per site and layer
+     of each frame), tokens byte-identical to the reference backend; K1
+     (every site of every layer), K2 (every layer) and K5 (the 32-lane
+     refresh and each site's one-lane walk) bitwise against their plain
+     versions on the run's own tables, the calls that are timed;
+     the timings as in phase 5 plus K5's one-lane walks; the rows the
+     kernels read against the rows selected; decode wall, the profiled
+     device busy share and peak memory; the video-stream policy table
+     (dense / top-k / chunk) at wbits 16. Phases 4-6's engines are freed
+     first.
 
-Prints the kernel table as one JSON line, then, as the last line,
+Prints the kernel table as one JSON line (K1-K5 from phases 4-6, and
+phase 7's K1, K2 and K5 rows), then, as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
+import gc
 import importlib
 import json
 import subprocess
@@ -78,6 +99,11 @@ DEPTHS = (0, 1, 2)
 # SparseExecution.time_selection: 1 warm-up + 5 timed refresh steps, one K5
 # launch each
 TIME_SELECTION_LAUNCHES = 6
+# phase 7: the VLM at full width, depth cut to VLM_LAYERS; a prompt of
+# VLM_PROMPT tokens (half vision, half text), VLM_FRAMES frames of
+# frontend_tokens // 4 tokens, VLM_DECODE decode tokens
+VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_FRAMES, VLM_DECODE, VLM_MAX_SEQ = (
+    "internvl2-76b", 8, 32, 4, 16, 512)
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -155,6 +181,167 @@ def gate_up(wg, wu, x, starts, sizes, sg, su, depth):
     return cg._launch_k2_gate_up(wg, wu, x, starts, sizes, sg, su, 512, depth)
 
 
+def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
+    """Each decode kernel of one served engine, over that engine's own
+    tables, weights and last refresh input: K1 (in all and per site q, k,
+    v, o, beside the dense library product), K2 and its phase 1 alone, K5
+    over one refresh step's lanes with what each lane's walk meets. Device
+    time per launch from CUDA-graph replays, the plain versions on the
+    host clock, the bound from the bytes and flops of the call. Returns
+    (timing, calls): the calls timed, {"k1": [(w, xm, starts, sizes,
+    scales)], "k1_sites": [name], "k2": [(w_gate, w_up, w_down, xm,
+    starts, sizes, ffn_mask, scales)], "k5": [greedy_select's arguments]},
+    every layer's, layer by layer."""
+    import torch
+
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+
+    cfg = eng.model.cfg
+    dev = eng.torch_device
+    n_layers, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hd_all = cfg.n_heads * cfg.resolved_head_dim
+    plan, lp = eng._plan, eng.params["layers"]
+    sp = eng.sparse_ctx
+    el = 2 if wbits == 16 else 1
+    k1_calls, k2_calls, k5_inputs = [], [], []
+    k1_sites, k1_bounds = [], []
+    k1_bytes = k1_ops = k2_bytes = k2_ops = g1_bytes = g1_ops = 0.0
+    k1_bound = k2_bound = g1_bound = 0.0
+    for layer in range(n_layers):
+        for name, site, n_in in (("wq", "hidden_attn", d), ("wk", "hidden_attn", d),
+                                 ("wv", "hidden_attn", d), ("wo", "attn_out", hd_all)):
+            w = lp[name][layer] if wbits == 16 else lp[name + "_q8"][layer]
+            sc = None if wbits == 16 else lp[name + "_sc"][layer]
+            s, z = sp.kernel_tables(plan, site, layer)
+            xm = randn(BATCH, n_in) * plan[site]["mask"][layer]
+            k1_calls.append((w, xm, s, z, sc))
+            rows = rows_of(z)
+            byts = (rows * w.shape[1] * el + (rows // 8 * 4 if sc is not None else 0)
+                    + BATCH * n_in * 4 + 2 * 4 * s.numel() + BATCH * w.shape[1] * 4)
+            ops = 2.0 * BATCH * rows * w.shape[1]
+            k1_bytes, k1_ops = k1_bytes + byts, k1_ops + ops
+            k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+            k1_sites.append(name)
+            k1_bounds.append(max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S))
+        ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
+              for n in ("w_gate", "w_up", "w_down")]
+        scs = None if wbits == 16 else tuple(lp[n + "_sc"][layer]
+                                             for n in ("w_gate", "w_up", "w_down"))
+        st, sz = sp.mlp_kernel_plan(plan, layer)
+        fm = plan["ffn"]["mask"][layer]
+        xm = randn(BATCH, d) * plan["hidden_mlp"]["mask"][layer]
+        k2_calls.append((*ws, xm, st, sz, fm, scs))
+        rh, rf = rows_of(sz[0]), rows_of(sz[1])
+        byts = (2 * rh * f * el + rf * d * el
+                + ((2 * rh + rf) // 8 * 4 if scs is not None else 0)
+                + BATCH * d * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
+                + BATCH * f * 4 + BATCH * d * 4)
+        ops = 2.0 * BATCH * (2 * rh * f + rf * d)
+        k2_bytes, k2_ops = k2_bytes + byts, k2_ops + ops
+        k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        # K2's phase 1 alone: gate and up in, h out
+        byts = (2 * rh * f * el + (2 * rh // 8 * 4 if scs is not None else 0)
+                + BATCH * d * 4 + 2 * 4 * st.shape[1] + BATCH * f * 4)
+        ops = 2.0 * BATCH * 2 * rh * f
+        g1_bytes, g1_ops = g1_bytes + byts, g1_ops + ops
+        g1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    # K5 over the run's own refresh-step input: every layer's sites from
+    # the importances the last step recorded, one launch
+    b = sp.batched
+    lanes = n_layers * b.n_sites
+    vs = torch.zeros((n_layers, b.n_sites, b.n_max), device=dev)
+    for i, kind in enumerate(sp.site_order):
+        vs[:, i, : sp.sites[kind].n] = plan[kind]["pending"]
+    k5_inputs.append((*(t.reshape(lanes, -1) for t in b.sorted_candidates(vs)),
+                      sp.lane_budgets, sp.lane_min_sizes, b.n_max))
+    n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
+
+    def run_k1(plain=False, calls=k1_calls):
+        for w, xm, s, z, sc in calls:
+            if plain:
+                cg.chunk_gather_matmul_plain(w, xm, s, z, sc)
+            else:
+                cg.chunk_gather_matmul_dma(w, xm, s, z, sc)
+
+    def run_k1_lib(calls=k1_calls):
+        for w, xm, s, z, sc in calls:
+            if sc is None:
+                xm.to(w.dtype) @ w
+
+    def run_k2(plain=False):
+        for wg, wu, wd, xm, st, sz, fm, scs in k2_calls:
+            if plain:
+                cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st, sz, fm, scs)
+            else:
+                cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, return_h=True)
+
+    def run_gate_up(plain=False):
+        for wg, wu, _, xm, st, sz, _, scs in k2_calls:
+            sg, su = (None, None) if scs is None else scs[:2]
+            if plain:
+                cg.chunk_gather_swiglu_plain(wg, wu, xm, st[0], sz[0],
+                                             None if scs is None else (sg, su))
+            else:
+                gate_up(wg, wu, xm, st[0], sz[0], sg, su, 1)
+
+    def run_k5(plain=False, walked=None):
+        fn = chunking.greedy_select_plain if plain else chunking.greedy_select
+        for args in k5_inputs:
+            if plain:
+                fn(*args, walked=walked)
+            else:
+                fn(*args)
+
+    walked = []
+    t_k5_plain = host_ms(lambda: run_k5(True, walked)) / n5
+    k5_bytes = sum(walked) * 8 + n5 * lanes * (b.n_max + 12)
+    k5_bound = k5_bytes / HBM_BYTES_PER_S / n5
+    k5_lanes = walk_stats(*k5_inputs[0])
+    if k5_lanes["selected"] != chunking.greedy_select(*k5_inputs[0])[1].tolist():
+        fail(f"w{wbits}: the replayed K5 walk selects other rows than the kernel")
+    timing = {
+        "chunk_gather_matmul_dma": {
+            "ms": cuda_ms(run_k1, 20) / n1, "plain_ms": host_ms(lambda: run_k1(True)) / n1,
+            "library_ms": cuda_ms(run_k1_lib, 20) / n1 if wbits == 16 else None,
+            "bound_ms": k1_bound / n1 * 1e3,
+            "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
+            else "operations",
+            "calls": n1, "bytes_per_call": k1_bytes / n1},
+        "chunk_gather_mlp_dma": {
+            "ms": cuda_ms(run_k2, 20) / n2, "plain_ms": host_ms(lambda: run_k2(True)) / n2,
+            "library_ms": None, "bound_ms": k2_bound / n2 * 1e3,
+            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
+            else "operations",
+            "calls": n2, "bytes_per_call": k2_bytes / n2},
+        "greedy_select": {
+            "ms": cuda_ms(run_k5, 5) / n5, "plain_ms": t_k5_plain, "library_ms": None,
+            "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5, "lanes": lanes,
+            "walked_per_lane": sum(walked) / max(len(walked), 1), "per_lane": k5_lanes},
+    }
+    phase1 = {"ms": cuda_ms(run_gate_up, 20) / n2,
+              "plain_ms": host_ms(lambda: run_gate_up(True)) / n2,
+              "bound_ms": g1_bound / n2 * 1e3,
+              "bound_by": "bytes" if g1_bytes / HBM_BYTES_PER_S >= g1_ops / F32_OPS_PER_S
+              else "operations"}
+    timing["chunk_gather_mlp_dma"]["phase1"] = phase1
+    log(f"{tag} chunk_gather_mlp_dma phase 1 alone (k2_gate_up): "
+        f"{phase1['ms'] * 1e3:.1f} us/launch  bound {phase1['bound_ms'] * 1e3:.2f} us "
+        f"({phase1['bound_by']})  plain {phase1['plain_ms'] * 1e3:.1f} us  ({card})")
+    worst = max(range(lanes), key=lambda i: k5_lanes["walked"][i])
+    log(f"{tag} greedy_select over {lanes} lanes: per lane walked mean "
+        f"{sum(k5_lanes['walked']) / lanes:.0f} max {k5_lanes['walked'][worst]} (lane {worst}), "
+        f"survivors mean {sum(k5_lanes['survivors']) / lanes:.0f} max "
+        f"{max(k5_lanes['survivors'])}, picks mean {sum(k5_lanes['picks']) / lanes:.1f} max "
+        f"{max(k5_lanes['picks'])}, batches with 2+ survivors "
+        f"{sum(k5_lanes['crowded_batches'])}  ({card})")
+    sites = per_site(k1_calls, k1_sites, k1_bounds, run_k1,
+                     run_k1_lib if wbits == 16 else None, cuda_ms)
+    timing["chunk_gather_matmul_dma"]["per_site"] = sites
+    log(f"{tag} chunk_gather_matmul_dma per site: {site_line(sites)}  ({card})")
+    return timing, {"k1": k1_calls, "k1_sites": k1_sites, "k2": k2_calls, "k5": k5_inputs}
+
+
 def walk_stats(starts_s, sizes_s, budgets, min_sizes, n_max):
     """What K5's walk meets in each lane of one launch, replayed on the host
     in the kernel's batches of 32: candidates walked (whole batches, to the
@@ -210,6 +397,94 @@ def site_line(sites):
         f"{v['bound_ms'] / v['ms']:.0%} of it"
         + ("" if v["library_ms"] is None else f"; (x·m) @ W {v['library_ms'] * 1e3:.1f}") + ")"
         for k, v in sites.items())
+
+
+def timers(on_card):
+    """(cuda_ms, host_ms): the device time of one fn() from replays of a
+    CUDA graph of it (no host dispatch gaps between the launches; on the
+    CPU its host time), and the host-clock time of one synchronised fn()."""
+    import torch
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def cuda_ms(fn, reps):
+        fn()
+        if not on_card:
+            return host_ms(fn)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def host_ms(fn):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3
+
+    return cuda_ms, host_ms
+
+
+def seeded(dev, seed):
+    """(randn, sync) on dev: randn(*shape, std=1.0) draws from one generator
+    seeded with ``seed``; sync waits for the card (nothing on the CPU)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    return randn, sync
+
+
+class Checks:
+    """``check(kernel, what, got, want)``: one bitwise check of a kernel
+    against its plain version. Keeps the count, each kernel's largest abs
+    error and the failures, in order."""
+
+    def __init__(self, kernels):
+        self.errs = dict.fromkeys(kernels, 0.0)
+        self.failures = []
+        self.n = 0
+
+    def __call__(self, kernel, what, got, want):
+        import torch
+
+        self.n += 1
+        if got.shape != want.shape:
+            self.failures.append(f"{kernel} {what}: shape {tuple(got.shape)} != "
+                                 f"{tuple(want.shape)}")
+            return
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        self.errs[kernel] = max(self.errs[kernel], err)
+        if not torch.equal(got, want):
+            self.failures.append(f"{kernel} {what}: not bitwise equal (max abs err {err:.3e})")
+
+
+def rows_of(sizes):
+    """Rows a kernel reads for a table's sizes: whole 8-row blocks, at
+    most 512 rows of a chunk."""
+    import torch
+
+    z = sizes.cpu().clamp(min=0)
+    return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
 
 
 def fail(msg):
@@ -272,7 +547,11 @@ def main():
 
     from repro_torch.configs import get_config
 
-    kernels = run(dev, get_config("tinyllama-1.1b"), card, report)
+    kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH))
+    gc.collect()  # phase 4-6's engines and weights go before phase 7's
+    torch.cuda.empty_cache()
+    kernels += vlm_path(dev, get_config(VLM_ARCH), card, report)
+    (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -294,12 +573,14 @@ def profile_decode(eng, token, card):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, cpu_ops = {}, {}
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            # the device's own events (kernels, copies), each counted once:
+            # an aten op's device time is its kernels', listed under them
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
-        if ev.self_cpu_time_total > 0:
+        elif ev.self_cpu_time_total > 0:
             cpu_ops[ev.key] = (ev.self_cpu_time_total, ev.count)
     busy = sum(kernels.values())
     if busy == 0:
@@ -320,11 +601,12 @@ def profile_decode(eng, token, card):
     return out
 
 
-def run(dev, cfg, card, report):
-    """Phases 3-6 on ``dev`` for ``cfg``; returns the kernel table. On a CPU
-    device (a rehearsal of the script's own code at a reduced config) the
-    wrappers take their plain versions, so the launch counts are not
-    checked and times are host times."""
+def run(dev, cfg, card, report, vcfg):
+    """Phases 3-6 on ``dev`` for ``cfg`` (phase 3 also at the widths of the
+    VLM config ``vcfg``); returns the kernel table. On a CPU device (a
+    rehearsal of the script's own code at reduced configs) the wrappers take
+    their plain versions, so the launch counts are not checked and times are
+    host times."""
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -338,32 +620,12 @@ def run(dev, cfg, card, report):
 
     on_card = dev.type == "cuda"
     n_layers = cfg.n_layers
-    gen = torch.Generator(device=dev).manual_seed(1234)
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    def randn(*shape, std=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * std
+    randn, sync = seeded(dev, 1234)
 
     # -- 3. kernel vs plain, bitwise ------------------------------------------
-    errs = {"chunk_gather_matmul_dma": 0.0, "chunk_gather_mlp_dma": 0.0, "greedy_select": 0.0,
-            "chunk_gather_matmul": 0.0, "chunk_gather_swiglu": 0.0}
-    n_checks = 0
-    failures = []
-
-    def check(kernel, what, got, want):
-        nonlocal n_checks
-        n_checks += 1
-        if got.shape != want.shape:
-            failures.append(f"{kernel} {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-            return
-        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
-        err = float(diff.max()) if diff.numel() else 0.0
-        errs[kernel] = max(errs[kernel], err)
-        if not torch.equal(got, want):
-            failures.append(f"{kernel} {what}: not bitwise equal (max abs err {err:.3e})")
+    check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma", "greedy_select",
+                    "chunk_gather_matmul", "chunk_gather_swiglu"))
+    errs, failures = check.errs, check.failures
 
     d, f = cfg.d_model, cfg.d_ff
     hd_all = cfg.n_heads * cfg.resolved_head_dim
@@ -529,6 +791,68 @@ def run(dev, cfg, card, report):
                 check("chunk_gather_swiglu", f"case {case} {wname}",
                       k4.chunk_gather_swiglu(wg, wu, xk, s, z, tile_f=8), want)
 
+    # the body at the VLM's widths: K1 with an input mask at N = d_model and
+    # batch 2 (x and the mask, 3 x N floats, do not fit the x slab: per-block
+    # input records, the branch K2's phase 2 takes at N = d_ff), and K2's
+    # phase 1 over gate and up at F = d_ff; both with a table as wide as the
+    # serve path's (d_ff / 8 entries, every site padded to the widest),
+    # which puts gate/up near the shared-memory limit; bf16 and int8, depths
+    # 0-3, and the C and Python layouts equal
+    vn, vf, vk = vcfg.d_model, vcfg.d_ff, vcfg.d_ff // 8
+
+    def wide_table(n):
+        """A (vk,) table over runs of 32 rows kept with probability 0.6."""
+        keep = (randn(n // 32) > -0.25).repeat_interleave(32)
+        s, z = cg.masks_to_block_tables(keep[None], 8, 512)
+        st = torch.zeros(vk, dtype=torch.int32, device=dev)
+        sz = torch.zeros_like(st)
+        st[: s.shape[1]], sz[: z.shape[1]] = s[0], z[0]
+        return st, sz, keep.float()
+
+    for wname in ("bf16", "int8"):
+        st, sz, xmask = wide_table(vn)
+        w, sc = randn(vn, vn, std=vn ** -0.5), None
+        w, sc = (w.to(torch.bfloat16), None) if wname == "bf16" else quantize_rows(w, 8)
+        xk = randn(BATCH, vn)
+        want = cg.chunk_gather_matmul_plain(w, xk, st, sz, sc, xmask)
+        for depth in range(cg.MAX_PREFETCH_DEPTH + 1):
+            y = cg._launch_k1(w, xk, st, sz, sc, xmask, 512, depth) if on_card else want
+            check("chunk_gather_matmul_dma", f"{vcfg.name} masked N={vn} {wname} d{depth}",
+                  y, want)
+            g = cg.k1_geometry(vn, BATCH, w.element_size(), sm_count(dev) if on_card else 132,
+                               depth, vn, True)
+            if on_card and library("chunk_gather.cu").k1_smem_bytes(
+                    cg._WTYPE[w.dtype], g["tile"], g["blocks"], BATCH, 1, vn, depth, vk,
+                    1) != cg.k1_smem_bytes(vk, w.element_size(), g["tile"], g["blocks"],
+                                           BATCH, depth, vn, True):
+                failures.append(f"k1_smem_bytes: C and Python differ ({vcfg.name} masked)")
+        del w, sc
+        st, sz, _ = wide_table(vn)
+        wg, wu = randn(vn, vf, std=vn ** -0.5), randn(vn, vf, std=vn ** -0.5)
+        if wname == "bf16":
+            (wg, sg), (wu, su) = (wg.to(torch.bfloat16), None), (wu.to(torch.bfloat16), None)
+        else:
+            (wg, sg), (wu, su) = quantize_rows(wg, 8), quantize_rows(wu, 8)
+        xk = randn(BATCH, vn)
+        want = cg.chunk_gather_swiglu_plain(wg, wu, xk, st, sz,
+                                            None if sg is None else (sg, su))
+        for depth in range(cg.MAX_PREFETCH_DEPTH + 1):
+            check("chunk_gather_mlp_dma", f"{vcfg.name} phase 1 F={vf} {wname} d{depth}",
+                  gate_up(wg, wu, xk, st, sz, sg, su, depth), want)
+            g = cg.k1_geometry(vf, BATCH, wg.element_size(), sm_count(dev) if on_card else 132,
+                               depth, vn, nmat=2)
+            need = cg.k1_smem_bytes(vk, wg.element_size(), g["tile"], g["blocks"], BATCH,
+                                    depth, vn, nmat=2)
+            if on_card and library("chunk_gather.cu").k1_smem_bytes(
+                    cg._WTYPE[wg.dtype], g["tile"], g["blocks"], BATCH, 0, vn, depth, vk,
+                    2) != need:
+                failures.append(f"k1_smem_bytes (2 streams): C and Python differ "
+                                f"({vcfg.name} gate/up)")
+            log(f"[bitwise] {vcfg.name} gate/up {wname} depth {depth}: {g['grid'][0]} CTAs "
+                f"of {g['tile']} columns, {g['blocks']} blocks a stage, {need} bytes of "
+                f"shared memory (limit {cg.SMEM_LIMIT_BYTES})")
+        del wg, wu
+
     # the reduced model on the card against the same model on the CPU
     rcfg = cfg.reduced()
     rmodel = build_model(rcfg)
@@ -550,7 +874,7 @@ def run(dev, cfg, card, report):
         if not torch.equal(small["cuda"][1][kind], mask):
             failures.append(f"reduced model: first-refresh {kind} masks differ from the CPU's")
 
-    log(f"[bitwise] {n_checks} checks, max abs err "
+    log(f"[bitwise] {check.n} checks, max abs err "
         + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
     if failures:
         for msg in failures:
@@ -615,177 +939,12 @@ def run(dev, cfg, card, report):
             torch.cuda.empty_cache()
 
     # -- 5. the timings ---------------------------------------------------------
-    def cuda_ms(fn, reps):
-        """Device time of one fn(), from replays of a CUDA graph of fn: no
-        host dispatch gaps between the launches."""
-        fn()
-        if not on_card:
-            return host_ms(fn)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        graph.replay()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            graph.replay()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
-    def host_ms(fn):
-        sync()
-        t = time.perf_counter()
-        fn()
-        sync()
-        return (time.perf_counter() - t) * 1e3
-
-    def rows_of(sizes):
-        z = sizes.cpu().clamp(min=0)
-        return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
+    cuda_ms, host_ms = timers(on_card)
 
     timing = {}
     for wbits in (16, 8):
-        eng = serve[wbits]["eng"]
-        plan, lp = eng._plan, eng.params["layers"]
-        sp = eng.sparse_ctx
-        el = 2 if wbits == 16 else 1
-        k1_calls, k2_calls, k5_inputs = [], [], []
-        k1_sites, k1_bounds = [], []
-        k1_bytes = k1_ops = k2_bytes = k2_ops = g1_bytes = g1_ops = 0.0
-        k1_bound = k2_bound = g1_bound = 0.0
-        for layer in range(n_layers):
-            for name, site, n_in in (("wq", "hidden_attn", d), ("wk", "hidden_attn", d),
-                                     ("wv", "hidden_attn", d), ("wo", "attn_out", hd_all)):
-                w = lp[name][layer] if wbits == 16 else lp[name + "_q8"][layer]
-                sc = None if wbits == 16 else lp[name + "_sc"][layer]
-                s, z = sp.kernel_tables(plan, site, layer)
-                xm = randn(BATCH, n_in) * plan[site]["mask"][layer]
-                k1_calls.append((w, xm, s, z, sc))
-                rows = rows_of(z)
-                byts = (rows * w.shape[1] * el + (rows // 8 * 4 if sc is not None else 0)
-                        + BATCH * n_in * 4 + 2 * 4 * s.numel() + BATCH * w.shape[1] * 4)
-                ops = 2.0 * BATCH * rows * w.shape[1]
-                k1_bytes, k1_ops = k1_bytes + byts, k1_ops + ops
-                k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-                k1_sites.append(name)
-                k1_bounds.append(max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S))
-            ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
-                  for n in ("w_gate", "w_up", "w_down")]
-            scs = None if wbits == 16 else tuple(lp[n + "_sc"][layer]
-                                                 for n in ("w_gate", "w_up", "w_down"))
-            st, sz = sp.mlp_kernel_plan(plan, layer)
-            fm = plan["ffn"]["mask"][layer]
-            xm = randn(BATCH, d) * plan["hidden_mlp"]["mask"][layer]
-            k2_calls.append((*ws, xm, st, sz, fm, scs))
-            rh, rf = rows_of(sz[0]), rows_of(sz[1])
-            byts = (2 * rh * f * el + rf * d * el
-                    + ((2 * rh + rf) // 8 * 4 if scs is not None else 0)
-                    + BATCH * d * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
-                    + BATCH * f * 4 + BATCH * d * 4)
-            ops = 2.0 * BATCH * (2 * rh * f + rf * d)
-            k2_bytes, k2_ops = k2_bytes + byts, k2_ops + ops
-            k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-            # K2's phase 1 alone: gate and up in, h out
-            byts = (2 * rh * f * el + (2 * rh // 8 * 4 if scs is not None else 0)
-                    + BATCH * d * 4 + 2 * 4 * st.shape[1] + BATCH * f * 4)
-            ops = 2.0 * BATCH * 2 * rh * f
-            g1_bytes, g1_ops = g1_bytes + byts, g1_ops + ops
-            g1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
-        # K5 over the run's own refresh-step input: every layer's sites from
-        # the importances the last step recorded, one launch
-        b = sp.batched
-        lanes = n_layers * b.n_sites
-        vs = torch.zeros((n_layers, b.n_sites, b.n_max), device=dev)
-        for i, kind in enumerate(sp.site_order):
-            vs[:, i, : sp.sites[kind].n] = plan[kind]["pending"]
-        k5_inputs.append((*(t.reshape(lanes, -1) for t in b.sorted_candidates(vs)),
-                          sp.lane_budgets, sp.lane_min_sizes, b.n_max))
-        n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
-
-        def run_k1(plain=False, calls=k1_calls):
-            for w, xm, s, z, sc in calls:
-                if plain:
-                    cg.chunk_gather_matmul_plain(w, xm, s, z, sc)
-                else:
-                    cg.chunk_gather_matmul_dma(w, xm, s, z, sc)
-
-        def run_k1_lib(calls=k1_calls):
-            for w, xm, s, z, sc in calls:
-                if sc is None:
-                    xm.to(w.dtype) @ w
-
-        def run_k2(plain=False):
-            for wg, wu, wd, xm, st, sz, fm, scs in k2_calls:
-                if plain:
-                    cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st, sz, fm, scs)
-                else:
-                    cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, return_h=True)
-
-        def run_gate_up(plain=False):
-            for wg, wu, _, xm, st, sz, _, scs in k2_calls:
-                sg, su = (None, None) if scs is None else scs[:2]
-                if plain:
-                    cg.chunk_gather_swiglu_plain(wg, wu, xm, st[0], sz[0],
-                                                 None if scs is None else (sg, su))
-                else:
-                    gate_up(wg, wu, xm, st[0], sz[0], sg, su, 1)
-
-        def run_k5(plain=False, walked=None):
-            fn = chunking.greedy_select_plain if plain else chunking.greedy_select
-            for args in k5_inputs:
-                if plain:
-                    fn(*args, walked=walked)
-                else:
-                    fn(*args)
-
-        walked = []
-        t_k5_plain = host_ms(lambda: run_k5(True, walked)) / n5
-        k5_bytes = sum(walked) * 8 + n5 * lanes * (b.n_max + 12)
-        k5_bound = k5_bytes / HBM_BYTES_PER_S / n5
-        k5_lanes = walk_stats(*k5_inputs[0])
-        if k5_lanes["selected"] != chunking.greedy_select(*k5_inputs[0])[1].tolist():
-            fail(f"w{wbits}: the replayed K5 walk selects other rows than the kernel")
-        timing[wbits] = {
-            "chunk_gather_matmul_dma": {
-                "ms": cuda_ms(run_k1, 20) / n1, "plain_ms": host_ms(lambda: run_k1(True)) / n1,
-                "library_ms": cuda_ms(run_k1_lib, 20) / n1 if wbits == 16 else None,
-                "bound_ms": k1_bound / n1 * 1e3,
-                "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
-                else "operations",
-                "calls": n1, "bytes_per_call": k1_bytes / n1},
-            "chunk_gather_mlp_dma": {
-                "ms": cuda_ms(run_k2, 20) / n2, "plain_ms": host_ms(lambda: run_k2(True)) / n2,
-                "library_ms": None, "bound_ms": k2_bound / n2 * 1e3,
-                "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
-                else "operations",
-                "calls": n2, "bytes_per_call": k2_bytes / n2},
-            "greedy_select": {
-                "ms": cuda_ms(run_k5, 5) / n5, "plain_ms": t_k5_plain, "library_ms": None,
-                "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5, "lanes": lanes,
-                "walked_per_lane": sum(walked) / max(len(walked), 1), "per_lane": k5_lanes},
-        }
-        phase1 = {"ms": cuda_ms(run_gate_up, 20) / n2,
-                  "plain_ms": host_ms(lambda: run_gate_up(True)) / n2,
-                  "bound_ms": g1_bound / n2 * 1e3,
-                  "bound_by": "bytes" if g1_bytes / HBM_BYTES_PER_S >= g1_ops / F32_OPS_PER_S
-                  else "operations"}
-        timing[wbits]["chunk_gather_mlp_dma"]["phase1"] = phase1
-        log(f"[time] w{wbits} chunk_gather_mlp_dma phase 1 alone (k2_gate_up): "
-            f"{phase1['ms'] * 1e3:.1f} us/launch  bound {phase1['bound_ms'] * 1e3:.2f} us "
-            f"({phase1['bound_by']})  plain {phase1['plain_ms'] * 1e3:.1f} us  ({card})")
-        worst = max(range(lanes), key=lambda i: k5_lanes["walked"][i])
-        log(f"[time] w{wbits} greedy_select over {lanes} lanes: per lane walked mean "
-            f"{sum(k5_lanes['walked']) / lanes:.0f} max {k5_lanes['walked'][worst]} (lane {worst}), "
-            f"survivors mean {sum(k5_lanes['survivors']) / lanes:.0f} max "
-            f"{max(k5_lanes['survivors'])}, picks mean {sum(k5_lanes['picks']) / lanes:.1f} max "
-            f"{max(k5_lanes['picks'])}, batches with 2+ survivors "
-            f"{sum(k5_lanes['crowded_batches'])}  ({card})")
-        sites = per_site(k1_calls, k1_sites, k1_bounds, run_k1,
-                         run_k1_lib if wbits == 16 else None, cuda_ms)
-        timing[wbits]["chunk_gather_matmul_dma"]["per_site"] = sites
-        log(f"[time] w{wbits} chunk_gather_matmul_dma per site: {site_line(sites)}  ({card})")
+        timing[wbits], _ = decode_timings(serve[wbits]["eng"], wbits, randn, cuda_ms, host_ms,
+                                          card, f"[time] w{wbits}")
         wall = serve[wbits]["loop_wall_s"] * 1e3
         shares = {k: v["ms"] * (serve[wbits]["launches"][k]
                                 - (TIME_SELECTION_LAUNCHES if k == "greedy_select" else 0)) / wall
@@ -826,7 +985,7 @@ def run(dev, cfg, card, report):
                         "library_ms": t["library_ms"]})
     report.update({"library_path": {**lib_report, "timing": lib_timing,
                                     "launches": lib_launches}})
-    report.update({"timing": timing, "errs": errs, "n_checks": n_checks,
+    report.update({"timing": timing, "errs": errs, "n_checks": check.n,
                    "k5_walked_per_lane_full": walked_full,
                    "serve": {w: {k: v for k, v in s.items() if k != "eng"}
                              for w, s in serve.items()}})
@@ -1002,10 +1161,6 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
         f"quickstart included); launches {launches}")
 
     # -- timings: CUDA-graph replay over the layers' tables -----------------------
-    def rows_of(sizes):
-        z = sizes.cpu().clamp(min=0)
-        return int((torch.minimum((z + 7) // 8, torch.tensor(64)) * 8).sum())
-
     k3_calls, k4_calls, k3_sites, k3_bounds = [], [], [], []
     k3_bytes = k3_ops = k4_bytes = k4_ops = k3_bound = k4_bound = 0.0
     for layer, rec in enumerate(calls):
@@ -1082,6 +1237,224 @@ def library_path(dev, cfg, layers, randn, check, failures, cuda_ms, host_ms, car
     return timing, launches, {"stats": stats, "wall_s": wall, "k5_err": k5_err,
                               "k5_one_lane_ms": one_lane_ms,
                               "quickstart_max_err": qs["max_err"]}
+
+
+def vlm_path(dev, full_cfg, card, report):
+    """Phase 7: the paper's VLM workload at the full width of ``full_cfg``,
+    depth cut to VLM_LAYERS: prefill (vision + text tokens) → VLM_FRAMES
+    frame appends → VLM_DECODE decode tokens through ``ServeEngine``,
+    ``--method chunk --sparsity 0.4 --device nano --backend kernel``, at
+    wbits 16 and 8. The launch counts are set to 0 just before and read
+    just after each run, and must be exact; the tokens must equal the same
+    run's on the reference backend. Then, outside the counted runs: K1 (every
+    site), K2 and K5 (the all-layer refresh and each site's one-lane walk)
+    bitwise against their plain versions on the run's own tables; the
+    timings as in phase 5 plus K5's one-lane walks; the rows the kernels read
+    against the rows selected; the profiled device busy share; and the
+    video-stream policy table at wbits 16. Returns the phase's kernel rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.launch import video_stream
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import FRONT_DTYPE, make_dummy_batch
+    from repro_torch.serving import ServeEngine
+
+    on_card = dev.type == "cuda"
+    cfg = dataclasses.replace(full_cfg, n_layers=min(VLM_LAYERS, full_cfg.n_layers))
+    n_layers, hd = cfg.n_layers, cfg.resolved_head_dim
+    frame_tokens = max(cfg.frontend_tokens // 4, 4)
+    log(f"[vlm] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, d_frontend {cfg.d_frontend} (the "
+        f"model's widths); depth cut to {n_layers} of {full_cfg.n_layers} layers; random "
+        f"weights from seed 0; batch {BATCH}, prompt {VLM_PROMPT} tokens, {VLM_FRAMES} frames "
+        f"of {frame_tokens} tokens, {VLM_DECODE} decode tokens, max_seq {VLM_MAX_SEQ}")
+    randn, sync = seeded(dev, 4321)
+    cuda_ms, host_ms = timers(on_card)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    prompt = make_dummy_batch(cfg, InputShape("vlm", VLM_PROMPT, BATCH, "train"), seed=0,
+                              device=dev)
+    rng = np.random.default_rng(0)
+    frames = [torch.from_numpy(rng.normal(0, 1, (BATCH, frame_tokens, cfg.d_frontend)))
+              .to(FRONT_DTYPE).to(dev) for _ in range(VLM_FRAMES)]
+    sync()
+    log(f"[vlm] weights made in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(t.numel() * t.element_size() for t in params['layers'].values()) / 2**30:.2f} "
+        f"GiB of layers, prompt {tuple(prompt['tokens'].shape)} text + "
+        f"{tuple(prompt['frontend'].shape)} vision")
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma", "greedy_select"))
+    errs = check.errs
+
+    def serve(backend, wbits):
+        """One run of the path: prefill → frames → decode. Returns (engine,
+        tokens (b, VLM_DECODE + 1), prefill logits, frame hidden states)."""
+        eng = ServeEngine(model, params, max_seq=VLM_MAX_SEQ, batch_size=BATCH,
+                          device="nano", sparsity=0.4, method="chunk", backend=backend,
+                          wbits=wbits, torch_device=dev)
+        last = eng.prefill(prompt)
+        hidden = [eng.append_frame(fr) for fr in frames]
+        out = eng.decode(torch.argmax(last, dim=-1)[:, None], VLM_DECODE)
+        return eng, out, last, hidden
+
+    runs, timing = {}, {}
+    for wbits in (16, 8):
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        eng, out, last, hidden = serve("kernel", wbits)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        want = {"chunk_gather_matmul_dma": 4 * n_layers * VLM_DECODE,
+                "chunk_gather_mlp_dma": n_layers * VLM_DECODE,
+                "greedy_select": VLM_DECODE + TIME_SELECTION_LAUNCHES
+                + 4 * n_layers * VLM_FRAMES}
+        if on_card and launches != want:
+            fail(f"vlm w{wbits}: launch counts {launches} != per-step counts {want}")
+        if not (bool(torch.isfinite(last).all())
+                and all(bool(torch.isfinite(h).all()) for h in hidden)):
+            fail(f"vlm w{wbits}: non-finite prefill logits or frame hidden states")
+        if out.shape != (BATCH, VLM_DECODE + 1) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            fail(f"vlm w{wbits}: bad tokens {out.tolist()}")
+        if eng.cache["length"] != VLM_PROMPT + VLM_FRAMES * frame_tokens + VLM_DECODE:
+            fail(f"vlm w{wbits}: cache length {eng.cache['length']}")
+        st = {k: [s for s in eng.stats if s.kind == k] for k in ("prefill", "frame", "decode")}
+        if len(st["frame"]) != VLM_FRAMES or not all(s.io_est_s > 0 for s in st["frame"]):
+            fail(f"vlm w{wbits}: frame stats {st['frame']}")
+        ref, out_ref, _, _ = serve("reference", wbits)
+        if not torch.equal(out_ref, out):
+            fail(f"vlm w{wbits}: kernel tokens {out.tolist()} != reference backend tokens "
+                 f"{out_ref.tolist()}")
+        del ref
+        if on_card:
+            torch.cuda.empty_cache()
+        decode_wall = sum(s.wall_s for s in st["decode"])
+        profile = profile_decode(eng, out[:, -1:].to(dev), card) if on_card else {}
+        io = eng.io_summary()
+        runs[wbits] = {
+            "launches": launches, "wall_s": wall, "peak_bytes": peak,
+            "prefill_wall_s": st["prefill"][0].wall_s,
+            "frame_wall_s": [s.wall_s for s in st["frame"]],
+            "frame_io_est_s": [s.io_est_s for s in st["frame"]],
+            "frame_io_sim_s": [s.io_sim_s for s in st["frame"]],
+            "decode_wall_per_step_s": decode_wall / VLM_DECODE,
+            "tokens_per_s": BATCH * VLM_DECODE / decode_wall, "profile": profile,
+            "io_bytes": io["io_bytes"], "io_sim_s": io["io_sim_s"], "tokens": out.tolist()}
+        log(f"[vlm] w{wbits} served: prefill {st['prefill'][0].wall_s * 1e3:.1f} ms, frames "
+            + ", ".join(f"{s.wall_s * 1e3:.1f}" for s in st["frame"])
+            + f" ms (io_est {np.mean(runs[wbits]['frame_io_est_s']) * 1e3:.2f} ms a frame), "
+            f"decode {decode_wall / VLM_DECODE * 1e3:.2f} ms/step "
+            f"({runs[wbits]['tokens_per_s']:.2f} tokens/s), peak {peak / 2**30:.2f} GiB, "
+            f"launches {launches}, tokens identical to the reference backend  ({card})")
+
+        # -- the timings, and the kernels on the run's own tables (every
+        # layer's, as timed) against their plain versions
+        timing[wbits], calls = decode_timings(eng, wbits, randn, cuda_ms, host_ms, card,
+                                              f"[vlm] w{wbits}")
+        plan, sp = eng._plan, eng.sparse_ctx
+        for i, (name, (w, xm, s, z, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
+            check("chunk_gather_matmul_dma", f"vlm w{wbits} L{i // 4} {name}",
+                  cg.chunk_gather_matmul_dma(w, xm, s, z, sc),
+                  cg.chunk_gather_matmul_plain(w, xm, s, z, sc))
+        for layer, (wg, wu, wd, xm, s, z, fm, scs) in enumerate(calls["k2"]):
+            yk, hk = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, s, z, fm, scs, return_h=True)
+            yp, hp = cg.chunk_gather_mlp_plain(wg, wu, wd, xm, s, z, fm, scs)
+            check("chunk_gather_mlp_dma", f"vlm w{wbits} L{layer} y", yk, yp)
+            check("chunk_gather_mlp_dma", f"vlm w{wbits} L{layer} h", hk, hp)
+        for args in calls["k5"]:
+            for got, want_ in zip(chunking.greedy_select(*args),
+                                  chunking.greedy_select_plain(*args)):
+                check("greedy_select", f"vlm w{wbits} {args[0].shape[0]} lanes", got, want_)
+        one_lane = {}
+        for kind in sp.site_order:
+            site = sp.sites[kind]
+            batched, _ = site.selector.lane(dev)
+            st_s, sz_s = batched.sorted_candidates(plan[kind]["pending"][0][None])
+            args = (st_s, sz_s, torch.tensor([site.budget()], dtype=torch.int32, device=dev),
+                    batched.min_sizes, batched.n_max)
+            walked = []
+            for got, want_ in zip(chunking.greedy_select(*args),
+                                  chunking.greedy_select_plain(*args, walked)):
+                check("greedy_select", f"vlm w{wbits} one lane {kind}", got, want_)
+            one_lane[kind] = (args, walked[0])
+        if check.failures:
+            for msg in check.failures:
+                log(f"[vlm] {msg}")
+            fail(f"{len(check.failures)} phase-7 kernel checks failed")
+        log(f"[vlm] w{wbits} bitwise: {check.n} checks so far (K1 at every site of "
+            f"{n_layers} layers, K2 at every layer, K5 over {n_layers * sp.batched.n_sites} "
+            "lanes and one lane a site), max abs err "
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+
+        lane_ms = {}
+        for kind, (args, walked) in one_lane.items():
+            ms = cuda_ms(lambda a=args: chunking.greedy_select(*a), 5)
+            lane_ms[kind] = {"ms": ms, "walked": walked, "candidates": int(args[0].shape[1]),
+                             "bound_ms": (walked * 8 + args[4] + 12) / HBM_BYTES_PER_S * 1e3}
+        timing[wbits]["greedy_select"]["one_lane"] = lane_ms
+        log(f"[vlm] w{wbits} greedy_select one lane: " + "  ".join(
+            f"{k} {v['ms'] * 1e3:.1f} us ({v['walked']} of {v['candidates']} candidates "
+            f"walked)" for k, v in lane_ms.items()) + f"  ({card})")
+        for k, v in timing[wbits].items():
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"[vlm] w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound "
+                f"{v['bound_ms'] * 1e3:.2f} us ({v['bound_by']})  ({card})")
+
+        # -- the rows the kernels read (whole 8-row blocks) against the rows
+        # the last refresh selected, per site over the layers
+        grain = {}
+        for kind in sp.site_order:
+            sel = int(plan[kind]["mask"].sum())
+            read = sum(rows_of(plan[kind]["ksizes"][layer]) for layer in range(n_layers))
+            grain[kind] = {"selected": sel, "read": read, "ratio": read / max(sel, 1),
+                           "rows": sp.sites[kind].n * n_layers,
+                           "max_chunk_rows": sp.sites[kind].selector.max_size}
+        runs[wbits]["grain"] = grain
+        log(f"[vlm] w{wbits} rows read / selected, {n_layers} layers: " + "  ".join(
+            f"{k} {v['read']}/{v['selected']} = {v['ratio']:.2f}x (chunks up to "
+            f"{v['max_chunk_rows']} rows)" for k, v in grain.items()))
+        del eng
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- the video-stream policy table at wbits 16 (dense / top-k / chunk)
+    policies = video_stream.policy_io(model, params, prompt, frames, VLM_DECODE, 0.4, 1, dev,
+                                      backend="kernel")
+    log(f"[vlm] the video-stream table, {cfg.name} at {n_layers} layers, wbits 16, simulated "
+        "Jetson Orin Nano flash:")
+    video_stream.print_policy_table(policies)
+    report["vlm"] = {"config": dataclasses.asdict(cfg), "runs": runs, "timing": timing,
+                     "errs": errs, "n_checks": check.n, "policies": policies}
+    meta = {
+        "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                    "src/repro/kernels/chunk_gather_dma.py:284"),
+        "chunk_gather_mlp_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                 "src/repro/kernels/chunk_gather_dma.py:617"),
+        "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
+                          "src/repro/core/chunking.py:362"),
+    }
+    return [{"name": f"{name} [{cfg.name}, {n_layers} layers]", "route": "cuda",
+             "source": source, "replaces": replaces, "launches": runs[16]["launches"][name],
+             "max_abs_err": errs[name], "ms": timing[16][name]["ms"],
+             "plain_ms": timing[16][name]["plain_ms"], "bound_ms": timing[16][name]["bound_ms"],
+             "bound_by": timing[16][name]["bound_by"],
+             "library_ms": timing[16][name]["library_ms"]}
+            for name, (source, replaces) in meta.items()]
 
 
 if __name__ == "__main__":

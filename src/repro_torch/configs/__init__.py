@@ -7,9 +7,10 @@ raises with that pointer.
 from typing import Dict, List
 
 from .base import InputShape, ModelConfig
+from .internvl2_76b import CONFIG as _internvl2
 from .tinyllama_1_1b import CONFIG as _tinyllama
 
-CONFIGS: Dict[str, ModelConfig] = {c.name: c for c in (_tinyllama,)}
+CONFIGS: Dict[str, ModelConfig] = {c.name: c for c in (_tinyllama, _internvl2)}
 
 ARCH_IDS: List[str] = sorted(CONFIGS)
 

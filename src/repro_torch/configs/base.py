@@ -13,7 +13,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense (the only family this port serves so far)
+    arch_type: str  # dense | vlm (the families this port serves so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +27,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     n_experts: int = 0
     sliding_window: Optional[int] = None
+    # VLM frontend: the vision embedding width fed to the projector, and the
+    # tokens of one frame
+    d_frontend: int = 0
+    frontend_tokens: int = 0
     citation: str = ""
 
     @property
@@ -39,7 +43,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family: 2 layers, d_model ≤ 256,
-        ≤ 4 heads, d_ff scaled with d_model (the reference's rule)."""
+        ≤ 4 heads, d_ff scaled with d_model, d_frontend ≤ 64 and ≤ 16
+        frontend tokens (the reference's rule)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -56,6 +61,8 @@ class ModelConfig:
             head_dim=d_model // n_heads,
             d_ff=max(64, int(self.d_ff * scale)) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            d_frontend=min(self.d_frontend, 64) if self.d_frontend else 0,
+            frontend_tokens=min(self.frontend_tokens, 16) if self.frontend_tokens else 0,
         )
 
 

@@ -1,7 +1,14 @@
 """Neuron Chunking core of the port: selection, latency model, simulator,
 and the per-matrix planner."""
 from .api import NeuronChunkingPlanner, SparsePlan
-from .baselines import topk_mask
+from .baselines import (
+    bundled_latency,
+    calibrate_threshold,
+    threshold_mask,
+    topk_mask,
+    topk_mask_np,
+    unbundled_latency,
+)
 from .chunking import (
     BatchedChunkSelector,
     ChunkConfig,

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .contiguity import runs_to_padded_table_np
 from .latency_model import KB, DeviceProfile, LatencyTable, profile_table
 
@@ -135,7 +136,10 @@ class ChunkSelector:
         cfg = cfg or ChunkConfig.for_shape(n, 1, name)
         starts, sizes = _candidate_schedule(n, row_bytes, cfg)
         if table is None:
-            table = profile_table(device, row_bytes, max_rows=int(sizes.max()))
+            # the host-side table (the oracle's and the batched cost rows');
+            # ``lane`` copies it to the device a selection runs on
+            table = profile_table(device, row_bytes, max_rows=int(sizes.max()),
+                                  torch_device="cpu")
         return ChunkSelector(n=n, row_bytes=row_bytes, table=table, cfg=cfg,
                              starts=starts, sizes=sizes,
                              max_size=int(sizes.max()), min_size=int(sizes.min()))
@@ -285,6 +289,9 @@ class BatchedChunkSelector:
 
     @staticmethod
     def build(selectors: Sequence[ChunkSelector], device=None) -> "BatchedChunkSelector":
+        """The selectors as one padded problem on ``device`` (default
+        ``cuda``; no card raises)."""
+        device = resolve_device(device)
         sels = list(selectors)
         if not sels:
             raise ValueError("need at least one ChunkSelector to batch")

@@ -19,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .contiguity import mask_run_sizes
 
 KB = 1024.0
@@ -51,6 +52,9 @@ class DeviceProfile:
         return self.base_latency + 1.0 / self.iops + s / self.peak_bw
 
     def build_table(self, row_bytes: float, max_rows: int, device=None) -> "LatencyTable":
+        """T[0..max_rows] for rows of ``row_bytes``, on ``device`` (default
+        ``cuda``; no card raises)."""
+        device = resolve_device(device)
         sizes = np.arange(max_rows + 1, dtype=np.float64) * row_bytes
         lat = self.latency_bytes(sizes)
         lat[0] = 0.0
@@ -121,5 +125,7 @@ def get_profile(name: str) -> DeviceProfile:
 
 def profile_table(device: str | DeviceProfile, row_bytes: float, max_rows: int,
                   torch_device=None) -> LatencyTable:
+    """The profile's latency table on ``torch_device`` (default ``cuda``;
+    no card raises)."""
     prof = device if isinstance(device, DeviceProfile) else get_profile(device)
     return prof.build_table(row_bytes=row_bytes, max_rows=max_rows, device=torch_device)

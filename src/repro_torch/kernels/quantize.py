@@ -43,12 +43,20 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor, block_rows: int = 8) 
 def quantize_params(layers: Dict[str, torch.Tensor], names, block_rows: int = 8
                     ) -> Dict[str, torch.Tensor]:
     """The ``<name>_q8`` / ``<name>_sc`` leaves of the named stacked
-    (L, N, D) weights (leading L kept); missing names are skipped."""
+    (L, N, D) weights (leading L kept); missing names are skipped. Layer by
+    layer, so the f32 transient is one layer's (a whole (8, 8192, 28672)
+    leaf of InternVL2-76B would take 7.5 GB at once); the result is the
+    same as one ``quantize_rows`` over the stack."""
     out: Dict[str, torch.Tensor] = {}
     for name in names:
         if name not in layers:
             continue
-        q, s = quantize_rows(layers[name], block_rows)
+        w = layers[name]
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((*w.shape[:-2], w.shape[-2] // block_rows), dtype=torch.float32,
+                        device=w.device)
+        for layer in range(w.shape[0]):
+            q[layer], s[layer] = quantize_rows(w[layer], block_rows)
         out[name + QUANT_SUFFIX_PAYLOAD] = q
         out[name + QUANT_SUFFIX_SCALE] = s
     return out

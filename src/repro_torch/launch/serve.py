@@ -1,5 +1,6 @@
 """Serving launcher of the port: one stream of lockstep requests — prefill,
-then the fused sparse decode loop — with the neuron-chunking policy and the
+then (for a VLM) ``--frames`` video frames appended to the cache, then the
+fused sparse decode loop — with the neuron-chunking policy and the
 flash-offload simulation. Runs on the GPU unless asked otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -7,6 +8,9 @@ flash-offload simulation. Runs on the GPU unless asked otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --torch-device cpu --decode-tokens 8 --max-seq 64
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b \
+      --reduced --frames 2 --torch-device cpu
 
 ``--device`` names the simulated flash profile (nano / agx), as in the
 reference CLI; ``--torch-device`` picks where the model runs. The
@@ -26,12 +30,12 @@ from ..configs import ARCH_IDS, get_config
 from ..configs.base import InputShape
 from ..kernels.backend import BACKENDS
 from ..models import build_model
-from ..models.inputs import make_dummy_batch
-from ..serving import SPARSE_METHODS, ServeEngine
+from ..models.inputs import FRONT_DTYPE, make_dummy_batch
+from ..serving import SERVE_METHODS, ServeEngine
 
 # flags of the reference CLI (repro/launch/serve.py) this slice does not serve
 NOT_PORTED_FLAGS = (
-    "--frames", "--cache-mb", "--kv-page-tokens", "--per-token", "--mesh", "--streams",
+    "--cache-mb", "--kv-page-tokens", "--per-token", "--mesh", "--streams",
     "--arrival-rate", "--round-tokens", "--fault-profile", "--fault-seed",
     "--corruption-profile", "--corruption-seed", "--max-reread", "--recover",
     "--no-recover", "--degrade", "--no-degrade", "--deadline-s",
@@ -42,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", choices=ARCH_IDS, default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--method", choices=SPARSE_METHODS, default="chunk")
+    ap.add_argument("--method", choices=SERVE_METHODS, default="chunk",
+                    help="chunk | topk | dense stream weights from the simulated flash; "
+                         "dense_free keeps them resident (zero I/O)")
     ap.add_argument("--backend", choices=BACKENDS, default="reference",
                     help="decode execution backend: 'reference' computes the planned "
                          "sparse projections as the kernels' plain PyTorch schedule "
@@ -57,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=2,
+                    help="video frames appended after the prompt (VLM archs only), "
+                         "frontend_tokens // 4 tokens each (at least 4)")
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--plan-refresh-interval", type=int, default=1,
                     help="recompute chunk selection every k decode steps")
@@ -102,6 +111,15 @@ def main(argv=None):
                              seed=args.seed, device=dev)
     last = eng.prefill(batch)
     print(f"[prefill] {args.prompt_len} tokens")
+    if cfg.d_frontend:
+        rng = np.random.default_rng(args.seed)
+        n_tok = max(cfg.frontend_tokens // 4, 4)
+        for i in range(args.frames):
+            frame = torch.from_numpy(rng.normal(0, 1, (args.batch, n_tok, cfg.d_frontend)))
+            eng.append_frame(frame.to(FRONT_DTYPE))
+            st = eng.stats[-1]
+            print(f"[frame {i}] {n_tok} tokens  io_est {st.io_est_s * 1e3:.2f} ms  "
+                  f"io_sim {st.io_sim_s * 1e3:.2f} ms")
     tok0 = torch.argmax(last, dim=-1)[:, None]
     out = eng.decode(tok0, args.decode_tokens)
     dsteps = [s for s in eng.stats if s.kind == "decode"]

@@ -1,5 +1,5 @@
 """GQA attention with RoPE and a linear KV cache (the port's copy of the
-parts of ``repro.models.attention`` the dense decode path uses).
+parts of ``repro.models.attention`` the decode and frame-append paths use).
 
 Prefill runs the direct (materialized-scores) attention; the reference's
 blockwise and sequence-sharded paths and rotating windows come with later
@@ -126,3 +126,34 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32)).to(out_dtype)
     return out.reshape(b, 1, n_heads * head_dim)
+
+
+def append_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], layer_k: torch.Tensor,
+                     layer_v: torch.Tensor, length: int, n_heads: int, n_kv_heads: int,
+                     head_dim: int, rope_theta: Optional[float],
+                     project_out: bool = True) -> torch.Tensor:
+    """Multi-token cache-extending attention (the paper's frame append): the
+    n new tokens x (b, n, d) take positions ``length … length + n − 1``,
+    their k/v are written into the linear cache at those slots in place,
+    and each new query attends causally to all history and to the new
+    tokens before it. Returns (b, n, h*hd), through ``wo`` unless
+    ``project_out`` is False (the sparse path masks before wo)."""
+    b, n, _ = x.shape
+    phys = layer_k.shape[1]
+    if length + n > phys:
+        raise ValueError(f"appending {n} tokens at {length} overflows a cache of {phys}")
+    positions = (length + torch.arange(n, device=x.device))[None].expand(b, n)
+    q = (x @ params["wq"]).reshape(b, n, n_heads, head_dim)
+    k = (x @ params["wk"]).reshape(b, n, n_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(b, n, n_kv_heads, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    layer_k[:, length: length + n] = k
+    layer_v[:, length: length + n] = v
+    n_rep = n_heads // n_kv_heads
+    slot = torch.arange(phys, device=x.device)[None, :]
+    q_pos = (length + torch.arange(n, device=x.device))[:, None]
+    out = _direct_attention(q, repeat_kv(layer_k, n_rep), repeat_kv(layer_v, n_rep),
+                            slot <= q_pos).reshape(b, n, n_heads * head_dim)
+    return out @ params["wo"] if project_out else out

@@ -26,7 +26,7 @@ def params_from_reference(params_np: Dict[str, Any], cfg, device=None) -> Dict[s
     """Reference param pytree (numpy leaves; stacked (L, ...) layer leaves,
     optional ``_q8``/``_sc`` quantized leaves) → the port's params dict on
     ``device`` (default ``cuda``; no card raises). Checks each leaf's shape
-    against the port's model."""
+    against the port's model (the VLM ``projector`` included)."""
     from .model import Model
 
     device = resolve_device(device)
@@ -40,7 +40,9 @@ def params_from_reference(params_np: Dict[str, Any], cfg, device=None) -> Dict[s
             out[name] = _leaf(leaf, device)
     for key, (shape, _) in want.items():
         top, _, sub = key.partition("/")
-        got = out[top][sub] if sub else out[top]
+        got = out.get(top, {}).get(sub) if sub else out.get(top)
+        if got is None:
+            raise ValueError(f"reference params have no leaf {key} (shape {shape})")
         if tuple(got.shape) != shape:
             raise ValueError(f"reference leaf {key} has shape {tuple(got.shape)}, "
                              f"the port expects {shape}")

@@ -1,5 +1,6 @@
-"""Decoder block + layer loop for the dense family (the port's copy of the
-prefill and planned-decode parts of ``repro.models.transformer``).
+"""Decoder block + layer loop of the dense and VLM families (the port's copy
+of the forward, prefill, decode and frame-append parts of
+``repro.models.transformer``).
 
 The layer loop is a Python loop over the stacked (L, ...) params; the
 decode plan and the KV cache are updated in place. On the planned decode
@@ -8,6 +9,12 @@ path the plan of every layer is refreshed once, before the loop
 and every sparsification site computes through the execution backend off
 the plan's chunk tables: q/k/v and o through ``backend.project`` (K1 on the
 kernel backend), the MLP through ``backend.swiglu_mlp`` (K2).
+
+The unplanned paths — frame append, and a decode with a sparse context but
+no plan (method ``dense``) — select each site's mask in the step itself
+(``SparseExecution.mask``: the one-lane K5 walk for ``chunk``) and compute
+masked dense products with the bf16 originals; at wbits 8 the int8 leaves
+serve the planned decode only, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,12 +25,13 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.quantize import QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
 from .attention import (
+    append_attention,
     cache_layer_update,
     decode_attention,
     multi_head_attention,
     project_kv_for_decode,
 )
-from .common import apply_rope, rms_norm
+from .common import apply_rope, rms_norm, swish
 from .mlp import swiglu_mlp, swiglu_mlp_planned
 
 # the offloaded per-layer matrices governed by sparsification — the set the
@@ -51,6 +59,30 @@ def _site_weight(params, sparse_ctx, name):
     if sparse_ctx.wbits == 8 and name + QUANT_SUFFIX_PAYLOAD in params:
         return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
     return params[name], None
+
+
+def _apply_mask(x: torch.Tensor, mask) -> torch.Tensor:
+    return x if mask is None else x * mask.to(x.dtype)
+
+
+def _site_mask(sparse_ctx, kind: str, acts: torch.Tensor):
+    """One site's in-step selection: (mask (N,) f32 or None, estimated I/O
+    seconds); (None, 0.0) without a sparse context."""
+    if sparse_ctx is None:
+        return None, 0.0
+    return sparse_ctx.mask(kind, acts)
+
+
+def _mlp_maybe_sparse(h: torch.Tensor, params, sparse_ctx):
+    """SwiGLU with the paper's gate(+up-shared) and down masks selected in
+    the step (the unplanned paths). Returns (y, estimated I/O seconds)."""
+    if sparse_ctx is None:
+        return swiglu_mlp(h, params), 0.0
+    mask_g, io_g = _site_mask(sparse_ctx, "hidden_mlp", h)
+    hm = _apply_mask(h, mask_g)
+    mid = swish(hm @ params["w_gate"]) * (hm @ params["w_up"])
+    mask_f, io_f = _site_mask(sparse_ctx, "ffn", mid)
+    return _apply_mask(mid, mask_f) @ params["w_down"], io_g + io_f
 
 
 def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -81,6 +113,50 @@ def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
     return x
 
 
+def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Every layer over a whole sequence, no cache (the reference's
+    ``stack_forward`` without a sparse context)."""
+    for layer in range(cfg.n_layers):
+        x, _, _ = block_prefill(layer_slice(stacked, layer), x, cfg, positions)
+    return x
+
+
+def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                 length: int, cfg: ModelConfig, sparse_ctx=None):
+    """n new tokens x (b, n, d) through one layer, extending its cache in
+    place at ``length …``. With a sparse context every site selects its
+    mask from this frame's activations. Returns (x_out, estimated I/O
+    seconds)."""
+    h = rms_norm(x, params["ln1_w"])
+    mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
+    attn = append_attention(_apply_mask(h, mask_q), params, layer_k, layer_v, length,
+                            cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                            cfg.rope_theta, project_out=sparse_ctx is None)
+    if sparse_ctx is not None:
+        mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
+        io = io + lat
+        attn = _apply_mask(attn, mask_o) @ params["wo"]
+    x = x + attn
+    y, lat = _mlp_maybe_sparse(rms_norm(x, params["ln2_w"]), params, sparse_ctx)
+    return x + y, io + lat
+
+
+def stack_append(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
+                 sparse_ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Append n tokens to every layer's cache (the paper's frame append);
+    ``cache["length"]`` advances by n. Returns (x, the frame's estimated
+    I/O seconds, a 0-d f32 tensor)."""
+    length = cache["length"]
+    io = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(cfg.n_layers):
+        x, lat = block_append(layer_slice(stacked, layer), x, cache["k"][layer],
+                              cache["v"][layer], length, cfg, sparse_ctx)
+        io = io + lat
+    cache["length"] = length + x.shape[1]
+    return x, io
+
+
 def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
     """Planned-decode sparse MLP: read this layer's masks and tables, run
     the backend's fused SwiGLU, record both MLP sites' importances for the
@@ -97,19 +173,19 @@ def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
 
 def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
                  length: int, cfg: ModelConfig, sparse_ctx=None, plan=None,
-                 layer: int = 0) -> torch.Tensor:
+                 layer: int = 0):
     """One decode token through one layer. ``length``: tokens in the cache
-    before this one. With a sparse context the decode plan must be given
-    (the planned path), already refreshed for this step by
-    ``stack_decode``; without one the block runs dense. Returns x_out."""
+    before this one. With a sparse context and a decode plan (the planned
+    path, already refreshed for this step by ``stack_decode``) every site
+    computes through the execution backend off the plan's tables; with a
+    sparse context and an empty plan (method ``dense``) each site takes
+    ``sparse_ctx.mask`` and a masked dense product; without one the block
+    runs dense. Returns (x_out, the unplanned path's estimated I/O seconds
+    — 0.0 on the others, where the refresh charges it)."""
     hd = cfg.resolved_head_dim
     b = x.shape[0]
-    planned = sparse_ctx is not None
-    if planned and not plan:
-        raise NotImplementedError(
-            "the unplanned sparse decode path (in-step per-site selection) is not "
-            "ported; serve through ServeEngine.decode (ROADMAP.md, queue 1)"
-        )
+    planned = sparse_ctx is not None and bool(plan)
+    io = 0.0
     h = rms_norm(x, params["ln1_w"])
     if planned:
         mask_q = plan["hidden_attn"]["mask"][layer]
@@ -123,6 +199,8 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
             outs.append(y.to(h.dtype).reshape(b, 1, -1))
         q, k, v = outs
     else:
+        mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
+        h = _apply_mask(h, mask_q)
         q, k, v = (h @ params[name] for name in ("wq", "wk", "wv"))
     new_k, new_v = project_kv_for_decode(k, v, cfg.n_kv_heads, hd, length, cfg.rope_theta)
     cache_layer_update(layer_k, layer_v, new_k, new_v, length)
@@ -137,11 +215,15 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
                                          sc_o)
         attn = y_o.to(attn.dtype).reshape(b, 1, -1)
     else:
-        attn = attn @ params["wo"]
+        mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
+        io = io + lat
+        attn = _apply_mask(attn, mask_o) @ params["wo"]
     x = x + attn
     h = rms_norm(x, params["ln2_w"])
-    y = _planned_mlp(h, params, sparse_ctx, plan, layer) if planned else swiglu_mlp(h, params)
-    return x + y
+    if planned:
+        return x + _planned_mlp(h, params, sparse_ctx, plan, layer), io
+    y, lat = _mlp_maybe_sparse(h, params, sparse_ctx)
+    return x + y, io + lat
 
 
 def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
@@ -151,15 +233,20 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     plan of every layer is refreshed first, in one selection
     (``refresh_step``; a refresh of layer l reads only the importances
     layer l recorded on the previous step). Returns (x, io (L,)) — the
-    per-layer I/O estimates the engine's prefetch timeline prices, nonzero
-    only on refresh steps."""
+    per-layer I/O estimates the engine's prefetch timeline prices: on the
+    planned path nonzero only on refresh steps, on the unplanned path
+    (method ``dense``) every step's site masks' estimates, 0 without a
+    sparse context."""
     length = cache["length"]
-    if sparse_ctx is not None and plan:
+    planned = sparse_ctx is not None and bool(plan)
+    if planned:
         io = sparse_ctx.refresh_step(plan, refresh)
     else:
         io = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
-        x = block_decode(layer_slice(stacked, layer), x, cache["k"][layer], cache["v"][layer],
-                         length, cfg, sparse_ctx, plan, layer)
+        x, lat = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
+                              cache["v"][layer], length, cfg, sparse_ctx, plan, layer)
+        if sparse_ctx is not None and not planned:
+            io[layer] = lat
     cache["length"] = length + 1
     return x, io

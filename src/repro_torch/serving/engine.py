@@ -2,16 +2,23 @@
 simulation (the port's copy of the classic single-stream mode of
 ``repro.serving.engine``).
 
-``prefill(batch)`` runs the dense prompt forward; ``decode(tok, n)`` runs
-the fused decode loop: n greedy steps on the device — the plan refresh is
+``prefill(batch)`` runs the dense prompt forward (a VLM prompt's vision
+tokens first); ``append_frame(frame)`` extends the cache by one video
+frame's tokens, selecting every site's mask from the frame's activations;
+``decode(tok, n)`` runs the fused decode loop: n greedy steps on the device — the plan refresh is
 the host-known ``step % plan_refresh_interval == 0``, the kernel tables
 have a static width, and the greedy selection exits early on the device —
 then ONE host sync brings back every step's per-layer I/O estimates and
 plan counters, which the simulator, the prefetch pipeline and ``StepStats``
 price exactly as the reference does after its ``lax.scan``.
 
-Not ported yet: slot mode / the scheduler, paged KV, frame append, the
-per-token loop, faults, degradation, corruption and sharded meshes.
+``method``: "chunk" | "topk" | "dense" stream weights from the simulated
+flash through ``SparseExecution`` ("dense" re-streams every matrix every
+step); "dense_free" keeps the weights resident — dense compute, no
+``SparseExecution``, zero I/O.
+
+Not ported yet: slot mode / the scheduler, paged KV, the per-token loop,
+faults, degradation, corruption and sharded meshes.
 """
 from __future__ import annotations
 
@@ -36,12 +43,13 @@ from .sparse_exec import (
     plan_hit_miss,
     plan_transfer_bytes,
     reset_plan_counters,
+    validate_method,
 )
 
 
 @dataclasses.dataclass
 class StepStats:
-    kind: str  # prefill | decode
+    kind: str  # prefill | frame | decode
     tokens: int
     io_est_s: float
     io_sim_s: float
@@ -89,7 +97,9 @@ class ServeEngine:
         ``backend``: "reference" (the kernels' schedule twin) or "kernel"
         (K1/K2 off the decode plan's chunk tables); tokens are
         byte-identical across the two. ``wbits=8`` quantizes the offloaded
-        matrices once (int8 payload + per-8-row scales)."""
+        matrices once (int8 payload + per-8-row scales); ``dense_free``
+        streams nothing and ignores it."""
+        validate_method(method, allow_dense_free=True)
         validate_backend(backend)
         if wbits not in WBITS_CHOICES:
             raise ValueError(f"wbits must be one of {WBITS_CHOICES}, got {wbits!r}")
@@ -108,20 +118,24 @@ class ServeEngine:
         self.plan_refresh_interval = plan_refresh_interval
         self.overlap = overlap
         self.wbits = wbits
-        self.sparse_ctx = SparseExecution(
+        self.sparse_ctx = None if method == "dense_free" else SparseExecution(
             model.cfg, device=device, sparsity=sparsity, method=method, backend=backend,
             kernel_prefetch_depth=prefetch_depth, wbits=wbits,
             torch_device=self.torch_device,
         )
         self.params = params
-        if wbits == 8:
+        if self.sparse_ctx is not None and wbits == 8:
             # the int8 payload + scale leaves join the stacked layer params;
-            # prefill keeps the bf16 originals
+            # prefill, frame append and the unplanned paths keep the bf16
+            # originals
             layers = dict(params["layers"])
             layers.update(quantize_params(layers, SPARSE_WEIGHT_NAMES))
             self.params = {**params, "layers": layers}
+        # the pipeline's compute lane: the selecting methods compute over
+        # their kept rows, dense and dense_free over every row
         self.compute_layer_s = ComputeModel().decode_layer_seconds(
-            model.cfg, sparsity=sparsity, tokens=batch_size
+            model.cfg, sparsity=sparsity if method in ("chunk", "topk") else 0.0,
+            tokens=batch_size
         )
         self.cache = model.init_cache(batch_size, max_seq, self.torch_device)
         self.stats: List[StepStats] = []
@@ -137,12 +151,27 @@ class ServeEngine:
         last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
         wall = time.perf_counter() - t0
         n = int(batch["tokens"].shape[1])
-        est = self.sparse_ctx.dense_total_latency() * self.model.cfg.n_layers
-        nbytes = self.sparse_ctx.sparsifiable_bytes(self.model.cfg.n_layers)
+        n_layers = self.model.cfg.n_layers
+        est = self.sparse_ctx.dense_total_latency() * n_layers if self.sparse_ctx else 0.0
+        nbytes = self.sparse_ctx.sparsifiable_bytes(n_layers) if self.sparse_ctx else 0.0
         sim = self.simulator.measure_from_estimate(est, name="prefill", nbytes=nbytes)
         self.stats.append(StepStats("prefill", n, est, sim, 0.0, wall, nbytes=float(nbytes)))
         self._plan = None  # new sequence → stale plan
         return last
+
+    def append_frame(self, frame_embeds: torch.Tensor) -> torch.Tensor:
+        """One video frame's patch embeddings (b, n, d_frontend) → an n-token
+        cache extension; every site's mask comes from this frame's own
+        activations (``SparseExecution.mask``). Returns the final-normed
+        hidden states (b, n, d); the frame's estimated I/O is the one sync."""
+        t0 = time.perf_counter()
+        hidden, io = self.model.append_embeds(self.params, frame_embeds, self.cache,
+                                              self.sparse_ctx, self.torch_device)
+        io = float(io)
+        wall = time.perf_counter() - t0
+        sim = self.simulator.measure_from_estimate(io, name="frame")
+        self.stats.append(StepStats("frame", int(frame_embeds.shape[1]), io, sim, 0.0, wall))
+        return hidden
 
     def _device_loop(self, token: torch.Tensor, n_tokens: int):
         """The fused decode loop: n greedy steps with no host sync. Returns
@@ -155,18 +184,19 @@ class ServeEngine:
                 self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0
             )
             token = torch.argmax(logits, dim=-1)[:, None]
-            h, m = plan_hit_miss(self._plan)
+            h, m = plan_hit_miss(self._plan, token.device)
             toks.append(token[:, 0])
             ios.append(io)
             hits.append(h)
             misses.append(m)
-            byts.append(plan_transfer_bytes(self._plan))
+            byts.append(plan_transfer_bytes(self._plan, token.device))
         return (torch.stack(toks, dim=1), torch.stack(ios), torch.stack(hits),
                 torch.stack(misses), torch.stack(byts))
 
     def _run_decode(self, tokens: torch.Tensor, n_tokens: int) -> np.ndarray:
         if self._plan is None:
-            self._plan = self.sparse_ctx.init_plan(self.model.cfg.n_layers)
+            self._plan = ({} if self.sparse_ctx is None
+                          else self.sparse_ctx.init_plan(self.model.cfg.n_layers))
         reset_plan_counters(self._plan)
         tokens = tokens.to(self.torch_device)
         t0 = time.perf_counter()
@@ -179,6 +209,11 @@ class ServeEngine:
         # per-step deltas of the call's cumulative counters
         hits, misses, byts = (np.diff(x.numpy().astype(np.float64), prepend=0.0)
                               for x in (hits, misses, byts))
+        if self.method == "dense":
+            # every offloaded matrix re-streams every step; the (empty)
+            # plan counts nothing
+            byts = np.full_like(byts, self.sparse_ctx.sparsifiable_bytes(
+                self.model.cfg.n_layers))
         io_steps = ios.sum(axis=1)
         rows = hits + misses
         hit_rates = np.where(rows > 0, hits / np.maximum(rows, 1.0), 0.0)
@@ -206,7 +241,10 @@ class ServeEngine:
     def _selection_seconds_per_refresh(self) -> float:
         """Wall seconds one refresh spends on selection (the selection of
         every layer's sites in one batch, timed once per engine) — measured
-        after the decode loop, never inside it."""
+        after the decode loop, never inside it; 0 where nothing is selected
+        per step (``dense``, ``dense_free``)."""
+        if self.sparse_ctx is None:
+            return 0.0
         if self._select_s_per_refresh is None:
             self._select_s_per_refresh = self.sparse_ctx.time_selection()
         return self._select_s_per_refresh

@@ -1,6 +1,6 @@
 """SparseExecution: the paper's runtime policy wired into the model blocks
-(the port's copy of ``repro.serving.sparse_exec`` for the ``chunk`` and
-``topk`` methods without the residency cache).
+(the port's copy of ``repro.serving.sparse_exec`` for the ``chunk``,
+``topk`` and ``dense`` methods without the residency cache).
 
 The planned decode path batches every site of every layer into ONE
 selection per refresh step (``refresh_step`` → ``BatchedChunkSelector``:
@@ -21,10 +21,15 @@ f32, "hit"/"miss"/"bytes": (L,) f32, "kstarts"/"ksizes": (L, K) int32}}
 updated in place: all layers at once by a refresh, one layer's pending row
 at a time by ``record_importance``.
 
+The unplanned path (``mask``: frame append, and every decode step of the
+``dense`` method) selects one site's mask from the step's own activations:
+the site's one-lane ``ChunkSelector.select`` (K5 on the card) or top-k,
+priced on every latency table of the site; ``dense`` selects nothing and
+charges the site's full contiguous load.
+
 Not ported yet (later slices, ROADMAP.md): the residency cache
-(``cache_mb > 0``), static ``cached`` masks, reorderings, the ``dense``
-method, the unplanned per-site ``mask`` path, integrity/corruption lanes,
-degradation budgets and sharded meshes.
+(``cache_mb > 0``), static ``cached`` masks, reorderings,
+integrity/corruption lanes, degradation budgets and sharded meshes.
 """
 from __future__ import annotations
 
@@ -47,29 +52,37 @@ from ..kernels.chunk_gather_dma import masks_to_block_tables
 WBITS_CHOICES = (16, 8)
 KERNEL_BLOCK_ROWS = 8
 KERNEL_MAX_CHUNK_ROWS = 512
-SPARSE_METHODS = ("chunk", "topk")
+# the serving policies: SPARSE_METHODS run through SparseExecution
+# (selection and I/O accounting); "dense_free" means weights resident in
+# memory — dense compute with no flash tier, no SparseExecution, zero I/O
+SPARSE_METHODS = ("chunk", "topk", "dense")
+SERVE_METHODS = SPARSE_METHODS + ("dense_free",)
 
 
-def validate_method(method: str) -> str:
-    if method not in SPARSE_METHODS:
-        raise ValueError(
-            f"method {method!r} is not served by repro_torch yet; have {SPARSE_METHODS} "
-            "(dense / dense_free land in a later slice — ROADMAP.md, queue 1)"
-        )
+def validate_method(method: str, allow_dense_free: bool = False) -> str:
+    allowed = SERVE_METHODS if allow_dense_free else SPARSE_METHODS
+    if method not in allowed:
+        raise ValueError(f"unknown sparse method {method!r}; expected one of {allowed}")
     return method
 
 
-def plan_hit_miss(plan) -> Tuple[torch.Tensor, torch.Tensor]:
+def _plan_total(plan, key: str, device) -> torch.Tensor:
+    """Σ over sites and layers of one counter, a 0-d f32 tensor; an empty
+    plan (``dense``, ``dense_free``) counts 0, on ``device``."""
+    if not plan:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return sum(state[key].sum() for state in plan.values())
+
+
+def plan_hit_miss(plan, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Total (hit_rows, miss_rows) accumulated in a decode plan; without
     the residency tier ``hit`` is 0 and ``miss`` counts every selected row."""
-    hit = sum(state["hit"].sum() for state in plan.values())
-    miss = sum(state["miss"].sum() for state in plan.values())
-    return hit, miss
+    return _plan_total(plan, "hit", device), _plan_total(plan, "miss", device)
 
 
-def plan_transfer_bytes(plan) -> torch.Tensor:
+def plan_transfer_bytes(plan, device=None) -> torch.Tensor:
     """Total estimated flash→DRAM bytes accumulated in a decode plan."""
-    return sum(state["bytes"].sum() for state in plan.values())
+    return _plan_total(plan, "bytes", device)
 
 
 def reset_plan_counters(plan) -> None:
@@ -135,6 +148,11 @@ class SparseExecution:
             for kind, n, cols in decode_site_shapes(cfg)
         }
         self.site_order: Tuple[str, ...] = tuple(self.sites)
+        # each site's full contiguous load, as the f32 the reference charges
+        self._dense_latency = {
+            kind: torch.tensor(site.dense_latency, dtype=torch.float32,
+                               device=self.torch_device)
+            for kind, site in self.sites.items()}
         self.batched = BatchedChunkSelector.build(
             [self.sites[k].selector for k in self.site_order], device=self.torch_device
         )
@@ -156,6 +174,24 @@ class SparseExecution:
                                      f"divisible by block_rows={KERNEL_BLOCK_ROWS}")
                 for c in cols:
                     pick_tile(c)
+
+    # -- the unplanned path -------------------------------------------------------
+    def mask(self, kind: str, acts: torch.Tensor):
+        """One site's in-step selection from its activations ``acts`` (...,
+        N): (mask (N,) f32, or None for ``dense``, estimated I/O seconds as a
+        0-d f32 tensor)."""
+        site = self.sites[kind]
+        if self.method == "dense":
+            return None, self._dense_latency[kind]
+        v = importance(acts)
+        if self.method == "topk":
+            m = topk_mask(v, site.budget())
+        else:
+            m = site.selector.select(v, site.budget())[0]
+        lat = 0.0
+        for t in site.tables:
+            lat = lat + t.mask_latency(m)
+        return m.to(torch.float32), lat
 
     # -- per-step plan maintenance --------------------------------------------
     def record_importance(self, kind: str, acts: torch.Tensor, plan, layer: int) -> None:
@@ -248,7 +284,10 @@ class SparseExecution:
 
     def init_plan(self, n_layers: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """A fresh decode plan: empty masks and tables, uniform pending
-        importance (the first refresh's bootstrap), zero counters."""
+        importance (the first refresh's bootstrap), zero counters. ``dense``
+        plans nothing: its decode takes the unplanned path."""
+        if self.method == "dense":
+            return {}
         dev = self.torch_device
         plan = {}
         for kind, site in self.sites.items():
@@ -267,7 +306,10 @@ class SparseExecution:
         """Median wall seconds of ONE refresh step's selection — every site
         of every layer of ``cfg``, one K5 launch — on the serving device
         (synchronized), amortized by the engine into
-        ``StepStats.select_overhead_s``."""
+        ``StepStats.select_overhead_s``; 0 for ``dense``, which selects
+        nothing."""
+        if self.method == "dense":
+            return 0.0
         b = self.batched
         n_layers = self.cfg.n_layers
         lanes = n_layers * b.n_sites

@@ -43,7 +43,7 @@ def _selectors(n, row_bytes, device, table_rows):
     jtab = ttab = None
     if table_rows:  # a table shorter than the largest window: lookups extrapolate
         jtab = j_profile_table(device, row_bytes, max_rows=table_rows)
-        ttab = t_profile_table(device, row_bytes, max_rows=table_rows)
+        ttab = t_profile_table(device, row_bytes, max_rows=table_rows, torch_device="cpu")
     cfg = tchunk.ChunkConfig.for_shape(n, 1, device)
     js = jchunk.ChunkSelector.build(n, row_bytes, device=device,
                                     cfg=jchunk.ChunkConfig(**vars(cfg)), table=jtab)

@@ -153,6 +153,24 @@ def test_quantize_rows_payload_exact(shape):
         np.asarray(j_dequant(*j_quant(jnp.asarray(flat[0]), 8))))
 
 
+def test_quantize_params_layerwise_equals_reference():
+    """``quantize_params`` quantizes a stacked (L, N, D) leaf layer by layer:
+    payloads and scales equal the reference's over the whole stack."""
+    from repro.kernels.quantize import quantize_params as j_quantize_params
+
+    rng = np.random.default_rng(12)
+    layers = {"wq": rng.normal(0, 0.5, (3, 64, 40)).astype(np.float32),
+              "w_down": rng.normal(0, 0.5, (3, 96, 16)).astype(np.float32)}
+    got = tq.quantize_params({k: torch.from_numpy(v) for k, v in layers.items()},
+                             ("wq", "wk", "w_down"))
+    want = j_quantize_params({k: jnp.asarray(v) for k, v in layers.items()},
+                             ("wq", "wk", "w_down"))
+    assert set(got) == set(want) == {"wq_q8", "wq_sc", "w_down_q8", "w_down_sc"}
+    for key, leaf in want.items():
+        assert got[key].dtype == (torch.int8 if key.endswith("_q8") else torch.float32)
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(leaf))
+
+
 def _mlp_inputs(rng, dtype, n=128, f=256, d=128):
     wg = _weights(rng, (n, f), dtype, 0.2)
     wu = _weights(rng, (n, f), dtype, 0.2)
@@ -365,6 +383,39 @@ def test_k2_geometry_covers_every_output_once(dtype, n, f, b):
         pad16 = -(-blocks * 4 // 16) * 16
         assert two - one == ((depth + 1) * (blocks * 9 * tile * elem + pad16)
                              + 2 * min(b, 8) * tile * tk._k1_pstride(blocks) * 4)
+
+
+# InternVL2-76B's decode launches (d_model 8192, 64/8 heads of 128, d_ff
+# 28672, batch 2): every site's table is padded to the widest site's
+# N = 28672, so K = 3584 entries at every site
+IVL_K = 28672 // 8
+IVL_SITES = {  # name: (N, D, streams, x_mask)
+    "q": (8192, 8192, 1, False), "k": (8192, 1024, 1, False), "o": (8192, 8192, 1, False),
+    "gate_up": (8192, 28672, 2, False), "down": (28672, 8192, 1, True),
+    "q_masked": (8192, 8192, 1, True)}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("site", sorted(IVL_SITES))
+def test_internvl2_geometry_fits_shared_memory(dtype, site):
+    """At InternVL2-76B's widths every launch of the K1 body fits the
+    card's shared memory at every ring depth with the full-width table;
+    x is held whole (a 64 KB slab) for the unmasked batch-2 launches, and
+    the masked ones (K2's phase 2, the N = 8192 masked edge case of the
+    chip run) take the per-block input records; tiles are one 32-byte
+    sector of a weight row (16 bytes for k/v); gate/up runs 1792 CTAs of 16
+    columns in bf16 and 896 of 32 in int8."""
+    n, d, nmat, masked = IVL_SITES[site]
+    elem = {"bf16": 2, "int8": 1}[dtype]
+    for depth in range(tk.MAX_PREFETCH_DEPTH + 1):
+        g = tk.k1_geometry(d, 2, elem, 132, depth, n, masked, nmat)
+        need = tk.k1_smem_bytes(IVL_K, elem, g["tile"], g["blocks"], 2, depth, n, masked, nmat)
+        assert need <= tk.SMEM_LIMIT_BYTES, (depth, need)
+        # k/v's 1024 columns in 32-byte tiles would fill under half the SMs
+        assert g["blocks"] >= tk.K1_WARPS and g["tile"] * elem == (16 if site == "k" else 32)
+        assert (tk._k1_xrec(2, masked, n) > 0) == masked
+        if site == "gate_up":
+            assert g["grid"] == ((1792, 1) if dtype == "bf16" else (896, 1))
 
 
 @pytest.mark.gpu

@@ -24,9 +24,14 @@ from repro.models.transformer import SPARSE_WEIGHT_NAMES
 from repro.serving.sparse_exec import SparseExecution as JSparse
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.base import InputShape as TShape
+from repro_torch.core.chunking import BatchedChunkSelector as TBatched
+from repro_torch.core.chunking import ChunkSelector as TSelector
+from repro_torch.core.latency_model import get_profile
+from repro_torch.core.latency_model import profile_table as t_profile_table
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
+from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
@@ -114,8 +119,9 @@ def test_teacher_forced_decode_matches_reference(pair, wbits, interval):
 
 
 def test_dense_decode_step_without_sparse_ctx(pair):
-    """The block runs dense without a sparse context (and refuses the
-    unported unplanned sparse path)."""
+    """The block runs dense without a sparse context; with a ``dense``
+    sparse context and no plan (the unplanned path) it computes the same
+    logits and charges every layer its full load, as the reference does."""
     jcfg, tcfg, jm, tm, jp, tp, jb, tb = pair
     jl, jcache = jm.prefill(jp, jb, 32)
     tl, tcache = tm.prefill(tp, tb, 32)
@@ -124,9 +130,16 @@ def test_dense_decode_step_without_sparse_ctx(pair):
     tlog, tio = tm.decode_step_planned(tp, torch.from_numpy(np.array(tok)), tcache)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **BF16_TOL)
     assert float(tio.abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError):
-        tm.decode_step_planned(tp, torch.from_numpy(np.array(tok)), tcache,
-                               TSparse(tcfg, torch_device="cpu"), plan=None)
+    _, tcache = tm.prefill(tp, tb, 32)
+    js = JSparse(jcfg, method="dense")
+    jdlog, _, jio, _ = jm.decode_step_planned(jp, tok, jcache, js, plan={}, refresh=True)
+    tdlog, tdio = tm.decode_step_planned(tp, torch.from_numpy(np.array(tok)), tcache,
+                                         TSparse(tcfg, method="dense", torch_device="cpu"),
+                                         plan=None)
+    np.testing.assert_array_equal(tdlog.numpy(), tlog.numpy())
+    np.testing.assert_allclose(tdlog.numpy(), np.asarray(jdlog), **BF16_TOL)
+    np.testing.assert_allclose(tdio.numpy(), np.asarray(jio), rtol=1e-5)
+    assert float(tdio.min()) > 0.0
 
 
 def test_build_model_refuses_unported_families():
@@ -136,11 +149,13 @@ def test_build_model_refuses_unported_families():
     with pytest.raises(NotImplementedError):
         tbuild(cfg)
     with pytest.raises(KeyError):
-        tget("internvl2-76b")
+        tget("olmoe-1b-7b")
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "params_from_reference",
-                                   "make_dummy_batch", "SparseExecution"])
+                                   "make_dummy_batch", "SparseExecution", "append_embeds",
+                                   "ServeEngine", "BatchedChunkSelector.build",
+                                   "profile_table", "DeviceProfile.build_table"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a device the entry points run on ``cuda``: with no card they
     raise instead of falling back to the CPU; ``device="cpu"`` still runs.
@@ -158,6 +173,18 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "make_dummy_batch": lambda **kw: tbatch(tcfg, TShape("t", 8, 2, "train"), **kw),
         "SparseExecution": lambda **kw: TSparse(
             tcfg, torch_device=kw.get("device")).init_plan(tcfg.n_layers),
+        "append_embeds": lambda **kw: dict(zip(("hidden", "io"), model.append_embeds(
+            model.init(seed=0, device="cpu"), torch.zeros(2, 3, tcfg.d_model),
+            model.init_cache(2, 16, device="cpu"), **kw))),
+        "ServeEngine": lambda **kw: TEngine(
+            model, model.init(seed=0, device="cpu"), max_seq=16, batch_size=2,
+            torch_device=kw.get("device")).cache,
+        "BatchedChunkSelector.build": lambda **kw: vars(TBatched.build(
+            [TSelector.build(64, 256.0)], **kw)),
+        "profile_table": lambda **kw: {"table": t_profile_table(
+            "nano", 256.0, 8, torch_device=kw.get("device")).table},
+        "DeviceProfile.build_table": lambda **kw: {"table": get_profile("nano").build_table(
+            256.0, 8, **kw).table},
     }
     with pytest.raises(RuntimeError, match="CUDA device by default"):
         calls[entry]()

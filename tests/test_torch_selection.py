@@ -82,7 +82,7 @@ def test_select_chunks_np_equals_reference_oracle(seed, device):
     v = rng.random(n).astype(np.float32)
     budget = int(rng.integers(16, 200))
     jtab = j_profile_table(device, row_bytes, max_rows=64)
-    ttab = t_profile_table(device, row_bytes, max_rows=64)
+    ttab = t_profile_table(device, row_bytes, max_rows=64, torch_device="cpu")
     np.testing.assert_array_equal(ttab.table.numpy(), np.asarray(jtab.table))
     jm = jchunk.select_chunks_np(v, budget, row_bytes, jtab, jchunk.ChunkConfig(**vars(cfg)))
     tm = tchunk.select_chunks_np(v, budget, row_bytes, ttab, cfg)
@@ -152,7 +152,7 @@ def test_run_sizes_and_mask_latency_equal_reference(density):
     np.testing.assert_array_equal(mask_run_sizes(torch.from_numpy(m)).numpy(),
                                   np.asarray(jsizes))
     jtab = j_profile_table("nano", 1024.0, max_rows=40)
-    ttab = t_profile_table("nano", 1024.0, max_rows=40)
+    ttab = t_profile_table("nano", 1024.0, max_rows=40, torch_device="cpu")
     np.testing.assert_allclose(float(ttab.mask_latency(torch.from_numpy(m))),
                                float(jtab.mask_latency(jnp.asarray(m))), rtol=1e-6)
 

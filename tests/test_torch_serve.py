@@ -118,7 +118,7 @@ def test_decode_continues_across_calls(pair):
 def test_engine_rejects_bad_settings(pair):
     _, tm, _, tp, _, _ = pair
     for kw in (dict(wbits=4), dict(plan_refresh_interval=0), dict(backend="tpu"),
-               dict(method="dense_free"), dict(prefetch_depth=9)):
+               dict(method="threshold"), dict(prefetch_depth=9)):
         with pytest.raises(ValueError):
             TEngine(tm, tp, max_seq=64, batch_size=2, torch_device="cpu", **kw)
 
