@@ -69,9 +69,28 @@ Phases, each of which fails the run on error:
      device busy share and peak memory; the video-stream policy table
      (dense / top-k / chunk) at wbits 16. Phases 4-6's engines are freed
      first.
+  8. the residency cache (paper §5), per-token decode and the blockwise
+     prefill: full-width tinyllama-1.1b, all 22 layers, prompt 32, 16
+     decode tokens, chunk at sparsity 0.4, wbits 16 and 8, with the cache
+     at 0, 10 and 50 % of the offloaded bytes — exact launch counts on the
+     kernel backend, tokens, hit and miss rows and io_est equal to the
+     reference backend's, every (layer, site) within its row cap; simulated
+     I/O, hit rate and wall per step by budget; ``decode_per_token``
+     against ``decode`` at 10 % and refresh interval 2 (tokens equal, wall
+     per token of each); ``reprice_timeline`` at depths 0-4; depth 7
+     against depth 1 (tokens equal); K1, K2 and K5 (on the resident-aware
+     refresh input) bitwise against their plain versions on the 10 % run's
+     tables, and timed. Then internvl2-76b as in phase 7 at a 25 % budget:
+     chunk at wbits 16 and 8 and top-k at 16, kernel against reference
+     backend (launches exact, tokens equal), and the simulated I/O per
+     token of chunk and top-k with and without the cache. Last, a prompt of
+     16 frames x 256 vision tokens + 32 text tokens (4128 positions)
+     through the blockwise prefill against the direct path: last-position
+     logits within 5 % of their largest magnitude, and each path's peak
+     device memory.
 
-Prints the kernel table as one JSON line (K1-K5 from phases 4-6, and
-phase 7's K1, K2 and K5 rows), then, as the last line,
+Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
+7's K1, K2 and K5 rows and phase 8's), then, as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
@@ -104,6 +123,15 @@ TIME_SELECTION_LAUNCHES = 6
 # frontend_tokens // 4 tokens, VLM_DECODE decode tokens
 VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_FRAMES, VLM_DECODE, VLM_MAX_SEQ = (
     "internvl2-76b", 8, 32, 4, 16, 512)
+
+
+# phase 8: the residency cache's budgets as fractions of the offloaded
+# bytes (TinyLlama, full depth), the VLM's, and the long prompt (frames of
+# frontend_tokens vision tokens, then text) with the blockwise-vs-direct
+# tolerance on its logits, a fraction of their largest magnitude, and on
+# layer 0's f32 attention (the reference suite's, tests/test_attention.py)
+CACHE_FRACS, VLM_CACHE_FRAC = (0.0, 0.1, 0.5), 0.25
+LONG_FRAMES, LONG_TEXT, LONG_TOL, LONG_ATOL = 16, 32, 0.05, 2e-5
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -192,13 +220,10 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
     scales)], "k1_sites": [name], "k2": [(w_gate, w_up, w_down, xm,
     starts, sizes, ffn_mask, scales)], "k5": [greedy_select's arguments]},
     every layer's, layer by layer."""
-    import torch
-
     from repro_torch.core import chunking
     from repro_torch.kernels import chunk_gather_dma as cg
 
     cfg = eng.model.cfg
-    dev = eng.torch_device
     n_layers, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     hd_all = cfg.n_heads * cfg.resolved_head_dim
     plan, lp = eng._plan, eng.params["layers"]
@@ -247,14 +272,11 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
         g1_bytes, g1_ops = g1_bytes + byts, g1_ops + ops
         g1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     # K5 over the run's own refresh-step input: every layer's sites from
-    # the importances the last step recorded, one launch
+    # the importances the last step recorded (and, with the residency
+    # cache, at marginal cost against the resident sets), one launch
     b = sp.batched
     lanes = n_layers * b.n_sites
-    vs = torch.zeros((n_layers, b.n_sites, b.n_max), device=dev)
-    for i, kind in enumerate(sp.site_order):
-        vs[:, i, : sp.sites[kind].n] = plan[kind]["pending"]
-    k5_inputs.append((*(t.reshape(lanes, -1) for t in b.sorted_candidates(vs)),
-                      sp.lane_budgets, sp.lane_min_sizes, b.n_max))
+    k5_inputs.append(refresh_input(eng))
     n1, n2, n5 = len(k1_calls), len(k2_calls), len(k5_inputs)
 
     def run_k1(plain=False, calls=k1_calls):
@@ -340,6 +362,32 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
     timing["chunk_gather_matmul_dma"]["per_site"] = sites
     log(f"{tag} chunk_gather_matmul_dma per site: {site_line(sites)}  ({card})")
     return timing, {"k1": k1_calls, "k1_sites": k1_sites, "k2": k2_calls, "k5": k5_inputs}
+
+
+def refresh_input(eng):
+    """K5's arguments for the next refresh step of a served engine: every
+    layer's sites padded into one problem from the importances the last
+    step recorded; with the residency cache, the resident sets derived
+    from the plan's scores price each window at its miss rows, as
+    ``SparseExecution.refresh_step`` does."""
+    import torch
+
+    from repro_torch.serving.sparse_exec import residency_from_score
+
+    sp, plan = eng.sparse_ctx, eng._plan
+    b = sp.batched
+    n_layers = eng.model.cfg.n_layers
+    lanes = n_layers * b.n_sites
+    shape = (n_layers, b.n_sites, b.n_max)
+    vs = torch.zeros(shape, device=eng.torch_device)
+    scores = torch.zeros(shape, device=eng.torch_device)
+    for i, kind in enumerate(sp.site_order):
+        vs[:, i, : sp.sites[kind].n] = plan[kind]["pending"]
+        if sp.cache_enabled:
+            scores[:, i, : sp.sites[kind].n] = plan[kind]["score"]
+    res = residency_from_score(scores, sp._caps()) if sp.cache_enabled else None
+    return (*(t.reshape(lanes, -1) for t in b.sorted_candidates(vs, res)),
+            sp.lane_budgets, sp.lane_min_sizes, b.n_max)
 
 
 def walk_stats(starts_s, sizes_s, budgets, min_sizes, n_max):
@@ -505,7 +553,15 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    report = {}
+    report = {"phase_end_s": {}}
+    t_start = time.perf_counter()
+
+    def done(name):
+        """Free what the phase left and log the script's clock at its end."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["phase_end_s"][name] = time.perf_counter() - t_start
+        log(f"[clock] {name} done at {report['phase_end_s'][name]:.1f} s")
 
     # -- 1. the card --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -547,10 +603,19 @@ def main():
 
     from repro_torch.configs import get_config
 
+    done("phases 1-2 (card, build)")
     kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH))
-    gc.collect()  # phase 4-6's engines and weights go before phase 7's
-    torch.cuda.empty_cache()
+    done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
     kernels += vlm_path(dev, get_config(VLM_ARCH), card, report)
+    done("phase 7")
+    kernels += cache_path(dev, get_config("tinyllama-1.1b"), card, report)
+    done("phase 8, TinyLlama cache")
+    vcfg, vmodel, vparams = vlm_model(dev, get_config(VLM_ARCH))
+    vlm_cache(dev, vcfg, vmodel, vparams, card, report)
+    done("phase 8, InternVL2 cache")
+    long_prompt(dev, vcfg, vmodel, vparams, card, report)
+    del vparams
+    done("phase 8, long prompt")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1455,6 +1520,450 @@ def vlm_path(dev, full_cfg, card, report):
              "bound_by": timing[16][name]["bound_by"],
              "library_ms": timing[16][name]["library_ms"]}
             for name, (source, replaces) in meta.items()]
+
+
+def cache_path(dev, cfg, card, report):
+    """Phase 8, TinyLlama: the residency cache (paper §5) on ``cfg``'s
+    full depth at CACHE_FRACS of ``sparsifiable_bytes``, wbits 16 and 8,
+    prompt PROMPT, DECODE decode tokens: on the kernel backend with the
+    launch counts set to 0 just before and read just after (exact), against
+    the reference backend (tokens, hit and miss rows, io_est equal), every
+    (layer, site) within its cap; then ``decode_per_token`` against
+    ``decode`` at the middle budget and refresh interval 2, the repriced
+    timeline at depths 0-4, depth 7 against depth 1, and K1 (every site of
+    every layer), K2 (every layer) and K5 (the resident-aware refresh
+    input) bitwise against their plain versions on the middle budget's own
+    tables, which are timed. Returns the phase's kernel rows."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine, SparseExecution
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    randn, sync = seeded(dev, 8888)
+    cuda_ms, host_ms = timers(on_card)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("cache", PROMPT, BATCH, "train"), seed=0,
+                             device=dev)
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma", "greedy_select"))
+    hit_steps = {}  # id(engine) -> its refresh steps' (L, S) hit rows
+
+    def serve(backend, wbits, cache_mb, per_token=False, refresh=1, depth=1):
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          backend=backend, wbits=wbits, cache_mb=cache_mb,
+                          plan_refresh_interval=refresh, prefetch_depth=depth,
+                          torch_device=dev)
+        hit_steps[id(eng)] = record_hits(eng.sparse_ctx)
+        tok0 = torch.argmax(eng.prefill(batch), dim=-1)[:, None]
+        sync()
+        out = (eng.decode_per_token if per_token else eng.decode)(tok0, DECODE)
+        sync()
+        return eng, out
+
+    def record_hits(sp):
+        """Keep, on the device, each refresh step's hit rows per (layer,
+        site): the growth of the plan's per-site ``hit`` over the step, the
+        number the refresh itself charged."""
+        inner, steps = sp.refresh_step, []
+
+        def refresh_step(plan, refresh):
+            before = torch.stack([plan[k]["hit"].clone() for k in sp.site_order], dim=1)
+            io = inner(plan, refresh)
+            steps.append(torch.stack([plan[k]["hit"] for k in sp.site_order], dim=1) - before)
+            return io
+
+        sp.refresh_step = refresh_step
+        return steps
+
+    def within_caps(eng):
+        """Every refresh step charged each (layer, site) at most its cap of
+        hit rows, and the steps' hits add up to the run's."""
+        sp, steps = eng.sparse_ctx, hit_steps.pop(id(eng))
+        if not sp.cache_enabled:
+            return True
+        hits = torch.stack(steps)  # (refresh steps, L, S)
+        caps = torch.tensor([sp.cache_caps[k] for k in sp.site_order], dtype=torch.float32,
+                            device=hits.device)
+        return len(steps) == DECODE and bool(((hits >= 0) & (hits <= caps)).all()) \
+            and float(hits.sum()) == eng.io_summary()["hit_rows"]
+
+    runs = {}
+    mid = {}
+    for wbits in (16, 8):
+        total = SparseExecution(cfg, wbits=wbits, torch_device=dev).sparsifiable_bytes(n_layers)
+        budgets = [frac * total / 2**20 for frac in CACHE_FRACS]
+        for frac, mb in zip(CACHE_FRACS, budgets):
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+            eng, out = serve("kernel", wbits, mb)
+            launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+            want = {"chunk_gather_matmul_dma": 4 * n_layers * DECODE,
+                    "chunk_gather_mlp_dma": n_layers * DECODE,
+                    "greedy_select": DECODE + TIME_SELECTION_LAUNCHES}
+            if on_card and launches != want:
+                fail(f"cache w{wbits} {frac:.0%}: launch counts {launches} != {want}")
+            if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
+                    or int(out.max()) >= cfg.vocab_size:
+                fail(f"cache w{wbits} {frac:.0%}: bad tokens {out.tolist()}")
+            ref, out_ref = serve("reference", wbits, mb)
+            io, io_ref = eng.io_summary(), ref.io_summary()
+            if not torch.equal(out, out_ref):
+                fail(f"cache w{wbits} {frac:.0%}: kernel tokens {out.tolist()} != reference "
+                     f"backend tokens {out_ref.tolist()}")
+            for key in ("hit_rows", "miss_rows", "io_est_s", "io_bytes"):
+                if io[key] != io_ref[key]:
+                    fail(f"cache w{wbits} {frac:.0%}: {key} {io[key]} != reference backend "
+                         f"{io_ref[key]}")
+            if not (within_caps(eng) and within_caps(ref)):
+                fail(f"cache w{wbits} {frac:.0%}: a refresh step charged a (layer, site) "
+                     "more hit rows than its cap")
+            del ref
+            dec = [st for st in eng.stats if st.kind == "decode"]
+            wall = sum(st.wall_s for st in dec) / DECODE
+            runs[(wbits, frac)] = {"cache_mb": mb, "launches": launches,
+                                   "io_sim_s": io["io_sim_s"], "io_est_s": io["io_est_s"],
+                                   "io_bytes": io["io_bytes"], "hit_rows": io["hit_rows"],
+                                   "miss_rows": io["miss_rows"],
+                                   "cache_hit_rate": io["cache_hit_rate"],
+                                   "decode_io_sim_s": sum(st.io_sim_s for st in dec),
+                                   "wall_per_step_s": wall, "tokens": out.tolist()}
+            log(f"[cache] w{wbits} {cfg.name} L={n_layers} budget {frac:.0%} = {mb:.1f} MiB: "
+                f"decode io_sim {runs[(wbits, frac)]['decode_io_sim_s'] * 1e3:.2f} ms over "
+                f"{DECODE} steps, cache_hit_rate {io['cache_hit_rate']:.3f}, io_bytes "
+                f"{io['io_bytes'] / 1e6:.1f} MB, wall {wall * 1e3:.2f} ms/step, launches "
+                f"{launches}; tokens, hits, misses and io_est equal to the reference backend; "
+                f"hit rows per refresh step within every cap  ({card})")
+            if frac == CACHE_FRACS[1]:
+                mid[wbits] = eng
+            else:
+                del eng
+        ios = [runs[(wbits, f)]["decode_io_sim_s"] for f in CACHE_FRACS]
+        falls = all(b < a for a, b in zip(ios, ios[1:]))
+        runs[(wbits, "io_falls")] = falls
+        log(f"[cache] w{wbits} decode io_sim by budget "
+            + " > ".join(f"{x * 1e3:.2f}" for x in ios) + f" ms: falls as the budget grows: "
+            f"{'yes' if falls else 'NO'}")
+
+    # -- per-token against fused, at the middle budget and refresh interval 2
+    per_token = {}
+    for wbits in (16, 8):
+        mb = runs[(wbits, CACHE_FRACS[1])]["cache_mb"]
+        fused, out_f = serve("kernel", wbits, mb, refresh=2)
+        loop, out_p = serve("kernel", wbits, mb, per_token=True, refresh=2)
+        if not torch.equal(out_f, out_p):
+            fail(f"cache w{wbits}: decode_per_token tokens {out_p.tolist()} != decode "
+                 f"{out_f.tolist()}")
+        if fused.io_summary()["hit_rows"] != loop.io_summary()["hit_rows"]:
+            fail(f"cache w{wbits}: per-token hits differ from the fused loop's")
+        walls = [sum(st.wall_s for st in e.stats if st.kind == "decode") / DECODE
+                 for e in (fused, loop)]
+        per_token[wbits] = {"fused_wall_per_token_s": walls[0],
+                            "per_token_wall_per_token_s": walls[1]}
+        log(f"[cache] w{wbits} refresh interval 2: decode_per_token tokens equal decode's; "
+            f"wall per token fused {walls[0] * 1e3:.2f} ms, per-token {walls[1] * 1e3:.2f} ms "
+            f"({card})")
+        del fused, loop
+
+    # -- the repriced timeline, and depth 7 against depth 1
+    eng = mid[16]
+    reprice = {}
+    for depth in range(5):
+        tl = eng.reprice_timeline(depth)
+        reprice[depth] = float(tl.overlap_s.sum())
+    log("[cache] w16 reprice_timeline overlapped charge over the decode: " + ", ".join(
+        f"depth {d} {v * 1e3:.3f} ms" for d, v in reprice.items()))
+    deep, out_deep = serve("kernel", 16, runs[(16, CACHE_FRACS[1])]["cache_mb"], depth=7)
+    if out_deep.tolist() != runs[(16, CACHE_FRACS[1])]["tokens"]:
+        fail(f"cache: depth 7 tokens {out_deep.tolist()} != depth 1 tokens")
+    log("[cache] depth 7 (ring at 3) tokens equal depth 1's on the kernel backend")
+    del deep
+
+    # -- the kernels on the middle budget's own tables against their plain
+    # versions (the calls that are timed)
+    timing = {}
+    for wbits in (16, 8):
+        timing[wbits], calls = decode_timings(mid[wbits], wbits, randn, cuda_ms, host_ms, card,
+                                              f"[cache] w{wbits}")
+        for i, (name, (w, xm, st_, sz, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
+            check("chunk_gather_matmul_dma", f"cache w{wbits} L{i // 4} {name}",
+                  cg.chunk_gather_matmul_dma(w, xm, st_, sz, sc),
+                  cg.chunk_gather_matmul_plain(w, xm, st_, sz, sc))
+        for layer, (wg, wu, wd, xm, st_, sz, fm, scs) in enumerate(calls["k2"]):
+            yk, hk = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st_, sz, fm, scs, return_h=True)
+            yp, hp = cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st_, sz, fm, scs)
+            check("chunk_gather_mlp_dma", f"cache w{wbits} L{layer} y", yk, yp)
+            check("chunk_gather_mlp_dma", f"cache w{wbits} L{layer} h", hk, hp)
+        for args in calls["k5"]:
+            for got, want_ in zip(chunking.greedy_select(*args),
+                                  chunking.greedy_select_plain(*args)):
+                check("greedy_select", f"cache w{wbits} {args[0].shape[0]} lanes", got, want_)
+        for k, v in timing[wbits].items():
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"[cache] w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound "
+                f"{v['bound_ms'] * 1e3:.2f} us ({v['bound_by']})  ({card})")
+    if check.failures:
+        for msg in check.failures:
+            log(f"[cache] {msg}")
+        fail(f"{len(check.failures)} phase-8 kernel checks failed")
+    log(f"[cache] bitwise: {check.n} checks, max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in check.errs.items()))
+    del mid
+    report["cache"] = {"runs": {f"w{w} {f}": v for (w, f), v in runs.items()},
+                       "per_token": per_token, "reprice_overlap_s": reprice,
+                       "timing": timing, "errs": check.errs, "n_checks": check.n}
+    meta = {
+        "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                    "src/repro/kernels/chunk_gather_dma.py:284"),
+        "chunk_gather_mlp_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                 "src/repro/kernels/chunk_gather_dma.py:617"),
+        "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
+                          "src/repro/core/chunking.py:362"),
+    }
+    tag = f"{cfg.name}, residency cache {CACHE_FRACS[1]:.0%}"
+    return [{"name": f"{name} [{tag}]", "route": "cuda", "source": source,
+             "replaces": replaces, "launches": runs[(16, CACHE_FRACS[1])]["launches"][name],
+             "max_abs_err": check.errs[name], "ms": timing[16][name]["ms"],
+             "plain_ms": timing[16][name]["plain_ms"], "bound_ms": timing[16][name]["bound_ms"],
+             "bound_by": timing[16][name]["bound_by"],
+             "library_ms": timing[16][name]["library_ms"]}
+            for name, (source, replaces) in meta.items()]
+
+
+def vlm_model(dev, full_cfg):
+    """``full_cfg`` at full width, depth cut to VLM_LAYERS, with random
+    weights from seed 0 on ``dev``: (config, model, params)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(full_cfg, n_layers=min(VLM_LAYERS, full_cfg.n_layers))
+    model = build_model(cfg)
+    return cfg, model, model.init(seed=0, device=dev)
+
+
+def vlm_cache(dev, cfg, model, params, card, report):
+    """Phase 8, the VLM: ``full_cfg`` at full width, depth cut to VLM_LAYERS,
+    prefill → VLM_FRAMES frames → VLM_DECODE decode tokens with the
+    residency cache at VLM_CACHE_FRAC of ``sparsifiable_bytes``: chunk at
+    wbits 16 and 8 and top-k at wbits 16, each on the kernel backend (launch
+    counts exact) against the reference backend (tokens equal); then
+    simulated I/O per decode token for chunk and top-k with and without
+    the cache (wbits 16, kernel backend). ``cfg``, ``model``, ``params``:
+    from ``vlm_model``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models.inputs import FRONT_DTYPE, make_dummy_batch
+    from repro_torch.serving import ServeEngine, SparseExecution
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    frame_tokens = max(cfg.frontend_tokens // 4, 4)
+    _, sync = seeded(dev, 0)
+    prompt = make_dummy_batch(cfg, InputShape("vlm", VLM_PROMPT, BATCH, "train"), seed=0,
+                              device=dev)
+    rng = np.random.default_rng(0)
+    frames = [torch.from_numpy(rng.normal(0, 1, (BATCH, frame_tokens, cfg.d_frontend)))
+              .to(FRONT_DTYPE).to(dev) for _ in range(VLM_FRAMES)]
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+
+    def serve(backend, wbits, method, cache_mb):
+        eng = ServeEngine(model, params, max_seq=VLM_MAX_SEQ, batch_size=BATCH,
+                          device="nano", sparsity=0.4, method=method, backend=backend,
+                          wbits=wbits, cache_mb=cache_mb, torch_device=dev)
+        last = eng.prefill(prompt)
+        for fr in frames:
+            eng.append_frame(fr)
+        out = eng.decode(torch.argmax(last, dim=-1)[:, None], VLM_DECODE)
+        sync()
+        io = eng.io_summary()
+        dec = [st for st in eng.stats if st.kind == "decode"]
+        res = {"io_sim_per_token_s": sum(st.io_sim_s for st in dec) / VLM_DECODE,
+               "cache_hit_rate": io["cache_hit_rate"], "io_bytes": io["io_bytes"],
+               "wall_per_step_s": sum(st.wall_s for st in dec) / VLM_DECODE,
+               "tokens": out.tolist()}
+        return eng, out, res
+
+    runs = {}
+    for wbits, method in ((16, "chunk"), (8, "chunk"), (16, "topk")):
+        mb = VLM_CACHE_FRAC * SparseExecution(cfg, wbits=wbits, torch_device=dev) \
+            .sparsifiable_bytes(n_layers) / 2**20
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        eng, out, res = serve("kernel", wbits, method, mb)
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        # top-k selects with a rank, not with K5
+        want = {"chunk_gather_matmul_dma": 4 * n_layers * VLM_DECODE,
+                "chunk_gather_mlp_dma": n_layers * VLM_DECODE,
+                "greedy_select": VLM_DECODE + TIME_SELECTION_LAUNCHES
+                + 4 * n_layers * VLM_FRAMES if method == "chunk" else 0}
+        if on_card and launches != want:
+            fail(f"vlm cache w{wbits} {method}: launch counts {launches} != {want}")
+        del eng
+        ref, out_ref, res_ref = serve("reference", wbits, method, mb)
+        if not torch.equal(out, out_ref):
+            fail(f"vlm cache w{wbits} {method}: kernel tokens {out.tolist()} != reference "
+                 f"backend tokens {out_ref.tolist()}")
+        del ref
+        if on_card:
+            torch.cuda.empty_cache()
+        runs[f"w{wbits} {method} cache"] = {**res, "cache_mb": mb, "launches": launches}
+        log(f"[vlm-cache] w{wbits} {method} budget {VLM_CACHE_FRAC:.0%} = {mb:.0f} MiB: "
+            f"io_sim {res['io_sim_per_token_s'] * 1e3:.2f} ms/token, cache_hit_rate "
+            f"{res['cache_hit_rate']:.3f}, wall {res['wall_per_step_s'] * 1e3:.2f} ms/step, "
+            f"launches {launches}; tokens equal to the reference backend  ({card})")
+    for method in ("chunk", "topk"):
+        eng, _, res = serve("kernel", 16, method, 0.0)
+        del eng
+        runs[f"w16 {method} no cache"] = res
+    log(f"[vlm-cache] {cfg.name} at {n_layers} layers, wbits 16, simulated I/O per decode "
+        "token: " + ", ".join(f"{k} {v['io_sim_per_token_s'] * 1e3:.2f} ms"
+                              for k, v in runs.items() if k.startswith("w16")))
+    report["vlm_cache"] = runs
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def long_prompt(dev, cfg, model, params, card, report):
+    """Phase 8, the long prompt: the VLM of ``vlm_model``, LONG_FRAMES
+    frames of frontend_tokens vision tokens and LONG_TEXT text tokens
+    through ``Model.prefill`` — the blockwise attention above
+    ``attention.BLOCKWISE_THRESHOLD`` positions — against the same prefill
+    on the direct path (the module's threshold raised above the prompt for
+    that run): last-position logits within LONG_TOL of their largest
+    magnitude, and each path's peak device memory. Then, in one more
+    prefill per path, layer 0's attention in f32 (before its bf16 cast) on
+    the prompt's own q/k/v, blockwise against direct over every position at
+    LONG_ATOL, the share of its bf16 outputs that round apart, and the gap
+    between the two paths' residual streams after every layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention, transformer
+
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(0)
+    n_front = LONG_FRAMES * cfg.frontend_tokens
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, LONG_TEXT)))
+             .to(dev),
+             "frontend": torch.from_numpy(rng.normal(0, 1, (BATCH, n_front, cfg.d_frontend)))
+             .to(torch.bfloat16).to(dev)}
+    positions = n_front + LONG_TEXT
+    threshold = attention.BLOCKWISE_THRESHOLD
+    paths = (("blockwise", threshold), ("direct", positions))
+
+    def prefill(path_threshold):
+        attention.BLOCKWISE_THRESHOLD = path_threshold
+        try:
+            return model.prefill(params, batch, positions + 8)
+        finally:
+            attention.BLOCKWISE_THRESHOLD = threshold
+
+    out = {}
+    for path, path_threshold in paths:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, cache = prefill(path_threshold)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        if cache["length"] != positions or not bool(torch.isfinite(last).all()):
+            fail(f"long prompt ({path}): length {cache['length']} or non-finite logits")
+        out[path] = {"logits": last.float(), "peak_bytes": peak, "wall_s": wall}
+        del cache
+    diff = float((out["blockwise"]["logits"] - out["direct"]["logits"]).abs().max())
+    scale = float(out["direct"]["logits"].abs().max())
+    same_argmax = bool(torch.equal(out["blockwise"]["logits"].argmax(-1),
+                                   out["direct"]["logits"].argmax(-1)))
+    if diff > LONG_TOL * scale:
+        fail(f"long prompt: blockwise logits differ from the direct path's by {diff:.4f} "
+             f"(max |logit| {scale:.3f}, tolerance {LONG_TOL:.0%} of it)")
+
+    # -- where the gap comes from: each layer's residual stream (kept on the
+    # host), and layer 0's q/k/v as the attention receives them
+    layers, qkv = {}, []
+    inner_block, inner_blockwise = transformer.block_prefill, attention._blockwise_attention
+
+    def block_prefill(*args, **kwargs):
+        x, k, v = inner_block(*args, **kwargs)
+        layers[current].append(x.float().cpu())
+        return x, k, v
+
+    def blockwise(q, k, v, *args, **kwargs):
+        if not qkv:
+            qkv.extend(t.detach().clone() for t in (q, k, v))
+        return inner_blockwise(q, k, v, *args, **kwargs)
+
+    transformer.block_prefill, attention._blockwise_attention = block_prefill, blockwise
+    try:
+        for current, path_threshold in paths:
+            layers[current] = []
+            prefill(path_threshold)
+    finally:
+        transformer.block_prefill = inner_block
+        attention._blockwise_attention = inner_blockwise
+    if positions > threshold and not qkv:
+        fail("long prompt: the blockwise attention never ran")
+    gaps = []
+    for xb, xd in zip(layers["blockwise"], layers["direct"]):
+        gaps.append({"max_abs_diff": float((xb - xd).abs().max()),
+                     "max_abs": float(xd.abs().max()),
+                     "share_differing": float((xb != xd).float().mean())})
+    del layers
+    attn0 = None
+    if qkv:  # the prompt took the blockwise path
+        q, k, v = (t.float() for t in qkv)
+        del qkv[:]
+        s = q.shape[1]
+        blk = attention._blockwise_attention(q, k, v, 0, True)
+        pos = torch.arange(s, device=q.device)
+        dirc = attention._direct_attention(q, k, v, pos[None, :] <= pos[:, None])
+        err = float((blk - dirc).abs().max())
+        attn0 = {"max_abs_err": err, "max_abs": float(dirc.abs().max()),
+                 "bf16_share_differing": float(
+                     (blk.to(torch.bfloat16) != dirc.to(torch.bfloat16)).float().mean())}
+        del q, k, v, blk, dirc
+        if err > LONG_ATOL:
+            fail(f"long prompt: layer 0's f32 attention, blockwise against direct over "
+                 f"{s} positions, max abs err {err:.3e} > {LONG_ATOL:.0e}")
+    report["long_prompt"] = {"positions": positions, "max_abs_diff": diff, "max_abs_logit": scale,
+                             "same_argmax": same_argmax, "layer0_attention_f32": attn0,
+                             "residual_gap_by_layer": gaps,
+                             **{f"{k}_{m}": v[m] for k, v in out.items()
+                                for m in ("peak_bytes", "wall_s")}}
+    log(f"[long] {cfg.name} at {cfg.n_layers} layers, batch {BATCH}, {LONG_FRAMES} frames x "
+        f"{cfg.frontend_tokens} vision + {LONG_TEXT} text = {positions} positions: blockwise "
+        f"vs direct last-position logits max abs diff {diff:.4f} (max |logit| {scale:.3f}, "
+        f"tolerance {LONG_TOL:.0%} of it; argmax equal: {same_argmax}); peak "
+        f"{out['blockwise']['peak_bytes'] / 2**30:.2f} GiB blockwise, "
+        f"{out['direct']['peak_bytes'] / 2**30:.2f} GiB direct; prefill "
+        f"{out['blockwise']['wall_s'] * 1e3:.0f} / {out['direct']['wall_s'] * 1e3:.0f} ms  "
+        f"({card})")
+    if attn0 is not None:
+        log(f"[long] layer 0 attention in f32, blockwise vs direct over {positions} positions: "
+            f"max abs err {attn0['max_abs_err']:.3e} (max |out| {attn0['max_abs']:.3f}, "
+            f"tolerance {LONG_ATOL:.0e}); after the bf16 cast "
+            f"{attn0['bf16_share_differing']:.4%} of the outputs differ  ({card})")
+    log("[long] residual stream after each layer, blockwise vs direct: " + "; ".join(
+        f"L{i} max abs diff {g['max_abs_diff']:.4g} of {g['max_abs']:.4g}, "
+        f"{g['share_differing']:.2%} differ" for i, g in enumerate(gaps)) + f"  ({card})")
 
 
 if __name__ == "__main__":

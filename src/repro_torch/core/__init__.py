@@ -22,9 +22,13 @@ from .contiguity import (
     Chunk,
     chunk_stats_np,
     chunks_to_mask_np,
+    average_chunk_size,
     contiguity_distribution_np,
+    contiguity_histogram,
     mask_run_sizes,
     mask_to_chunks_np,
+    mask_to_runs,
+    resident_rows_in_windows,
     runs_to_padded_table_np,
 )
 from .importance import coefficient_of_variation, importance, importance_np, retention
@@ -51,3 +55,4 @@ from .reorder import (
     coactivation_reordering,
     hot_cold_reordering,
 )
+from .sparsity_alloc import LayerProfile, allocate_sparsity, budgets_from_sparsity

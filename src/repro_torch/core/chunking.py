@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .contiguity import runs_to_padded_table_np
+from .contiguity import resident_rows_in_windows, runs_to_padded_table_np
 from .latency_model import KB, DeviceProfile, LatencyTable, profile_table
 
 
@@ -85,15 +85,22 @@ def _candidate_schedule(n: int, row_bytes: float, cfg: ChunkConfig) -> Tuple[np.
 
 
 def select_chunks_np(v: np.ndarray, budget: int, row_bytes: float,
-                     table: LatencyTable, cfg: ChunkConfig) -> np.ndarray:
+                     table: LatencyTable, cfg: ChunkConfig,
+                     resident: Optional[np.ndarray] = None) -> np.ndarray:
     """Literal Algorithm 1 (numpy, float32 like the reference's oracle).
-    Returns a bool mask of shape (N,)."""
+    Returns a bool mask of shape (N,). ``resident`` (bool (N,)): rows
+    already in the DRAM residency tier; a window then costs only its
+    non-resident rows (the marginal I/O cost)."""
     v = np.asarray(v, np.float32)
     n = v.shape[0]
     cumsum = np.concatenate([[0.0], np.cumsum(v, dtype=np.float32)])
     starts, sizes = _candidate_schedule(n, row_bytes, cfg)
     benefit = cumsum[starts + sizes] - cumsum[starts]
-    cost = table.lookup(torch.from_numpy(sizes.astype(np.int64))).cpu().numpy()
+    cost_rows = sizes.astype(np.int64)
+    if resident is not None:
+        rcum = np.concatenate([[0], np.cumsum(np.asarray(resident, bool), dtype=np.int64)])
+        cost_rows = cost_rows - (rcum[starts + sizes] - rcum[starts])
+    cost = table.lookup(torch.from_numpy(cost_rows)).cpu().numpy()
     score = benefit / np.maximum(cost, 1e-30)
     order = np.argsort(-score, kind="stable")
 
@@ -161,16 +168,16 @@ class ChunkSelector:
     def select(self, v: torch.Tensor, budget, resident=None):
         """Returns (mask bool (N,), n_selected int32, est_latency_s f32) on
         ``v``'s device: Algorithm 1 at a row budget, as the reference's
-        ``ChunkSelector.select``."""
-        if resident is not None:
-            raise NotImplementedError(
-                "residency-aware selection (resident=) is not ported yet: ROADMAP.md, "
-                "queue 1 (the residency cache)"
-            )
+        ``ChunkSelector.select``. ``resident`` (bool (N,)): rows in the DRAM
+        residency tier — the selection is then marginal-cost aware and the
+        estimate charges only the final mask's miss rows."""
         batched, table = self.lane(v.device)
         budgets = torch.as_tensor(budget).to(device=v.device, dtype=torch.int32).reshape(1)
-        masks, selected = batched.select(v.reshape(1, self.n), budgets)
-        return masks[0], selected[0], table.mask_latency(masks[0])
+        res = None if resident is None else resident.to(v.device).reshape(1, self.n)
+        masks, selected = batched.select(v.reshape(1, self.n), budgets, resident=res)
+        if resident is None:
+            return masks[0], selected[0], table.mask_latency(masks[0])
+        return masks[0], selected[0], table.mask_latency_miss(masks[0], res[0])
 
     def select_for_sparsity(self, v: torch.Tensor, sparsity: float):
         """``select`` at budget = round((1 - sparsity) * N) rows."""
@@ -324,11 +331,14 @@ class BatchedChunkSelector:
         )
 
     def select(self, v: torch.Tensor, budgets: torch.Tensor,
-               min_sizes: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               min_sizes: Optional[torch.Tensor] = None,
+               resident: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """v: (L·n_sites, n_max) padded importances, layer-major (L = 1 for
         one layer); budgets: (L·n_sites,) int32; min_sizes: the lanes'
         smallest candidates, (L·n_sites,) int32 (``min_sizes`` repeated L
-        times if not given). Returns (masks (L·n_sites, n_max) bool,
+        times if not given); resident: optional (L·n_sites, n_max) bool
+        DRAM-resident rows (marginal-cost selection, as in
+        ``ChunkSelector.select``). Returns (masks (L·n_sites, n_max) bool,
         selected (L·n_sites,) int32) from one K5 launch."""
         lanes = v.shape[0]
         if v.ndim != 2 or lanes % self.n_sites or v.shape[1] != self.n_max:
@@ -337,17 +347,23 @@ class BatchedChunkSelector:
         n_layers = lanes // self.n_sites
         if min_sizes is None:
             min_sizes = self.min_sizes.repeat(n_layers)
-        starts_s, sizes_s = self.sorted_candidates(v.reshape(n_layers, self.n_sites, self.n_max))
+        shape = (n_layers, self.n_sites, self.n_max)
+        starts_s, sizes_s = self.sorted_candidates(
+            v.reshape(shape), None if resident is None else resident.reshape(shape))
         masks, selected = greedy_select(starts_s.reshape(lanes, -1), sizes_s.reshape(lanes, -1),
                                         budgets.to(torch.int32), min_sizes, self.n_max)
         masks = (masks.reshape(n_layers, self.n_sites, self.n_max) & self.row_valid)
         return masks.reshape(lanes, self.n_max), selected
 
-    def sorted_candidates(self, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def sorted_candidates(self, v: torch.Tensor, resident: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every lane's candidates in descending-utility order, ties by
         candidate index: v (..., n_sites, n_max) → (starts, sizes), each
         (..., n_sites, K) int32, size 0 = padding — K5's input. The (S, K)
         candidate arrays broadcast over the leading axes (views, no copies).
+        ``resident`` (bool, v's shape): each window then costs its
+        non-resident rows only, ``cost_rows = sizes - in_win``, before the
+        stable sort — K5 walks the resident-aware order unchanged.
 
         The window benefits come from a prefix sum accumulated in float64
         and rounded once to float32, so the CPU and the card agree whenever
@@ -360,8 +376,14 @@ class BatchedChunkSelector:
         starts = self.starts.expand(shape)
         benefit = cumsum.gather(-1, (self.starts + self.sizes).expand(shape)) \
             - cumsum.gather(-1, starts)
-        cost_rows = self.sizes.clamp(0, self.tables.shape[1] - 1)
-        cost = self.tables.gather(1, cost_rows).clamp_min(1e-30)
+        cost_rows = self.sizes
+        if resident is not None:
+            in_win = resident_rows_in_windows(self.starts, self.sizes,
+                                              resident.to(torch.bool) & self.row_valid)
+            cost_rows = cost_rows - in_win
+        cost_rows = cost_rows.clamp(0, self.tables.shape[1] - 1)
+        tables = self.tables.expand(cost_rows.shape[:-1] + self.tables.shape[-1:])
+        cost = tables.gather(-1, cost_rows).clamp_min(1e-30)
         score = torch.where(self.valid, benefit / cost, torch.full_like(benefit, -float("inf")))
         order = torch.argsort(-score, dim=-1, stable=True)
         starts_s = starts.gather(-1, order).to(torch.int32)

@@ -14,13 +14,13 @@ for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from .contiguity import mask_run_sizes
+from .contiguity import mask_run_sizes, mask_to_runs, resident_rows_in_windows
 
 KB = 1024.0
 MB = 1024.0 * 1024.0
@@ -39,13 +39,25 @@ def row_stream_bytes(cols: int, wbits: int = 16, block_rows: int = 8) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceProfile:
-    """Two-regime storage latency profile: ``T(s) = base + 1/iops + s/bw``."""
+    """Two-regime storage latency profile: ``T(s) = base + 1/iops + s/bw``.
+    ``dram_cache_mb``: the default DRAM budget (MB) of the dynamic chunk
+    residency cache (paper §5), used when an engine is given no
+    ``cache_mb``; 0 turns the tier off."""
 
     name: str
     peak_bw: float  # bytes/sec
     iops: float  # sustained small requests/sec
     base_latency: float = 0.0
     interleave_lift: float = 1.0
+    dram_cache_mb: float = 0.0
+
+    def cache_capacity_bytes(self, cache_mb: Optional[float] = None) -> int:
+        """Residency-tier capacity in bytes; ``cache_mb`` overrides the
+        profile's default."""
+        mb = self.dram_cache_mb if cache_mb is None else float(cache_mb)
+        if mb < 0:
+            raise ValueError(f"cache_mb must be >= 0, got {mb}")
+        return int(mb * MB)
 
     def latency_bytes(self, nbytes) -> np.ndarray:
         s = np.asarray(nbytes, dtype=np.float64)
@@ -93,6 +105,16 @@ class LatencyTable:
         (N,) mask or batched over leading axes. No host sync."""
         sizes = mask_run_sizes(mask)
         return (self.lookup(sizes) * (sizes > 0)).sum(dim=-1)
+
+    def mask_latency_miss(self, mask: torch.Tensor, resident: torch.Tensor) -> torch.Tensor:
+        """Residency-aware additive model: Σ over the mask's runs of T[miss
+        rows in the run]. Each selected run is one request charged for its
+        non-resident rows only (resident rows do not split it); a fully
+        resident run costs nothing. Equals ``mask_latency`` when nothing is
+        resident. Batched over leading axes; no host sync."""
+        starts, sizes, _ = mask_to_runs(mask)
+        miss = sizes - resident_rows_in_windows(starts, sizes, resident)
+        return (self.lookup(miss) * (miss > 0)).sum(dim=-1)
 
     def padded_table(self, max_rows: int) -> np.ndarray:
         """T[0..max_rows] as a float64 host array, extrapolated past the

@@ -52,6 +52,10 @@ class PipelineModel:
         if self.prefetch_depth < 0:
             raise ValueError(f"prefetch_depth must be >= 0, got {self.prefetch_depth}")
 
+    def with_depth(self, prefetch_depth: int) -> "PipelineModel":
+        """The same model at another prefetch depth (depth sweeps)."""
+        return dataclasses.replace(self, prefetch_depth=prefetch_depth)
+
     def timeline(self, io_s, compute_s) -> PipelineTimeline:
         io = np.asarray(io_s, np.float64)
         if io.ndim == 1:

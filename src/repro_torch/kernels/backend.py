@@ -25,7 +25,6 @@ import torch
 
 from .chunk_gather_dma import (
     BLOCK_ROWS,
-    MAX_PREFETCH_DEPTH,
     block_parts,
     chunk_gather_matmul_dma,
     chunk_gather_mlp_dma,
@@ -79,8 +78,9 @@ def blocked_masked_matmul(xm: torch.Tensor, w: torch.Tensor, block_rows: int = 8
 @dataclasses.dataclass(frozen=True)
 class ExecutionBackend:
     """Dispatch object carried by ``SparseExecution`` into the model blocks.
-    ``prefetch_depth``: the kernels' ring stages − 1 (numerics are
-    depth-invariant)."""
+    ``prefetch_depth``: how far the kernels' ring may run ahead — any depth
+    ≥ 0, as in the reference; on the card the ring runs at
+    ``min(depth, MAX_PREFETCH_DEPTH)`` (numerics are depth-invariant)."""
 
     name: str = "reference"
     prefetch_depth: int = 1
@@ -91,9 +91,8 @@ class ExecutionBackend:
     def create(name: str = "reference", prefetch_depth: int = 1,
                block_rows: int = BLOCK_ROWS, max_chunk_rows: int = 512) -> "ExecutionBackend":
         validate_backend(name)
-        if not 0 <= prefetch_depth <= MAX_PREFETCH_DEPTH:
-            raise ValueError(f"prefetch_depth must be in [0, {MAX_PREFETCH_DEPTH}], "
-                             f"got {prefetch_depth}")
+        if prefetch_depth < 0:
+            raise ValueError(f"prefetch_depth must be >= 0, got {prefetch_depth}")
         return ExecutionBackend(name=name, prefetch_depth=prefetch_depth,
                                 block_rows=block_rows, max_chunk_rows=max_chunk_rows)
 

@@ -60,7 +60,8 @@ from typing import List, Optional, Tuple
 import torch
 
 BLOCK_ROWS = 8
-MAX_PREFETCH_DEPTH = 3  # the CUDA ring is compiled for 1..4 stages
+# the CUDA ring is compiled for 1..4 stages; deeper requests run at 3
+MAX_PREFETCH_DEPTH = 3
 # a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 64
 # for the kernels' static shared words (scan sums, stage mbarriers)
 SMEM_LIMIT_BYTES = 232448 - 64
@@ -216,9 +217,16 @@ def _check_common(block_rows: int, max_chunk_rows: int, prefetch_depth: int, che
         raise ValueError(f"block_rows must be {BLOCK_ROWS}, got {block_rows}")
     if max_chunk_rows % BLOCK_ROWS or max_chunk_rows <= 0:
         raise ValueError("max_chunk_rows must be a positive multiple of block_rows")
-    if not 0 <= prefetch_depth <= MAX_PREFETCH_DEPTH:
-        raise ValueError(f"prefetch_depth must be in [0, {MAX_PREFETCH_DEPTH}], "
-                         f"got {prefetch_depth}")
+    if prefetch_depth < 0:
+        raise ValueError(f"prefetch_depth must be >= 0, got {prefetch_depth}")
+
+
+def ring_depth(prefetch_depth: int) -> int:
+    """The depth the CUDA ring runs at for a requested ``prefetch_depth``:
+    ``min(depth, MAX_PREFETCH_DEPTH)``. A CTA also never has more stages in
+    flight than it has stages, so the ring runs at ``min(depth,
+    MAX_PREFETCH_DEPTH, steps)``; the sums do not depend on the depth."""
+    return min(prefetch_depth, MAX_PREFETCH_DEPTH)
 
 
 def _same_device(device: torch.device, *tensors) -> None:
@@ -387,6 +395,7 @@ def k1_launch_geometry(w: torch.Tensor, x: torch.Tensor, k: int, prefetch_depth:
 def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_depth):
     from .build import check, library, stream_ptr
 
+    prefetch_depth = ring_depth(prefetch_depth)
     g = k1_launch_geometry(w, x, starts.shape[0], prefetch_depth, x_mask is not None,
                            "chunk_gather_matmul_dma")
     b, n = x.shape
@@ -409,6 +418,7 @@ def _launch_k2_gate_up(w_gate, w_up, x, starts, sizes, sg, su, max_chunk_rows,
     """K2's phase 1 on the card: h (B, F) f32 off one (K,) table."""
     from .build import check, library, stream_ptr
 
+    prefetch_depth = ring_depth(prefetch_depth)
     _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
     g = k1_launch_geometry(w_gate, x, starts.shape[0], prefetch_depth, False,
                            "chunk_gather_mlp_dma (w_gate)", nmat=2)
@@ -441,7 +451,9 @@ def chunk_gather_matmul_dma(
 ) -> torch.Tensor:
     """K1: y (B, D) f32 = Σ over the chunk table's blocks of x_blk @ W_blk
     (dequantized per block when ``scales`` is given). Numerically identical
-    at every ``prefetch_depth``."""
+    at every ``prefetch_depth`` ≥ 0; on the card the ring runs at
+    ``min(prefetch_depth, MAX_PREFETCH_DEPTH, steps)`` stages ahead
+    (``ring_depth``)."""
     _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
     n, d = w.shape
     if x.ndim != 2 or x.shape[1] != n:
@@ -480,7 +492,8 @@ def chunk_gather_mlp_dma(
     """K2: fused sparse SwiGLU. y (B, D) f32 = down-projection of
     h = swish(x@W_gate)·(x@W_up), gate/up gathered off ``starts[0]``, down
     off ``starts[1]`` with h multiplied by the exact ``ffn_mask`` at the
-    gather. ``return_h=True`` also returns the unmasked h (B, F) f32."""
+    gather. ``return_h=True`` also returns the unmasked h (B, F) f32. Any
+    ``prefetch_depth`` ≥ 0, run on the card as K1's (``ring_depth``)."""
     _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
     n, f = w_gate.shape
     fd, d = w_down.shape

@@ -12,6 +12,9 @@ flash-offload simulation. Runs on the GPU unless asked otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b \
       --reduced --frames 2 --torch-device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --torch-device cpu --cache-mb 1 --per-token
+
 ``--device`` names the simulated flash profile (nano / agx), as in the
 reference CLI; ``--torch-device`` picks where the model runs. The
 reference CLI's other flags belong to features not ported yet and are
@@ -35,11 +38,24 @@ from ..serving import SERVE_METHODS, ServeEngine
 
 # flags of the reference CLI (repro/launch/serve.py) this slice does not serve
 NOT_PORTED_FLAGS = (
-    "--cache-mb", "--kv-page-tokens", "--per-token", "--mesh", "--streams",
+    "--kv-page-tokens", "--mesh", "--streams",
     "--arrival-rate", "--round-tokens", "--fault-profile", "--fault-seed",
     "--corruption-profile", "--corruption-seed", "--max-reread", "--recover",
     "--no-recover", "--degrade", "--no-degrade", "--deadline-s",
 )
+
+
+def _nonneg(kind, name: str):
+    """An argparse type: ``kind(text)``, refused below 0."""
+    def parse(text: str):
+        try:
+            v = kind(text)
+        except ValueError:
+            raise argparse.ArgumentTypeError(f"{name} must be a number, got {text!r}") from None
+        if v < 0:
+            raise argparse.ArgumentTypeError(f"{name} must be >= 0, got {text!r}")
+        return v
+    return parse
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,12 +85,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--plan-refresh-interval", type=int, default=1,
                     help="recompute chunk selection every k decode steps")
+    ap.add_argument("--cache-mb", type=_nonneg(float, "--cache-mb"), default=None,
+                    help="DRAM budget (MB) of the dynamic chunk residency cache (paper "
+                         "§5); resident rows cost no flash I/O. Default: the device "
+                         "profile's dram_cache_mb (0 = off)")
+    ap.add_argument("--per-token", action="store_true",
+                    help="decode with one host sync per token (the baseline loop) "
+                         "instead of the fused loop; tokens are byte-identical")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
                     help="charge decode steps through the overlapped I/O–compute "
                          "prefetch pipeline (--no-overlap: the serial charge)")
-    ap.add_argument("--prefetch-depth", type=int, default=1,
-                    help="prefetch depth of the pipeline and the kernels' ring "
-                         "(0..3); tokens are byte-identical at every depth")
+    ap.add_argument("--prefetch-depth", type=_nonneg(int, "--prefetch-depth"), default=1,
+                    help="how many layers the pipeline's fetch engine may run ahead of "
+                         "compute (>= 0); the kernels' ring runs at most 3 ahead. Tokens "
+                         "are byte-identical at every depth")
     ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     ap.add_argument("--seed", type=int, default=0, help="weight and prompt seed")
@@ -104,7 +128,8 @@ def main(argv=None):
     params = model.init(seed=args.seed, device=dev)
     eng = ServeEngine(model, params, max_seq=args.max_seq, batch_size=args.batch,
                       device=args.device, sparsity=args.sparsity, method=args.method,
-                      plan_refresh_interval=args.plan_refresh_interval, overlap=args.overlap,
+                      plan_refresh_interval=args.plan_refresh_interval,
+                      cache_mb=args.cache_mb, overlap=args.overlap,
                       prefetch_depth=args.prefetch_depth, backend=args.backend,
                       wbits=args.wbits, torch_device=dev)
     batch = make_dummy_batch(cfg, InputShape("cli", args.prompt_len, args.batch, "train"),
@@ -121,9 +146,11 @@ def main(argv=None):
             print(f"[frame {i}] {n_tok} tokens  io_est {st.io_est_s * 1e3:.2f} ms  "
                   f"io_sim {st.io_sim_s * 1e3:.2f} ms")
     tok0 = torch.argmax(last, dim=-1)[:, None]
-    out = eng.decode(tok0, args.decode_tokens)
+    decode = eng.decode_per_token if args.per_token else eng.decode
+    out = decode(tok0, args.decode_tokens)
     dsteps = [s for s in eng.stats if s.kind == "decode"]
-    print(f"[decode:fused] {args.decode_tokens} tokens  "
+    mode = "per-token" if args.per_token else "fused"
+    print(f"[decode:{mode}] {args.decode_tokens} tokens  "
           f"mean io_sim {np.mean([s.io_sim_s for s in dsteps]) * 1e3:.2f} ms/token  "
           f"wall {sum(s.wall_s for s in dsteps) * 1e3:.1f} ms  device={dev}")
     s = eng.io_summary()
@@ -135,8 +162,10 @@ def main(argv=None):
           f"select_overhead {s['select_overhead_s'] * 1e3:.2f} ms")
     print(f"[total] method={args.method} backend={args.backend} wbits={args.wbits} "
           f"sparsity={args.sparsity} refresh_interval={args.plan_refresh_interval} "
+          f"cache_mb={eng.cache_mb:g} "
           f"io_est {s['io_est_s'] * 1e3:.1f} ms  io_sim {s['io_sim_s'] * 1e3:.1f} ms  "
-          f"io_bytes {s['io_bytes'] / 1e6:.1f} MB")
+          f"io_bytes {s['io_bytes'] / 1e6:.1f} MB  "
+          f"cache_hit_rate {s['cache_hit_rate']:.3f}")
     print(f"[tokens] {out[0].tolist()}")
     return eng, out
 

@@ -1,10 +1,13 @@
 """GQA attention with RoPE and a linear KV cache (the port's copy of the
-parts of ``repro.models.attention`` the decode and frame-append paths use).
+parts of ``repro.models.attention`` the prefill, decode and frame-append
+paths use).
 
-Prefill runs the direct (materialized-scores) attention; the reference's
-blockwise and sequence-sharded paths and rotating windows come with later
-slices. The cache is updated in place (PyTorch idiom; the reference
-returns new arrays).
+Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
+positions the direct (materialized-scores) attention, above it the
+blockwise online-softmax attention, whose score memory is one (block_q,
+block_kv) tile per head. The sequence-sharded path and rotating windows
+come with later slices. The cache is updated in place (PyTorch idiom; the
+reference returns new arrays).
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ import torch
 from .common import apply_rope
 
 NEG_INF = -1e30
+# prompts longer than this take the blockwise attention (the reference's
+# ``blockwise_threshold`` default)
+BLOCKWISE_THRESHOLD = 2048
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -37,11 +43,66 @@ def _direct_attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def _blockwise_attention(q, k, v, q_offset: int, causal: bool, window: Optional[int] = None,
+                         block_q: int = 512, block_kv: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over (block_q, block_kv) tiles, in the
+    reference's order (``repro.models.attention._blockwise_attention``):
+    the q blocks one after another, and for each the kv blocks in order,
+    carrying the running max, normaliser and f32 accumulator. q: (b, sq,
+    h, hd); k/v: (b, sk, h, hd); query i sits at position i + q_offset, key
+    j at j. A kv block that lies wholly after a causal q block's last
+    position is skipped: in the reference its scores are all NEG_INF, so
+    it adds exact zeros and multiplies by exp(0) = 1 — skipping it leaves
+    every bit as it was."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    scale = hd ** -0.5
+    nq, nk = -(-sq // block_q), -(-sk // block_kv)
+    # (b, h, s, hd) f32, zero-padded to whole blocks
+    qp = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, 0, 0, nq * block_q - sq))
+    kp = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, 0, 0, nk * block_kv - sk))
+    vp = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, 0, 0, nk * block_kv - sk))
+    qp, kp, vp = (t.permute(0, 2, 1, 3) for t in (qp, kp, vp))
+    out = torch.empty((b, h, nq * block_q, hd), dtype=torch.float32, device=q.device)
+    iq = torch.arange(block_q, device=q.device)
+    ik = torch.arange(block_kv, device=q.device)
+    for qi in range(nq):
+        qb = qp[:, :, qi * block_q: (qi + 1) * block_q] * scale
+        q_pos = qi * block_q + iq + q_offset
+        m = torch.full((b, h, block_q), NEG_INF, dtype=torch.float32, device=q.device)
+        den = torch.zeros((b, h, block_q), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, block_q, hd), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            if causal and ki * block_kv > qi * block_q + block_q - 1 + q_offset:
+                break
+            k_pos = ki * block_kv + ik
+            s = torch.einsum("bhqd,bhkd->bhqk", qb, kp[:, :, ki * block_kv: (ki + 1) * block_kv])
+            keep = (k_pos < sk)[None, :].expand(block_q, block_kv)
+            if causal:
+                keep = keep & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                keep = keep & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            den = den * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vp[:, :, ki * block_kv: (ki + 1) * block_kv])
+            m = m_new
+        out[:, :, qi * block_q: (qi + 1) * block_q] = acc / den.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3)[:, :sq].to(q.dtype)
+
+
 def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
                          n_kv_heads: int, head_dim: int,
                          positions: Optional[torch.Tensor] = None,
-                         rope_theta: Optional[float] = 10000.0) -> torch.Tensor:
-    """Causal self-attention sublayer (projections + SDPA): (b, s, d) → (b, s, d)."""
+                         rope_theta: Optional[float] = 10000.0,
+                         blockwise_threshold: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention sublayer (projections + attention): (b, s, d)
+    → (b, s, d). Above ``blockwise_threshold`` positions (None: the module's
+    ``BLOCKWISE_THRESHOLD``, read at call time) the blockwise online-softmax
+    attention, else the direct one, as in the reference."""
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
@@ -53,10 +114,16 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
         k = apply_rope(k, positions, rope_theta)
     n_rep = n_heads // n_kv_heads
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-    qi = torch.arange(s, device=x.device)[:, None]
-    kj = torch.arange(s, device=x.device)[None, :]
-    out = _direct_attention(q, k, v, kj <= qi).reshape(b, s, n_heads * head_dim)
-    return out @ params["wo"]
+    sk = k.shape[1]
+    if blockwise_threshold is None:
+        blockwise_threshold = BLOCKWISE_THRESHOLD
+    if max(s, sk) > blockwise_threshold:
+        out = _blockwise_attention(q, k, v, sk - s, True)
+    else:
+        qi = torch.arange(s, device=x.device)[:, None] + (sk - s)
+        kj = torch.arange(sk, device=x.device)[None, :]
+        out = _direct_attention(q, k, v, kj <= qi)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
 
 
 @dataclasses.dataclass(frozen=True)

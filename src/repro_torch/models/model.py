@@ -5,6 +5,8 @@ Other families raise until their slice lands (ROADMAP.md, queue 1).
     model.init(seed, device)                       -> params (stacked leaves)
     model.forward(params, batch)                   -> hidden
     model.prefill(params, batch, max_seq)          -> (last_logits, cache)
+        (prompts over 2048 positions, a VLM's vision tokens included, take
+        the blockwise attention, as in the reference)
     model.append_embeds(params, frame, cache, sparse_ctx, device)
                                                    -> (hidden, io)
     model.decode_step_planned(params, token, cache, sparse_ctx, plan, refresh)
@@ -141,7 +143,9 @@ class Model:
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """Dense forward over the prompt. Returns (last-position logits
-        (b, vocab) in the compute dtype, a freshly filled cache)."""
+        (b, vocab) in the compute dtype, a freshly filled cache). A prompt
+        longer than ``attention.BLOCKWISE_THRESHOLD`` positions (vision
+        tokens included) takes the blockwise attention."""
         x = self._embed_input(params, batch)
         b, s, _ = x.shape
         if s > max_seq:

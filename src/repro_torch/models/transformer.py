@@ -87,7 +87,8 @@ def _mlp_maybe_sparse(h: torch.Tensor, params, sparse_ctx):
 
 def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """Dense block over a full sequence; returns (x_out, k, v) where k/v are
-    this layer's cache fill (k roped)."""
+    this layer's cache fill (k roped). Above ``BLOCKWISE_THRESHOLD``
+    positions the attention is the blockwise one, as in the reference."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h = rms_norm(x, params["ln1_w"])

@@ -5,20 +5,28 @@ simulation (the port's copy of the classic single-stream mode of
 ``prefill(batch)`` runs the dense prompt forward (a VLM prompt's vision
 tokens first); ``append_frame(frame)`` extends the cache by one video
 frame's tokens, selecting every site's mask from the frame's activations;
-``decode(tok, n)`` runs the fused decode loop: n greedy steps on the device — the plan refresh is
-the host-known ``step % plan_refresh_interval == 0``, the kernel tables
-have a static width, and the greedy selection exits early on the device —
-then ONE host sync brings back every step's per-layer I/O estimates and
-plan counters, which the simulator, the prefetch pipeline and ``StepStats``
-price exactly as the reference does after its ``lax.scan``.
+``decode(tok, n)`` runs the fused decode loop: n greedy steps on the
+device — the plan refresh is the host-known ``step % plan_refresh_interval
+== 0``, the kernel tables have a static width, and the greedy selection
+exits early on the device — then ONE host sync brings back every step's
+per-layer I/O estimates and plan counters, which the simulator, the
+prefetch pipeline and ``StepStats`` price exactly as the reference does
+after its ``lax.scan``. ``decode_per_token`` runs the same step function
+with one host sync per token (the reference's baseline loop); its tokens
+are byte-identical to ``decode``'s. ``reprice_timeline(depth)`` re-runs
+the prefetch timeline of the logged decode calls at another depth.
+
+``cache_mb`` turns on the dynamic residency cache (paper §5,
+``SparseExecution``): only cache-miss rows are charged, and
+``io_summary``'s ``cache_hit_rate`` reads the plan's real hits.
 
 ``method``: "chunk" | "topk" | "dense" stream weights from the simulated
 flash through ``SparseExecution`` ("dense" re-streams every matrix every
 step); "dense_free" keeps the weights resident — dense compute, no
 ``SparseExecution``, zero I/O.
 
-Not ported yet: slot mode / the scheduler, paged KV, the per-token loop,
-faults, degradation, corruption and sharded meshes.
+Not ported yet: slot mode / the scheduler, paged KV, faults,
+degradation, corruption and sharded meshes.
 """
 from __future__ import annotations
 
@@ -31,8 +39,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.latency_model import MB
 from ..core.offload import ComputeModel, FlashOffloadSimulator
-from ..core.pipeline import PipelineModel, overlap_efficiency
+from ..core.pipeline import PipelineModel, PipelineTimeline, overlap_efficiency
 from ..kernels.backend import validate_backend
 from ..kernels.quantize import quantize_params
 from ..models.model import Model
@@ -86,11 +95,15 @@ IO_SUMMARY_KEYS = (
 
 
 class ServeEngine:
+    # retention bound of the per-layer I/O log behind reprice_timeline
+    _LAYER_IO_LOG_MAX_STEPS = 4096
+
     def __init__(self, model: Model, params, max_seq: int, batch_size: int,
-                 device: str = "nano", sparsity=0.4, method: str = "chunk", seed: int = 0,
-                 plan_refresh_interval: int = 1, overlap: bool = True,
-                 prefetch_depth: int = 1, backend: str = "reference", wbits: int = 16,
-                 torch_device=None):
+                 device: str = "nano", sparsity=0.4, method: str = "chunk",
+                 reorderings: Optional[dict] = None, seed: int = 0,
+                 plan_refresh_interval: int = 1, cache_mb: Optional[float] = None,
+                 overlap: bool = True, prefetch_depth: int = 1,
+                 backend: str = "reference", wbits: int = 16, torch_device=None):
         """``device``: the simulated flash profile ("nano" | "agx").
         ``torch_device``: where the model runs — ``cuda`` unless the caller
         passes another device (the weights must already live there).
@@ -98,7 +111,13 @@ class ServeEngine:
         (K1/K2 off the decode plan's chunk tables); tokens are
         byte-identical across the two. ``wbits=8`` quantizes the offloaded
         matrices once (int8 payload + per-8-row scales); ``dense_free``
-        streams nothing and ignores it."""
+        streams nothing and ignores it. ``cache_mb``: the DRAM budget (MB)
+        of the residency cache; None takes the flash profile's
+        ``dram_cache_mb``, 0 turns it off. ``reorderings``: per-site
+        ``Reordering``s (reference backend only). ``prefetch_depth``: any
+        depth ≥ 0; it prices the pipeline, and the kernels' ring runs at
+        most ``MAX_PREFETCH_DEPTH`` ahead — tokens are byte-identical at
+        every depth."""
         validate_method(method, allow_dense_free=True)
         validate_backend(backend)
         if wbits not in WBITS_CHOICES:
@@ -118,8 +137,11 @@ class ServeEngine:
         self.plan_refresh_interval = plan_refresh_interval
         self.overlap = overlap
         self.wbits = wbits
+        # the profile's default when None; >= 0 is checked by the profile
+        self.cache_mb = self.simulator.profile.cache_capacity_bytes(cache_mb) / MB
         self.sparse_ctx = None if method == "dense_free" else SparseExecution(
-            model.cfg, device=device, sparsity=sparsity, method=method, backend=backend,
+            model.cfg, device=device, sparsity=sparsity, method=method,
+            reorderings=reorderings, cache_mb=self.cache_mb, backend=backend,
             kernel_prefetch_depth=prefetch_depth, wbits=wbits,
             torch_device=self.torch_device,
         )
@@ -141,6 +163,10 @@ class ServeEngine:
         self.stats: List[StepStats] = []
         self._plan: Optional[Dict] = None  # the chunk-plan carry, kept across decode calls
         self._select_s_per_refresh: Optional[float] = None
+        # each decode call's (n_steps, n_layers) simulated I/O, kept (the
+        # last _LAYER_IO_LOG_MAX_STEPS steps, whole calls) so the timeline
+        # can be repriced at other prefetch depths
+        self._layer_io_log: List[np.ndarray] = []
 
     # -- stages ----------------------------------------------------------------
     def prefill(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -193,11 +219,21 @@ class ServeEngine:
         return (torch.stack(toks, dim=1), torch.stack(ios), torch.stack(hits),
                 torch.stack(misses), torch.stack(byts))
 
-    def _run_decode(self, tokens: torch.Tensor, n_tokens: int) -> np.ndarray:
+    def _start_decode(self) -> None:
+        """A decode call's start: the plan (made on first use, kept across
+        calls) with its counters zeroed."""
         if self._plan is None:
             self._plan = ({} if self.sparse_ctx is None
                           else self.sparse_ctx.init_plan(self.model.cfg.n_layers))
         reset_plan_counters(self._plan)
+
+    def _dense_step_bytes(self) -> float:
+        """A ``dense`` step's transfer: every offloaded matrix re-streams
+        (the empty plan counts nothing)."""
+        return self.sparse_ctx.sparsifiable_bytes(self.model.cfg.n_layers)
+
+    def _run_decode(self, tokens: torch.Tensor, n_tokens: int) -> np.ndarray:
+        self._start_decode()
         tokens = tokens.to(self.torch_device)
         t0 = time.perf_counter()
         dev = self._device_loop(tokens, n_tokens)
@@ -210,10 +246,7 @@ class ServeEngine:
         hits, misses, byts = (np.diff(x.numpy().astype(np.float64), prepend=0.0)
                               for x in (hits, misses, byts))
         if self.method == "dense":
-            # every offloaded matrix re-streams every step; the (empty)
-            # plan counts nothing
-            byts = np.full_like(byts, self.sparse_ctx.sparsifiable_bytes(
-                self.model.cfg.n_layers))
+            byts = np.full_like(byts, self._dense_step_bytes())
         io_steps = ios.sum(axis=1)
         rows = hits + misses
         hit_rates = np.where(rows > 0, hits / np.maximum(rows, 1.0), 0.0)
@@ -223,7 +256,9 @@ class ServeEngine:
         # spread each step's lift + jitter over its layers so the pipeline
         # sees simulated time
         scale = np.where(io_steps > 0, sims / np.maximum(io_steps, 1e-30), 1.0)
-        tl = self.simulator.pipeline.timeline(ios * scale[:, None], self.compute_layer_s)
+        layer_io = ios * scale[:, None]
+        self._log_layer_io(layer_io)
+        tl = self.simulator.pipeline.timeline(layer_io, self.compute_layer_s)
         n_refresh = math.ceil(n_tokens / self.plan_refresh_interval)
         select_amortized = self._selection_seconds_per_refresh() * n_refresh / max(n_tokens, 1)
         per_step_wall = wall / max(n_tokens, 1)
@@ -257,6 +292,94 @@ class ServeEngine:
                                       "always takes the argmax")
         toks = self._run_decode(first_token, n_tokens)
         return torch.cat([first_token.cpu().to(toks.dtype), toks], dim=1)
+
+    def decode_per_token(self, first_token: torch.Tensor, n_tokens: int,
+                         greedy: bool = True):
+        """The reference's baseline loop: the same step function as
+        ``decode`` (plan reuse and the residency cache included), with one
+        host sync per token that brings back the step's per-layer I/O and
+        counter deltas. Its tokens are byte-identical to ``decode``'s; the
+        prefetch-pipeline accounting is backfilled once the loop ends (the
+        timeline needs every step's per-layer I/O). Returns (b, n_tokens +
+        1) including ``first_token`` (on the host)."""
+        if not greedy:
+            raise NotImplementedError("sampled decoding is not implemented: "
+                                      "decode_per_token always takes the argmax")
+        self._start_decode()
+        token = first_token.to(self.torch_device)
+        out = [first_token.cpu().to(torch.int64)]
+        start = len(self.stats)
+        io_rows = []
+        k = self.plan_refresh_interval
+        for i in range(n_tokens):
+            t0 = time.perf_counter()
+            h0, m0 = plan_hit_miss(self._plan, token.device)
+            b0 = plan_transfer_bytes(self._plan, token.device)
+            logits, io = self.model.decode_step_planned(
+                self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0)
+            token = torch.argmax(logits, dim=-1)[:, None]
+            h1, m1 = plan_hit_miss(self._plan, token.device)
+            deltas = torch.stack([h1 - h0, m1 - m0,
+                                  plan_transfer_bytes(self._plan, token.device) - b0])
+            # the per-token host sync, one transfer: the tokens (exact in
+            # float64), the layers' estimates and the step's counter deltas
+            row = torch.cat([token[:, 0].to(torch.float64), io.to(torch.float64),
+                             deltas.to(torch.float64)]).cpu()
+            wall = time.perf_counter() - t0
+            b = token.shape[0]
+            tok = row[:b].to(torch.int64)[:, None]
+            io_vec, (hit, miss, nbytes) = row[b:-3].numpy(), row[-3:].tolist()
+            if self.method == "dense":
+                nbytes = self._dense_step_bytes()
+            est = float(io_vec.sum())
+            rate = hit / (hit + miss) if (hit + miss) > 0 else 0.0
+            sim = self.simulator.measure_from_estimate(est, name="decode", hit_rate=rate,
+                                                       nbytes=nbytes)
+            io_rows.append(io_vec * (sim / est if est > 0 else 1.0))
+            self.stats.append(StepStats("decode", 1, est, sim, 0.0, wall,
+                                        hit_rows=float(hit), miss_rows=float(miss),
+                                        nbytes=float(nbytes)))
+            out.append(tok)
+        if not io_rows:
+            return torch.cat(out, dim=1)
+        select_per_refresh = self._selection_seconds_per_refresh()
+        layer_io = np.asarray(io_rows)
+        self._log_layer_io(layer_io)
+        tl = self.simulator.pipeline.timeline(layer_io, self.compute_layer_s)
+        compute_step = float(np.asarray(self.compute_layer_s).sum())
+        for j, st in enumerate(self.stats[start:]):
+            st.select_overhead_s = select_per_refresh if j % k == 0 else 0.0
+            st.compute_s = compute_step
+            st.serial_s = float(tl.serial_s[j])
+            st.overlap_s = float(tl.overlap_s[j])
+            st.stall_s = float(tl.stall_s[j])
+            st.bubble_s = float(tl.bubble_s[j])
+        return torch.cat(out, dim=1)
+
+    # -- the prefetch timeline at other depths ---------------------------------
+    def _log_layer_io(self, layer_io: np.ndarray) -> None:
+        """Keep one decode call's (n_steps, n_layers) simulated I/O, dropping
+        the oldest whole calls past ``_LAYER_IO_LOG_MAX_STEPS`` steps."""
+        self._layer_io_log.append(layer_io)
+        total = sum(m.shape[0] for m in self._layer_io_log)
+        while len(self._layer_io_log) > 1 and total > self._LAYER_IO_LOG_MAX_STEPS:
+            total -= self._layer_io_log.pop(0).shape[0]
+
+    def reprice_timeline(self, prefetch_depth: int) -> PipelineTimeline:
+        """The prefetch timeline of the logged decode calls re-run at
+        ``prefetch_depth``, each call as its own cold pipeline (as the
+        engine charges a call): what an engine built with that depth would
+        log for the same calls, without decoding again. Returns the calls'
+        timelines concatenated."""
+        if not self._layer_io_log:
+            raise RuntimeError("no decode steps logged yet — nothing to reprice")
+        model = self.simulator.pipeline.with_depth(prefetch_depth)
+        tls = [model.timeline(ios, self.compute_layer_s) for ios in self._layer_io_log]
+        if len(tls) == 1:
+            return tls[0]
+        return PipelineTimeline(**{
+            f.name: np.concatenate([getattr(t, f.name) for t in tls])
+            for f in dataclasses.fields(PipelineTimeline)})
 
     # -- accounting -------------------------------------------------------------
     def io_summary(self) -> Dict[str, float]:

@@ -86,9 +86,22 @@ def test_chunk_selector_select_equals_oracle_on_random(seed):
 
 
 def test_chunk_selector_residency_is_not_ported():
-    _, ts = _selectors(64, 256.0, "nano", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.select(torch.ones(64), 32, resident=torch.zeros(64, dtype=torch.bool))
+    """The name dates from before the port had residency-aware selection
+    (it pinned the refusal); it now holds ``select(resident=)`` to the
+    reference's on dyadic importances: the mask, the count and the
+    miss-only estimate, with nothing resident, a block resident and
+    everything resident."""
+    rng = np.random.default_rng(11)
+    js, ts = _selectors(64, 256.0, "nano", None)
+    v = _dyadic(rng, 64)
+    for lo, hi in ((0, 0), (8, 40), (0, 64)):
+        res = np.zeros(64, bool)
+        res[lo:hi] = True
+        jm, jsel, jlat = js.select(jnp.asarray(v), jnp.int32(32), jnp.asarray(res))
+        tm, tsel, tlat = ts.select(torch.from_numpy(v), 32, resident=torch.from_numpy(res))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        assert int(tsel) == int(jsel)
+        np.testing.assert_allclose(float(tlat), float(jlat), rtol=1e-6)
 
 
 def _calibration(rng, n):

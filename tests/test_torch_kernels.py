@@ -262,12 +262,33 @@ def test_wrapper_contract_errors():
     with pytest.raises(NotImplementedError):
         tk.chunk_gather_matmul_dma(w, x, s, z, checksums=torch.zeros(2))
     with pytest.raises(ValueError):
-        tk.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=tk.MAX_PREFETCH_DEPTH + 1)
+        tk.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=-1)
     with pytest.raises(ValueError):  # int8 payload without its scales lane
         tk.chunk_gather_matmul_dma(w.to(torch.int8), x, s, z)
     before = dict(tk.LAUNCHES)
     tk.chunk_gather_matmul_dma(w, x, s, z)  # CPU: the plain version, no launch
     assert tk.LAUNCHES == before
+
+
+def test_matmul_dma_depth_deeper_than_steps():
+    """The reference suite's depth-7 case (``test_dma_kernels.py``): a
+    prefetch depth above the table's one step is accepted and changes no
+    bit of y; the reference kernel (interpret mode) and its oracle agree.
+    On the card the ring runs at ``ring_depth`` = min(depth, 3)."""
+    rng = np.random.default_rng(7)
+    w = rng.normal(0, 1, (16, 128)).astype(np.float32)
+    x = rng.normal(0, 1, (1, 16)).astype(np.float32)
+    s, z = np.array([0], np.int32), np.array([8], np.int32)
+    y = tk.chunk_gather_matmul_dma(*(torch.from_numpy(a) for a in (w, x, s, z)),
+                                   max_chunk_rows=8, prefetch_depth=7)
+    jy = j_k1(*(jnp.asarray(a) for a in (w, x, s, z)), max_chunk_rows=8, prefetch_depth=7,
+              interpret=True)
+    assert _rel_err(y.numpy(), jy) < 1e-5
+    assert _rel_err(y.numpy(), j_k1_ref(*(jnp.asarray(a) for a in (w, x, s, z)))) < 1e-5
+    assert torch.equal(y, tk.chunk_gather_matmul_dma(
+        *(torch.from_numpy(a) for a in (w, x, s, z)), max_chunk_rows=8, prefetch_depth=1))
+    assert [tk.ring_depth(d) for d in (0, 1, 3, 4, 7)] == [0, 1, 3, 3, 3]
+    assert tbackend.ExecutionBackend.create("kernel", prefetch_depth=7).prefetch_depth == 7
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +503,24 @@ def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype, case):
                                      prefetch_depth=depth, return_h=True)
     yp, hp = tk.chunk_gather_mlp_plain(*tw, xs, st, sz, None, sc)
     assert torch.equal(hk, hp) and torch.equal(yk, yp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_kernels_at_depth_beyond_the_ring(cuda, dtype):
+    """Depths above MAX_PREFETCH_DEPTH run the ring at 3: K1 and K2 at depth
+    7 equal depth 1 bitwise."""
+    rng = np.random.default_rng(60)
+    wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype, 256, 704, 256)
+    tw = [w[1].to(cuda) for w in (wg, wu, wd)]
+    sc = None if dtype != "int8" else tuple(w[2][1].to(cuda) for w in (wg, wu, wd))
+    xs, st, sz = torch.from_numpy(x).to(cuda), st.to(cuda), sz.to(cuda)
+    y = [tk.chunk_gather_matmul_dma(tw[0], xs, st[0], sz[0], None if sc is None else sc[0],
+                                    prefetch_depth=d) for d in (1, 7)]
+    assert torch.equal(y[0], y[1])
+    h = [tk.chunk_gather_mlp_dma(*tw, xs, st, sz, None, sc, prefetch_depth=d, return_h=True)
+         for d in (1, 7)]
+    assert torch.equal(h[0][0], h[1][0]) and torch.equal(h[0][1], h[1][1])
 
 
 @pytest.mark.gpu

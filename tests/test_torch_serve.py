@@ -115,10 +115,25 @@ def test_decode_continues_across_calls(pair):
     assert eng.io_summary()["steps"] == 7
 
 
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_engine_runs_at_any_prefetch_depth(pair, backend):
+    """Any depth >= 0 is accepted, as in the reference: depth 7 (deeper
+    than the kernels' ring) gives depth 1's tokens and estimates; only the
+    pipeline's charge moves."""
+    _, tm, _, tp, _, tb = pair
+    runs = {d: _serve(TEngine, tm, tp, tb, n_tokens=4, backend=backend, prefetch_depth=d,
+                      torch_device="cpu") for d in (1, 7)}
+    np.testing.assert_array_equal(runs[7][1], runs[1][1])
+    s1, s7 = runs[1][0].io_summary(), runs[7][0].io_summary()
+    assert s7["io_est_s"] == s1["io_est_s"] and s7["io_bytes"] == s1["io_bytes"]
+    assert s7["decode_overlap_s"] <= s1["decode_overlap_s"] + 1e-12
+    assert runs[7][0].sparse_ctx.backend.prefetch_depth == 7
+
+
 def test_engine_rejects_bad_settings(pair):
     _, tm, _, tp, _, _ = pair
     for kw in (dict(wbits=4), dict(plan_refresh_interval=0), dict(backend="tpu"),
-               dict(method="threshold"), dict(prefetch_depth=9)):
+               dict(method="threshold"), dict(prefetch_depth=-1)):
         with pytest.raises(ValueError):
             TEngine(tm, tp, max_seq=64, batch_size=2, torch_device="cpu", **kw)
 
@@ -133,7 +148,7 @@ def test_cli_runs_on_cpu(capsys):
     assert eng.io_summary()["io_bytes"] > 0
 
 
-@pytest.mark.parametrize("flag", ["--streams", "--cache-mb", "--mesh", "--no-recover"])
+@pytest.mark.parametrize("flag", ["--streams", "--kv-page-tokens", "--mesh", "--no-recover"])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         tserve.parse_args(["--reduced", flag] + ([] if flag.startswith("--no") else ["2"]))
