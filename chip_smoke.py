@@ -88,9 +88,26 @@ Phases, each of which fails the run on error:
      through the blockwise prefill against the direct path: last-position
      logits within 5 % of their largest magnitude, and each path's peak
      device memory.
+  9. storage faults, chunk integrity and adaptive degradation: K1 and K2
+     with their checksum lanes on phase 5's and phase 7's own calls, at
+     wbits 16 and 8 and depths 0, 1 and 3 — each launch bitwise against the
+     launch without the lane and against the plain version, both timed;
+     then full-width tinyllama-1.1b (22 layers, kernel backend, 16 decode
+     tokens): every fault profile (tokens equal to the fault-off run's,
+     charged time moved), ``thermal_throttle`` with and without the
+     degradation controller (the scale below 1.0, fewer bytes per token),
+     ``bit_rot`` with recovery at wbits 16 and 8 (tokens equal, detected ==
+     recovered > 0, re-read seconds charged; the K1/K2 launches with their
+     lanes counted from 0), ``degraded_nand`` and recovery off twice each
+     (exact replays), the corruption draws on the card against the CPU's,
+     and the refresh step's time with integrity on and off; at 4 of the 22
+     layers, the kernel backend against the reference backend's twin on
+     corrupted tokens; and internvl2-76b as in phase 7 at wbits 8 with
+     ``bit_rot`` recovered (tokens equal to the corruption-off run's).
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
-7's K1, K2 and K5 rows and phase 8's), then, as the last line,
+7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows), then,
+as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
@@ -132,6 +149,14 @@ VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_FRAMES, VLM_DECODE, VLM_MAX_SEQ = (
 # layer 0's f32 attention (the reference suite's, tests/test_attention.py)
 CACHE_FRACS, VLM_CACHE_FRAC = (0.0, 0.1, 0.5), 0.25
 LONG_FRAMES, LONG_TEXT, LONG_TOL, LONG_ATOL = 16, 32, 0.05, 2e-5
+
+
+# phase 9: the ring depths the checksum lanes are checked and timed at, the
+# fault profiles' seed (the CLI's default), the corruption seeds, and the
+# depth of the kernel-vs-twin runs on corrupted tokens
+LANE_DEPTHS = (0, 1, 3)
+FAULT_SEED, CORRUPTION_SEED, NAND_SEED, TWIN_LAYERS = 0, 7, 3, 4
+REFRESH_REPS = 8
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -362,6 +387,101 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
     timing["chunk_gather_matmul_dma"]["per_site"] = sites
     log(f"{tag} chunk_gather_matmul_dma per site: {site_line(sites)}  ({card})")
     return timing, {"k1": k1_calls, "k1_sites": k1_sites, "k2": k2_calls, "k5": k5_inputs}
+
+
+def lane_timings(calls, wbits, check, cuda_ms, host_ms, card, tag):
+    """Phase 9's kernel half, on one served engine's own calls (phase 5's
+    or phase 7's): K1 at every site of every layer and K2 at every layer,
+    each with its checksum lanes (the words of its weights, as the engine
+    packs them) and without, at depths LANE_DEPTHS: each lane launch
+    bitwise against the launch without the lane and against the plain
+    version; the mean device time per launch of both (CUDA-graph replays);
+    the plain version's host time; the bound with the lane's bytes (4 per
+    block and stream read). Returns {kernel: {...}} at every depth."""
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels.quantize import block_checksums
+
+    el = 2 if wbits == 16 else 1
+    k1 = [(w, xm, s, z, sc, block_checksums(w)) for w, xm, s, z, sc in calls["k1"]]
+    k2 = [(wg, wu, wd, xm, st, sz, fm, scs,
+           (block_checksums(wg), block_checksums(wu), block_checksums(wd)))
+          for wg, wu, wd, xm, st, sz, fm, scs in calls["k2"]]
+    k1_plain = [cg.chunk_gather_matmul_plain(w, xm, s, z, sc) for w, xm, s, z, sc, _ in k1]
+    k2_plain = [cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st, sz, fm, scs)
+                for wg, wu, wd, xm, st, sz, fm, scs, _ in k2]
+    k1_bound = k2_bound = 0.0
+    k1_by = k2_by = 0.0  # bytes time minus operations time, summed
+    for w, xm, s, z, sc, _ in k1:
+        rows = rows_of(z)
+        byts = (rows * w.shape[1] * el + rows // 8 * 4 * (2 if sc is not None else 1)
+                + xm.numel() * 4 + 2 * 4 * s.numel() + xm.shape[0] * w.shape[1] * 4)
+        ops = 2.0 * xm.shape[0] * rows * w.shape[1]
+        k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        k1_by += byts / HBM_BYTES_PER_S - ops / F32_OPS_PER_S
+    for wg, wu, wd, xm, st, sz, fm, scs, _ in k2:
+        rh, rf = rows_of(sz[0]), rows_of(sz[1])
+        f, d = wg.shape[1], wd.shape[1]
+        byts = (2 * rh * f * el + rf * d * el
+                + (2 * rh + rf) // 8 * 4 * (2 if scs is not None else 1)
+                + xm.numel() * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
+                + xm.shape[0] * f * 4 + xm.shape[0] * d * 4)
+        ops = 2.0 * xm.shape[0] * (2 * rh * f + rf * d)
+        k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        k2_by += byts / HBM_BYTES_PER_S - ops / F32_OPS_PER_S
+
+    def run_k1(depth, lane, plain=False):
+        for w, xm, s, z, sc, ck in k1:
+            if plain:
+                cg.chunk_gather_matmul_plain(w, xm, s, z, sc, checksums=ck)
+            else:
+                cg.chunk_gather_matmul_dma(w, xm, s, z, sc, ck if lane else None,
+                                           prefetch_depth=depth)
+
+    def run_k2(depth, lane, plain=False):
+        for wg, wu, wd, xm, st, sz, fm, scs, cks in k2:
+            if plain:
+                cg.chunk_gather_mlp_plain(wg, wu, wd, xm, st, sz, fm, scs, checksums=cks)
+            else:
+                cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, cks if lane else None,
+                                        prefetch_depth=depth, return_h=True)
+
+    out = {"chunk_gather_matmul_dma": {"plain_ms": host_ms(lambda: run_k1(1, True, True))
+                                       / len(k1), "bound_ms": k1_bound / len(k1) * 1e3,
+                                       "bound_by": "bytes" if k1_by >= 0 else "operations",
+                                       "calls": len(k1)},
+           "chunk_gather_mlp_dma": {"plain_ms": host_ms(lambda: run_k2(1, True, True))
+                                    / len(k2), "bound_ms": k2_bound / len(k2) * 1e3,
+                                    "bound_by": "bytes" if k2_by >= 0 else "operations",
+                                    "calls": len(k2)}}
+    for depth in LANE_DEPTHS:
+        for i, (w, xm, s, z, sc, ck) in enumerate(k1):
+            y0 = cg.chunk_gather_matmul_dma(w, xm, s, z, sc, prefetch_depth=depth)
+            y1 = cg.chunk_gather_matmul_dma(w, xm, s, z, sc, ck, prefetch_depth=depth)
+            check("chunk_gather_matmul_dma", f"{tag} d{depth} call {i} lane vs none", y1, y0)
+            check("chunk_gather_matmul_dma", f"{tag} d{depth} call {i} lane vs plain", y1,
+                  k1_plain[i])
+        for i, (wg, wu, wd, xm, st, sz, fm, scs, cks) in enumerate(k2):
+            a = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, prefetch_depth=depth,
+                                        return_h=True)
+            b = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, st, sz, fm, scs, cks,
+                                        prefetch_depth=depth, return_h=True)
+            for what, got, none, plain in zip("yh", b, a, k2_plain[i]):
+                check("chunk_gather_mlp_dma", f"{tag} d{depth} layer {i} {what} lane vs none",
+                      got, none)
+                check("chunk_gather_mlp_dma", f"{tag} d{depth} layer {i} {what} lane vs plain",
+                      got, plain)
+        for name, run, n in (("chunk_gather_matmul_dma", run_k1, len(k1)),
+                             ("chunk_gather_mlp_dma", run_k2, len(k2))):
+            # in turns: without, with, with, without
+            t = [cuda_ms(lambda lane=lane: run(depth, lane), 20) / n
+                 for lane in (False, True, True, False)]
+            out[name][depth] = {"ms_lane": (t[1] + t[2]) / 2, "ms_none": (t[0] + t[3]) / 2}
+    for name, v in out.items():
+        log(f"{tag} {name} with / without the checksum lane: " + "  ".join(
+            f"depth {dp} {v[dp]['ms_lane'] * 1e3:.1f} / {v[dp]['ms_none'] * 1e3:.1f} us"
+            for dp in LANE_DEPTHS) + f"  bound {v['bound_ms'] * 1e3:.2f} us ({v['bound_by']}, "
+            f"lane bytes included)  plain {v['plain_ms'] * 1e3:.1f} us  ({card})")
+    return out
 
 
 def refresh_input(eng):
@@ -614,8 +734,13 @@ def main():
     vlm_cache(dev, vcfg, vmodel, vparams, card, report)
     done("phase 8, InternVL2 cache")
     long_prompt(dev, vcfg, vmodel, vparams, card, report)
-    del vparams
     done("phase 8, long prompt")
+    vlm_integrity(dev, vcfg, vmodel, vparams, card, report)
+    del vparams
+    done("phase 9, InternVL2 integrity")
+    robust_path(dev, get_config("tinyllama-1.1b"), card, report)
+    done("phase 9, TinyLlama faults and integrity")
+    kernels += lane_rows(report)
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -816,7 +941,7 @@ def run(dev, cfg, card, report, vcfg):
                                    sm_count(dev) if on_card else 132, depth, w.shape[0])
                 if on_card and library("chunk_gather.cu").k1_smem_bytes(
                         cg._WTYPE[w.dtype], g["tile"], g["blocks"], xk.shape[0], 0, w.shape[0],
-                        depth, s.shape[0], 1) != cg.k1_smem_bytes(
+                        depth, s.shape[0], 1, 0) != cg.k1_smem_bytes(
                             s.shape[0], w.element_size(), g["tile"], g["blocks"], xk.shape[0],
                             depth, w.shape[0]):
                     failures.append(f"k1_smem_bytes: C and Python differ ({case} {wname})")
@@ -845,7 +970,7 @@ def run(dev, cfg, card, report, vcfg):
                                    nmat=2)
                 if on_card and library("chunk_gather.cu").k1_smem_bytes(
                         cg._WTYPE[wg.dtype], g["tile"], g["blocks"], xk.shape[0], 0,
-                        wg.shape[0], depth, s.shape[0], 2) != cg.k1_smem_bytes(
+                        wg.shape[0], depth, s.shape[0], 2, 0) != cg.k1_smem_bytes(
                             s.shape[0], wg.element_size(), g["tile"], g["blocks"],
                             xk.shape[0], depth, wg.shape[0], nmat=2):
                     failures.append(f"k1_smem_bytes (2 streams): C and Python differ "
@@ -888,7 +1013,7 @@ def run(dev, cfg, card, report, vcfg):
                                depth, vn, True)
             if on_card and library("chunk_gather.cu").k1_smem_bytes(
                     cg._WTYPE[w.dtype], g["tile"], g["blocks"], BATCH, 1, vn, depth, vk,
-                    1) != cg.k1_smem_bytes(vk, w.element_size(), g["tile"], g["blocks"],
+                    1, 0) != cg.k1_smem_bytes(vk, w.element_size(), g["tile"], g["blocks"],
                                            BATCH, depth, vn, True):
                 failures.append(f"k1_smem_bytes: C and Python differ ({vcfg.name} masked)")
         del w, sc
@@ -908,14 +1033,24 @@ def run(dev, cfg, card, report, vcfg):
                                depth, vn, nmat=2)
             need = cg.k1_smem_bytes(vk, wg.element_size(), g["tile"], g["blocks"], BATCH,
                                     depth, vn, nmat=2)
-            if on_card and library("chunk_gather.cu").k1_smem_bytes(
+            # with the checksum lanes (phase 9): 4 bytes a block, stream and stage more
+            g_ck = cg.k1_geometry(vf, BATCH, wg.element_size(),
+                                  sm_count(dev) if on_card else 132, depth, vn, nmat=2, ck=True)
+            need_ck = cg.k1_smem_bytes(vk, wg.element_size(), g_ck["tile"], g_ck["blocks"],
+                                       BATCH, depth, vn, nmat=2, ck=True)
+            if need_ck > cg.SMEM_LIMIT_BYTES:
+                failures.append(f"{vcfg.name} gate/up with the lanes needs {need_ck} bytes")
+            if on_card and (library("chunk_gather.cu").k1_smem_bytes(
                     cg._WTYPE[wg.dtype], g["tile"], g["blocks"], BATCH, 0, vn, depth, vk,
-                    2) != need:
+                    2, 0) != need or library("chunk_gather.cu").k1_smem_bytes(
+                    cg._WTYPE[wg.dtype], g_ck["tile"], g_ck["blocks"], BATCH, 0, vn, depth, vk,
+                    2, 1) != need_ck):
                 failures.append(f"k1_smem_bytes (2 streams): C and Python differ "
                                 f"({vcfg.name} gate/up)")
             log(f"[bitwise] {vcfg.name} gate/up {wname} depth {depth}: {g['grid'][0]} CTAs "
                 f"of {g['tile']} columns, {g['blocks']} blocks a stage, {need} bytes of "
-                f"shared memory (limit {cg.SMEM_LIMIT_BYTES})")
+                f"shared memory ({need_ck} with the checksum lanes; limit "
+                f"{cg.SMEM_LIMIT_BYTES})")
         del wg, wu
 
     # the reduced model on the card against the same model on the CPU
@@ -1006,10 +1141,15 @@ def run(dev, cfg, card, report, vcfg):
     # -- 5. the timings ---------------------------------------------------------
     cuda_ms, host_ms = timers(on_card)
 
-    timing = {}
+    timing, lanes = {}, {}
+    lane_check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma"))
     for wbits in (16, 8):
-        timing[wbits], _ = decode_timings(serve[wbits]["eng"], wbits, randn, cuda_ms, host_ms,
-                                          card, f"[time] w{wbits}")
+        timing[wbits], calls = decode_timings(serve[wbits]["eng"], wbits, randn, cuda_ms,
+                                              host_ms, card, f"[time] w{wbits}")
+        # phase 9's kernel half on these tables: K1/K2 with their checksum lanes
+        lanes[wbits] = lane_timings(calls, wbits, lane_check, cuda_ms, host_ms, card,
+                                    f"[lane] {cfg.name} w{wbits}")
+        del calls
         wall = serve[wbits]["loop_wall_s"] * 1e3
         shares = {k: v["ms"] * (serve[wbits]["launches"][k]
                                 - (TIME_SELECTION_LAUNCHES if k == "greedy_select" else 0)) / wall
@@ -1020,6 +1160,16 @@ def run(dev, cfg, card, report, vcfg):
             log(f"[time] w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
                 f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} us "
                 f"({v['bound_by']})  share of decode wall {shares[k]:.1%}  ({card})")
+
+    if lane_check.failures:
+        for msg in lane_check.failures:
+            log(f"[lane] {msg}")
+        fail(f"{len(lane_check.failures)} checksum-lane checks failed")
+    report["lanes"] = {"tinyllama": {"timing": lanes, "errs": lane_check.errs,
+                                     "n_checks": lane_check.n}}
+    log(f"[lane] {cfg.name}: {lane_check.n} checks (lane vs none vs plain, depths "
+        f"{LANE_DEPTHS}, wbits 16 and 8), max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in lane_check.errs.items()))
 
     # -- 6. the per-matrix library path ------------------------------------------
     lib_timing, lib_launches, lib_report = library_path(
@@ -1369,7 +1519,8 @@ def vlm_path(dev, full_cfg, card, report):
         out = eng.decode(torch.argmax(last, dim=-1)[:, None], VLM_DECODE)
         return eng, out, last, hidden
 
-    runs, timing = {}, {}
+    runs, timing, lanes = {}, {}, {}
+    lane_check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma"))
     for wbits in (16, 8):
         sync()
         if on_card:
@@ -1430,6 +1581,9 @@ def vlm_path(dev, full_cfg, card, report):
         # layer's, as timed) against their plain versions
         timing[wbits], calls = decode_timings(eng, wbits, randn, cuda_ms, host_ms, card,
                                               f"[vlm] w{wbits}")
+        # phase 9's kernel half on these tables: K1/K2 with their checksum lanes
+        lanes[wbits] = lane_timings(calls, wbits, lane_check, cuda_ms, host_ms, card,
+                                    f"[lane] {cfg.name} w{wbits}")
         plan, sp = eng._plan, eng.sparse_ctx
         for i, (name, (w, xm, s, z, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
             check("chunk_gather_matmul_dma", f"vlm w{wbits} L{i // 4} {name}",
@@ -1456,10 +1610,11 @@ def vlm_path(dev, full_cfg, card, report):
                                   chunking.greedy_select_plain(*args, walked)):
                 check("greedy_select", f"vlm w{wbits} one lane {kind}", got, want_)
             one_lane[kind] = (args, walked[0])
-        if check.failures:
-            for msg in check.failures:
+        if check.failures or lane_check.failures:
+            for msg in check.failures + lane_check.failures:
                 log(f"[vlm] {msg}")
-            fail(f"{len(check.failures)} phase-7 kernel checks failed")
+            fail(f"{len(check.failures) + len(lane_check.failures)} phase-7 kernel or "
+                 "checksum-lane checks failed")
         log(f"[vlm] w{wbits} bitwise: {check.n} checks so far (K1 at every site of "
             f"{n_layers} layers, K2 at every layer, K5 over {n_layers * sp.batched.n_sites} "
             "lanes and one lane a site), max abs err "
@@ -1505,6 +1660,10 @@ def vlm_path(dev, full_cfg, card, report):
     video_stream.print_policy_table(policies)
     report["vlm"] = {"config": dataclasses.asdict(cfg), "runs": runs, "timing": timing,
                      "errs": errs, "n_checks": check.n, "policies": policies}
+    report.setdefault("lanes", {})["internvl2"] = {"timing": lanes, "errs": lane_check.errs,
+                                                  "n_checks": lane_check.n}
+    log(f"[lane] {cfg.name}: {lane_check.n} checks, max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in lane_check.errs.items()))
     meta = {
         "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
                                     "src/repro/kernels/chunk_gather_dma.py:284"),
@@ -1736,6 +1895,324 @@ def cache_path(dev, cfg, card, report):
              "bound_by": timing[16][name]["bound_by"],
              "library_ms": timing[16][name]["library_ms"]}
             for name, (source, replaces) in meta.items()]
+
+
+def refresh_time_us(eng, dev):
+    """Mean host-clock µs of one all-layer refresh step of a served engine
+    (selection, the integrity ladder where it is on, tables, pricing),
+    synchronised, over REFRESH_REPS refreshes of its own plan."""
+    import torch
+
+    from repro_torch.models.transformer import _integrity_weights
+
+    sp, plan = eng.sparse_ctx, eng._plan
+    weights = _integrity_weights(eng.params["layers"], sp, eng.model.cfg)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sp.refresh_step(plan, True, weights)  # warm
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(REFRESH_REPS):
+        sp.refresh_step(plan, True, weights)
+    sync()
+    return (time.perf_counter() - t0) / REFRESH_REPS * 1e6
+
+
+def robust_path(dev, cfg, card, report):
+    """Phase 9, the engine half on ``cfg`` at full width and depth (prompt
+    PROMPT, DECODE decode tokens, chunk at sparsity 0.4, kernel backend):
+    every fault profile (tokens equal to the fault-off run's, charged time
+    moved); ``thermal_throttle`` with and without the degradation
+    controller over four calls of DECODE / 4 tokens (the scale goes below
+    1.0 and the bytes per token fall); ``bit_rot`` with recovery at wbits 16
+    and 8 (tokens equal, detected == recovered > 0, re-read seconds > 0;
+    the wbits-16 run is the path whose K1/K2 launches, with their checksum
+    lanes, are counted from 0); ``degraded_nand`` and recovery off, each
+    twice (replays exact; substitutes or drops; corrupted tokens); the
+    counter-based draws on the card against the same draws on the CPU; the
+    refresh step's time with integrity on and off; then, at TWIN_LAYERS of
+    the layers, the kernel backend against the reference backend's twin on
+    corrupted tokens (recovery off and ``degraded_nand``). Returns the
+    phase's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.core.faults import FAULT_PROFILES
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine
+
+    on_card = dev.type == "cuda"
+    out = {"runs": {}}
+
+    def build(cfg_):
+        model = build_model(cfg_)
+        params = model.init(seed=0, device=dev)
+        batch = make_dummy_batch(cfg_, InputShape("robust", PROMPT, BATCH, "train"), seed=0,
+                                 device=dev)
+        return model, params, batch
+
+    def serve(model, params, batch, calls=1, tag=None, **kw):
+        kw.setdefault("backend", "kernel")
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          torch_device=dev, **kw)
+        tok = torch.argmax(eng.prefill(batch), dim=-1)[:, None]
+        toks = [tok.cpu()]
+        for _ in range(calls):
+            t = eng.decode(tok, DECODE // calls)
+            toks.append(t[:, 1:])
+            tok = t[:, -1:].to(dev)
+        toks = torch.cat(toks, dim=1)
+        io, fs = eng.io_summary(), eng.fault_summary()
+        if tag is not None:
+            out["runs"][tag] = {"tokens": toks.tolist(),
+                                **{k: v for k, v in io.items() if k != "select_overhead_s"},
+                                **{k: v for k, v in fs.items() if k.startswith("degrade_")}}
+            log(f"[robust] {tag}: io_sim {io['io_sim_s'] * 1e3:.3f} ms  io_bytes "
+                f"{io['io_bytes'] / 1e6:.1f} MB  faults {fs['fault_events']} events "
+                f"{fs['fault_spikes']} spikes {fs['fault_retries']} retries, min throttle "
+                f"{fs['min_throttle_scale']:.3f}  corruptions det/rec/sub/drop "
+                f"{io['corruptions_detected']:.0f}/{io['corruptions_recovered']:.0f}/"
+                f"{io['corruptions_substituted']:.0f}/{io['corruptions_dropped']:.0f} re-read "
+                f"{io['integrity_reread_s'] * 1e3:.3f} ms  degrade scale "
+                f"{fs['degrade_scale']:.2f}")
+        return eng, toks
+
+    model, params, batch = build(cfg)
+    base = {}
+    for wbits in (16, 8):
+        base[wbits] = serve(model, params, batch, wbits=wbits, tag=f"clean w{wbits}")
+    t16 = base[16][1]
+    io16 = base[16][0].io_summary()
+
+    # faults: time only
+    for name in FAULT_PROFILES:
+        if name == "none":
+            continue
+        eng, toks = serve(model, params, batch, fault_profile=name, fault_seed=FAULT_SEED,
+                          tag=f"fault {name}")
+        io = eng.io_summary()
+        if not torch.equal(toks, t16):
+            fail(f"fault {name}: tokens {toks.tolist()} != fault-off {t16.tolist()}")
+        if io["io_sim_s"] == io16["io_sim_s"] or io["fault_events"] == 0:
+            fail(f"fault {name}: the charged time did not move ({io['io_sim_s']} s, "
+                 f"{io['fault_events']} events)")
+        if io["io_est_s"] != io16["io_est_s"] or io["io_bytes"] != io16["io_bytes"]:
+            fail(f"fault {name}: the planning estimate or the bytes moved")
+        del eng
+
+    # the degradation controller under a sustained throttle: four calls
+    throttled = {}
+    for degrade in (False, True):
+        eng, _ = serve(model, params, batch, calls=4, fault_profile="thermal_throttle",
+                       fault_seed=FAULT_SEED, degrade=degrade,
+                       tag=f"thermal_throttle degrade={degrade}")
+        throttled[degrade] = (eng.io_summary(), eng.fault_summary())
+        del eng
+    per_tok = {k: v[0]["io_bytes"] / DECODE for k, v in throttled.items()}
+    if not (throttled[True][1]["degrade_scale"] < 1.0 and per_tok[True] < per_tok[False]):
+        fail(f"degrade: scale {throttled[True][1]['degrade_scale']}, io_bytes per token "
+             f"{per_tok[True]:.0f} with vs {per_tok[False]:.0f} without")
+    log(f"[robust] degrade under thermal_throttle: scale "
+        f"{throttled[True][1]['degrade_scale']:.2f} after {throttled[True][1]['degrade_tighten_steps']} "
+        f"tightenings, io_bytes per token {per_tok[True] / 1e6:.2f} vs {per_tok[False] / 1e6:.2f} "
+        f"MB, io_sim {throttled[True][0]['io_sim_s'] * 1e3:.1f} vs "
+        f"{throttled[False][0]['io_sim_s'] * 1e3:.1f} ms")
+
+    # bit_rot with recovery: the main path of this phase (wbits 16), launches
+    # counted from 0, every K1/K2 launch carrying its checksum lanes
+    counters = (cg.LAUNCHES, cg.LANE_LAUNCHES, chunking.LAUNCHES)
+    n_layers = cfg.n_layers
+    lanes = {}
+    for wbits in (16, 8):
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        eng, toks = serve(model, params, batch, wbits=wbits, corruption_profile="bit_rot",
+                          corruption_seed=CORRUPTION_SEED, tag=f"bit_rot recover w{wbits}")
+        lanes[wbits] = {"lane": dict(cg.LANE_LAUNCHES), "all": dict(cg.LAUNCHES),
+                        "greedy_select": chunking.LAUNCHES["greedy_select"]}
+        want = {"chunk_gather_matmul_dma": 4 * n_layers * DECODE,
+                "chunk_gather_mlp_dma": n_layers * DECODE}
+        if on_card and (lanes[wbits]["lane"] != want or lanes[wbits]["all"] != want
+                        or lanes[wbits]["greedy_select"] != DECODE + TIME_SELECTION_LAUNCHES):
+            fail(f"bit_rot w{wbits}: launches {lanes[wbits]} != {want} with the lanes")
+        io = eng.io_summary()
+        if not torch.equal(toks, base[wbits][1]):
+            fail(f"bit_rot w{wbits}: recovered tokens {toks.tolist()} != corruption-off "
+                 f"{base[wbits][1].tolist()}")
+        if not (io["corruptions_detected"] == io["corruptions_recovered"] > 0
+                and io["integrity_reread_s"] > 0
+                and io["corruptions_substituted"] == 0 == io["corruptions_dropped"]):
+            fail(f"bit_rot w{wbits}: counters {io}")
+        if wbits == 16:
+            out["refresh_us"] = {"integrity on": refresh_time_us(eng, dev),
+                                 "integrity off": refresh_time_us(base[16][0], dev)}
+            # the draws on the card against the same draws on the CPU
+            cm = eng.corruption
+            nb = cfg.d_ff // 8
+            lay = torch.arange(n_layers)[:, None]
+            for stream in range(4):
+                for site, matrix in ((0, 0), (2, 1), (3, 0)):
+                    idx = torch.arange(nb)
+                    cpu = (cm.uniforms(stream, lay, lay + 5, site, matrix, idx),
+                           cm.integers(stream, lay, lay + 5, site, matrix, idx, 8 * 5632))
+                    card_ = (cm.uniforms(stream, lay.to(dev), (lay + 5).to(dev), site, matrix,
+                                         idx.to(dev)),
+                             cm.integers(stream, lay.to(dev), (lay + 5).to(dev), site,
+                                         matrix, idx.to(dev), 8 * 5632))
+                    if not all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card_)):
+                        fail(f"draws: stream {stream} site {site} matrix {matrix} differ "
+                             "between the card and the CPU")
+            out["draws_equal"] = 4 * 3 * 2 * n_layers * nb
+            log(f"[robust] the counter-based draws: {out['draws_equal']} uniforms and "
+                "integers on the card bit-equal to the CPU's")
+        del eng
+    out["lane_launches"] = lanes
+    log(f"[robust] bit_rot recovered at wbits 16 and 8: tokens identical, launches with the "
+        f"lanes {lanes[16]['lane']}; refresh step {out['refresh_us']['integrity on']:.0f} us "
+        f"with integrity, {out['refresh_us']['integrity off']:.0f} us without ({card})")
+
+    # degraded_nand (the ladder's rungs) and recovery off, each twice
+    for tag, kw in (("degraded_nand", dict(corruption_profile="degraded_nand",
+                                           corruption_seed=NAND_SEED, max_reread=1)),
+                    ("bit_rot no-recover", dict(corruption_profile="bit_rot",
+                                                corruption_seed=CORRUPTION_SEED,
+                                                recover=False))):
+        runs = [serve(model, params, batch, tag=f"{tag} run {i}", **kw) for i in (1, 2)]
+        (e1, t1), (e2, t2) = runs
+        c1, c2 = ({k: v for k, v in e.io_summary().items() if k != "select_overhead_s"}
+                  for e in (e1, e2))
+        if not (torch.equal(t1, t2) and c1 == c2):
+            fail(f"{tag}: two runs differ ({t1.tolist()} vs {t2.tolist()})")
+        if tag == "degraded_nand":
+            if c1["corruptions_substituted"] + c1["corruptions_dropped"] <= 0:
+                fail(f"degraded_nand: the ladder never substituted or dropped ({c1})")
+        elif torch.equal(t1, t16) or c1["corruptions_detected"] <= 0:
+            fail(f"{tag}: tokens equal the clean run's or nothing was detected")
+        del runs, e1, e2
+    del base, model, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # kernel backend against the reference backend's twin on corrupted tokens
+    small = dataclasses.replace(cfg, n_layers=min(TWIN_LAYERS, cfg.n_layers))
+    model, params, batch = build(small)
+    for tag, kw in (("bit_rot no-recover", dict(corruption_profile="bit_rot",
+                                                corruption_seed=CORRUPTION_SEED,
+                                                recover=False)),
+                    ("degraded_nand", dict(corruption_profile="degraded_nand",
+                                           corruption_seed=NAND_SEED, max_reread=1))):
+        got = {b: serve(model, params, batch, backend=b, **kw) for b in ("kernel", "reference")}
+        (ek, tk_), (er, tr) = got["kernel"], got["reference"]
+        ck, cr = ({k: v for k, v in e.io_summary().items() if k.startswith("corruptions")}
+                  for e in (ek, er))
+        if not (torch.equal(tk_, tr) and ck == cr):
+            fail(f"{tag} at {small.n_layers} layers: kernel {tk_.tolist()} {ck} != reference "
+                 f"backend {tr.tolist()} {cr}")
+        out["runs"][f"twin {tag}"] = {"tokens": tk_.tolist(), **ck}
+        log(f"[robust] {tag}, {small.n_layers} layers: kernel and reference backends "
+            f"byte-identical on corrupted tokens ({ck})")
+        del got, ek, er
+    del model, params
+    report["robust"] = out
+    return out
+
+
+def vlm_integrity(dev, cfg, model, params, card, report):
+    """Phase 9 on the VLM (``vlm_model``'s config, model and weights):
+    prefill → VLM_FRAMES frames → VLM_DECODE decode tokens at wbits 8 on the
+    kernel backend, ``bit_rot`` with recovery against the corruption-off
+    run: tokens byte-identical, detected == recovered > 0; the refresh
+    step's time with integrity on and off; the run's K1/K2 launches with
+    their lanes, counted from 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models.inputs import FRONT_DTYPE, make_dummy_batch
+    from repro_torch.serving import ServeEngine
+
+    frame_tokens = max(cfg.frontend_tokens // 4, 4)
+    prompt = make_dummy_batch(cfg, InputShape("vlm", VLM_PROMPT, BATCH, "train"), seed=0,
+                              device=dev)
+    rng = np.random.default_rng(0)
+    frames = [torch.from_numpy(rng.normal(0, 1, (BATCH, frame_tokens, cfg.d_frontend)))
+              .to(FRONT_DTYPE).to(dev) for _ in range(VLM_FRAMES)]
+    res = {}
+    for tag, kw in (("clean", {}), ("bit_rot", dict(corruption_profile="bit_rot",
+                                                     corruption_seed=CORRUPTION_SEED))):
+        for c in (cg.LAUNCHES, cg.LANE_LAUNCHES):
+            for k in c:
+                c[k] = 0
+        eng = ServeEngine(model, params, max_seq=VLM_MAX_SEQ, batch_size=BATCH, device="nano",
+                          sparsity=0.4, method="chunk", backend="kernel", wbits=8,
+                          torch_device=dev, **kw)
+        last = eng.prefill(prompt)
+        for fr in frames:
+            eng.append_frame(fr)
+        toks = eng.decode(torch.argmax(last, dim=-1)[:, None], VLM_DECODE)
+        io = eng.io_summary()
+        res[tag] = {"tokens": toks, "io": io, "lane": dict(cg.LANE_LAUNCHES),
+                    "refresh_us": refresh_time_us(eng, dev)}
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    io = res["bit_rot"]["io"]
+    if not torch.equal(res["bit_rot"]["tokens"], res["clean"]["tokens"]):
+        fail(f"vlm bit_rot w8: recovered tokens {res['bit_rot']['tokens'].tolist()} != "
+             f"corruption-off {res['clean']['tokens'].tolist()}")
+    if not (io["corruptions_detected"] == io["corruptions_recovered"] > 0
+            and io["integrity_reread_s"] > 0):
+        fail(f"vlm bit_rot w8: counters {io}")
+    want = {"chunk_gather_matmul_dma": 4 * cfg.n_layers * VLM_DECODE,
+            "chunk_gather_mlp_dma": cfg.n_layers * VLM_DECODE}
+    if dev.type == "cuda" and res["bit_rot"]["lane"] != want:
+        fail(f"vlm bit_rot w8: launches with the lanes {res['bit_rot']['lane']} != {want}")
+    out = {"lane_launches": res["bit_rot"]["lane"],
+           "refresh_us": {"integrity on": res["bit_rot"]["refresh_us"],
+                          "integrity off": res["clean"]["refresh_us"]},
+           "counters": {k: v for k, v in io.items() if k.startswith(("corruptions", "integrity"))},
+           "tokens": res["clean"]["tokens"].tolist()}
+    report["robust_vlm"] = out
+    log(f"[robust] {cfg.name} {cfg.n_layers} layers w8 bit_rot recovered: tokens identical, "
+        f"det/rec {io['corruptions_detected']:.0f}/{io['corruptions_recovered']:.0f}, re-read "
+        f"{io['integrity_reread_s'] * 1e3:.3f} ms; refresh step "
+        f"{out['refresh_us']['integrity on']:.0f} us with integrity, "
+        f"{out['refresh_us']['integrity off']:.0f} us without; launches with the lanes "
+        f"{out['lane_launches']}  ({card})")
+    return out
+
+
+def lane_rows(report):
+    """The kernel line's "checksum lane" rows: K1 and K2 with their lanes at
+    depth 1 and wbits 16 (phase 9 on phase 5's and phase 7's tables), with
+    the launches of phase 9's integrity runs."""
+    rows = []
+    src = "src/repro_torch/kernels/csrc/chunk_gather_ck.cu"
+    for model, launches, timing in (
+            ("tinyllama", report["robust"]["lane_launches"][16]["lane"], report["timing"][16]),
+            ("internvl2", report["robust_vlm"]["lane_launches"], report["vlm"]["timing"][16])):
+        lanes = report["lanes"][model]
+        for name, line in (("chunk_gather_matmul_dma", 284), ("chunk_gather_mlp_dma", 617)):
+            t = lanes["timing"][16][name]
+            rows.append({"name": f"{name}, checksum lane [{model}]", "route": "cuda",
+                         "source": src, "replaces": f"src/repro/kernels/chunk_gather_dma.py:{line}",
+                         "launches": launches[name], "max_abs_err": lanes["errs"][name],
+                         "ms": t[1]["ms_lane"], "ms_without_lane": t[1]["ms_none"],
+                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"],
+                         # the lane computes the function without it: (x·m) @ W for K1
+                         "library_ms": timing[name]["library_ms"]})
+    return rows
 
 
 def vlm_model(dev, full_cfg):

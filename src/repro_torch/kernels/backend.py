@@ -102,26 +102,33 @@ class ExecutionBackend:
 
     def project(self, w: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                 starts: torch.Tensor, sizes: torch.Tensor,
-                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                scales: Optional[torch.Tensor] = None,
+                checksums: Optional[torch.Tensor] = None) -> torch.Tensor:
         """y (B, D) f32 = (x · mask) @ w, the input pre-masked by the exact
-        mask on both backends."""
+        mask on both backends. ``checksums``: the kernel fetches each
+        block's integrity word through its ring (verified at the refresh,
+        not here); the twin, whose operands never leave device memory,
+        ignores it. Bit-identical either way."""
         xm = (x * mask.to(x.dtype)).to(torch.float32)
         if self.is_kernel:
             return chunk_gather_matmul_dma(
-                w, xm, starts, sizes, scales, block_rows=self.block_rows,
+                w, xm, starts, sizes, scales, checksums, block_rows=self.block_rows,
                 max_chunk_rows=self.max_chunk_rows, prefetch_depth=self.prefetch_depth,
             )
         return blocked_masked_matmul(xm, w, self.block_rows, scales)
 
     def swiglu_mlp(self, w_gate, w_up, w_down, x, hidden_mask, ffn_mask, starts, sizes,
-                   scales: Optional[Tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   scales: Optional[Tuple] = None,
+                   checksums: Optional[Tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (y (B, D) f32, h (B, F) f32) where h is the UNMASKED
-        SwiGLU intermediate — the next refresh's ffn-site importance."""
+        SwiGLU intermediate — the next refresh's ffn-site importance.
+        ``checksums`` (cg, cu, cd): the kernel's integrity lanes, fetched
+        only (see ``project``)."""
         xm = (x * hidden_mask.to(x.dtype)).to(torch.float32)
         fm = ffn_mask.to(torch.float32)
         if self.is_kernel:
             return chunk_gather_mlp_dma(
-                w_gate, w_up, w_down, xm, starts, sizes, fm, scales,
+                w_gate, w_up, w_down, xm, starts, sizes, fm, scales, checksums,
                 block_rows=self.block_rows, max_chunk_rows=self.max_chunk_rows,
                 prefetch_depth=self.prefetch_depth, return_h=True,
             )

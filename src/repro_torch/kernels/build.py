@@ -3,10 +3,12 @@
 Each ``csrc/*.cu`` has a plain C interface and is compiled by ``nvcc`` into
 its own shared library (one ``nvcc`` process per source, all started
 together), then loaded with ``ctypes``. Nothing includes PyTorch's headers,
-so a build takes seconds. Libraries land in ``build/kernels`` at the root of
-the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of
-the source and flags, so an edited source is rebuilt and never mistaken for
-a stale one.
+so a build takes seconds; the chunk-gather body (``chunk_gather.cuh``) is
+split over two sources, without and with the checksum lane, so that its
+instantiations build in parallel. Libraries land in ``build/kernels`` at the
+root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
+hash of the source, the headers and the flags, so an edited source is
+rebuilt and never mistaken for a stale one.
 
 Numerics flags: ``-fmad=false`` keeps every ``a*b+c`` as two IEEE roundings
 (the plain PyTorch versions round each product on its own), and there is no
@@ -25,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("chunk_gather.cu", "greedy_select.cu")
+SOURCES = ("chunk_gather.cu", "chunk_gather_ck.cu", "greedy_select.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,14 +40,20 @@ _I = ctypes.c_int
 # each returns cudaGetLastError() (0 = launched)
 SIGNATURES = {
     "chunk_gather.cu": {
-        "k1_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _P, _P,
+        "k1_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        "k2_gate_up": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+        "k2_gate_up": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "k3_chunk_gather_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "k1_smem_bytes": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
+        "k1_smem_bytes": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
         "k4_chunk_gather_swiglu": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _P],
+    },
+    "chunk_gather_ck.cu": {
+        "k1_chunk_gather_matmul_ck": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "k2_gate_up_ck": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "greedy_select.cu": {
         "k5_greedy_select": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P],
@@ -77,7 +85,8 @@ def find_nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
-    h = hashlib.sha1((CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha1((CSRC / src).read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -16,7 +16,7 @@ product. The CUDA sources spell these steps out with ``__fmul_rn`` /
 ``__fadd_rn`` and build with ``-fmad=false``, so kernel and plain version
 agree bitwise on the same device.
 
-K1 — ``chunk_gather_matmul_dma`` (csrc/chunk_gather.cu, ``k1_kernel``)
+K1 — ``chunk_gather_matmul_dma`` (csrc/chunk_gather.cuh, ``k1_kernel``)
   Replaces ``repro/kernels/chunk_gather_dma.py::chunk_gather_matmul_dma``
   (body ``_matmul_dma_kernel``, schedule ``_pipelined_steps``). Bound on the
   H100: bytes — a decode GEMV at batch ≤ 8 does 2·B flops per weight
@@ -38,7 +38,7 @@ K1 — ``chunk_gather_matmul_dma`` (csrc/chunk_gather.cu, ``k1_kernel``)
   (``wgmma``) path would reassociate the sums, and at this batch the FLOPs
   are not the bound.
 
-K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cu, ``k2_gate_up_kernel``
+K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cuh, ``k2_gate_up_kernel``
   then ``k1_kernel``) Replaces
   ``repro/kernels/chunk_gather_dma.py::chunk_gather_mlp_dma`` (body
   ``_mlp_dma_kernel``). Bound: bytes, as K1. On the TPU it is one program
@@ -52,6 +52,17 @@ K2 — ``chunk_gather_mlp_dma`` (csrc/chunk_gather.cu, ``k2_gate_up_kernel``
   columns); phase 2 is K1 over the ffn lane with h multiplied by the exact
   ``ffn_mask`` at the gather. The decode path asks for h anyway
   (``return_h``), so h leaving the chip adds no traffic there.
+
+The checksum lanes (K1's ``checksums``, K2's (cg, cu, cd)): one 32-bit word
+per 8-row block of each stream, int32 holding the reference's uint32 bits.
+With a lane the body is built with its ``CK`` flag, into a library of its
+own (csrc/chunk_gather_ck.cu): every ring stage also fetches its blocks'
+words (one 4-byte ``cp.async`` per block and stream), beside the scales,
+and waits on them with the stage, as the reference's kernels fetch and wait
+on theirs; neither verifies them (the refresh does,
+``serving/sparse_exec.py``), so the output is bit-identical with and
+without the lane. K2's phase 1 carries cg and cu, its phase 2 cd. The plain
+versions take the lanes and ignore them.
 """
 from __future__ import annotations
 
@@ -65,7 +76,7 @@ MAX_PREFETCH_DEPTH = 3
 # a block's opt-in shared-memory limit on Hopper (232,448 bytes), less 64
 # for the kernels' static shared words (scan sums, stage mbarriers)
 SMEM_LIMIT_BYTES = 232448 - 64
-# batch rows per CTA (kBatchSlab in csrc/chunk_gather.cu)
+# batch rows per CTA (kBatchSlab in csrc/chunk_gather.cuh)
 _BATCH_SLAB = 8
 # the body of K1-K4: 16 warps a CTA, a window of the flat block list of up
 # to K1_WINDOW_BLOCKS entries, the CTA's x rows held whole up to
@@ -78,6 +89,8 @@ K1_WARPS, K1_WINDOW_BLOCKS, K1_SLAB_BYTES, K1_SECTOR_BYTES = 16, 1024, 80 * 1024
 K1_STAGE_BYTES, K1_SMEM_BYTES = 32 * 1024, 190 * 1024
 
 LAUNCHES = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0}
+# the launches of LAUNCHES that carried their checksum lanes
+LANE_LAUNCHES = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0}
 
 _WTYPE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
@@ -173,9 +186,10 @@ def _gather_contract(w: torch.Tensor, x: torch.Tensor, offs: List[int],
 
 
 def chunk_gather_matmul_plain(w, x, starts, sizes, scales=None, x_mask=None,
-                              max_chunk_rows: int = 512) -> torch.Tensor:
+                              max_chunk_rows: int = 512, checksums=None) -> torch.Tensor:
     """Plain version of K1 (of K2's phase 2 with ``x_mask``, and of K3 with
-    neither ``scales`` nor ``x_mask``)."""
+    neither ``scales`` nor ``x_mask``); the checksum lane carries no
+    arithmetic and is ignored."""
     x = x.to(torch.float32)
     if x_mask is not None:
         x = x * x_mask.to(torch.float32)[None, :]
@@ -194,8 +208,9 @@ def chunk_gather_swiglu_plain(w_gate, w_up, x, starts, sizes, scales=None,
 
 
 def chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask=None,
-                           scales=None, max_chunk_rows: int = 512):
-    """Plain version of K2: returns (y (B, D) f32, unmasked h (B, F) f32)."""
+                           scales=None, max_chunk_rows: int = 512, checksums=None):
+    """Plain version of K2: returns (y (B, D) f32, unmasked h (B, F) f32);
+    the checksum lanes are ignored."""
     sd = scales[2] if scales is not None else None
     h = chunk_gather_swiglu_plain(w_gate, w_up, x, starts[0], sizes[0],
                                   None if scales is None else scales[:2], max_chunk_rows)
@@ -208,11 +223,7 @@ def chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask=None
 # ---------------------------------------------------------------------------
 
 
-def _check_common(block_rows: int, max_chunk_rows: int, prefetch_depth: int, checksums) -> None:
-    if checksums is not None:
-        raise NotImplementedError(
-            "checksum lanes are not ported yet (robustness slice, ROADMAP.md queue 2)"
-        )
+def _check_common(block_rows: int, max_chunk_rows: int, prefetch_depth: int) -> None:
     if block_rows != BLOCK_ROWS:
         raise ValueError(f"block_rows must be {BLOCK_ROWS}, got {block_rows}")
     if max_chunk_rows % BLOCK_ROWS or max_chunk_rows <= 0:
@@ -242,6 +253,15 @@ def _check_dtype(w: torch.Tensor, scales, name: str) -> None:
         raise ValueError(f"{name}: int8 payloads take per-block scales, other dtypes none")
 
 
+def _check_checksums(ck: torch.Tensor, rows: int, name: str) -> None:
+    """A checksum lane: one int32 word per 8-row block of ``rows`` rows."""
+    if ck.shape != (rows // BLOCK_ROWS,):
+        raise ValueError(f"{name} checksums must be ({rows // BLOCK_ROWS},), "
+                         f"got {tuple(ck.shape)}")
+    if ck.dtype != torch.int32:
+        raise ValueError(f"{name} checksums must be int32 words, got {ck.dtype}")
+
+
 def _check_layout(w: torch.Tensor, name: str) -> None:
     if not w.is_contiguous() or w.data_ptr() % 16 or (w.shape[1] * w.element_size()) % 16:
         raise ValueError(f"{name}: the kernel streams 16-byte row segments; needs a "
@@ -257,7 +277,7 @@ def _k1_xrec(batch: int, masked: bool, n: int) -> int:
 
 
 def k1_geometry(d: int, batch: int, elem_bytes: int, n_sm: int, prefetch_depth: int = 1,
-                n: int = 0, masked: bool = False, nmat: int = 1) -> dict:
+                n: int = 0, masked: bool = False, nmat: int = 1, ck: bool = False) -> dict:
     """The K1 body's launch geometry for ``nmat`` weight streams W (n, d)
     sharing one table (1: K1, K3; 2: gate and up, K2's phase 1 and K4):
     ``tile`` output columns per CTA and ``blocks`` table blocks per ring
@@ -274,7 +294,9 @@ def k1_geometry(d: int, batch: int, elem_bytes: int, n_sm: int, prefetch_depth: 
     whole rounds of the CTA's lane groups (16 warps x 32 / tile) where it
     holds one: few stages, so few serial stage latencies. Where not even
     one block per warp would fit (two streams of wide int8 tiles for 8
-    rows), the tile halves too."""
+    rows), the tile halves too. ``ck``: the stages also carry each stream's
+    checksum word per block (4 bytes a block and stream); without it the
+    geometry is the one the body had before the lane."""
     slabs = -(-batch // _BATCH_SLAB)
     tile = K1_SECTOR_BYTES // elem_bytes
     if -(-d // tile) * slabs * 2 <= n_sm:
@@ -283,7 +305,8 @@ def k1_geometry(d: int, batch: int, elem_bytes: int, n_sm: int, prefetch_depth: 
     slab = 0 if xrec else (min(batch, _BATCH_SLAB) + int(masked)) * n * 4
 
     def stage_blocks(tile):
-        per_block = nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4 + 4 * (nmat + 1)
+        per_block = (nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4
+                     + 4 * (nmat + 1 + (nmat if ck else 0)))
         per_part = 2 * nmat * min(batch, _BATCH_SLAB) * tile * 4  # a block's partials
         room = K1_SMEM_BYTES - slab - 36 * per_part  # the partial rows' padding (_k1_pstride)
         return min(nmat * K1_STAGE_BYTES // per_block,
@@ -328,12 +351,14 @@ def _k1_pstride(blocks: int) -> int:
 
 
 def k1_smem_bytes(k: int, elem_bytes: int, tile: int, blocks: int, batch: int,
-                  prefetch_depth: int, n: int = 0, masked: bool = False, nmat: int = 1) -> int:
+                  prefetch_depth: int, n: int = 0, masked: bool = False, nmat: int = 1,
+                  ck: bool = False) -> int:
     """Dynamic shared memory of one CTA of the body of K1-K4 for ``nmat``
-    weight streams W (n, D) (``K1Layout`` in csrc/chunk_gather.cu):
+    weight streams W (n, D) (``K1Layout`` in csrc/chunk_gather.cuh):
     ``prefetch_depth + 1`` ring stages of ``blocks`` blocks, each block per
     stream a weight tile padded by one row and a scale, an input record
-    unless x is held whole, and a row offset; then the partial buffer's two
+    unless x is held whole, and a row offset (and per stream a checksum
+    word, with ``ck``); then the partial buffer's two
     halves (per stream rows x tile outputs x ``_k1_pstride`` blocks), the x
     slab (the CTA's rows of x and the mask, when they fit in
     ``K1_SLAB_BYTES``), the block-list window, and 8 bytes a table entry
@@ -341,7 +366,8 @@ def k1_smem_bytes(k: int, elem_bytes: int, tile: int, blocks: int, batch: int,
     rows = min(batch, _BATCH_SLAB)
     xrec = _k1_xrec(batch, masked, n)
     pad16 = -(-blocks * 4 // 16) * 16
-    stage = blocks * (nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4) + (nmat + 1) * pad16
+    stage = (blocks * (nmat * (BLOCK_ROWS + 1) * tile * elem_bytes + xrec * 4)
+             + (nmat + 1 + (nmat if ck else 0)) * pad16)
     slab = 0 if xrec else (rows + int(masked)) * n * 4
     window = blocks * max(1, K1_WINDOW_BLOCKS // blocks)
     return ((prefetch_depth + 1) * stage + 2 * nmat * rows * tile * _k1_pstride(blocks) * 4
@@ -349,12 +375,13 @@ def k1_smem_bytes(k: int, elem_bytes: int, tile: int, blocks: int, batch: int,
 
 
 def check_table_fits(k: int, w: torch.Tensor, n_mat: int, prefetch_depth: int,
-                     name: str, geometry: dict, batch: int, masked: bool) -> None:
+                     name: str, geometry: dict, batch: int, masked: bool,
+                     ck: bool = False) -> None:
     """The kernels hold the whole chunk table in shared memory: a table too
     long for the card at ``geometry`` (``k1_smem_bytes`` over ``n_mat``
     weight streams shaped like ``w``) raises here, before any launch."""
     need = k1_smem_bytes(k, w.element_size(), geometry["tile"], geometry["blocks"], batch,
-                         prefetch_depth, w.shape[0], masked, n_mat)
+                         prefetch_depth, w.shape[0], masked, n_mat, ck)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"{name}: a chunk table of K={k} entries needs {need} bytes of "
                          f"shared memory with its ring, over the {SMEM_LIMIT_BYTES}-byte "
@@ -379,7 +406,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def k1_launch_geometry(w: torch.Tensor, x: torch.Tensor, k: int, prefetch_depth: int,
-                       masked: bool, name: str, nmat: int = 1) -> dict:
+                       masked: bool, name: str, nmat: int = 1, ck: bool = False) -> dict:
     """The K1 body's geometry for a call on the card over ``nmat`` weight
     streams shaped like ``w``, after the layout and shared-memory checks (a
     table too long raises here)."""
@@ -387,53 +414,61 @@ def k1_launch_geometry(w: torch.Tensor, x: torch.Tensor, k: int, prefetch_depth:
 
     _check_layout(w, name)
     g = k1_geometry(w.shape[1], x.shape[0], w.element_size(), sm_count(x.device),
-                    prefetch_depth, w.shape[0], masked, nmat)
-    check_table_fits(k, w, nmat, prefetch_depth, name, g, x.shape[0], masked)
+                    prefetch_depth, w.shape[0], masked, nmat, ck)
+    check_table_fits(k, w, nmat, prefetch_depth, name, g, x.shape[0], masked, ck)
     return g
 
 
-def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_depth):
+def _launch_k1(w, x, starts, sizes, scales, x_mask, max_chunk_rows, prefetch_depth,
+               checksums=None):
     from .build import check, library, stream_ptr
 
     prefetch_depth = ring_depth(prefetch_depth)
     g = k1_launch_geometry(w, x, starts.shape[0], prefetch_depth, x_mask is not None,
-                           "chunk_gather_matmul_dma")
+                           "chunk_gather_matmul_dma", ck=checksums is not None)
     b, n = x.shape
     d = w.shape[1]
     x, scales, x_mask = _f32(x), _f32(scales), _f32(x_mask)
     starts, sizes = _i32(starts), _i32(sizes)
+    checksums = None if checksums is None else _i32(checksums)
     y = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    rc = library("chunk_gather.cu").k1_chunk_gather_matmul(
+    lib, name = (("chunk_gather.cu", "k1_chunk_gather_matmul") if checksums is None
+                 else ("chunk_gather_ck.cu", "k1_chunk_gather_matmul_ck"))
+    rc = getattr(library(lib), name)(
         w.data_ptr(), _WTYPE[w.dtype], x.data_ptr(), _ptr(x_mask), starts.data_ptr(),
-        sizes.data_ptr(), _ptr(scales), y.data_ptr(), b, n, d, starts.shape[0],
+        sizes.data_ptr(), _ptr(scales), _ptr(checksums), y.data_ptr(), b, n, d, starts.shape[0],
         max_chunk_rows // BLOCK_ROWS, prefetch_depth, g["tile"], g["blocks"],
         stream_ptr(x.device),
     )
-    check(rc, "k1_chunk_gather_matmul")
+    check(rc, name)
     return y
 
 
 def _launch_k2_gate_up(w_gate, w_up, x, starts, sizes, sg, su, max_chunk_rows,
-                       prefetch_depth):
-    """K2's phase 1 on the card: h (B, F) f32 off one (K,) table."""
+                       prefetch_depth, cg=None, cu=None):
+    """K2's phase 1 on the card: h (B, F) f32 off one (K,) table; ``cg``/
+    ``cu``: gate's and up's checksum lanes, both or neither."""
     from .build import check, library, stream_ptr
 
     prefetch_depth = ring_depth(prefetch_depth)
     _check_layout(w_up, "chunk_gather_mlp_dma (w_up)")
     g = k1_launch_geometry(w_gate, x, starts.shape[0], prefetch_depth, False,
-                           "chunk_gather_mlp_dma (w_gate)", nmat=2)
+                           "chunk_gather_mlp_dma (w_gate)", nmat=2, ck=cg is not None)
     b, n = x.shape
     f = w_gate.shape[1]
     xf, sg, su = _f32(x), _f32(sg), _f32(su)
     st, sz = _i32(starts), _i32(sizes)
+    cg, cu = (None, None) if cg is None else (_i32(cg), _i32(cu))
     h = torch.empty((b, f), dtype=torch.float32, device=x.device)
-    rc = library("chunk_gather.cu").k2_gate_up(
+    lib, name = (("chunk_gather.cu", "k2_gate_up") if cg is None
+                 else ("chunk_gather_ck.cu", "k2_gate_up_ck"))
+    rc = getattr(library(lib), name)(
         w_gate.data_ptr(), w_up.data_ptr(), _WTYPE[w_gate.dtype], xf.data_ptr(),
-        st.data_ptr(), sz.data_ptr(), _ptr(sg), _ptr(su), h.data_ptr(),
+        st.data_ptr(), sz.data_ptr(), _ptr(sg), _ptr(su), _ptr(cg), _ptr(cu), h.data_ptr(),
         b, n, f, st.shape[0], max_chunk_rows // BLOCK_ROWS, prefetch_depth, g["tile"],
         g["blocks"], stream_ptr(x.device),
     )
-    check(rc, "k2_gate_up")
+    check(rc, name)
     return h
 
 
@@ -443,7 +478,7 @@ def chunk_gather_matmul_dma(
     starts: torch.Tensor,  # (K,) int32, multiples of block_rows
     sizes: torch.Tensor,  # (K,) int32, multiples of block_rows (0 = padded)
     scales: Optional[torch.Tensor] = None,  # (N // block_rows,) f32
-    checksums: Optional[torch.Tensor] = None,
+    checksums: Optional[torch.Tensor] = None,  # (N // block_rows,) int32 words
     *,
     block_rows: int = 8,
     max_chunk_rows: int = 512,
@@ -453,8 +488,10 @@ def chunk_gather_matmul_dma(
     (dequantized per block when ``scales`` is given). Numerically identical
     at every ``prefetch_depth`` ≥ 0; on the card the ring runs at
     ``min(prefetch_depth, MAX_PREFETCH_DEPTH, steps)`` stages ahead
-    (``ring_depth``)."""
-    _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
+    (``ring_depth``). ``checksums``: the block's integrity words, fetched
+    through the ring beside the payload and never read (bit-identical
+    output either way)."""
+    _check_common(block_rows, max_chunk_rows, prefetch_depth)
     n, d = w.shape
     if x.ndim != 2 or x.shape[1] != n:
         raise ValueError(f"x must be (B, {n}), got {tuple(x.shape)}")
@@ -462,14 +499,18 @@ def chunk_gather_matmul_dma(
         raise ValueError(f"N={n} must be a multiple of block_rows={BLOCK_ROWS}")
     if scales is not None and scales.shape != (n // BLOCK_ROWS,):
         raise ValueError(f"scales must be ({n // BLOCK_ROWS},), got {tuple(scales.shape)}")
-    _same_device(x.device, w, starts, sizes, scales)
+    if checksums is not None:
+        _check_checksums(checksums, n, "chunk_gather_matmul_dma")
+    _same_device(x.device, w, starts, sizes, scales, checksums)
     _check_dtype(w, scales, "chunk_gather_matmul_dma")
     if x.device.type == "cpu":
-        return chunk_gather_matmul_plain(w, x, starts, sizes, scales, None, max_chunk_rows)
+        return chunk_gather_matmul_plain(w, x, starts, sizes, scales, None, max_chunk_rows,
+                                         checksums)
     if x.device.type != "cuda":
         raise ValueError(f"chunk_gather_matmul_dma: unsupported device {x.device}")
-    y = _launch_k1(w, x, starts, sizes, scales, None, max_chunk_rows, prefetch_depth)
+    y = _launch_k1(w, x, starts, sizes, scales, None, max_chunk_rows, prefetch_depth, checksums)
     LAUNCHES["chunk_gather_matmul_dma"] += 1
+    LANE_LAUNCHES["chunk_gather_matmul_dma"] += checksums is not None
     return y
 
 
@@ -482,7 +523,7 @@ def chunk_gather_mlp_dma(
     sizes: torch.Tensor,  # (2, K)
     ffn_mask: Optional[torch.Tensor] = None,  # (F,) exact down-input row mask
     scales: Optional[tuple] = None,  # (sg, su, sd) f32 per-block lanes
-    checksums: Optional[tuple] = None,
+    checksums: Optional[tuple] = None,  # (cg, cu, cd) int32 per-block words
     *,
     block_rows: int = 8,
     max_chunk_rows: int = 512,
@@ -493,8 +534,10 @@ def chunk_gather_mlp_dma(
     h = swish(x@W_gate)·(x@W_up), gate/up gathered off ``starts[0]``, down
     off ``starts[1]`` with h multiplied by the exact ``ffn_mask`` at the
     gather. ``return_h=True`` also returns the unmasked h (B, F) f32. Any
-    ``prefetch_depth`` ≥ 0, run on the card as K1's (``ring_depth``)."""
-    _check_common(block_rows, max_chunk_rows, prefetch_depth, checksums)
+    ``prefetch_depth`` ≥ 0, run on the card as K1's (``ring_depth``).
+    ``checksums``: the three streams' integrity lanes, fetched (phase 1:
+    cg, cu; phase 2: cd) and never read."""
+    _check_common(block_rows, max_chunk_rows, prefetch_depth)
     n, f = w_gate.shape
     fd, d = w_down.shape
     if w_up.shape != (n, f) or w_up.dtype != w_gate.dtype or w_down.dtype != w_gate.dtype:
@@ -516,17 +559,25 @@ def chunk_gather_mlp_dma(
         if sg.shape != (n // BLOCK_ROWS,) or su.shape != (n // BLOCK_ROWS,) \
                 or sd.shape != (f // BLOCK_ROWS,):
             raise ValueError("scales must be ((N/8,), (N/8,), (F/8,))")
-    _same_device(x.device, w_gate, w_up, w_down, starts, sizes, ffn_mask, sg, su, sd)
+    cg = cu = cd = None
+    if checksums is not None:
+        cg, cu, cd = checksums
+        _check_checksums(cg, n, "chunk_gather_mlp_dma gate")
+        _check_checksums(cu, n, "chunk_gather_mlp_dma up")
+        _check_checksums(cd, f, "chunk_gather_mlp_dma down")
+    _same_device(x.device, w_gate, w_up, w_down, starts, sizes, ffn_mask, sg, su, sd, cg, cu, cd)
     for w, sc, name in ((w_gate, sg, "w_gate"), (w_up, su, "w_up"), (w_down, sd, "w_down")):
         _check_dtype(w, sc, f"chunk_gather_mlp_dma ({name})")
     if x.device.type == "cpu":
         y, h = chunk_gather_mlp_plain(w_gate, w_up, w_down, x, starts, sizes, ffn_mask,
-                                      scales, max_chunk_rows)
+                                      scales, max_chunk_rows, checksums)
         return (y, h) if return_h else y
     if x.device.type != "cuda":
         raise ValueError(f"chunk_gather_mlp_dma: unsupported device {x.device}")
     h = _launch_k2_gate_up(w_gate, w_up, x, starts[0], sizes[0], sg, su, max_chunk_rows,
-                           prefetch_depth)
-    y = _launch_k1(w_down, h, starts[1], sizes[1], sd, ffn_mask, max_chunk_rows, prefetch_depth)
+                           prefetch_depth, cg, cu)
+    y = _launch_k1(w_down, h, starts[1], sizes[1], sd, ffn_mask, max_chunk_rows, prefetch_depth,
+                   cd)
     LAUNCHES["chunk_gather_mlp_dma"] += 1
+    LANE_LAUNCHES["chunk_gather_mlp_dma"] += checksums is not None
     return (y, h) if return_h else y

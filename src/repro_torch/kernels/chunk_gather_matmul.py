@@ -1,7 +1,7 @@
 """K3 — the chunk-gathered sparse matmul of the per-matrix library path,
 and the host helper that aligns a chunk table.
 
-K3 — ``chunk_gather_matmul`` (csrc/chunk_gather.cu, ``k3_kernel``)
+K3 — ``chunk_gather_matmul`` (csrc/chunk_gather.cuh, ``k3_kernel``)
   Replaces ``repro/kernels/chunk_gather_matmul.py::chunk_gather_matmul``
   (body ``_kernel``): y (B, D) f32 = Σ over the table's chunks of
   x_chunk · W_chunk, W bf16 or f32. On the TPU it is the BlockSpec form of

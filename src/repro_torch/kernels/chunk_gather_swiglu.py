@@ -2,7 +2,7 @@
 path. Its plain version is ``chunk_gather_dma.chunk_gather_swiglu_plain``,
 which K2's plain version shares.
 
-K4 — ``chunk_gather_swiglu`` (csrc/chunk_gather.cu, ``k4_kernel``)
+K4 — ``chunk_gather_swiglu`` (csrc/chunk_gather.cuh, ``k4_kernel``)
   Replaces ``repro/kernels/chunk_gather_swiglu.py::chunk_gather_swiglu``
   (body ``_kernel``): h (B, F) f32 = g · (1 / (1 + e^−g)) · u, where
   g = Σ x·W_gate and u = Σ x·W_up over one shared chunk table, W bf16 or

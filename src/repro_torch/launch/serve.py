@@ -15,6 +15,10 @@ flash-offload simulation. Runs on the GPU unless asked otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --torch-device cpu --cache-mb 1 --per-token
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --torch-device cpu --corruption-profile bit_rot \
+      --fault-profile thermal_throttle --degrade
+
 ``--device`` names the simulated flash profile (nano / agx), as in the
 reference CLI; ``--torch-device`` picks where the model runs. The
 reference CLI's other flags belong to features not ported yet and are
@@ -31,17 +35,16 @@ import torch
 from .. import resolve_device
 from ..configs import ARCH_IDS, get_config
 from ..configs.base import InputShape
+from ..core.faults import CORRUPTION_PROFILES, FAULT_PROFILES
 from ..kernels.backend import BACKENDS
 from ..models import build_model
 from ..models.inputs import FRONT_DTYPE, make_dummy_batch
 from ..serving import SERVE_METHODS, ServeEngine
 
-# flags of the reference CLI (repro/launch/serve.py) this slice does not serve
+# flags of the reference CLI (repro/launch/serve.py) the port does not serve
 NOT_PORTED_FLAGS = (
     "--kv-page-tokens", "--mesh", "--streams",
-    "--arrival-rate", "--round-tokens", "--fault-profile", "--fault-seed",
-    "--corruption-profile", "--corruption-seed", "--max-reread", "--recover",
-    "--no-recover", "--degrade", "--no-degrade", "--deadline-s",
+    "--arrival-rate", "--round-tokens", "--deadline-s",
 )
 
 
@@ -102,7 +105,47 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     ap.add_argument("--seed", type=int, default=0, help="weight and prompt seed")
+    ap.add_argument("--fault-profile", choices=tuple(FAULT_PROFILES), default="none",
+                    help="storage-turbulence profile at the simulator's measurement "
+                         "boundary: tail-latency spikes, transient read failures with "
+                         "retry + backoff, thermal-throttle trajectories. Time only: "
+                         "tokens never change; 'none' is bit-identical to no faults")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault model's own RNG stream (needs a profile)")
+    ap.add_argument("--corruption-profile", choices=tuple(CORRUPTION_PROFILES),
+                    default="none",
+                    help="data-plane corruption of fetched 8-row blocks: 'bit_rot' flips "
+                         "one bit, 'torn_read' zeroes blocks, 'degraded_nand' flips often "
+                         "and persistently. Every fetched block is checksum-verified; "
+                         "detections climb the ladder (re-read, resident copy, substitute, "
+                         "drop). 'none' is bit-identical to no corruption")
+    ap.add_argument("--corruption-seed", type=int, default=0,
+                    help="seed of the corruption draws (needs a profile)")
+    ap.add_argument("--max-reread", type=_nonneg(int, "--max-reread"), default=2,
+                    help="re-reads of a checksum-mismatched block before the ladder "
+                         "escalates (>= 0)")
+    ap.add_argument("--recover", action=argparse.BooleanOptionalAction, default=True,
+                    help="run the recovery ladder (default); --no-recover counts the "
+                         "corruption but lets the damage flow into compute")
+    ap.add_argument("--degrade", action=argparse.BooleanOptionalAction, default=False,
+                    help="adaptive degradation: tighten the selection budgets while the "
+                         "measured-vs-estimated I/O ratio (or the corruption rate) says "
+                         "the device is degraded, relax them once it recovers")
     return ap
+
+
+def validate_seed_flags(ap: argparse.ArgumentParser, args) -> None:
+    """A nonzero seed whose profile is off does nothing, and is refused, as
+    in the reference."""
+    if args.fault_seed != 0 and args.fault_profile == "none":
+        ap.error(f"--fault-seed {args.fault_seed} has no effect with --fault-profile none; "
+                 f"pick a profile ({', '.join(p for p in FAULT_PROFILES if p != 'none')}) "
+                 "or drop the seed")
+    if args.corruption_seed != 0 and args.corruption_profile == "none":
+        ap.error(f"--corruption-seed {args.corruption_seed} has no effect with "
+                 "--corruption-profile none; pick a profile "
+                 f"({', '.join(p for p in CORRUPTION_PROFILES if p != 'none')}) "
+                 "or drop the seed")
 
 
 def parse_args(argv=None):
@@ -115,6 +158,7 @@ def parse_args(argv=None):
                      "(the JAX CLI, python -m repro.launch.serve, still has it)")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    validate_seed_flags(ap, args)
     return args
 
 
@@ -131,7 +175,11 @@ def main(argv=None):
                       plan_refresh_interval=args.plan_refresh_interval,
                       cache_mb=args.cache_mb, overlap=args.overlap,
                       prefetch_depth=args.prefetch_depth, backend=args.backend,
-                      wbits=args.wbits, torch_device=dev)
+                      wbits=args.wbits, torch_device=dev,
+                      fault_profile=args.fault_profile, fault_seed=args.fault_seed,
+                      degrade=args.degrade, corruption_profile=args.corruption_profile,
+                      corruption_seed=args.corruption_seed, max_reread=args.max_reread,
+                      recover=args.recover)
     batch = make_dummy_batch(cfg, InputShape("cli", args.prompt_len, args.batch, "train"),
                              seed=args.seed, device=dev)
     last = eng.prefill(batch)
@@ -166,6 +214,21 @@ def main(argv=None):
           f"io_est {s['io_est_s'] * 1e3:.1f} ms  io_sim {s['io_sim_s'] * 1e3:.1f} ms  "
           f"io_bytes {s['io_bytes'] / 1e6:.1f} MB  "
           f"cache_hit_rate {s['cache_hit_rate']:.3f}")
+    fs = eng.fault_summary()
+    if fs["fault_enabled"] or fs["degrade_enabled"]:
+        print(f"[faults] profile={fs['fault_profile']} seed={fs['fault_seed']}  "
+              f"events {fs['fault_events']}  spikes {fs['fault_spikes']}  "
+              f"retries {fs['fault_retries']}  extra {fs['fault_extra_s'] * 1e3:.2f} ms  "
+              f"min_throttle {fs['min_throttle_scale']:.2f}  "
+              f"degrade_scale {fs['degrade_scale']:.2f}")
+    if args.corruption_profile != "none":
+        print(f"[integrity] profile={args.corruption_profile} seed={args.corruption_seed} "
+              f"recover={args.recover} max_reread={args.max_reread}  "
+              f"detected {s['corruptions_detected']:.0f}  "
+              f"recovered {s['corruptions_recovered']:.0f}  "
+              f"substituted {s['corruptions_substituted']:.0f}  "
+              f"dropped {s['corruptions_dropped']:.0f}  "
+              f"reread {s['integrity_reread_s'] * 1e3:.2f} ms")
     print(f"[tokens] {out[0].tolist()}")
     return eng, out
 

@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..kernels.quantize import QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
+from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
 from .common import swish
 
 
@@ -22,6 +22,12 @@ def _stored(params, name: str, quantized: bool):
     if quantized:
         return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
     return params[name], None
+
+
+def _stored_checksum(params, name: str):
+    """The matrix's per-block checksum lane (the engine packs it when
+    corruption injection is on), or None."""
+    return params.get(name + QUANT_SUFFIX_CHECKSUM)
 
 
 def swiglu_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -35,11 +41,14 @@ def swiglu_mlp_planned(x: torch.Tensor, params: Dict[str, torch.Tensor], backend
                        quantized: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planned-decode sparse SwiGLU. Returns (y (b, s, d) in x.dtype,
     h (b·s, d_ff) f32 — the UNMASKED intermediate whose |·| is the next
-    refresh's ffn-site importance)."""
+    refresh's ffn-site importance). The checksum lanes, where the params
+    carry them, ride along to the kernel."""
     b, s, d = x.shape
     wg, sg = _stored(params, "w_gate", quantized)
     wu, su = _stored(params, "w_up", quantized)
     wd, sd = _stored(params, "w_down", quantized)
+    cks = tuple(_stored_checksum(params, nm) for nm in ("w_gate", "w_up", "w_down"))
     y, h = backend.swiglu_mlp(wg, wu, wd, x.reshape(b * s, d), hidden_mask, ffn_mask,
-                              starts, sizes, (sg, su, sd) if quantized else None)
+                              starts, sizes, (sg, su, sd) if quantized else None,
+                              cks if all(c is not None for c in cks) else None)
     return y.to(x.dtype).reshape(b, s, -1), h

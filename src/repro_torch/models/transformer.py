@@ -8,13 +8,18 @@ path the plan of every layer is refreshed once, before the loop
 (``SparseExecution.refresh_step``: one selection over all layers' sites),
 and every sparsification site computes through the execution backend off
 the plan's chunk tables: q/k/v and o through ``backend.project`` (K1 on the
-kernel backend), the MLP through ``backend.swiglu_mlp`` (K2).
+kernel backend), the MLP through ``backend.swiglu_mlp`` (K2). With
+corruption injection the refresh verifies the streamed payloads against
+their ``_ck`` lanes (``_integrity_weights``), the kernels fetch those lanes
+beside the payloads, and with recovery off the refresh's damaged rows are
+written into the payloads for the step's gathers and restored after it.
 
 The unplanned paths — frame append, and a decode with a sparse context but
 no plan (method ``dense``) — select each site's mask in the step itself
 (``SparseExecution.mask``: the one-lane K5 walk for ``chunk``) and compute
 masked dense products with the bf16 originals; at wbits 8 the int8 leaves
-serve the planned decode only, as in the reference.
+serve the planned decode only, as in the reference; so does the damage of
+recovery-off corruption.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.quantize import QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
+from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
 from .attention import (
     append_attention,
     cache_layer_update,
@@ -59,6 +64,18 @@ def _site_weight(params, sparse_ctx, name):
     if sparse_ctx.wbits == 8 and name + QUANT_SUFFIX_PAYLOAD in params:
         return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
     return params[name], None
+
+
+def _integrity_weights(stacked, sparse_ctx, cfg: ModelConfig):
+    """Each site's ((payload (L, N, D), checksums (L, N/8)), ...) in site
+    matrix order — the stored leaves the planned decode streams, with their
+    pack-time ``_ck`` lanes — for the refresh's verify; None with integrity
+    off."""
+    if not sparse_ctx.integrity_enabled:
+        return None
+    return {kind: tuple((_site_weight(stacked, sparse_ctx, nm)[0],
+                         stacked[nm + QUANT_SUFFIX_CHECKSUM]) for nm in names)
+            for kind, names in site_matrix_names(cfg).items()}
 
 
 def _apply_mask(x: torch.Tensor, mask) -> torch.Tensor:
@@ -196,7 +213,8 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         outs = []
         for name in ("wq", "wk", "wv"):
             w, sc = _site_weight(params, sparse_ctx, name)
-            y = sparse_ctx.backend.project(w, hflat, mask_q, hs, hz, sc)
+            y = sparse_ctx.backend.project(w, hflat, mask_q, hs, hz, sc,
+                                           params.get(name + QUANT_SUFFIX_CHECKSUM))
             outs.append(y.to(h.dtype).reshape(b, 1, -1))
         q, k, v = outs
     else:
@@ -213,7 +231,7 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         w_o, sc_o = _site_weight(params, sparse_ctx, "wo")
         y_o = sparse_ctx.backend.project(w_o, attn.reshape(b, -1), mask_o,
                                          *sparse_ctx.kernel_tables(plan, "attn_out", layer),
-                                         sc_o)
+                                         sc_o, params.get("wo" + QUANT_SUFFIX_CHECKSUM))
         attn = y_o.to(attn.dtype).reshape(b, 1, -1)
     else:
         mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
@@ -240,14 +258,25 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     sparse context."""
     length = cache["length"]
     planned = sparse_ctx is not None and bool(plan)
+    undo = []
     if planned:
-        io = sparse_ctx.refresh_step(plan, refresh)
+        if sparse_ctx.integrity_enabled:
+            io = sparse_ctx.refresh_step(plan, refresh,
+                                         _integrity_weights(stacked, sparse_ctx, cfg))
+        else:
+            io = sparse_ctx.refresh_step(plan, refresh)
+        # recovery off: the epoch's damaged rows reach this step's gathers
+        undo = sparse_ctx.apply_corruption(plan, stacked, site_matrix_names(cfg))
     else:
         io = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.n_layers):
-        x, lat = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
-                              cache["v"][layer], length, cfg, sparse_ctx, plan, layer)
-        if sparse_ctx is not None and not planned:
-            io[layer] = lat
+    try:
+        for layer in range(cfg.n_layers):
+            x, lat = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
+                                  cache["v"][layer], length, cfg, sparse_ctx, plan, layer)
+            if sparse_ctx is not None and not planned:
+                io[layer] = lat
+    finally:
+        if undo:
+            sparse_ctx.restore_payloads(undo)
     cache["length"] = length + 1
     return x, io

@@ -25,8 +25,18 @@ flash through ``SparseExecution`` ("dense" re-streams every matrix every
 step); "dense_free" keeps the weights resident — dense compute, no
 ``SparseExecution``, zero I/O.
 
-Not ported yet: slot mode / the scheduler, paged KV, faults,
-degradation, corruption and sharded meshes.
+``fault_profile`` attaches a seeded ``FaultModel`` to the simulator's
+measurement boundary (time only: tokens never change); ``degrade`` runs the
+``DegradationController``, which reads each decode call's measured-vs-
+estimated ratios (and the detected-corruption rate) and writes the next
+call's budget scale into the plan's ``bscale`` lane; ``corruption_profile``
+damages fetched blocks, which the refresh verifies against the ``_ck``
+lanes packed at init and, with ``recover``, heals through the ladder
+(``SparseExecution``). ``fault_summary`` and ``io_summary``'s ``fault_*``,
+``corruptions_*`` and ``integrity_reread_s`` keys report them.
+
+Not ported yet: slot mode / the scheduler (with its deadlines), paged KV
+and sharded meshes.
 """
 from __future__ import annotations
 
@@ -39,19 +49,25 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.faults import CorruptionModel, FaultModel
 from ..core.latency_model import MB
-from ..core.offload import ComputeModel, FlashOffloadSimulator
+from ..core.offload import ComputeModel, FlashOffloadSimulator, pack_checksums
 from ..core.pipeline import PipelineModel, PipelineTimeline, overlap_efficiency
 from ..kernels.backend import validate_backend
 from ..kernels.quantize import quantize_params
 from ..models.model import Model
 from ..models.transformer import SPARSE_WEIGHT_NAMES
+from .degrade import DegradationController
 from .sparse_exec import (
+    INTEGRITY_COUNTER_KEYS,
+    KERNEL_BLOCK_ROWS,
     WBITS_CHOICES,
     SparseExecution,
     plan_hit_miss,
+    plan_integrity_counters,
     plan_transfer_bytes,
     reset_plan_counters,
+    set_plan_budget_scale,
     validate_method,
 )
 
@@ -74,8 +90,8 @@ class StepStats:
     bubble_s: float = 0.0
 
 
-# the io_summary() keys this slice fills — the reference's IO_SUMMARY_KEYS
-# minus the scheduler, fault, corruption and paged-KV lanes
+# the io_summary() keys of the port — the reference's IO_SUMMARY_KEYS minus
+# the scheduler and paged-KV lanes
 IO_SUMMARY_KEYS = (
     "io_est_s",
     "io_sim_s",
@@ -91,6 +107,17 @@ IO_SUMMARY_KEYS = (
     "decode_stall_s",
     "decode_bubble_s",
     "overlap_efficiency",
+    "fault_events",
+    "fault_spikes",
+    "fault_retries",
+    "fault_backoff_s",
+    "fault_extra_s",
+    "min_throttle_scale",
+    "corruptions_detected",
+    "corruptions_recovered",
+    "corruptions_substituted",
+    "corruptions_dropped",
+    "integrity_reread_s",
 )
 
 
@@ -103,7 +130,10 @@ class ServeEngine:
                  reorderings: Optional[dict] = None, seed: int = 0,
                  plan_refresh_interval: int = 1, cache_mb: Optional[float] = None,
                  overlap: bool = True, prefetch_depth: int = 1,
-                 backend: str = "reference", wbits: int = 16, torch_device=None):
+                 backend: str = "reference", wbits: int = 16, torch_device=None,
+                 fault_profile=None, fault_seed: int = 0, degrade: bool = False,
+                 corruption_profile=None, corruption_seed: int = 0, max_reread: int = 2,
+                 recover: bool = True):
         """``device``: the simulated flash profile ("nano" | "agx").
         ``torch_device``: where the model runs — ``cuda`` unless the caller
         passes another device (the weights must already live there).
@@ -117,22 +147,45 @@ class ServeEngine:
         ``Reordering``s (reference backend only). ``prefetch_depth``: any
         depth ≥ 0; it prices the pipeline, and the kernels' ring runs at
         most ``MAX_PREFETCH_DEPTH`` ahead — tokens are byte-identical at
-        every depth."""
+        every depth.
+
+        ``fault_profile`` / ``fault_seed``: a ``FAULT_PROFILES`` name (or a
+        ``FaultProfile``) perturbing the simulator's measured events with
+        its own seeded stream — time only. ``degrade``: the adaptive
+        ``DegradationController`` (a selecting method only).
+        ``corruption_profile`` / ``corruption_seed`` / ``max_reread`` /
+        ``recover``: data-plane corruption and the integrity ladder; the
+        ``_ck`` lanes are packed here (over the int8 payload at wbits 8,
+        the bf16 leaves at 16). With ``recover`` tokens equal the clean
+        run's wherever every corruption is recoverable; without it the
+        damage reaches the gathers, identically on both backends. None /
+        "none" (the defaults) are bit-identical to an engine without them."""
         validate_method(method, allow_dense_free=True)
         validate_backend(backend)
         if wbits not in WBITS_CHOICES:
             raise ValueError(f"wbits must be one of {WBITS_CHOICES}, got {wbits!r}")
         if plan_refresh_interval < 1:
             raise ValueError("plan_refresh_interval must be >= 1")
+        if degrade and method not in ("chunk", "topk"):
+            raise ValueError(f"degrade=True needs a selecting method ('chunk' | 'topk') whose "
+                             f"budget the controller can tighten, got {method!r}")
+        if (method == "dense_free" and corruption_profile is not None
+                and CorruptionModel(corruption_profile, max_reread=max_reread).enabled):
+            raise ValueError("corruption injection needs an offloaded data plane — "
+                             "method='dense_free' streams nothing from flash")
         self.torch_device = resolve_device(torch_device)
         self.backend = backend
         self.model = model
         self.max_seq = max_seq
         self.batch_size = batch_size
         self.prefetch_depth = prefetch_depth
+        self.faults = (FaultModel(fault_profile, seed=fault_seed)
+                       if fault_profile is not None else None)
         self.simulator = FlashOffloadSimulator(
-            device, seed=seed, pipeline=PipelineModel(prefetch_depth=prefetch_depth)
+            device, seed=seed, pipeline=PipelineModel(prefetch_depth=prefetch_depth),
+            faults=self.faults,
         )
+        self.degrade_controller = DegradationController() if degrade else None
         self.method = method
         self.plan_refresh_interval = plan_refresh_interval
         self.overlap = overlap
@@ -143,15 +196,25 @@ class ServeEngine:
             model.cfg, device=device, sparsity=sparsity, method=method,
             reorderings=reorderings, cache_mb=self.cache_mb, backend=backend,
             kernel_prefetch_depth=prefetch_depth, wbits=wbits,
-            torch_device=self.torch_device,
+            torch_device=self.torch_device, degradable=degrade,
+            corruption_profile=corruption_profile, corruption_seed=corruption_seed,
+            max_reread=max_reread, corruption_recover=recover,
         )
+        self.corruption = None if self.sparse_ctx is None else self.sparse_ctx.corruption
+        # engine-lifetime integrity totals, ordered like INTEGRITY_COUNTER_KEYS
+        self._integrity_totals = np.zeros(len(INTEGRITY_COUNTER_KEYS))
         self.params = params
-        if self.sparse_ctx is not None and wbits == 8:
-            # the int8 payload + scale leaves join the stacked layer params;
-            # prefill, frame append and the unplanned paths keep the bf16
-            # originals
+        integrity = self.corruption is not None
+        if self.sparse_ctx is not None and (wbits == 8 or integrity):
+            # the int8 payload + scale leaves (and, with integrity, the
+            # checksum lane over the bytes the kernels stream) join the
+            # stacked layer params; prefill, frame append and the unplanned
+            # paths keep the bf16 originals
             layers = dict(params["layers"])
-            layers.update(quantize_params(layers, SPARSE_WEIGHT_NAMES))
+            if wbits == 8:
+                layers.update(quantize_params(layers, SPARSE_WEIGHT_NAMES, checksums=integrity))
+            else:
+                layers.update(pack_checksums(layers, SPARSE_WEIGHT_NAMES))
             self.params = {**params, "layers": layers}
         # the pipeline's compute lane: the selecting methods compute over
         # their kept rows, dense and dense_free over every row
@@ -202,9 +265,9 @@ class ServeEngine:
     def _device_loop(self, token: torch.Tensor, n_tokens: int):
         """The fused decode loop: n greedy steps with no host sync. Returns
         device tensors (tokens (b, n), io (n, L), cumulative hit/miss/bytes
-        (n,) each)."""
+        (n,) each, cumulative integrity counters (n, 6))."""
         k = self.plan_refresh_interval
-        toks, ios, hits, misses, byts = [], [], [], [], []
+        toks, ios, hits, misses, byts, cis = [], [], [], [], [], []
         for i in range(n_tokens):
             logits, io = self.model.decode_step_planned(
                 self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0
@@ -216,16 +279,25 @@ class ServeEngine:
             hits.append(h)
             misses.append(m)
             byts.append(plan_transfer_bytes(self._plan, token.device))
+            if self.corruption is not None:
+                cis.append(plan_integrity_counters(self._plan, token.device))
+        cis = (torch.stack(cis) if cis else
+               torch.zeros((n_tokens, len(INTEGRITY_COUNTER_KEYS)), device=token.device))
         return (torch.stack(toks, dim=1), torch.stack(ios), torch.stack(hits),
-                torch.stack(misses), torch.stack(byts))
+                torch.stack(misses), torch.stack(byts), cis)
 
     def _start_decode(self) -> None:
         """A decode call's start: the plan (made on first use, kept across
-        calls) with its counters zeroed."""
+        calls) with its counters zeroed and, with ``degrade``, the
+        controller's current budget scale written into it — the controller
+        acts only at call boundaries, so both decode loops see one scale
+        per call."""
         if self._plan is None:
             self._plan = ({} if self.sparse_ctx is None
                           else self.sparse_ctx.init_plan(self.model.cfg.n_layers))
         reset_plan_counters(self._plan)
+        if self.degrade_controller is not None:
+            set_plan_budget_scale(self._plan, self.degrade_controller.scale)
 
     def _dense_step_bytes(self) -> float:
         """A ``dense`` step's transfer: every offloaded matrix re-streams
@@ -239,19 +311,21 @@ class ServeEngine:
         dev = self._device_loop(tokens, n_tokens)
         # ONE host transfer for the whole loop (tokens, per-layer estimates,
         # plan counters)
-        toks, ios, hits, misses, byts = (t.cpu() for t in dev)
+        toks, ios, hits, misses, byts, cis = (t.cpu() for t in dev)
         wall = time.perf_counter() - t0
         ios = ios.numpy().astype(np.float64)
         # per-step deltas of the call's cumulative counters
         hits, misses, byts = (np.diff(x.numpy().astype(np.float64), prepend=0.0)
                               for x in (hits, misses, byts))
+        civ = np.diff(cis.numpy().astype(np.float64), axis=0, prepend=0.0)
+        self._integrity_totals += civ.sum(axis=0)
         if self.method == "dense":
             byts = np.full_like(byts, self._dense_step_bytes())
         io_steps = ios.sum(axis=1)
         rows = hits + misses
         hit_rates = np.where(rows > 0, hits / np.maximum(rows, 1.0), 0.0)
         sims = self.simulator.measure_from_estimate_batch(
-            io_steps, name="decode", hit_rates=hit_rates, nbytes=byts
+            io_steps, name="decode", hit_rates=hit_rates, nbytes=byts, integrity_s=civ[:, 5]
         )
         # spread each step's lift + jitter over its layers so the pipeline
         # sees simulated time
@@ -271,7 +345,34 @@ class ServeEngine:
                 serial_s=float(tl.serial_s[i]), overlap_s=float(tl.overlap_s[i]),
                 stall_s=float(tl.stall_s[i]), bubble_s=float(tl.bubble_s[i]),
             ))
+        self._observe_degradation(io_steps, sims)
+        self._observe_corruption(float(civ[:, 0].sum()), float(misses.sum()))
         return toks
+
+    def _decode_lift(self) -> float:
+        """The deterministic lift of a decode measurement (diversity 0.5):
+        dividing it out centres a healthy device's ratio at 1.0."""
+        return self.simulator.profile.interleave_lift * 1.05
+
+    def _observe_degradation(self, io_est, io_sim) -> None:
+        """One decode call's per-step (estimate, measurement) pairs → the
+        degradation controller (no-op without ``degrade``)."""
+        if self.degrade_controller is None:
+            return
+        est = np.asarray(io_est, np.float64).reshape(-1)
+        sim = np.asarray(io_sim, np.float64).reshape(-1)
+        pos = est > 0.0
+        if np.any(pos):
+            self.degrade_controller.observe(sim[pos] / (est[pos] * self._decode_lift()))
+
+    def _observe_corruption(self, detected: float, miss_rows: float) -> None:
+        """One decode call's corruption rate — detected corrupt blocks per
+        fetched block (miss rows / 8) — as the controller's second signal
+        (no-op without ``degrade`` or without corruption)."""
+        if self.degrade_controller is None or self.corruption is None:
+            return
+        blocks = max(miss_rows / KERNEL_BLOCK_ROWS, 1.0)
+        self.degrade_controller.observe_corruption(detected / blocks)
 
     def _selection_seconds_per_refresh(self) -> float:
         """Wall seconds one refresh spends on selection (the selection of
@@ -310,31 +411,41 @@ class ServeEngine:
         out = [first_token.cpu().to(torch.int64)]
         start = len(self.stats)
         io_rows = []
+        det_call = 0.0
         k = self.plan_refresh_interval
+        n_ci = len(INTEGRITY_COUNTER_KEYS)
         for i in range(n_tokens):
             t0 = time.perf_counter()
             h0, m0 = plan_hit_miss(self._plan, token.device)
             b0 = plan_transfer_bytes(self._plan, token.device)
+            c0 = (plan_integrity_counters(self._plan, token.device)
+                  if self.corruption is not None else None)
             logits, io = self.model.decode_step_planned(
                 self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0)
             token = torch.argmax(logits, dim=-1)[:, None]
             h1, m1 = plan_hit_miss(self._plan, token.device)
             deltas = torch.stack([h1 - h0, m1 - m0,
                                   plan_transfer_bytes(self._plan, token.device) - b0])
+            dci = (torch.zeros((n_ci,), device=token.device) if c0 is None
+                   else plan_integrity_counters(self._plan, token.device) - c0)
             # the per-token host sync, one transfer: the tokens (exact in
             # float64), the layers' estimates and the step's counter deltas
             row = torch.cat([token[:, 0].to(torch.float64), io.to(torch.float64),
-                             deltas.to(torch.float64)]).cpu()
+                             deltas.to(torch.float64), dci.to(torch.float64)]).cpu()
             wall = time.perf_counter() - t0
             b = token.shape[0]
             tok = row[:b].to(torch.int64)[:, None]
-            io_vec, (hit, miss, nbytes) = row[b:-3].numpy(), row[-3:].tolist()
+            io_vec = row[b:-3 - n_ci].numpy()
+            hit, miss, nbytes = row[-3 - n_ci:-n_ci].tolist()
+            dci = row[-n_ci:].numpy()
+            self._integrity_totals += dci
+            det_call += float(dci[0])
             if self.method == "dense":
                 nbytes = self._dense_step_bytes()
             est = float(io_vec.sum())
             rate = hit / (hit + miss) if (hit + miss) > 0 else 0.0
             sim = self.simulator.measure_from_estimate(est, name="decode", hit_rate=rate,
-                                                       nbytes=nbytes)
+                                                       nbytes=nbytes, integrity_s=float(dci[5]))
             io_rows.append(io_vec * (sim / est if est > 0 else 1.0))
             self.stats.append(StepStats("decode", 1, est, sim, 0.0, wall,
                                         hit_rows=float(hit), miss_rows=float(miss),
@@ -342,6 +453,9 @@ class ServeEngine:
             out.append(tok)
         if not io_rows:
             return torch.cat(out, dim=1)
+        recent = self.stats[start:]
+        self._observe_degradation([s.io_est_s for s in recent], [s.io_sim_s for s in recent])
+        self._observe_corruption(det_call, float(sum(s.miss_rows for s in recent)))
         select_per_refresh = self._selection_seconds_per_refresh()
         layer_io = np.asarray(io_rows)
         self._log_layer_io(layer_io)
@@ -382,20 +496,63 @@ class ServeEngine:
             for f in dataclasses.fields(PipelineTimeline)})
 
     # -- accounting -------------------------------------------------------------
+    def fault_summary(self) -> Dict[str, object]:
+        """The fault-injection and degradation rollup beside ``io_summary``:
+        the profile and seed, perturbed events, spikes, retries and their
+        backoff, the extra charged seconds, the deepest throttle, the
+        simulator's busy clock, and the controller's ``degrade_*`` state.
+        Without a fault model or controller it reports the quiescent
+        defaults (profile "none", scale 1.0)."""
+        out: Dict[str, object] = {
+            "fault_profile": "none",
+            "fault_seed": 0,
+            "fault_enabled": False,
+            "device_time_s": self.simulator.device_time_s,
+            "fault_events": 0,
+            "fault_spikes": 0,
+            "fault_retries": 0,
+            "fault_backoff_s": 0.0,
+            "fault_extra_s": 0.0,
+            "min_throttle_scale": 1.0,
+            "degrade_enabled": self.degrade_controller is not None,
+            "degrade_scale": 1.0,
+            "degrade_ewma_ratio": 1.0,
+            "degrade_observations": 0,
+            "degrade_tighten_steps": 0,
+            "degrade_relax_steps": 0,
+            "degrade_calls_degraded": 0,
+        }
+        if self.faults is not None:
+            fs = self.faults.summary()
+            out.update({
+                "fault_profile": fs["profile"],
+                "fault_seed": fs["seed"],
+                "fault_enabled": self.faults.enabled,
+                "fault_events": fs["events"],
+                "fault_spikes": fs["spikes"],
+                "fault_retries": fs["retries"],
+                "fault_backoff_s": fs["backoff_s"],
+                "fault_extra_s": fs["fault_extra_s"],
+                "min_throttle_scale": fs["min_throttle_scale"],
+            })
+        if self.degrade_controller is not None:
+            out.update({f"degrade_{k}": v for k, v in self.degrade_controller.summary().items()})
+        return out
+
     def io_summary(self) -> Dict[str, float]:
         """Engine-lifetime I/O / pipeline rollup with exactly the keys of
         ``IO_SUMMARY_KEYS``, each meaning what it means in the reference's
-        ``io_summary``. Absent in this slice (they come with the features
-        that fill them): admitted_during_stall, stall_hidden_s,
-        bubble_utilization (scheduler); fault_events, fault_spikes,
-        fault_retries, fault_backoff_s, fault_extra_s, min_throttle_scale
-        (faults); corruptions_detected, corruptions_recovered,
-        corruptions_substituted, corruptions_dropped, integrity_reread_s
-        (integrity); kv_cache_mb, weight_cache_mb, kv_pages_in_use,
+        ``io_summary``: the fault lanes mirror ``fault_summary`` and the
+        corruption lanes total the plan's integrity counters. Absent in the
+        port (they come with the features that fill them):
+        admitted_during_stall, stall_hidden_s, bubble_utilization
+        (scheduler); kv_cache_mb, weight_cache_mb, kv_pages_in_use,
         kv_shared_pages (paged KV)."""
         dec = [s for s in self.stats if s.kind == "decode"]
         hit = sum(s.hit_rows for s in self.stats)
         miss = sum(s.miss_rows for s in self.stats)
+        fs = self.fault_summary()
+        it = self._integrity_totals
         return {
             "io_est_s": sum(s.io_est_s for s in self.stats),
             "io_sim_s": sum(s.io_sim_s for s in self.stats),
@@ -414,4 +571,15 @@ class ServeEngine:
                 [s.serial_s for s in dec], [s.overlap_s for s in dec],
                 [s.io_sim_s for s in dec], [s.compute_s for s in dec],
             ),
+            "fault_events": fs["fault_events"],
+            "fault_spikes": fs["fault_spikes"],
+            "fault_retries": fs["fault_retries"],
+            "fault_backoff_s": fs["fault_backoff_s"],
+            "fault_extra_s": fs["fault_extra_s"],
+            "min_throttle_scale": fs["min_throttle_scale"],
+            "corruptions_detected": float(it[0]),
+            "corruptions_recovered": float(it[1]),
+            "corruptions_substituted": float(it[2]),
+            "corruptions_dropped": float(it[3]),
+            "integrity_reread_s": float(it[5]),
         }

@@ -259,8 +259,8 @@ def test_wrapper_contract_errors():
     w = torch.zeros((16, 128))
     x = torch.zeros((1, 16))
     s = z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tk.chunk_gather_matmul_dma(w, x, s, z, checksums=torch.zeros(2))
+    with pytest.raises(ValueError, match="checksums"):  # one word per 8-row block: 2
+        tk.chunk_gather_matmul_dma(w, x, s, z, checksums=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
         tk.chunk_gather_matmul_dma(w, x, s, z, prefetch_depth=-1)
     with pytest.raises(ValueError):  # int8 payload without its scales lane
@@ -487,8 +487,8 @@ def test_k1_k2_kernels_bitwise_equal_plain(cuda, depth, dtype, case):
 
         assert library("chunk_gather.cu").k1_smem_bytes(
             tk._WTYPE[tw.dtype], g["tile"], g["blocks"], x.shape[0], 0, w.shape[0], depth,
-            st.shape[0], 1) == tk.k1_smem_bytes(st.shape[0], tw.element_size(), g["tile"],
-                                             g["blocks"], x.shape[0], depth, w.shape[0])
+            st.shape[0], 1, 0) == tk.k1_smem_bytes(st.shape[0], tw.element_size(), g["tile"],
+                                                g["blocks"], x.shape[0], depth, w.shape[0])
         return
     wg, wu, wd, x, st, sz = _mlp_inputs(rng, dtype, 256, 704, 256)
     tw = [w[1].to(cuda) for w in (wg, wu, wd)]
