@@ -70,7 +70,8 @@ Phases, each of which fails the run on error:
      (dense / top-k / chunk) at wbits 16. Phases 4-6's engines are freed
      first.
   8. the residency cache (paper §5), per-token decode and the blockwise
-     prefill: full-width tinyllama-1.1b, all 22 layers, prompt 32, 16
+     prefill: full-width tinyllama-1.1b, depth cut to SLIM_LAYERS (8) of
+     22 layers (the script's time limit), prompt 32, 16
      decode tokens, chunk at sparsity 0.4, wbits 16 and 8, with the cache
      at 0, 10 and 50 % of the offloaded bytes — exact launch counts on the
      kernel backend, tokens, hit and miss rows and io_est equal to the
@@ -92,7 +93,8 @@ Phases, each of which fails the run on error:
      with their checksum lanes on phase 5's and phase 7's own calls, at
      wbits 16 and 8 and depths 0, 1 and 3 — each launch bitwise against the
      launch without the lane and against the plain version, both timed;
-     then full-width tinyllama-1.1b (22 layers, kernel backend, 16 decode
+     then full-width tinyllama-1.1b (SLIM_LAYERS of 22 layers, kernel
+     backend, 16 decode
      tokens): every fault profile (tokens equal to the fault-off run's,
      charged time moved), ``thermal_throttle`` with and without the
      degradation controller (the scale below 1.0, fewer bytes per token),
@@ -111,6 +113,7 @@ as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
+import dataclasses
 import gc
 import importlib
 import json
@@ -143,7 +146,7 @@ VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_FRAMES, VLM_DECODE, VLM_MAX_SEQ = (
 
 
 # phase 8: the residency cache's budgets as fractions of the offloaded
-# bytes (TinyLlama, full depth), the VLM's, and the long prompt (frames of
+# bytes (TinyLlama, at SLIM_LAYERS), the VLM's, and the long prompt (frames of
 # frontend_tokens vision tokens, then text) with the blockwise-vs-direct
 # tolerance on its logits, a fraction of their largest magnitude, and on
 # layer 0's f32 attention (the reference suite's, tests/test_attention.py)
@@ -157,6 +160,28 @@ LONG_FRAMES, LONG_TEXT, LONG_TOL, LONG_ATOL = 16, 32, 0.05, 2e-5
 LANE_DEPTHS = (0, 1, 3)
 FAULT_SEED, CORRUPTION_SEED, NAND_SEED, TWIN_LAYERS = 0, 7, 3, 4
 REFRESH_REPS = 8
+
+
+# phase 10: continuous batching. TinyLlama: SLOTS request slots over a
+# max_seq of SLOT_MAX_SEQ in PAGE_TOKENS-token pages, ROUND_TOKENS tokens a
+# round; SLOT_REQUESTS chat requests at ARRIVAL_RATE/s (the CLI's default),
+# each a SYSTEM_TOKENS-token system prompt (one of SYSTEMS) and
+# USER_TOKENS of its own, SLOT_NEW new tokens; K1/K2 timed at
+# SLOT_TIMING_BATCHES rows on the run's tables. Page pressure: a pool of
+# PRESSURE_PAGES pages. Deadlines: the rate and the deadline in units of
+# the clean run's mean charged decode step (DEADLINE_GAP_STEPS between
+# arrivals; the first of DEADLINE_STEPS whose throttled run preempts).
+# The VLM: VLM_SLOTS slots, VLM_REQUESTS requests of VLM_PROMPT tokens
+# (half vision), two of them the same, VLM_SLOT_NEW new tokens.
+SLOTS, SLOT_MAX_SEQ, PAGE_TOKENS, ROUND_TOKENS = 8, 512, 16, 4
+# phases 8 and 9 run TinyLlama-1.1B at full width, depth cut to SLIM_LAYERS
+# of its 22 layers, so that the script with phase 10 stays inside its time
+# limit (phase 10 and phases 4-6 keep all 22)
+SLIM_LAYERS = 8
+SLOT_REQUESTS, SYSTEMS, SYSTEM_TOKENS, USER_TOKENS, SLOT_NEW = 24, 3, 32, 16, 16
+ARRIVAL_RATE, SLOT_TIMING_BATCHES, PRESSURE_PAGES = 50.0, (8, 16), 19
+DEADLINE_GAP_STEPS, DEADLINE_STEPS = 2.0, (24.0, 16.0, 40.0)
+VLM_SLOTS, VLM_REQUESTS, VLM_SLOT_NEW = 4, 8, 8
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -234,14 +259,14 @@ def gate_up(wg, wu, x, starts, sizes, sg, su, depth):
     return cg._launch_k2_gate_up(wg, wu, x, starts, sizes, sg, su, 512, depth)
 
 
-def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
+def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
     """Each decode kernel of one served engine, over that engine's own
     tables, weights and last refresh input: K1 (in all and per site q, k,
     v, o, beside the dense library product), K2 and its phase 1 alone, K5
     over one refresh step's lanes with what each lane's walk meets. Device
     time per launch from CUDA-graph replays, the plain versions on the
-    host clock, the bound from the bytes and flops of the call. Returns
-    (timing, calls): the calls timed, {"k1": [(w, xm, starts, sizes,
+    host clock, the bound from the bytes and flops of the call; ``batch``
+    rows of activations a call (the served batch). Returns (timing, calls): the calls timed, {"k1": [(w, xm, starts, sizes,
     scales)], "k1_sites": [name], "k2": [(w_gate, w_up, w_down, xm,
     starts, sizes, ffn_mask, scales)], "k5": [greedy_select's arguments]},
     every layer's, layer by layer."""
@@ -264,12 +289,12 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
             w = lp[name][layer] if wbits == 16 else lp[name + "_q8"][layer]
             sc = None if wbits == 16 else lp[name + "_sc"][layer]
             s, z = sp.kernel_tables(plan, site, layer)
-            xm = randn(BATCH, n_in) * plan[site]["mask"][layer]
+            xm = randn(batch, n_in) * plan[site]["mask"][layer]
             k1_calls.append((w, xm, s, z, sc))
             rows = rows_of(z)
             byts = (rows * w.shape[1] * el + (rows // 8 * 4 if sc is not None else 0)
-                    + BATCH * n_in * 4 + 2 * 4 * s.numel() + BATCH * w.shape[1] * 4)
-            ops = 2.0 * BATCH * rows * w.shape[1]
+                    + batch * n_in * 4 + 2 * 4 * s.numel() + batch * w.shape[1] * 4)
+            ops = 2.0 * batch * rows * w.shape[1]
             k1_bytes, k1_ops = k1_bytes + byts, k1_ops + ops
             k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
             k1_sites.append(name)
@@ -280,20 +305,20 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag):
                                              for n in ("w_gate", "w_up", "w_down"))
         st, sz = sp.mlp_kernel_plan(plan, layer)
         fm = plan["ffn"]["mask"][layer]
-        xm = randn(BATCH, d) * plan["hidden_mlp"]["mask"][layer]
+        xm = randn(batch, d) * plan["hidden_mlp"]["mask"][layer]
         k2_calls.append((*ws, xm, st, sz, fm, scs))
         rh, rf = rows_of(sz[0]), rows_of(sz[1])
         byts = (2 * rh * f * el + rf * d * el
                 + ((2 * rh + rf) // 8 * 4 if scs is not None else 0)
-                + BATCH * d * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
-                + BATCH * f * 4 + BATCH * d * 4)
-        ops = 2.0 * BATCH * (2 * rh * f + rf * d)
+                + batch * d * 4 + f * 4 + 2 * 2 * 4 * st.shape[1]
+                + batch * f * 4 + batch * d * 4)
+        ops = 2.0 * batch * (2 * rh * f + rf * d)
         k2_bytes, k2_ops = k2_bytes + byts, k2_ops + ops
         k2_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
         # K2's phase 1 alone: gate and up in, h out
         byts = (2 * rh * f * el + (2 * rh // 8 * 4 if scs is not None else 0)
-                + BATCH * d * 4 + 2 * 4 * st.shape[1] + BATCH * f * 4)
-        ops = 2.0 * BATCH * 2 * rh * f
+                + batch * d * 4 + 2 * 4 * st.shape[1] + batch * f * 4)
+        ops = 2.0 * batch * 2 * rh * f
         g1_bytes, g1_ops = g1_bytes + byts, g1_ops + ops
         g1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     # K5 over the run's own refresh-step input: every layer's sites from
@@ -728,7 +753,8 @@ def main():
     done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
     kernels += vlm_path(dev, get_config(VLM_ARCH), card, report)
     done("phase 7")
-    kernels += cache_path(dev, get_config("tinyllama-1.1b"), card, report)
+    slim = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=SLIM_LAYERS)
+    kernels += cache_path(dev, slim, card, report)
     done("phase 8, TinyLlama cache")
     vcfg, vmodel, vparams = vlm_model(dev, get_config(VLM_ARCH))
     vlm_cache(dev, vcfg, vmodel, vparams, card, report)
@@ -736,11 +762,15 @@ def main():
     long_prompt(dev, vcfg, vmodel, vparams, card, report)
     done("phase 8, long prompt")
     vlm_integrity(dev, vcfg, vmodel, vparams, card, report)
-    del vparams
     done("phase 9, InternVL2 integrity")
-    robust_path(dev, get_config("tinyllama-1.1b"), card, report)
+    vlm_slots(dev, vcfg, vmodel, vparams, card, report)
+    del vparams
+    done("phase 10, InternVL2 slots")
+    robust_path(dev, slim, card, report)
     done("phase 9, TinyLlama faults and integrity")
     kernels += lane_rows(report)
+    kernels += slot_path(dev, get_config("tinyllama-1.1b"), card, report)
+    done("phase 10, TinyLlama continuous batching")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -749,17 +779,23 @@ def main():
 
 
 def profile_decode(eng, token, card):
-    """A profiled decode call of PROFILE_TOKENS steps: device time by
-    kernel, the device's busy share of the call's wall, and the host ops
-    that take the most time. The profiler's own overhead inflates the wall,
-    so the shares are of the profiled call."""
+    """A profiled decode call of PROFILE_TOKENS steps (``profile_call``)."""
+    return profile_call(lambda: eng.decode(token, PROFILE_TOKENS),
+                        f"{PROFILE_TOKENS} steps", card)
+
+
+def profile_call(fn, what, card):
+    """A profiled ``fn()`` (it ends in a host sync): device time by kernel,
+    the device's busy share of the call's wall, and the host ops that take
+    the most time. The profiler's own overhead inflates the wall, so the
+    shares are of the profiled call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.decode(token, PROFILE_TOKENS)
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, cpu_ops = {}, {}
     for ev in prof.key_averages():
@@ -781,7 +817,7 @@ def profile_decode(eng, token, card):
            "host_ops": dict(sorted(cpu_ops.items(), key=lambda kv: -kv[1][0])[:15])}
     ours = {name: sum(v for k, v in kernels.items() if name in k)
             for name in ("k1_kernel", "k2_gate_up_kernel", "k5_kernel")}
-    log(f"[profile] {PROFILE_TOKENS} steps, wall {wall_us / 1e3:.1f} ms (profiled): device busy "
+    log(f"[profile] {what}, wall {wall_us / 1e3:.1f} ms (profiled): device busy "
         f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}; "
         + ", ".join(f"{k} {v / wall_us:.1%}" for k, v in ours.items())
         + f"; other device work {(busy - sum(ours.values())) / wall_us:.1%}  ({card})")
@@ -1467,8 +1503,6 @@ def vlm_path(dev, full_cfg, card, report):
     timings as in phase 5 plus K5's one-lane walks; the rows the kernels read
     against the rows selected; the profiled device busy share; and the
     video-stream policy table at wbits 16. Returns the phase's kernel rows."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1683,7 +1717,7 @@ def vlm_path(dev, full_cfg, card, report):
 
 def cache_path(dev, cfg, card, report):
     """Phase 8, TinyLlama: the residency cache (paper §5) on ``cfg``'s
-    full depth at CACHE_FRACS of ``sparsifiable_bytes``, wbits 16 and 8,
+    depth at CACHE_FRACS of ``sparsifiable_bytes``, wbits 16 and 8,
     prompt PROMPT, DECODE decode tokens: on the kernel backend with the
     launch counts set to 0 just before and read just after (exact), against
     the reference backend (tokens, hit and miss rows, io_est equal), every
@@ -1937,8 +1971,6 @@ def robust_path(dev, cfg, card, report):
     the layers, the kernel backend against the reference backend's twin on
     corrupted tokens (recovery off and ``degraded_nand``). Returns the
     phase's launch counts."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -2218,8 +2250,6 @@ def lane_rows(report):
 def vlm_model(dev, full_cfg):
     """``full_cfg`` at full width, depth cut to VLM_LAYERS, with random
     weights from seed 0 on ``dev``: (config, model, params)."""
-    import dataclasses
-
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(full_cfg, n_layers=min(VLM_LAYERS, full_cfg.n_layers))
@@ -2441,6 +2471,422 @@ def long_prompt(dev, cfg, model, params, card, report):
     log("[long] residual stream after each layer, blockwise vs direct: " + "; ".join(
         f"L{i} max abs diff {g['max_abs_diff']:.4g} of {g['max_abs']:.4g}, "
         f"{g['share_differing']:.2%} differ" for i, g in enumerate(gaps)) + f"  ({card})")
+
+
+
+def chat_requests(cfg, n, new_tokens, deadline=None, seed=0):
+    """Phase 10's chat service: ``make_request(rid)`` for the arrival
+    driver. Each prompt is one of SYSTEMS seeded system prompts of
+    SYSTEM_TOKENS tokens, then USER_TOKENS tokens of its own, on the host
+    (the pool hashes it there); ``new_tokens`` new tokens, ``deadline``
+    seconds of SLO."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS) for _ in range(SYSTEMS)]
+    picks = rng.integers(0, SYSTEMS, n)
+    own = [rng.integers(0, cfg.vocab_size, USER_TOKENS) for _ in range(n)]
+
+    def make(rid):
+        toks = np.concatenate([systems[picks[rid]], own[rid]])[None]
+        return Request(rid=rid, prompt={"tokens": torch.from_numpy(toks)},
+                       max_new_tokens=new_tokens, deadline_s=deadline)
+
+    return make
+
+
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA operations it ran, as ``file:line``
+    of their Python callers) under ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def slot_run(model, params, dev, make_request, n_requests, slots, rate, paged=True,
+             backend="kernel", wbits=16, kv_pages=None, noise=None, probe=None, card="",
+             **kw):
+    """One continuous-batching run through the user's entry points:
+    ``Scheduler(ServeEngine(...)).run()`` over Poisson arrivals (driver seed
+    1), chunk at sparsity 0.4, ``nano``, max_seq SLOT_MAX_SEQ, rounds of
+    ROUND_TOKENS; ``kw`` goes to the engine, ``noise`` (if given) to its
+    simulator before the run. With ``probe`` (on the card), round
+    ``probe`` is profiled and every other round's synchronizing operations
+    are counted. Returns {eng, stats, tokens {rid: [...]}, rounds,
+    round_wall_s, steps, profile, syncs: [[file:line, ...] a round]}."""
+    import torch
+
+    from repro_torch.serving import PoissonArrivalDriver, Scheduler, ServeEngine
+
+    eng = ServeEngine(model, params, max_seq=SLOT_MAX_SEQ, batch_size=slots, device="nano",
+                      sparsity=0.4, method="chunk", backend=backend, wbits=wbits,
+                      torch_device=dev, kv_page_tokens=PAGE_TOKENS if paged else None,
+                      kv_pages=kv_pages, **kw)
+    if noise is not None:
+        eng.simulator.noise = noise
+    sched = Scheduler(eng, round_tokens=ROUND_TOKENS)
+    sched.submit(PoissonArrivalDriver(rate, make_request, seed=1).generate(n_requests))
+    walls, out = [], {"profile": None, "syncs": []}
+    more = True
+    while more:
+        t0 = time.perf_counter()
+        if probe is not None and len(walls) == probe:
+            box = []
+            out["profile"] = profile_call(lambda: box.append(sched.step()),
+                                          f"one round of {slots} slots", card)
+            more = box[0]
+        elif probe is not None:
+            more, syncs = count_syncs(sched.step)
+            out["syncs"].append(syncs)
+        else:
+            more = sched.step()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) > 10_000:
+            fail("phase 10: the scheduler did not drain")
+    stats = sched.stats()
+    return {**out, "eng": eng, "stats": stats, "rounds": len(walls), "round_wall_s": walls,
+            "steps": sum(s.kind == "decode" for s in eng.stats),
+            "tokens": {r.rid: list(r.tokens_out) for r in sched.finished}}
+
+
+def check_drained(tag, run, n_requests, new_tokens, paged=True):
+    """Every request finished with its tokens; the pool (paged) passes its
+    check with no live page."""
+    st = run["stats"]
+    if st.finished != n_requests or sorted(run["tokens"]) != list(range(n_requests)) \
+            or any(len(t) != new_tokens for t in run["tokens"].values()):
+        fail(f"{tag}: {st.finished} of {n_requests} requests drained, tokens "
+             f"{ {k: len(v) for k, v in run['tokens'].items()} }")
+    if paged:
+        pool = run["eng"].kv_pool
+        try:
+            pool.check()
+        except AssertionError as e:
+            fail(f"{tag}: the page pool's check failed: {e}")
+        if not pool.steady_state():
+            fail(f"{tag}: {pool.pages_in_use} pages still live after the drain")
+
+
+def stats_equal(a, b):
+    """Two ``SchedulerStats`` field for field, NaN equal to NaN."""
+    import math
+
+    return all(x == y or (isinstance(x, float) and math.isnan(x) and math.isnan(y))
+               for x, y in zip(vars(a).values(), vars(b).values()))
+
+
+def stats_line(st):
+    return (f"{st.finished} requests, {st.decode_tokens} tokens, simulated "
+            f"{st.tokens_per_s:.3f} tokens/s, TTFT p50 {st.ttft_p50_s:.3f} s, latency p50 "
+            f"{st.latency_p50_s:.3f} p99 {st.latency_p99_s:.3f} s, SLO "
+            f"{st.slo_attainment:.3f}, preempted {st.preempted}, admitted in stalls "
+            f"{st.admitted_during_stall}")
+
+
+def slot_path(dev, cfg, card, report):
+    """Phase 10a/b on ``cfg`` at full width and depth: continuous batching
+    through ``Scheduler(ServeEngine(...)).run()`` — SLOTS slots, paged KV
+    of PAGE_TOKENS-token pages, SLOT_REQUESTS chat requests sharing SYSTEMS
+    system prompts, arriving at ARRIVAL_RATE/s on the simulated clock.
+
+    10a: the main path (paged, wbits 16, kernel backend) with the launch
+    counts set to 0 just before and read just after (K1 4·L and K2 L a
+    decode step, K5 once a refresh step, + the selection timing's); then
+    the reference backend, the dense KV cache and a replay (the same tokens
+    request by request, the same ``SchedulerStats``), the replay with one
+    profiled round and one round under the sync debug mode; wbits 8 (exact
+    counts); after each drain the pool's check, no live page, shared hits.
+    On the main run's own tables, K1 and K2 at SLOT_TIMING_BATCHES rows,
+    bitwise against their plain versions and timed. 10b: a pool of
+    PRESSURE_PAGES pages (page-pressure preemption), and ``thermal_throttle``
+    with deadlines, without and with the degradation controller (noise 0):
+    each drains and replays exactly. Returns the kernel rows "K1, slots"
+    and "K2, slots"."""
+    import torch
+
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    t_phase = time.perf_counter()
+    log(f"[slots] {cfg.name}: L={n_layers}, {SLOTS} slots, max_seq {SLOT_MAX_SEQ}, pages of "
+        f"{PAGE_TOKENS} tokens, rounds of {ROUND_TOKENS}; {SLOT_REQUESTS} requests at "
+        f"{ARRIVAL_RATE:g}/s of {SYSTEM_TOKENS} system ({SYSTEMS} prompts) + {USER_TOKENS} own "
+        f"tokens, {SLOT_NEW} new tokens each; chunk at sparsity 0.4, nano")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    make = chat_requests(cfg, SLOT_REQUESTS, SLOT_NEW)
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+
+    def zero():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def want(steps):
+        return {"chunk_gather_matmul_dma": 4 * n_layers * steps,
+                "chunk_gather_mlp_dma": n_layers * steps,
+                "greedy_select": steps + TIME_SELECTION_LAUNCHES}
+
+    def same(tag, a, b, stats=True):
+        if a["tokens"] != b["tokens"]:
+            bad = [k for k in a["tokens"] if a["tokens"][k] != b["tokens"].get(k)]
+            fail(f"{tag}: tokens differ at requests {bad}")
+        if stats and not stats_equal(a["stats"], b["stats"]):
+            fail(f"{tag}: SchedulerStats differ: {a['stats']} != {b['stats']}")
+
+    def run(tag, **kw):
+        kw.setdefault("slots", SLOTS)
+        kw.setdefault("rate", ARRIVAL_RATE)
+        n = kw.pop("n", SLOT_REQUESTS)
+        t0 = time.perf_counter()
+        r = slot_run(model, params, dev, kw.pop("make", make), n, **kw)
+        r["wall_s"] = time.perf_counter() - t0
+        io = r["eng"].io_summary()
+        pool = r["eng"].kv_pool
+        log(f"[slots] {tag}: {stats_line(r['stats'])}; {r['rounds']} rounds, {r['steps']} "
+            f"decode steps in {r['wall_s']:.2f} s"
+            + ("" if pool is None else f"; pool {pool.summary()}")
+            + f"; bubble_utilization {io['bubble_utilization']:.3f}")
+        return r
+
+    out = {}
+    # -- 10a: the main path, launches counted from 0
+    if on_card:
+        torch.cuda.synchronize()
+    zero()
+    main = run("paged w16 kernel (main path)")
+    launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+    check_drained("main", main, SLOT_REQUESTS, SLOT_NEW)
+    if on_card and launches != want(main["steps"]):
+        fail(f"slots: launch counts {launches} != per-step counts {want(main['steps'])}")
+    if main["eng"].kv_pool.alloc.shared_hits == 0:
+        fail("slots: no prompt page was shared")
+    eng = main["eng"]
+    dec = [s for s in eng.stats if s.kind == "decode"]
+    io = eng.io_summary()
+    st = main["stats"]
+    out["main"] = {
+        "launches": launches, "steps": main["steps"], "rounds": main["rounds"],
+        "wall_s": main["wall_s"], "wall_per_round_s": sum(main["round_wall_s"]) / main["rounds"],
+        "decode_wall_per_step_s": sum(s.wall_s for s in dec) / len(dec),
+        "stats": vars(st), "pool": eng.kv_pool.summary(),
+        "admitted_during_stall": io["admitted_during_stall"],
+        "bubble_utilization": io["bubble_utilization"], "kv_cache_mb": io["kv_cache_mb"]}
+    log(f"[slots] main path: launches {launches} over {main['steps']} decode steps (exact); "
+        f"wall {out['main']['wall_per_round_s'] * 1e3:.1f} ms a round, "
+        f"{out['main']['decode_wall_per_step_s'] * 1e3:.2f} ms a decode step of {SLOTS} slots; "
+        f"simulated {st.tokens_per_s:.3f} tokens/s, TTFT p50 {st.ttft_p50_s:.3f} s, latency "
+        f"p50 {st.latency_p50_s:.3f} s p99 {st.latency_p99_s:.3f} s; admitted_during_stall "
+        f"{io['admitted_during_stall']}, bubble_utilization {io['bubble_utilization']:.3f}  "
+        f"({card})")
+
+    # -- K1/K2 at the slot batches, on the main run's own tables
+    randn, _ = seeded(dev, 2024)
+    cuda_ms, host_ms = timers(on_card)
+    check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma"))
+    timing = {}
+    for b in SLOT_TIMING_BATCHES:
+        timing[b], calls = decode_timings(eng, 16, randn, cuda_ms, host_ms, card,
+                                          f"[slots] batch {b}", batch=b)
+        for i, (name, (w, xm, s, z, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
+            check("chunk_gather_matmul_dma", f"b{b} L{i // 4} {name}",
+                  cg.chunk_gather_matmul_dma(w, xm, s, z, sc),
+                  cg.chunk_gather_matmul_plain(w, xm, s, z, sc))
+        for layer, (wg, wu, wd, xm, s, z, fm, scs) in enumerate(calls["k2"]):
+            yk, hk = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, s, z, fm, scs, return_h=True)
+            yp, hp = cg.chunk_gather_mlp_plain(wg, wu, wd, xm, s, z, fm, scs)
+            check("chunk_gather_mlp_dma", f"b{b} L{layer} y", yk, yp)
+            check("chunk_gather_mlp_dma", f"b{b} L{layer} h", hk, hp)
+        del calls
+        for k in ("chunk_gather_matmul_dma", "chunk_gather_mlp_dma"):
+            v = timing[b][k]
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"[slots] batch {b} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} "
+                f"us ({v['bound_by']})  ({card})")
+    if check.failures:
+        for msg in check.failures:
+            log(f"[slots] {msg}")
+        fail(f"{len(check.failures)} phase-10 kernel checks failed")
+    log(f"[slots] bitwise: {check.n} checks (K1 at every site and K2 at every layer, batches "
+        f"{SLOT_TIMING_BATCHES}), max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in check.errs.items()))
+    out["timing"] = timing
+    u = sum(s.overlap_s for s in dec) / len(dec)  # the clean charged decode step
+    del eng, dec
+    main["eng"] = None
+
+    # -- the same settings on the reference backend, the dense cache, a replay
+    ref = run("paged w16 reference backend", backend="reference")
+    same("reference backend", main, ref)
+    check_drained("reference", ref, SLOT_REQUESTS, SLOT_NEW)
+    del ref
+    dense = run("dense w16 kernel", paged=False)
+    same("dense KV", main, dense)
+    check_drained("dense", dense, SLOT_REQUESTS, SLOT_NEW, paged=False)
+    del dense
+    replay = run("paged w16 kernel, replay", probe=2 if on_card else None, card=card)
+    same("replay", main, replay)
+    check_drained("replay", replay, SLOT_REQUESTS, SLOT_NEW)
+    out["profile_round"] = replay["profile"]
+    out["syncs_per_round"] = replay["syncs"]
+    if on_card:
+        counts = [len(x) for x in replay["syncs"]]
+        sites = sorted({f for x in replay["syncs"] for f in x})
+        log(f"[slots] synchronizing operations a round under the sync debug mode (every "
+            f"round but the profiled one): {counts}; at {', '.join(sites)}")
+    del replay
+    zero()
+    w8 = run("paged w8 kernel", wbits=8)
+    launches8 = {**cg.LAUNCHES, **chunking.LAUNCHES}
+    check_drained("w8", w8, SLOT_REQUESTS, SLOT_NEW)
+    if on_card and launches8 != want(w8["steps"]):
+        fail(f"slots w8: launch counts {launches8} != per-step counts {want(w8['steps'])}")
+    out["w8"] = {"launches": launches8, "stats": vars(w8["stats"])}
+    del w8
+
+    # -- 10b: page pressure
+    pressure = [run(f"page pressure ({PRESSURE_PAGES} pages), run {i}",
+                    kv_pages=PRESSURE_PAGES) for i in (1, 2)]
+    for i, r in enumerate(pressure):
+        check_drained(f"page pressure {i}", r, SLOT_REQUESTS, SLOT_NEW)
+    if pressure[0]["stats"].preempted < 1:
+        fail("page pressure: no preemption")
+    same("page-pressure replay", pressure[0], pressure[1])
+    out["pressure"] = {"stats": vars(pressure[0]["stats"]),
+                       "pool": pressure[0]["eng"].kv_pool.summary()}
+    del pressure
+
+    # -- 10b: deadlines under a sustained throttle, the controller off and on
+    # (the arrival gap and the deadline in clean decode steps: the first
+    # deadline whose controller-off run preempts is kept)
+    rate = 1.0 / (DEADLINE_GAP_STEPS * u)
+    kw = dict(rate=rate, fault_profile="thermal_throttle", fault_seed=FAULT_SEED, noise=0.0)
+    for steps in DEADLINE_STEPS:
+        deadline = steps * u
+        kw["make"] = chat_requests(cfg, SLOT_REQUESTS, SLOT_NEW, deadline=deadline)
+        tag = f"thermal_throttle, deadline {deadline:.3f} s ({steps:g} steps), rate {rate:.3f}/s"
+        off = run(f"{tag}, degrade off", **kw)
+        if off["stats"].preempted >= 1:
+            break
+        log(f"[slots] {tag}: no preemption; the next deadline")
+    else:
+        fail(f"deadlines: no preemption at any of {DEADLINE_STEPS} clean steps")
+    dl_runs = {False: [off], True: []}
+    for degrade in (True, False):
+        r = run(f"deadline {deadline:.3f} s, degrade {'on' if degrade else 'off'}",
+                degrade=degrade, **kw)
+        dl_runs[degrade].append(r)
+    for degrade, rs in dl_runs.items():
+        for r in rs:
+            check_drained(f"deadline, degrade {degrade}", r, SLOT_REQUESTS, SLOT_NEW)
+    same("deadline replay", dl_runs[False][0], dl_runs[False][1])
+    off_s, on_s = dl_runs[False][0]["stats"], dl_runs[True][0]["stats"]
+    out["deadlines"] = {"deadline_s": deadline, "rate": rate, "step_s": u,
+                        "off": vars(off_s), "on": vars(on_s),
+                        "on_scale": dl_runs[True][0]["eng"].fault_summary()["degrade_scale"]}
+    log(f"[slots] deadlines (thermal_throttle, seed {FAULT_SEED}, noise 0): SLO attainment "
+        f"off {off_s.slo_attainment:.3f} on {on_s.slo_attainment:.3f}; p99 off "
+        f"{off_s.latency_p99_s:.3f} s on {on_s.latency_p99_s:.3f} s; preempted off "
+        f"{off_s.preempted} on {on_s.preempted}; controller scale "
+        f"{out['deadlines']['on_scale']:.2f}")
+    del dl_runs, off
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["slots"] = out
+    rows = []
+    for name, line in (("chunk_gather_matmul_dma", 284), ("chunk_gather_mlp_dma", 617)):
+        t = timing[SLOTS][name]
+        rows.append({"name": f"{name}, slots [{cfg.name}, batch {SLOTS}]", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/chunk_gather.cu",
+                     "replaces": f"src/repro/kernels/chunk_gather_dma.py:{line}",
+                     "launches": launches[name], "max_abs_err": check.errs[name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "ms_batch_16": timing[16][name]["ms"],
+                     "bound_ms_batch_16": timing[16][name]["bound_ms"],
+                     "library_ms_batch_16": timing[16][name]["library_ms"]})
+    return rows
+
+
+def vlm_slots(dev, cfg, model, params, card, report):
+    """Phase 10c on the VLM at full width (``params``: phase 8/9's, depth cut
+    to VLM_LAYERS): VLM_SLOTS slots, paged KV of PAGE_TOKENS-token pages,
+    VLM_REQUESTS requests of VLM_PROMPT // 2 vision + VLM_PROMPT // 2 text
+    tokens at ARRIVAL_RATE/s (requests 1 and 2 the same image and text, so
+    their pages are shared), VLM_SLOT_NEW new tokens: the kernel backend
+    with the launch counts from 0 (exact; K2's phase 1 runs at batch
+    VLM_SLOTS), against the reference backend (the same tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models.inputs import FRONT_DTYPE
+    from repro_torch.serving import Request
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    n_vis = VLM_PROMPT // 2
+    rng = np.random.default_rng(0)
+    prompts = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n_vis))),
+                "frontend": torch.from_numpy(rng.normal(0, 1, (1, n_vis, cfg.d_frontend)))
+                .to(FRONT_DTYPE)} for _ in range(VLM_REQUESTS)]
+    prompts[2] = prompts[1]
+
+    def make(rid):
+        return Request(rid=rid, prompt=prompts[rid], max_new_tokens=VLM_SLOT_NEW)
+
+    runs = {}
+    for backend in ("kernel", "reference"):
+        for c in (cg.LAUNCHES, chunking.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        r = slot_run(model, params, dev, make, VLM_REQUESTS, VLM_SLOTS, ARRIVAL_RATE,
+                     backend=backend)
+        r["wall_s"] = time.perf_counter() - t0
+        r["launches"] = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        check_drained(f"vlm slots {backend}", r, VLM_REQUESTS, VLM_SLOT_NEW)
+        runs[backend] = r
+        log(f"[vlm-slots] {cfg.name} L={n_layers} {backend}: {stats_line(r['stats'])}; "
+            f"{r['rounds']} rounds, {r['steps']} decode steps in {r['wall_s']:.2f} s; pool "
+            f"{r['eng'].kv_pool.summary()}; launches {r['launches']}  ({card})")
+        r["eng"] = None
+    k = runs["kernel"]
+    steps = k["steps"]
+    want = {"chunk_gather_matmul_dma": 4 * n_layers * steps,
+            "chunk_gather_mlp_dma": n_layers * steps,
+            "greedy_select": steps + TIME_SELECTION_LAUNCHES}
+    if on_card and k["launches"] != want:
+        fail(f"vlm slots: launch counts {k['launches']} != per-step counts {want}")
+    if k["tokens"] != runs["reference"]["tokens"]:
+        fail(f"vlm slots: kernel tokens {k['tokens']} != reference backend tokens "
+             f"{runs['reference']['tokens']}")
+    if k["tokens"][1] != k["tokens"][2]:
+        fail("vlm slots: two identical requests decoded different tokens")
+    log(f"[vlm-slots] kernel tokens equal the reference backend's for all {VLM_REQUESTS} "
+        f"requests; launches exact over {steps} decode steps at batch {VLM_SLOTS}")
+    report["vlm_slots"] = {b: {"stats": vars(r["stats"]), "launches": r["launches"],
+                               "steps": r["steps"], "wall_s": r["wall_s"]}
+                           for b, r in runs.items()}
 
 
 if __name__ == "__main__":

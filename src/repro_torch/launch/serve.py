@@ -1,7 +1,10 @@
 """Serving launcher of the port: one stream of lockstep requests — prefill,
 then (for a VLM) ``--frames`` video frames appended to the cache, then the
-fused sparse decode loop — with the neuron-chunking policy and the
-flash-offload simulation. Runs on the GPU unless asked otherwise:
+fused sparse decode loop — or, with ``--streams N``, N Poisson-arriving
+requests served through ``--batch`` request slots by the continuous-batching
+scheduler (``--kv-page-tokens`` pages their KV, ``--deadline-s`` gives each
+an SLO); with the neuron-chunking policy and the flash-offload simulation.
+Runs on the GPU unless asked otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --method chunk --backend kernel --decode-tokens 16
@@ -19,9 +22,13 @@ flash-offload simulation. Runs on the GPU unless asked otherwise:
       --reduced --torch-device cpu --corruption-profile bit_rot \
       --fault-profile thermal_throttle --degrade
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --torch-device cpu --streams 5 --arrival-rate 300 \
+      --decode-tokens 6 --max-seq 64 --prompt-len 16 --kv-page-tokens 8
+
 ``--device`` names the simulated flash profile (nano / agx), as in the
 reference CLI; ``--torch-device`` picks where the model runs. The
-reference CLI's other flags belong to features not ported yet and are
+reference CLI's ``--mesh`` (sharded serving) is not ported yet and is
 refused with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
@@ -39,13 +46,10 @@ from ..core.faults import CORRUPTION_PROFILES, FAULT_PROFILES
 from ..kernels.backend import BACKENDS
 from ..models import build_model
 from ..models.inputs import FRONT_DTYPE, make_dummy_batch
-from ..serving import SERVE_METHODS, ServeEngine
+from ..serving import SERVE_METHODS, PoissonArrivalDriver, Request, Scheduler, ServeEngine
 
 # flags of the reference CLI (repro/launch/serve.py) the port does not serve
-NOT_PORTED_FLAGS = (
-    "--kv-page-tokens", "--mesh", "--streams",
-    "--arrival-rate", "--round-tokens", "--deadline-s",
-)
+NOT_PORTED_FLAGS = ("--mesh",)
 
 
 def _nonneg(kind, name: str):
@@ -57,6 +61,19 @@ def _nonneg(kind, name: str):
             raise argparse.ArgumentTypeError(f"{name} must be a number, got {text!r}") from None
         if v < 0:
             raise argparse.ArgumentTypeError(f"{name} must be >= 0, got {text!r}")
+        return v
+    return parse
+
+
+def _positive_int(name: str):
+    """An argparse type: an integer, refused below 1."""
+    def parse(text: str) -> int:
+        try:
+            v = int(text)
+        except ValueError:
+            raise argparse.ArgumentTypeError(f"{name} must be an integer, got {text!r}") from None
+        if v < 1:
+            raise argparse.ArgumentTypeError(f"{name} must be >= 1, got {text!r}")
         return v
     return parse
 
@@ -92,6 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="DRAM budget (MB) of the dynamic chunk residency cache (paper "
                          "§5); resident rows cost no flash I/O. Default: the device "
                          "profile's dram_cache_mb (0 = off)")
+    ap.add_argument("--kv-page-tokens", type=_positive_int("--kv-page-tokens"), default=None,
+                    help="paged KV cache: page size in tokens (must divide --max-seq); "
+                         "per-slot page tables with prefix sharing, the pool's bytes carved "
+                         "out of --cache-mb. Requires --streams; tokens equal the dense "
+                         "cache's. Default: dense per-slot KV")
     ap.add_argument("--per-token", action="store_true",
                     help="decode with one host sync per token (the baseline loop) "
                          "instead of the fused loop; tokens are byte-identical")
@@ -105,6 +127,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     ap.add_argument("--seed", type=int, default=0, help="weight and prompt seed")
+    ap.add_argument("--streams", type=int, default=0,
+                    help=">0: continuous-batching mode — serve this many Poisson-arriving "
+                         "requests through --batch slots")
+    ap.add_argument("--arrival-rate", type=float, default=50.0,
+                    help="request arrival rate (requests/s, simulated clock)")
+    ap.add_argument("--round-tokens", type=_positive_int("--round-tokens"), default=4,
+                    help="decode tokens per scheduler round (one fused decode call per "
+                         "round for every slot); >= 1")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request SLO deadline (seconds from arrival, simulated clock) "
+                         "in --streams mode: earliest-deadline-first admission, blown "
+                         "requests may be preempted; stats gain p99 and SLO attainment")
     ap.add_argument("--fault-profile", choices=tuple(FAULT_PROFILES), default="none",
                     help="storage-turbulence profile at the simulator's measurement "
                          "boundary: tail-latency spikes, transient read failures with "
@@ -159,6 +193,9 @@ def parse_args(argv=None):
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     validate_seed_flags(ap, args)
+    if args.kv_page_tokens is not None and args.streams <= 0:
+        ap.error("--kv-page-tokens requires --streams (paged KV is slot-mode only: requests "
+                 "are admitted through the page allocator)")
     return args
 
 
@@ -179,7 +216,9 @@ def main(argv=None):
                       fault_profile=args.fault_profile, fault_seed=args.fault_seed,
                       degrade=args.degrade, corruption_profile=args.corruption_profile,
                       corruption_seed=args.corruption_seed, max_reread=args.max_reread,
-                      recover=args.recover)
+                      recover=args.recover, kv_page_tokens=args.kv_page_tokens)
+    if args.streams > 0:
+        return eng, serve_streams(args, cfg, eng)
     batch = make_dummy_batch(cfg, InputShape("cli", args.prompt_len, args.batch, "train"),
                              seed=args.seed, device=dev)
     last = eng.prefill(batch)
@@ -221,16 +260,77 @@ def main(argv=None):
               f"retries {fs['fault_retries']}  extra {fs['fault_extra_s'] * 1e3:.2f} ms  "
               f"min_throttle {fs['min_throttle_scale']:.2f}  "
               f"degrade_scale {fs['degrade_scale']:.2f}")
-    if args.corruption_profile != "none":
-        print(f"[integrity] profile={args.corruption_profile} seed={args.corruption_seed} "
-              f"recover={args.recover} max_reread={args.max_reread}  "
-              f"detected {s['corruptions_detected']:.0f}  "
-              f"recovered {s['corruptions_recovered']:.0f}  "
-              f"substituted {s['corruptions_substituted']:.0f}  "
-              f"dropped {s['corruptions_dropped']:.0f}  "
-              f"reread {s['integrity_reread_s'] * 1e3:.2f} ms")
+    print_integrity(args, s)
     print(f"[tokens] {out[0].tolist()}")
     return eng, out
+
+
+def print_integrity(args, s) -> None:
+    """The [integrity] line (corruption injection runs only)."""
+    if args.corruption_profile == "none":
+        return
+    print(f"[integrity] profile={args.corruption_profile} seed={args.corruption_seed} "
+          f"recover={args.recover} max_reread={args.max_reread}  "
+          f"detected {s['corruptions_detected']:.0f}  "
+          f"recovered {s['corruptions_recovered']:.0f}  "
+          f"substituted {s['corruptions_substituted']:.0f}  "
+          f"dropped {s['corruptions_dropped']:.0f}  "
+          f"reread {s['integrity_reread_s'] * 1e3:.2f} ms")
+
+
+def serve_streams(args, cfg, eng):
+    """Continuous-batching mode: ``--streams`` Poisson arrivals into the
+    engine's request slots (the reference's ``_serve_streams``: each prompt
+    the seeded dummy batch at batch 1 with its tokens drawn anew, on the
+    host). Returns the ``SchedulerStats``."""
+    rng = np.random.default_rng(args.seed)
+    base = make_dummy_batch(cfg, InputShape("req", args.prompt_len, 1, "train"),
+                            seed=args.seed, device="cpu")
+
+    def make_request(rid: int) -> Request:
+        prompt = dict(base)
+        prompt["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, tuple(base["tokens"].shape)))
+        return Request(rid=rid, prompt=prompt, max_new_tokens=args.decode_tokens,
+                       deadline_s=args.deadline_s)
+
+    driver = PoissonArrivalDriver(args.arrival_rate, make_request, seed=1)
+    sched = Scheduler(eng, round_tokens=args.round_tokens)
+    sched.submit(driver.generate(args.streams))
+    stats = sched.run()
+    print(f"[serve] method={args.method} backend={args.backend} slots={args.batch} "
+          f"rate={args.arrival_rate}/s refresh={args.plan_refresh_interval} "
+          f"cache_mb={eng.cache_mb:g}")
+    print(f"[serve] {stats.row()}")
+    s = eng.io_summary()
+    print(f"[serve] ttft p50 {stats.ttft_p50_s * 1e3:.2f} ms  "
+          f"sim time {stats.sim_time_s * 1e3:.1f} ms  "
+          f"overlap_efficiency {s['overlap_efficiency']:.3f}  "
+          f"cache_hit_rate {s['cache_hit_rate']:.3f}")
+    print(f"[serve] admitted_during_stall {s['admitted_during_stall']}  "
+          f"stall_hidden {s['stall_hidden_s'] * 1e3:.2f} ms  "
+          f"bubble_utilization {s['bubble_utilization']:.3f}")
+    if eng.kv_pool is not None:
+        ps = eng.kv_pool.summary()
+        print(f"[paged-kv] page_tokens {eng.kv_page_tokens}  pages {eng.kv_pages} "
+              f"(kv {s['kv_cache_mb']:.2f} MB / weights {s['weight_cache_mb']:.2f} MB)  "
+              f"shared_hits {ps['shared_hits']}  cow {ps['cow_copies']}  "
+              f"evictions {ps['evictions']}")
+    if args.deadline_s is not None:
+        print(f"[slo] deadline {args.deadline_s * 1e3:.1f} ms  "
+              f"attainment {stats.slo_attainment:.3f} ({stats.deadlines_met}/{stats.deadlines})  "
+              f"p99 {stats.latency_p99_s * 1e3:.2f} ms  preempted {stats.preempted}")
+    fs = eng.fault_summary()
+    if fs["fault_enabled"] or fs["degrade_enabled"]:
+        print(f"[faults] profile={fs['fault_profile']} seed={fs['fault_seed']}  "
+              f"events {fs['fault_events']}  spikes {fs['fault_spikes']}  "
+              f"retries {fs['fault_retries']}  extra {fs['fault_extra_s'] * 1e3:.2f} ms  "
+              f"min_throttle {fs['min_throttle_scale']:.2f}")
+        print(f"[degrade] on={fs['degrade_enabled']}  scale {fs['degrade_scale']:.2f}  "
+              f"ewma {fs['degrade_ewma_ratio']:.2f}  tighten {fs['degrade_tighten_steps']}  "
+              f"relax {fs['degrade_relax_steps']}")
+    print_integrity(args, s)
+    return stats
 
 
 if __name__ == "__main__":

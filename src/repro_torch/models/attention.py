@@ -1,6 +1,6 @@
-"""GQA attention with RoPE and a linear KV cache (the port's copy of the
-parts of ``repro.models.attention`` the prefill, decode and frame-append
-paths use).
+"""GQA attention with RoPE, a linear KV cache and a paged one (the port's
+copy of the parts of ``repro.models.attention`` the prefill, decode and
+frame-append paths use).
 
 Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
 positions the direct (materialized-scores) attention, above it the
@@ -8,15 +8,27 @@ blockwise online-softmax attention, whose score memory is one (block_q,
 block_kv) tile per head. The sequence-sharded path and rotating windows
 come with later slices. The cache is updated in place (PyTorch idiom; the
 reference returns new arrays).
+
+The decode functions take the cache length as a host ``int`` (one stream
+of lockstep rows) or as an int32 ``(b,)`` tensor on the device (slot mode:
+each row an independent request). The tensor path never reads the lengths
+back to the host: the write-position clamp and the valid mask are device
+ops. The paged cache (``init_paged_kv_cache``) keeps per-layer page pools
+and a (b, max_pages) page table; each decode layer gathers a dense view
+through the table (``gather_paged_kv``), runs the unchanged decode on it,
+and writes the one new entry back to its page (``scatter_paged_kv``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from .common import apply_rope
+
+# a decode cache length: a host int, or an int32 (b,) device tensor per slot
+Length = Union[int, torch.Tensor]
 
 NEG_INF = -1e30
 # prompts longer than this take the blockwise attention (the reference's
@@ -149,47 +161,130 @@ def init_kv_cache(spec: CacheSpec, n_layers: int, dtype, device=None) -> Dict:
     }
 
 
+def init_paged_kv_cache(n_pages: int, page_tokens: int, batch: int, max_pages: int,
+                        n_kv_heads: int, head_dim: int, n_layers: int, dtype,
+                        device=None) -> Dict:
+    """The paged twin of ``init_kv_cache``: per-layer page pools (L,
+    n_pages, page_tokens, kv, hd), a (batch, max_pages) int32 page table
+    and per-slot int32 lengths (b,), all on ``device``. ``max_pages ·
+    page_tokens`` is the logical ``max_seq``, so the gathered view has the
+    dense cache's shape and the decode reduces over the same positions.
+
+    The pools start at zero so pages no table has written hold finite
+    values: a masked position then contributes an exact 0.0 probability
+    times a finite value, as the dense cache's zeros do. Table rows start
+    at the garbage page 0, where free slots write."""
+    pool = (n_layers, n_pages, page_tokens, n_kv_heads, head_dim)
+    return {
+        "k": torch.zeros(pool, dtype=dtype, device=device),
+        "v": torch.zeros(pool, dtype=dtype, device=device),
+        "page_table": torch.zeros((batch, max_pages), dtype=torch.int32, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def gather_paged_kv(pool_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One layer's dense view of the paged cache: ``pool_layer`` (n_pages,
+    page_tokens, kv, hd) gathered by ``table`` (b, max_pages) → (b,
+    max_pages · page_tokens, kv, hd), position for position the dense
+    layer cache. Positions past a slot's length read whatever page the
+    table maps (the garbage page for unmapped entries); the valid mask
+    zeroes their probabilities exactly."""
+    b, max_pages = table.shape
+    _, page_tokens, n_kv, head_dim = pool_layer.shape
+    return pool_layer.index_select(0, table.reshape(-1)).reshape(
+        b, max_pages * page_tokens, n_kv, head_dim)
+
+
+def scatter_paged_kv(pool_layer: torch.Tensor, dense_layer: torch.Tensor,
+                     table: torch.Tensor, length: torch.Tensor) -> None:
+    """Write each slot's new decode entry from its updated dense view
+    ``dense_layer`` (b, P, kv, hd) back into its page, in place.
+
+    The write position is ``min(length, P - 1)``, the clamp of
+    ``cache_layer_update``, and for an occupied slot it lies in a private
+    page (the prompt's partial tail or a decode-grown page: shared prefix
+    pages are never written, which is why the final page of a
+    ``max_seq``-long prompt stays private). Two rows can only meet on the
+    garbage page, where free slots write. There the last row wins, as in
+    the reference's scatter: every row of a collision writes the value of
+    the highest row that shares its (page, offset), so the result does not
+    depend on which duplicate ``index_put_`` lands last (on CUDA that order
+    is arbitrary). Free slots read the garbage page back on later steps,
+    and their activations feed the batched importance, so the winner
+    matters."""
+    b, phys = dense_layer.shape[:2]
+    page_tokens = pool_layer.shape[1]
+    rows = torch.arange(b, device=dense_layer.device)
+    pos = torch.clamp(length, max=phys - 1).to(torch.int64)
+    page = table[rows, pos // page_tokens].to(torch.int64)
+    off = pos % page_tokens
+    flat = page * page_tokens + off
+    same = flat[:, None] == flat[None, :]
+    winner = torch.where(same, rows[None, :], torch.zeros_like(same, dtype=torch.int64)).amax(1)
+    pool_layer[page, off] = dense_layer[winner, pos[winner]]
+
+
+def _decode_positions(length: Length, b: int, device) -> torch.Tensor:
+    """(b, 1) RoPE positions of a decode step's rows at cache ``length``."""
+    if isinstance(length, torch.Tensor):
+        return length.reshape(-1, 1).expand(b, 1)
+    return torch.full((b, 1), length, device=device)
+
+
 def cache_layer_update(layer_k: torch.Tensor, layer_v: torch.Tensor, new_k: torch.Tensor,
-                       new_v: torch.Tensor, length: int) -> None:
+                       new_v: torch.Tensor, length: Length) -> None:
     """Write one decode step's (b, 1, kv, hd) entries at ``length`` in place
-    (clamped to the last slot once full, like the reference)."""
-    slot = min(length, layer_k.shape[1] - 1)
+    (clamped to the last slot once full, like the reference). A (b,)
+    ``length`` writes each row at its own position, on the device."""
+    phys = layer_k.shape[1]
+    if isinstance(length, torch.Tensor):
+        rows = torch.arange(layer_k.shape[0], device=layer_k.device)
+        slot = torch.clamp(length, max=phys - 1).to(torch.int64)
+        layer_k[rows, slot] = new_k[:, 0]
+        layer_v[rows, slot] = new_v[:, 0]
+        return
+    slot = min(length, phys - 1)
     layer_k[:, slot] = new_k[:, 0]
     layer_v[:, slot] = new_v[:, 0]
 
 
 def project_kv_for_decode(k: torch.Tensor, v: torch.Tensor, n_kv_heads: int, head_dim: int,
-                          length: int, rope_theta: Optional[float]
+                          length: Length, rope_theta: Optional[float]
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Precomputed (b, 1, kv*hd) k/v projections → cache entries, RoPE on k
-    at position ``length``."""
+    at position ``length`` (each row's own with a (b,) ``length``)."""
     b = k.shape[0]
     k = k.reshape(b, 1, n_kv_heads, head_dim)
     v = v.reshape(b, 1, n_kv_heads, head_dim)
     if rope_theta is not None:
-        pos = torch.full((b, 1), length, device=k.device)
-        k = apply_rope(k, pos, rope_theta)
+        k = apply_rope(k, _decode_positions(length, b, k.device), rope_theta)
     return k, v
 
 
 def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
-                     length: int, n_heads: int, n_kv_heads: int, head_dim: int,
+                     length: Length, n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: Optional[float], out_dtype) -> torch.Tensor:
     """Single-token attention of a precomputed q projection (b, 1, h*hd)
-    against the cache; ``length`` counts the current token. Returns the
-    pre-o-projection (b, 1, h*hd) in ``out_dtype``."""
+    against the cache; ``length`` counts the current token (a (b,) tensor:
+    each row's own count). Returns the pre-o-projection (b, 1, h*hd) in
+    ``out_dtype``."""
     b = q.shape[0]
     phys = layer_k.shape[1]
     q = q.reshape(b, 1, n_heads, head_dim)
     if rope_theta is not None:
-        q = apply_rope(q, torch.full((b, 1), length - 1, device=q.device), rope_theta)
+        q = apply_rope(q, _decode_positions(length - 1, b, q.device), rope_theta)
     n_rep = n_heads // n_kv_heads
     k = repeat_kv(layer_k, n_rep)
     v = repeat_kv(layer_v, n_rep)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * head_dim ** -0.5
-    valid = torch.arange(phys, device=q.device) < length
-    scores = torch.where(valid[None, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    slot = torch.arange(phys, device=q.device)
+    if isinstance(length, torch.Tensor):
+        valid = (slot[None, :] < length[:, None])[:, None, None, :]
+    else:
+        valid = (slot < length)[None, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32)).to(out_dtype)
     return out.reshape(b, 1, n_heads * head_dim)

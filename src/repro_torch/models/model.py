@@ -3,6 +3,9 @@ VLM families (the reference's ``_DecoderLM`` of ``repro.models.model``).
 Other families raise until their slice lands (ROADMAP.md, queue 1).
 
     model.init(seed, device)                       -> params (stacked leaves)
+    model.init_cache(b, max_seq, device)           -> linear KV cache
+    model.init_paged_cache(b, max_seq, page_tokens, n_pages, device)
+                                                   -> paged KV cache
     model.forward(params, batch)                   -> hidden
     model.prefill(params, batch, max_seq)          -> (last_logits, cache)
         (prompts over 2048 positions, a VLM's vision tokens included, take
@@ -11,6 +14,8 @@ Other families raise until their slice lands (ROADMAP.md, queue 1).
                                                    -> (hidden, io)
     model.decode_step_planned(params, token, cache, sparse_ctx, plan, refresh)
                                                    -> (logits, io (L,))
+        (the cache's ``length`` is a host int, or an int32 (b,) tensor of
+        per-slot lengths in slot mode, where the cache may be paged)
 
 A batch is {"tokens": (b, s_text)} plus, for a VLM, {"frontend": (b,
 n_front, d_frontend)}: the projected frontend embeddings come first in the
@@ -30,7 +35,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import CacheSpec, init_kv_cache
+from .attention import CacheSpec, init_kv_cache, init_paged_kv_cache
 from .common import rms_norm
 from .transformer import stack_append, stack_decode, stack_forward, stack_prefill
 
@@ -118,6 +123,28 @@ class Model:
         spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_kv_heads,
                          head_dim=cfg.resolved_head_dim)
         return init_kv_cache(spec, cfg.n_layers, COMPUTE_DTYPE, device)
+
+    @property
+    def supports_paged_kv(self) -> bool:
+        """Every family the port serves (the decoder LMs) takes a paged cache."""
+        return True
+
+    def init_paged_cache(self, batch_size: int, max_seq: int, page_tokens: int, n_pages: int,
+                         device=None) -> Dict:
+        """The paged twin of ``init_cache`` (``attention.init_paged_kv_cache``):
+        ``n_pages`` pages of ``page_tokens`` positions per layer, a per-slot
+        page table and per-slot lengths, on ``device`` (default ``cuda``).
+        Refuses a ``max_seq`` that pages do not tile, and sliding windows."""
+        device = resolve_device(device)
+        cfg = self.cfg
+        if max_seq % page_tokens != 0:
+            raise ValueError(f"max_seq ({max_seq}) must be divisible by page_tokens "
+                             f"({page_tokens})")
+        if cfg.sliding_window and max_seq > WINDOW_ENGAGE_THRESHOLD:
+            raise ValueError("paged KV does not compose with sliding windows")
+        return init_paged_kv_cache(n_pages, page_tokens, batch_size, max_seq // page_tokens,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers,
+                                   COMPUTE_DTYPE, device)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.to(torch.int64)].to(COMPUTE_DTYPE)

@@ -20,6 +20,11 @@ no plan (method ``dense``) — select each site's mask in the step itself
 masked dense products with the bf16 originals; at wbits 8 the int8 leaves
 serve the planned decode only, as in the reference; so does the damage of
 recovery-off corruption.
+
+In slot mode the decode's ``cache["length"]`` is an int32 (b,) device
+tensor (each row its own request); with a paged cache every layer gathers
+its dense view through the page table, decodes on it, and scatters the new
+entry back (``attention.gather_paged_kv`` / ``scatter_paged_kv``).
 """
 from __future__ import annotations
 
@@ -30,11 +35,14 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
 from .attention import (
+    Length,
     append_attention,
     cache_layer_update,
     decode_attention,
+    gather_paged_kv,
     multi_head_attention,
     project_kv_for_decode,
+    scatter_paged_kv,
 )
 from .common import apply_rope, rms_norm, swish
 from .mlp import swiglu_mlp, swiglu_mlp_planned
@@ -166,6 +174,9 @@ def stack_append(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     ``cache["length"]`` advances by n. Returns (x, the frame's estimated
     I/O seconds, a 0-d f32 tensor)."""
     length = cache["length"]
+    if isinstance(length, torch.Tensor):
+        raise NotImplementedError("frame append extends one stream's linear cache; slot "
+                                  "mode (per-slot lengths) has no frame append")
     io = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
         x, lat = block_append(layer_slice(stacked, layer), x, cache["k"][layer],
@@ -190,10 +201,10 @@ def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
 
 
 def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
-                 length: int, cfg: ModelConfig, sparse_ctx=None, plan=None,
+                 length: Length, cfg: ModelConfig, sparse_ctx=None, plan=None,
                  layer: int = 0):
     """One decode token through one layer. ``length``: tokens in the cache
-    before this one. With a sparse context and a decode plan (the planned
+    before this one (a host int, or each slot's in a (b,) tensor). With a sparse context and a decode plan (the planned
     path, already refreshed for this step by ``stack_decode``) every site
     computes through the execution backend off the plan's tables; with a
     sparse context and an empty plan (method ``dense``) each site takes
@@ -248,7 +259,9 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
 def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
                  sparse_ctx=None, plan=None, refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode token through every layer; the cache (and plan) update in
-    place and ``cache["length"]`` advances by one. On the planned path the
+    place and ``cache["length"]`` advances by one (every slot's, free ones
+    too, as in the reference). A paged cache is decoded layer by layer
+    through dense views of its pools. On the planned path the
     plan of every layer is refreshed first, in one selection
     (``refresh_step``; a refresh of layer l reads only the importances
     layer l recorded on the previous step). Returns (x, io (L,)) — the
@@ -269,10 +282,17 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
         undo = sparse_ctx.apply_corruption(plan, stacked, site_matrix_names(cfg))
     else:
         io = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=x.device)
+    table = cache.get("page_table")
     try:
         for layer in range(cfg.n_layers):
-            x, lat = block_decode(layer_slice(stacked, layer), x, cache["k"][layer],
-                                  cache["v"][layer], length, cfg, sparse_ctx, plan, layer)
+            layer_k, layer_v = cache["k"][layer], cache["v"][layer]
+            if table is not None:
+                layer_k, layer_v = gather_paged_kv(layer_k, table), gather_paged_kv(layer_v, table)
+            x, lat = block_decode(layer_slice(stacked, layer), x, layer_k, layer_v, length, cfg,
+                                  sparse_ctx, plan, layer)
+            if table is not None:
+                scatter_paged_kv(cache["k"][layer], layer_k, table, length)
+                scatter_paged_kv(cache["v"][layer], layer_v, table, length)
             if sparse_ctx is not None and not planned:
                 io[layer] = lat
     finally:

@@ -1,6 +1,18 @@
-"""ServeEngine: one stream of lockstep requests with flash-offload
-simulation (the port's copy of the classic single-stream mode of
-``repro.serving.engine``).
+"""ServeEngine: serving with flash-offload simulation (the port's copy of
+``repro.serving.engine``), in two modes that share the decode loop:
+
+  * single-stream mode: ``prefill`` / ``append_frame`` / ``decode`` drive
+    one batch of lockstep requests through a cache whose length is a host
+    int;
+  * slot mode (``enable_slots`` + ``Scheduler``): each batch row is an
+    independent request slot whose length lives in an int32 (b,) device
+    tensor; ``admit_slot`` prefills one request into a free slot and
+    ``decode_slots`` runs the fused loop over every slot at once
+    (continuous batching). ``kv_page_tokens`` makes the KV cache paged: a
+    pool of fixed-size pages with per-slot page tables and prefix sharing
+    by chained content hashes (``serving/kv_pool.py``); its bytes are
+    carved out of the ``cache_mb`` DRAM budget before the residency cache
+    sees the rest.
 
 ``prefill(batch)`` runs the dense prompt forward (a VLM prompt's vision
 tokens first); ``append_frame(frame)`` extends the cache by one video
@@ -35,8 +47,8 @@ lanes packed at init and, with ``recover``, heals through the ladder
 (``SparseExecution``). ``fault_summary`` and ``io_summary``'s ``fault_*``,
 ``corruptions_*`` and ``integrity_reread_s`` keys report them.
 
-Not ported yet: slot mode / the scheduler (with its deadlines), paged KV
-and sharded meshes.
+Not ported yet: sharded meshes, and frame append in slot mode (the
+reference's ``append_frame`` takes a scalar length).
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ from ..kernels.quantize import quantize_params
 from ..models.model import Model
 from ..models.transformer import SPARSE_WEIGHT_NAMES
 from .degrade import DegradationController
+from .kv_pool import KVPagePool, KVPoolExhausted, prompt_prefix_hashes
 from .sparse_exec import (
     INTEGRITY_COUNTER_KEYS,
     KERNEL_BLOCK_ROWS,
@@ -90,8 +103,7 @@ class StepStats:
     bubble_s: float = 0.0
 
 
-# the io_summary() keys of the port — the reference's IO_SUMMARY_KEYS minus
-# the scheduler and paged-KV lanes
+# the exact key set io_summary() returns, in the reference's order
 IO_SUMMARY_KEYS = (
     "io_est_s",
     "io_sim_s",
@@ -107,6 +119,9 @@ IO_SUMMARY_KEYS = (
     "decode_stall_s",
     "decode_bubble_s",
     "overlap_efficiency",
+    "admitted_during_stall",
+    "stall_hidden_s",
+    "bubble_utilization",
     "fault_events",
     "fault_spikes",
     "fault_retries",
@@ -118,6 +133,10 @@ IO_SUMMARY_KEYS = (
     "corruptions_substituted",
     "corruptions_dropped",
     "integrity_reread_s",
+    "kv_cache_mb",
+    "weight_cache_mb",
+    "kv_pages_in_use",
+    "kv_shared_pages",
 )
 
 
@@ -133,7 +152,8 @@ class ServeEngine:
                  backend: str = "reference", wbits: int = 16, torch_device=None,
                  fault_profile=None, fault_seed: int = 0, degrade: bool = False,
                  corruption_profile=None, corruption_seed: int = 0, max_reread: int = 2,
-                 recover: bool = True):
+                 recover: bool = True, kv_page_tokens: Optional[int] = None,
+                 kv_pages: Optional[int] = None):
         """``device``: the simulated flash profile ("nano" | "agx").
         ``torch_device``: where the model runs — ``cuda`` unless the caller
         passes another device (the weights must already live there).
@@ -159,7 +179,16 @@ class ServeEngine:
         the bf16 leaves at 16). With ``recover`` tokens equal the clean
         run's wherever every corruption is recoverable; without it the
         damage reaches the gathers, identically on both backends. None /
-        "none" (the defaults) are bit-identical to an engine without them."""
+        "none" (the defaults) are bit-identical to an engine without them.
+
+        ``kv_page_tokens`` / ``kv_pages``: the paged KV cache. None keeps
+        the dense cache. Set, the engine is in slot mode from birth: a pool
+        of ``kv_pages`` pages of ``kv_page_tokens`` positions (page 0 the
+        garbage page; default: the dense-equivalent ``batch · max_seq /
+        kv_page_tokens + 1``), per-slot page tables and prefix sharing.
+        The pool's bytes (``kv_cache_mb``) come out of ``cache_mb``; the
+        residency cache gets the rest (``weight_cache_mb``). Greedy tokens
+        equal the dense cache's on the same admissions."""
         validate_method(method, allow_dense_free=True)
         validate_backend(backend)
         if wbits not in WBITS_CHOICES:
@@ -192,9 +221,41 @@ class ServeEngine:
         self.wbits = wbits
         # the profile's default when None; >= 0 is checked by the profile
         self.cache_mb = self.simulator.profile.cache_capacity_bytes(cache_mb) / MB
+        # scheduler admissions hidden in decode stall windows (the Scheduler
+        # reports them through note_stall_admission)
+        self.admitted_during_stall = 0
+        self.stall_hidden_s = 0.0
+        # the paged pool's geometry, and its bytes carved out of the DRAM
+        # budget before SparseExecution is built: the residency cache sees
+        # only the weight share
+        self.kv_page_tokens = kv_page_tokens
+        if kv_page_tokens is not None:
+            if not model.supports_paged_kv:
+                raise ValueError(f"paged KV is only supported for decoder families, "
+                                 f"not {model.family!r}")
+            if kv_page_tokens < 1 or max_seq % kv_page_tokens != 0:
+                raise ValueError(f"kv_page_tokens ({kv_page_tokens}) must be >= 1 and "
+                                 f"divide max_seq ({max_seq})")
+            if kv_pages is None:  # the dense-equivalent capacity + the garbage page
+                kv_pages = batch_size * (max_seq // kv_page_tokens) + 1
+            if kv_pages < 2:
+                raise ValueError(f"kv_pages must be >= 2, got {kv_pages}")
+            cfg = model.cfg
+            # bf16 K and V entries of one page, summed over layers
+            self.kv_page_bytes = float(2 * 2 * cfg.n_layers * kv_page_tokens
+                                       * cfg.n_kv_heads * cfg.resolved_head_dim)
+            self.kv_pages = kv_pages
+            self.kv_cache_mb = kv_pages * self.kv_page_bytes / MB
+        else:
+            if kv_pages is not None:
+                raise ValueError("kv_pages requires kv_page_tokens")
+            self.kv_pages = 0
+            self.kv_page_bytes = 0.0
+            self.kv_cache_mb = 0.0
+        self.weight_cache_mb = max(0.0, self.cache_mb - self.kv_cache_mb)
         self.sparse_ctx = None if method == "dense_free" else SparseExecution(
             model.cfg, device=device, sparsity=sparsity, method=method,
-            reorderings=reorderings, cache_mb=self.cache_mb, backend=backend,
+            reorderings=reorderings, cache_mb=self.weight_cache_mb, backend=backend,
             kernel_prefetch_depth=prefetch_depth, wbits=wbits,
             torch_device=self.torch_device, degradable=degrade,
             corruption_profile=corruption_profile, corruption_seed=corruption_seed,
@@ -222,7 +283,14 @@ class ServeEngine:
             model.cfg, sparsity=sparsity if method in ("chunk", "topk") else 0.0,
             tokens=batch_size
         )
-        self.cache = model.init_cache(batch_size, max_seq, self.torch_device)
+        self.kv_pool: Optional[KVPagePool] = None
+        # slot mode's host mirror of the per-slot lengths (None in single-
+        # stream mode): the paged growth pre-check reads it, never the card
+        self._host_lengths: Optional[np.ndarray] = None
+        if kv_page_tokens is not None:
+            self._init_paged_state()
+        else:
+            self.cache = model.init_cache(batch_size, max_seq, self.torch_device)
         self.stats: List[StepStats] = []
         self._plan: Optional[Dict] = None  # the chunk-plan carry, kept across decode calls
         self._select_s_per_refresh: Optional[float] = None
@@ -232,19 +300,29 @@ class ServeEngine:
         self._layer_io_log: List[np.ndarray] = []
 
     # -- stages ----------------------------------------------------------------
-    def prefill(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Dense prompt forward; returns the last position's logits (b, vocab).
-        Prefill streams every matrix once, contiguously, and is charged so."""
-        t0 = time.perf_counter()
-        batch = {k: v.to(self.torch_device) for k, v in batch.items()}
-        last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
-        wall = time.perf_counter() - t0
-        n = int(batch["tokens"].shape[1])
+    def _prefill_charge(self, n: int, name: str, wall: float) -> float:
+        """Log a prefill: it streams every matrix once, contiguously, and is
+        charged so. Returns the simulated seconds."""
         n_layers = self.model.cfg.n_layers
         est = self.sparse_ctx.dense_total_latency() * n_layers if self.sparse_ctx else 0.0
         nbytes = self.sparse_ctx.sparsifiable_bytes(n_layers) if self.sparse_ctx else 0.0
-        sim = self.simulator.measure_from_estimate(est, name="prefill", nbytes=nbytes)
+        sim = self.simulator.measure_from_estimate(est, name=name, nbytes=nbytes)
         self.stats.append(StepStats("prefill", n, est, sim, 0.0, wall, nbytes=float(nbytes)))
+        return sim
+
+    def prefill(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Dense prompt forward; returns the last position's logits (b, vocab).
+        Leaves slot mode; a paged engine has no single-stream cache and
+        refuses (its requests come in through ``admit_slot``)."""
+        if self.kv_pool is not None:
+            raise NotImplementedError("paged KV is slot-mode only: admit requests with "
+                                      "admit_slot (a single-stream prefill would bypass "
+                                      "the page allocator)")
+        t0 = time.perf_counter()
+        batch = {k: v.to(self.torch_device) for k, v in batch.items()}
+        last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
+        self._host_lengths = None
+        self._prefill_charge(int(batch["tokens"].shape[1]), "prefill", time.perf_counter() - t0)
         self._plan = None  # new sequence → stale plan
         return last
 
@@ -252,7 +330,12 @@ class ServeEngine:
         """One video frame's patch embeddings (b, n, d_frontend) → an n-token
         cache extension; every site's mask comes from this frame's own
         activations (``SparseExecution.mask``). Returns the final-normed
-        hidden states (b, n, d); the frame's estimated I/O is the one sync."""
+        hidden states (b, n, d); the frame's estimated I/O is the one sync.
+        Single-stream mode only."""
+        if self.kv_pool is not None:
+            raise NotImplementedError("paged KV is slot-mode only: append_frame extends "
+                                      "the single-stream linear cache, which paged "
+                                      "engines do not keep")
         t0 = time.perf_counter()
         hidden, io = self.model.append_embeds(self.params, frame_embeds, self.cache,
                                               self.sparse_ctx, self.torch_device)
@@ -304,7 +387,10 @@ class ServeEngine:
         (the empty plan counts nothing)."""
         return self.sparse_ctx.sparsifiable_bytes(self.model.cfg.n_layers)
 
-    def _run_decode(self, tokens: torch.Tensor, n_tokens: int) -> np.ndarray:
+    def _run_decode(self, tokens: torch.Tensor, n_tokens: int):
+        """The fused loop and its accounting. Returns (tokens (b, n) on the
+        host, each step's charged seconds (n,): the overlapped pipeline's
+        critical path, or the serial charge with ``overlap=False``)."""
         self._start_decode()
         tokens = tokens.to(self.torch_device)
         t0 = time.perf_counter()
@@ -347,7 +433,9 @@ class ServeEngine:
             ))
         self._observe_degradation(io_steps, sims)
         self._observe_corruption(float(civ[:, 0].sum()), float(misses.sum()))
-        return toks
+        if self._host_lengths is not None:
+            self._host_lengths += n_tokens
+        return toks, (tl.overlap_s if self.overlap else tl.serial_s)
 
     def _decode_lift(self) -> float:
         """The deterministic lift of a decode measurement (diversity 0.5):
@@ -391,7 +479,7 @@ class ServeEngine:
         if not greedy:
             raise NotImplementedError("sampled decoding is not implemented: decode "
                                       "always takes the argmax")
-        toks = self._run_decode(first_token, n_tokens)
+        toks, _ = self._run_decode(first_token, n_tokens)
         return torch.cat([first_token.cpu().to(toks.dtype), toks], dim=1)
 
     def decode_per_token(self, first_token: torch.Tensor, n_tokens: int,
@@ -451,6 +539,8 @@ class ServeEngine:
                                         hit_rows=float(hit), miss_rows=float(miss),
                                         nbytes=float(nbytes)))
             out.append(tok)
+        if self._host_lengths is not None:
+            self._host_lengths += n_tokens
         if not io_rows:
             return torch.cat(out, dim=1)
         recent = self.stats[start:]
@@ -469,6 +559,145 @@ class ServeEngine:
             st.stall_s = float(tl.stall_s[j])
             st.bubble_s = float(tl.bubble_s[j])
         return torch.cat(out, dim=1)
+
+    # -- slot mode (continuous batching; driven by serving.scheduler) -----------
+    def _init_paged_state(self) -> None:
+        """(Re)build the page pool, the paged cache and the length mirror."""
+        self.kv_pool = KVPagePool(self.batch_size, self.max_seq, self.kv_page_tokens,
+                                  self.kv_pages, self.kv_page_bytes)
+        self.cache = self.model.init_paged_cache(self.batch_size, self.max_seq,
+                                                 self.kv_page_tokens, self.kv_pages,
+                                                 self.torch_device)
+        self._host_lengths = np.zeros(self.batch_size, np.int64)
+
+    def _push_table(self) -> None:
+        """Commit the pool's host page table to the card."""
+        self.cache["page_table"] = torch.from_numpy(self.kv_pool.table.copy()).to(
+            self.torch_device)
+
+    def _check_slot(self, slot: Optional[int] = None) -> None:
+        """Refuse a call of slot mode in single-stream mode, and a slot out
+        of range."""
+        if slot is not None and not 0 <= slot < self.batch_size:
+            raise ValueError(f"slot {slot} out of range [0, {self.batch_size})")
+        if self._host_lengths is None:
+            raise RuntimeError("the engine is in single-stream mode: call enable_slots first")
+
+    def enable_slots(self) -> None:
+        """Switch the cache to per-slot lengths: each batch row becomes an
+        independent request slot (empty until ``admit_slot``); a paged
+        engine rebuilds its pool."""
+        if self.kv_pool is not None:
+            self._init_paged_state()
+        else:
+            self.cache = self.model.init_cache(self.batch_size, self.max_seq, self.torch_device)
+            self.cache["length"] = torch.zeros((self.batch_size,), dtype=torch.int32,
+                                               device=self.torch_device)
+            self._host_lengths = np.zeros(self.batch_size, np.int64)
+        self._plan = None
+
+    def kv_can_admit(self, batch: Dict[str, torch.Tensor]) -> bool:
+        """Whether the pool can cover this prompt's unshared pages right now
+        (always True on the dense cache, where a free slot is enough)."""
+        if self.kv_pool is None:
+            return True
+        return self.kv_pool.can_admit(*prompt_prefix_hashes(batch, self.kv_page_tokens))
+
+    def release_slot(self, slot: int) -> None:
+        """Free a slot's KV storage — the one funnel of every scheduler
+        release (eviction, preemption). Paged: drop the slot's page
+        references (shared prefix pages go cold, private ones free) and push
+        the cleared table row. Both layouts zero the slot's length."""
+        self._check_slot(slot)
+        if self.kv_pool is not None and self.kv_pool.release(slot):
+            self._push_table()
+        self.cache["length"][slot].fill_(0)  # a device fill: no host value to copy
+        self._host_lengths[slot] = 0
+
+    def admit_slot(self, slot: int, batch: Dict[str, torch.Tensor]):
+        """Prefill one request (leading batch dim 1) into ``slot``, over
+        whatever a previous occupant left there. Returns (the request's
+        last-position logits (1, vocab) on the card, the prefill's simulated
+        seconds: every matrix streams once, contiguously).
+
+        Dense cache: the slot's whole row is overwritten, all ``max_seq``
+        positions. Paged: the prompt's full pages are content-addressed;
+        pages already resident (live or cold) are shared and not rewritten,
+        only fresh pages take the prefill's KV. Raises ``KVPoolExhausted``
+        when the pool cannot cover the unshared pages (``kv_can_admit``
+        checks first)."""
+        self._check_slot(slot)
+        dev_batch = {k: v.to(self.torch_device) for k, v in batch.items()}
+        last, cache1 = self.model.prefill(self.params, dev_batch, self.max_seq)
+        seq_len = cache1["length"]
+        if self.kv_pool is not None:
+            # the caller's prompt is hashed where it lies (a host prompt
+            # costs no device read)
+            n, hashes = prompt_prefix_hashes(batch, self.kv_page_tokens)
+            entries = self.kv_pool.admit(slot, n, hashes)
+            fresh = [(j, page) for j, (page, is_fresh) in enumerate(entries) if is_fresh]
+            if fresh:
+                pages = torch.tensor([page for _, page in fresh], device=self.torch_device)
+                srcs = torch.tensor([j for j, _ in fresh], device=self.torch_device)
+                pt = self.kv_page_tokens
+                for key in ("k", "v"):
+                    one = cache1[key][:, 0]
+                    view = one.reshape(one.shape[0], self.max_seq // pt, pt, *one.shape[2:])
+                    self.cache[key][:, pages] = view[:, srcs]
+            self._push_table()
+        else:
+            for key in ("k", "v"):
+                self.cache[key][:, slot] = cache1[key][:, 0]
+        self.cache["length"][slot].fill_(seq_len)
+        self._host_lengths[slot] = seq_len
+        # an admission is priced on the simulated clock only (wall 0, as in
+        # the reference)
+        sim = self._prefill_charge(int(batch["tokens"].shape[1]), f"admit[{slot}]", 0.0)
+        return last, sim
+
+    def decode_slots(self, tokens: torch.Tensor, n_tokens: int):
+        """A fused decode round over every slot. ``tokens``: (batch, 1) each
+        slot's current input (free slots decode garbage their callers drop,
+        and their activations feed the batched selection, as in the
+        reference). Returns (new tokens (batch, n) on the host, each step's
+        charged seconds (n,)). With a paged cache the round's page growth is
+        checked whole, on the host mirror of the lengths, before anything is
+        allocated: ``KVPoolExhausted`` leaves the engine as it was, so the
+        scheduler can preempt a slot and retry."""
+        self._check_slot()
+        if self.kv_pool is not None and n_tokens > 0:
+            lengths = self._host_lengths
+            occupied = [s for s in range(self.batch_size) if self.kv_pool.slot_pages(s)]
+            need = {s: self.kv_pool.pages_needed(s, int(lengths[s]) + n_tokens - 1)
+                    for s in occupied}
+            total = sum(need.values())
+            if total > self.kv_pool.reclaimable_pages:
+                raise KVPoolExhausted(
+                    f"decode round needs {total} new KV pages but only "
+                    f"{self.kv_pool.reclaimable_pages} are free or cold-evictable — release "
+                    "or preempt a slot first (no page was allocated; engine state is "
+                    "unchanged)")
+            grew = False
+            for s in occupied:
+                if need[s] and self.kv_pool.ensure(s, int(lengths[s]) + n_tokens - 1):
+                    grew = True
+            if grew:
+                self._push_table()
+        return self._run_decode(tokens, n_tokens)
+
+    def slot_lengths(self) -> np.ndarray:
+        """Each slot's cache length, read from the card (a host sync; the
+        decode path reads the host mirror instead)."""
+        return self.cache["length"].cpu().numpy().reshape(-1)
+
+    def note_stall_admission(self, hidden_s: float) -> None:
+        """Record one scheduler admission whose prefill was (partly) hidden
+        inside measured decode stall windows, for ``io_summary``'s
+        ``bubble_utilization``."""
+        if hidden_s < 0:
+            raise ValueError(f"hidden_s must be >= 0, got {hidden_s}")
+        self.admitted_during_stall += 1
+        self.stall_hidden_s += float(hidden_s)
 
     # -- the prefetch timeline at other depths ---------------------------------
     def _log_layer_io(self, layer_io: np.ndarray) -> None:
@@ -542,15 +771,18 @@ class ServeEngine:
     def io_summary(self) -> Dict[str, float]:
         """Engine-lifetime I/O / pipeline rollup with exactly the keys of
         ``IO_SUMMARY_KEYS``, each meaning what it means in the reference's
-        ``io_summary``: the fault lanes mirror ``fault_summary`` and the
-        corruption lanes total the plan's integrity counters. Absent in the
-        port (they come with the features that fill them):
-        admitted_during_stall, stall_hidden_s, bubble_utilization
-        (scheduler); kv_cache_mb, weight_cache_mb, kv_pages_in_use,
-        kv_shared_pages (paged KV)."""
+        ``io_summary``: the scheduler lanes count admissions hidden in
+        decode stall windows (``bubble_utilization`` = hidden ÷ (stall +
+        bubble), at most 1), the fault lanes mirror ``fault_summary``, the
+        corruption lanes total the plan's integrity counters, and the
+        paged-KV lanes read the live pool (a dense engine reports
+        ``kv_cache_mb`` 0, ``weight_cache_mb`` = ``cache_mb`` and zero
+        pages)."""
         dec = [s for s in self.stats if s.kind == "decode"]
         hit = sum(s.hit_rows for s in self.stats)
         miss = sum(s.miss_rows for s in self.stats)
+        stall = sum(s.stall_s for s in dec)
+        bubble = sum(s.bubble_s for s in dec)
         fs = self.fault_summary()
         it = self._integrity_totals
         return {
@@ -565,12 +797,16 @@ class ServeEngine:
             "decode_compute_s": sum(s.compute_s for s in dec),
             "decode_serial_s": sum(s.serial_s for s in dec),
             "decode_overlap_s": sum(s.overlap_s for s in dec),
-            "decode_stall_s": sum(s.stall_s for s in dec),
-            "decode_bubble_s": sum(s.bubble_s for s in dec),
+            "decode_stall_s": stall,
+            "decode_bubble_s": bubble,
             "overlap_efficiency": overlap_efficiency(
                 [s.serial_s for s in dec], [s.overlap_s for s in dec],
                 [s.io_sim_s for s in dec], [s.compute_s for s in dec],
             ),
+            "admitted_during_stall": self.admitted_during_stall,
+            "stall_hidden_s": self.stall_hidden_s,
+            "bubble_utilization": (min(self.stall_hidden_s / (stall + bubble), 1.0)
+                                   if (stall + bubble) > 0 else 0.0),
             "fault_events": fs["fault_events"],
             "fault_spikes": fs["fault_spikes"],
             "fault_retries": fs["fault_retries"],
@@ -582,4 +818,8 @@ class ServeEngine:
             "corruptions_substituted": float(it[2]),
             "corruptions_dropped": float(it[3]),
             "integrity_reread_s": float(it[5]),
+            "kv_cache_mb": self.kv_cache_mb,
+            "weight_cache_mb": self.weight_cache_mb,
+            "kv_pages_in_use": self.kv_pool.pages_in_use if self.kv_pool is not None else 0,
+            "kv_shared_pages": self.kv_pool.shared_pages if self.kv_pool is not None else 0,
         }
