@@ -27,8 +27,11 @@ Phases, each of which fails the run on error:
      shared-memory layouts against each other; at InternVL2-76B's widths,
      K1 with an input mask at N = 8192 (the per-block input records) and
      K2's phase 1 at F = 28672 with a serve-width table (near the
-     shared-memory limit), bf16 and int8 at depths 0-3; and the reduced
-     model on the card against the same model on the CPU;
+     shared-memory limit), bf16 and int8 at depths 0-3; at StarCoder2-7B's
+     widths K1 over the gelu MLP's w_fc (4608 → 18432) and w_proj (18432 →
+     4608), with x pre-masked and with an input mask, and at
+     Granite-3-2B's widths K2 whole, bf16 and int8 at depths 0-3; and the
+     reduced model on the card against the same model on the CPU;
   4. the serve run: full-width tinyllama-1.1b, all 22 layers, random
      weights from a seed, ``--method chunk --backend kernel``, batch 2,
      prompt 32, 16 decode tokens, at wbits 16 and 8 — the launch counters
@@ -106,9 +109,24 @@ Phases, each of which fails the run on error:
      layers, the kernel backend against the reference backend's twin on
      corrupted tokens; and internvl2-76b as in phase 7 at wbits 8 with
      ``bit_rot`` recovered (tokens equal to the corruption-off run's).
+ 10. continuous batching (``Scheduler`` over the engine's slot mode, paged
+     KV): TinyLlama-1.1B, 22 layers, 24 chat requests through 8 slots on
+     both backends and on the dense cache, page pressure and deadlines;
+     InternVL2-76B as in phase 7 through 4 slots.
+ 11. the other dense decoders at full width and depth: starcoder2-7b (32
+     layers; LayerNorm, the gelu MLP as two K1 calls) and granite-3-2b
+     (40 layers; the tied head, K2), as phase 4 serves TinyLlama — exact
+     launch counts, tokens byte-identical to the reference backend at
+     wbits 16 and 8, every K1/K2/K5 call timed (K1 per site, fc and proj
+     set apart) and held bitwise; then the rotating window on
+     starcoder2-7b: max_seq 65,600 (a 4096-position cache), a 4160-token
+     prompt rolled in, 16 teacher-forced dense decode steps against a
+     windowed forward over all positions (LONG_TOL), and a kernel-backend
+     serve against the reference backend's tokens.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
-7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows), then,
+7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
+10's slot rows, phase 11's rows per arch), then,
 as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
@@ -182,6 +200,17 @@ SLOT_REQUESTS, SYSTEMS, SYSTEM_TOKENS, USER_TOKENS, SLOT_NEW = 24, 3, 32, 16, 16
 ARRIVAL_RATE, SLOT_TIMING_BATCHES, PRESSURE_PAGES = 50.0, (8, 16), 19
 DEADLINE_GAP_STEPS, DEADLINE_STEPS = 2.0, (24.0, 16.0, 40.0)
 VLM_SLOTS, VLM_REQUESTS, VLM_SLOT_NEW = 4, 8, 8
+
+
+# phase 11: the other dense decoders at full width and depth, served as
+# phase 4 serves TinyLlama (StarCoder2-7B: LayerNorm, the gelu MLP through
+# K1; Granite-3-2B: the tied head, K2); then the rotating window on
+# StarCoder2-7B's weights: a cache for WINDOW_MAX_SEQ positions (past the
+# 65,536-position threshold, so it holds sliding_window = 4096), a prompt of
+# WINDOW_PROMPT tokens (over the window, so rolled, and over
+# BLOCKWISE_THRESHOLD), WINDOW_DECODE decode steps
+DENSE_ARCHS, WINDOW_ARCH = ("starcoder2-7b", "granite-3-2b"), "starcoder2-7b"
+WINDOW_MAX_SEQ, WINDOW_PROMPT, WINDOW_DECODE = 65_600, 4_160, 16
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -262,11 +291,13 @@ def gate_up(wg, wu, x, starts, sizes, sg, su, depth):
 def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
     """Each decode kernel of one served engine, over that engine's own
     tables, weights and last refresh input: K1 (in all and per site q, k,
-    v, o, beside the dense library product), K2 and its phase 1 alone, K5
-    over one refresh step's lanes with what each lane's walk meets. Device
-    time per launch from CUDA-graph replays, the plain versions on the
-    host clock, the bound from the bytes and flops of the call; ``batch``
-    rows of activations a call (the served batch). Returns (timing, calls): the calls timed, {"k1": [(w, xm, starts, sizes,
+    v, o — and fc, proj in the gelu family, whose MLP is two K1 calls —
+    beside the dense library product), K2 and its phase 1 alone (the
+    SwiGLU family), K5 over one refresh step's lanes with what each lane's
+    walk meets. Device time per launch from CUDA-graph replays, the plain
+    versions on the host clock, the bound from the bytes and flops of the
+    call; ``batch`` rows of activations a call (the served batch). Returns
+    (timing, calls): the calls timed, {"k1": [(w, xm, starts, sizes,
     scales)], "k1_sites": [name], "k2": [(w_gate, w_up, w_down, xm,
     starts, sizes, ffn_mask, scales)], "k5": [greedy_select's arguments]},
     every layer's, layer by layer."""
@@ -283,9 +314,13 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
     k1_sites, k1_bounds = [], []
     k1_bytes = k1_ops = k2_bytes = k2_ops = g1_bytes = g1_ops = 0.0
     k1_bound = k2_bound = g1_bound = 0.0
+    gelu_family = cfg.mlp == "gelu"
+    k1_spec = (("wq", "hidden_attn", d), ("wk", "hidden_attn", d), ("wv", "hidden_attn", d),
+               ("wo", "attn_out", hd_all))
+    if gelu_family:
+        k1_spec += (("w_fc", "hidden_mlp", d), ("w_proj", "ffn", f))
     for layer in range(n_layers):
-        for name, site, n_in in (("wq", "hidden_attn", d), ("wk", "hidden_attn", d),
-                                 ("wv", "hidden_attn", d), ("wo", "attn_out", hd_all)):
+        for name, site, n_in in k1_spec:
             w = lp[name][layer] if wbits == 16 else lp[name + "_q8"][layer]
             sc = None if wbits == 16 else lp[name + "_sc"][layer]
             s, z = sp.kernel_tables(plan, site, layer)
@@ -299,6 +334,8 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
             k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
             k1_sites.append(name)
             k1_bounds.append(max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S))
+        if gelu_family:
+            continue
         ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
               for n in ("w_gate", "w_up", "w_down")]
         scs = None if wbits == 16 else tuple(lp[n + "_sc"][layer]
@@ -380,26 +417,27 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
             "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / F32_OPS_PER_S
             else "operations",
             "calls": n1, "bytes_per_call": k1_bytes / n1},
-        "chunk_gather_mlp_dma": {
-            "ms": cuda_ms(run_k2, 20) / n2, "plain_ms": host_ms(lambda: run_k2(True)) / n2,
-            "library_ms": None, "bound_ms": k2_bound / n2 * 1e3,
-            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
-            else "operations",
-            "calls": n2, "bytes_per_call": k2_bytes / n2},
         "greedy_select": {
             "ms": cuda_ms(run_k5, 5) / n5, "plain_ms": t_k5_plain, "library_ms": None,
             "bound_ms": k5_bound * 1e3, "bound_by": "bytes", "calls": n5, "lanes": lanes,
             "walked_per_lane": sum(walked) / max(len(walked), 1), "per_lane": k5_lanes},
     }
-    phase1 = {"ms": cuda_ms(run_gate_up, 20) / n2,
-              "plain_ms": host_ms(lambda: run_gate_up(True)) / n2,
-              "bound_ms": g1_bound / n2 * 1e3,
-              "bound_by": "bytes" if g1_bytes / HBM_BYTES_PER_S >= g1_ops / F32_OPS_PER_S
-              else "operations"}
-    timing["chunk_gather_mlp_dma"]["phase1"] = phase1
-    log(f"{tag} chunk_gather_mlp_dma phase 1 alone (k2_gate_up): "
-        f"{phase1['ms'] * 1e3:.1f} us/launch  bound {phase1['bound_ms'] * 1e3:.2f} us "
-        f"({phase1['bound_by']})  plain {phase1['plain_ms'] * 1e3:.1f} us  ({card})")
+    if n2:
+        timing["chunk_gather_mlp_dma"] = {
+            "ms": cuda_ms(run_k2, 20) / n2, "plain_ms": host_ms(lambda: run_k2(True)) / n2,
+            "library_ms": None, "bound_ms": k2_bound / n2 * 1e3,
+            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S
+            else "operations",
+            "calls": n2, "bytes_per_call": k2_bytes / n2}
+        phase1 = {"ms": cuda_ms(run_gate_up, 20) / n2,
+                  "plain_ms": host_ms(lambda: run_gate_up(True)) / n2,
+                  "bound_ms": g1_bound / n2 * 1e3,
+                  "bound_by": "bytes" if g1_bytes / HBM_BYTES_PER_S >= g1_ops / F32_OPS_PER_S
+                  else "operations"}
+        timing["chunk_gather_mlp_dma"]["phase1"] = phase1
+        log(f"{tag} chunk_gather_mlp_dma phase 1 alone (k2_gate_up): "
+            f"{phase1['ms'] * 1e3:.1f} us/launch  bound {phase1['bound_ms'] * 1e3:.2f} us "
+            f"({phase1['bound_by']})  plain {phase1['plain_ms'] * 1e3:.1f} us  ({card})")
     worst = max(range(lanes), key=lambda i: k5_lanes["walked"][i])
     log(f"{tag} greedy_select over {lanes} lanes: per lane walked mean "
         f"{sum(k5_lanes['walked']) / lanes:.0f} max {k5_lanes['walked'][worst]} (lane {worst}), "
@@ -749,7 +787,8 @@ def main():
     from repro_torch.configs import get_config
 
     done("phases 1-2 (card, build)")
-    kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH))
+    kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH),
+                  [get_config(arch) for arch in DENSE_ARCHS])
     done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
     kernels += vlm_path(dev, get_config(VLM_ARCH), card, report)
     done("phase 7")
@@ -771,6 +810,14 @@ def main():
     kernels += lane_rows(report)
     kernels += slot_path(dev, get_config("tinyllama-1.1b"), card, report)
     done("phase 10, TinyLlama continuous batching")
+    for arch in DENSE_ARCHS:
+        model, params, rows = dense_path(dev, get_config(arch), card, report)
+        kernels += rows
+        done(f"phase 11, {arch}")
+        if arch == WINDOW_ARCH:
+            window_path(dev, model, params, card, report)
+            done(f"phase 11, {arch} rotating window")
+        del model, params
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -827,9 +874,10 @@ def profile_call(fn, what, card):
     return out
 
 
-def run(dev, cfg, card, report, vcfg):
+def run(dev, cfg, card, report, vcfg, dcfgs=()):
     """Phases 3-6 on ``dev`` for ``cfg`` (phase 3 also at the widths of the
-    VLM config ``vcfg``); returns the kernel table. On a CPU device (a
+    VLM config ``vcfg`` and of the dense configs ``dcfgs``); returns the
+    kernel table. On a CPU device (a
     rehearsal of the script's own code at reduced configs) the wrappers take
     their plain versions, so the launch counts are not checked and times are
     host times."""
@@ -1088,6 +1136,7 @@ def run(dev, cfg, card, report, vcfg):
                 f"shared memory ({need_ck} with the checksum lanes; limit "
                 f"{cg.SMEM_LIMIT_BYTES})")
         del wg, wu
+    dense_width_checks(dev, dcfgs, randn, check, failures)
 
     # the reduced model on the card against the same model on the CPU
     rcfg = cfg.reduced()
@@ -2887,6 +2936,336 @@ def vlm_slots(dev, cfg, model, params, card, report):
     report["vlm_slots"] = {b: {"stats": vars(r["stats"]), "launches": r["launches"],
                                "steps": r["steps"], "wall_s": r["wall_s"]}
                            for b, r in runs.items()}
+
+
+
+def dense_width_checks(dev, dcfgs, randn, check, failures):
+    """Phase 3 at the widths of the other dense decoders ``dcfgs``, on
+    tables as wide as their serve path's (d_ff / 8 entries, every site
+    padded to the widest) over runs of 32 rows kept with probability 0.6:
+    K1 over the gelu MLP's w_fc (N = d_model, D = d_ff) and w_proj (N =
+    d_ff, D = d_model), bf16 and int8, depths 0-3, with x pre-masked (the
+    ``project`` path) and with an input mask (K2's phase-2 path; at N =
+    d_ff the per-block input records), and K2 whole at each SwiGLU
+    config's widths, y and h; every launch bitwise against its plain
+    version."""
+    import torch
+
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels.quantize import quantize_rows
+
+    on_card = dev.type == "cuda"
+    depths = range(cg.MAX_PREFETCH_DEPTH + 1)
+    for cfg in dcfgs:
+        d, f, k = cfg.d_model, cfg.d_ff, cfg.d_ff // 8
+
+        def table(n):
+            keep = (randn(n // 32) > -0.25).repeat_interleave(32)
+            s, z = cg.masks_to_block_tables(keep[None], 8, 512)
+            st = torch.zeros(k, dtype=torch.int32, device=dev)
+            sz = torch.zeros_like(st)
+            st[: s.shape[1]], sz[: z.shape[1]] = s[0], z[0]
+            return st, sz, keep.float()
+
+        def stored(n, cols, wname):
+            w = randn(n, cols, std=n ** -0.5)
+            return (w.to(torch.bfloat16), None) if wname == "bf16" else quantize_rows(w, 8)
+
+        for wname in ("bf16", "int8"):
+            if cfg.mlp == "gelu":
+                for site, n, cols in (("w_fc", d, f), ("w_proj", f, d)):
+                    w, sc = stored(n, cols, wname)
+                    st, sz, xmask = table(n)
+                    xk = randn(BATCH, n)
+                    want = cg.chunk_gather_matmul_plain(w, xk * xmask, st, sz, sc)
+                    want_m = cg.chunk_gather_matmul_plain(w, xk, st, sz, sc, xmask)
+                    for depth in depths:
+                        check("chunk_gather_matmul_dma", f"{cfg.name} {site} {wname} d{depth}",
+                              cg.chunk_gather_matmul_dma(w, xk * xmask, st, sz, sc,
+                                                         prefetch_depth=depth), want)
+                        y = cg._launch_k1(w, xk, st, sz, sc, xmask, 512, depth) if on_card \
+                            else want_m
+                        check("chunk_gather_matmul_dma",
+                              f"{cfg.name} {site} masked {wname} d{depth}", y, want_m)
+                    del w, sc
+                continue
+            (wg, sg), (wu, su), (wd, sd) = (stored(d, f, wname), stored(d, f, wname),
+                                            stored(f, d, wname))
+            scales = None if wname == "bf16" else (sg, su, sd)
+            (sh, zh, hmask), (sf, zf, fmask) = table(d), table(f)
+            st, sz = torch.stack([sh, sf]), torch.stack([zh, zf])
+            xk = randn(BATCH, d) * hmask
+            yp, hp = cg.chunk_gather_mlp_plain(wg, wu, wd, xk, st, sz, fmask, scales)
+            for depth in depths:
+                yk, hk = cg.chunk_gather_mlp_dma(wg, wu, wd, xk, st, sz, fmask, scales,
+                                                 prefetch_depth=depth, return_h=True)
+                check("chunk_gather_mlp_dma", f"{cfg.name} y {wname} d{depth}", yk, yp)
+                check("chunk_gather_mlp_dma", f"{cfg.name} h {wname} d{depth}", hk, hp)
+            del wg, wu, wd
+    if dcfgs:
+        log(f"[bitwise] {', '.join(c.name for c in dcfgs)} widths: {check.n} checks so far, "
+            f"{len(failures)} failed")
+
+
+def dense_path(dev, cfg, card, report):
+    """Phase 11, one arch: ``cfg`` at full width and depth, random weights
+    from seed 0, batch BATCH, prompt PROMPT, DECODE decode tokens through
+    ``ServeEngine``, ``--method chunk --sparsity 0.4 --device nano
+    --backend kernel``, at wbits 16 and 8, as phase 4 runs TinyLlama. The
+    launch counts are set to 0 just before each decode and read just after,
+    and must be exact: K1 at q, k, v, o (and the gelu MLP's fc and proj) of
+    every layer each step, K2 at every layer of a SwiGLU MLP, K5 once per
+    refresh step. The first REF_DECODE + 1 tokens must equal the reference
+    backend's (the twin, at full depth). Then, outside the counted runs: the
+    timings as in phase 5 (K1 per site, fc and proj set apart; the plain
+    version per site too), every K1, K2 and K5 call timed bitwise against
+    its plain version, wall per decode step and the profiled idle share.
+    Returns (model, params, the phase's kernel rows)."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine
+
+    on_card = dev.type == "cuda"
+    n_layers = cfg.n_layers
+    gelu_family = cfg.mlp == "gelu"
+    k1_per_layer = 6 if gelu_family else 4
+    tag = f"[dense] {cfg.name}"
+    log(f"{tag}: {n_layers} layers (all), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.norm}, {cfg.mlp} MLP, head {'tied (embed.T)' if cfg.tie_embeddings else 'own'}; "
+        f"random weights from seed 0; batch {BATCH}, prompt {PROMPT}, {DECODE} decode tokens")
+    randn, sync = seeded(dev, 1111)
+    cuda_ms, host_ms = timers(on_card)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("dense", PROMPT, BATCH, "train"), seed=0,
+                             device=dev)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in params["layers"].values())
+    log(f"{tag} weights made in {time.perf_counter() - t0:.1f} s: {n_bytes / 2**30:.2f} GiB "
+        "of layers")
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    check = Checks(("chunk_gather_matmul_dma", "chunk_gather_mlp_dma", "greedy_select"))
+    runs, timing = {}, {}
+    for wbits in (16, 8):
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          backend="kernel", wbits=wbits, torch_device=dev)
+        last = eng.prefill(batch)
+        if not bool(torch.isfinite(last).all()):
+            fail(f"{cfg.name} w{wbits}: prefill logits are not finite")
+        tok0 = torch.argmax(last, dim=-1)[:, None]
+        sync()
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        out = eng.decode(tok0, DECODE)
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        want = {"chunk_gather_matmul_dma": k1_per_layer * n_layers * DECODE,
+                "chunk_gather_mlp_dma": 0 if gelu_family else n_layers * DECODE,
+                "greedy_select": DECODE + TIME_SELECTION_LAUNCHES}
+        if on_card and launches != want:
+            fail(f"{cfg.name} w{wbits}: launch counts {launches} != per-step counts {want}")
+        if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            fail(f"{cfg.name} w{wbits}: bad tokens {out.tolist()}")
+        loop_wall = sum(s.wall_s for s in eng.stats if s.kind == "decode")
+        ref = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          backend="reference", wbits=wbits, torch_device=dev)
+        ref.prefill(batch)
+        out_ref = ref.decode(tok0, REF_DECODE)
+        if not torch.equal(out_ref, out[:, : REF_DECODE + 1]):
+            fail(f"{cfg.name} w{wbits}: kernel tokens {out[:, :REF_DECODE + 1].tolist()} != "
+                 f"reference backend tokens {out_ref.tolist()}")
+        del ref
+        if on_card:
+            torch.cuda.empty_cache()
+        profile = profile_decode(eng, out[:, -1:].to(dev), card) if on_card else {}
+        io = eng.io_summary()
+        timing[wbits], calls = decode_timings(eng, wbits, randn, cuda_ms, host_ms, card,
+                                              f"{tag} w{wbits}")
+        sites = timing[wbits]["chunk_gather_matmul_dma"]["per_site"]
+        for site in sites:
+            sub = [c for c, n in zip(calls["k1"], calls["k1_sites"]) if n == site]
+            sites[site]["plain_ms"] = host_ms(lambda: [cg.chunk_gather_matmul_plain(*c)
+                                                       for c in sub]) / len(sub)
+        log(f"{tag} w{wbits} chunk_gather_matmul_dma plain version per site: " + "  ".join(
+            f"{k} {v['plain_ms'] * 1e3:.1f} us" for k, v in sites.items()) + f"  ({card})")
+        for i, (name, (w, xm, s, z, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
+            check("chunk_gather_matmul_dma", f"{cfg.name} w{wbits} L{i // k1_per_layer} {name}",
+                  cg.chunk_gather_matmul_dma(w, xm, s, z, sc),
+                  cg.chunk_gather_matmul_plain(w, xm, s, z, sc))
+        for layer, (wg, wu, wd, xm, s, z, fm, scs) in enumerate(calls["k2"]):
+            yk, hk = cg.chunk_gather_mlp_dma(wg, wu, wd, xm, s, z, fm, scs, return_h=True)
+            yp, hp = cg.chunk_gather_mlp_plain(wg, wu, wd, xm, s, z, fm, scs)
+            check("chunk_gather_mlp_dma", f"{cfg.name} w{wbits} L{layer} y", yk, yp)
+            check("chunk_gather_mlp_dma", f"{cfg.name} w{wbits} L{layer} h", hk, hp)
+        for args in calls["k5"]:
+            for got, want_ in zip(chunking.greedy_select(*args),
+                                  chunking.greedy_select_plain(*args)):
+                check("greedy_select", f"{cfg.name} w{wbits} {args[0].shape[0]} lanes", got,
+                      want_)
+        if check.failures:
+            for msg in check.failures:
+                log(f"{tag} {msg}")
+            fail(f"{len(check.failures)} phase-11 kernel checks failed ({cfg.name})")
+        runs[wbits] = {"launches": launches, "loop_wall_s": loop_wall,
+                       "wall_per_step_s": loop_wall / DECODE,
+                       "tokens_per_s": BATCH * DECODE / loop_wall, "profile": profile,
+                       "io_bytes": io["io_bytes"], "io_sim_s": io["io_sim_s"],
+                       "tokens": out.tolist()}
+        log(f"{tag} w{wbits} served: {loop_wall / DECODE * 1e3:.2f} ms/step "
+            f"({BATCH * DECODE / loop_wall:.2f} tokens/s), io_bytes {io['io_bytes'] / 1e6:.1f} "
+            f"MB, launches {launches} (exact), first {REF_DECODE + 1} tokens identical to the "
+            f"reference backend  ({card})")
+        for k, v in timing[wbits].items():
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"{tag} w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} us "
+                f"({v['bound_by']})  ({card})")
+        del eng, calls
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"{tag}: {check.n} bitwise checks (every K1, K2 and K5 call timed), max abs err "
+        + ", ".join(f"{k} {v:.1e}" for k, v in check.errs.items()))
+    report.setdefault("dense", {})[cfg.name] = {
+        "config": dataclasses.asdict(cfg), "runs": runs, "timing": timing,
+        "errs": check.errs, "n_checks": check.n}
+    meta = {
+        "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                    "src/repro/kernels/chunk_gather_dma.py:284"),
+        "chunk_gather_mlp_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                 "src/repro/kernels/chunk_gather_dma.py:617"),
+        "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
+                          "src/repro/core/chunking.py:362"),
+    }
+    return model, params, [
+        {"name": f"{name} [{cfg.name}, {n_layers} layers]", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": runs[16]["launches"][name],
+         "max_abs_err": check.errs[name], "ms": timing[16][name]["ms"],
+         "plain_ms": timing[16][name]["plain_ms"], "bound_ms": timing[16][name]["bound_ms"],
+         "bound_by": timing[16][name]["bound_by"], "library_ms": timing[16][name]["library_ms"]}
+        for name, (source, replaces) in meta.items() if name in timing[16]]
+
+
+def window_path(dev, model, params, card, report, max_seq=None, prompt_len=None,
+                n_decode=None):
+    """Phase 11, the rotating window on ``dense_path``'s weights: a cache for
+    ``max_seq`` (WINDOW_MAX_SEQ) positions — past the window threshold, so
+    it holds ``sliding_window`` positions — filled by a prompt of
+    ``prompt_len`` (WINDOW_PROMPT) tokens, longer than the window (rolled
+    into the cache) and than ``BLOCKWISE_THRESHOLD`` (the blockwise
+    attention, windowed). Then ``n_decode`` (WINDOW_DECODE) teacher-forced
+    dense decode steps, the last step's logits against ``stack_forward``
+    over every position with the window, within LONG_TOL of their largest
+    magnitude; then a serve of ``n_decode`` tokens on the kernel backend
+    (launch counts from 0, exact) whose first REF_DECODE + 1 tokens equal
+    the reference backend's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.model import effective_window
+    from repro_torch.serving import ServeEngine
+
+    cfg = model.cfg
+    max_seq = max_seq or WINDOW_MAX_SEQ
+    prompt_len = prompt_len or WINDOW_PROMPT
+    n_decode = n_decode or WINDOW_DECODE
+    on_card = dev.type == "cuda"
+    window = effective_window(cfg, max_seq)
+    if not window or prompt_len <= max(window, attention.BLOCKWISE_THRESHOLD):
+        fail(f"window: max_seq {max_seq} and a {prompt_len}-token prompt do not engage "
+             f"and roll the window ({window})")
+    _, sync = seeded(dev, 0)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (BATCH, prompt_len + n_decode))).to(dev)
+    prompt = {"tokens": tokens[:, :prompt_len]}
+    sync()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, prompt, max_seq)
+    sync()
+    prefill_wall = time.perf_counter() - t0
+    if cache["k"].shape[2] != window or cache["length"] != prompt_len \
+            or not bool(torch.isfinite(last).all()):
+        fail(f"window: prefill gave a cache of {cache['k'].shape[2]} positions, length "
+             f"{cache['length']}, or non-finite logits")
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        logits, _ = model.decode_step_planned(
+            params, tokens[:, prompt_len + i: prompt_len + i + 1], cache)
+    sync()
+    decode_wall = time.perf_counter() - t0
+    del cache
+    # the windowed forward over every position
+    s = prompt_len + n_decode
+    x = params["embed"][tokens].to(torch.bfloat16)
+    positions = torch.arange(s, device=dev)[None].expand(BATCH, s)
+    hidden = transformer.stack_forward(params["layers"], x, cfg, positions, window)
+    want = model.logits(params, model.final_norm(params, hidden[:, -1])).float()
+    del x, hidden
+    diff = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    same_argmax = bool(torch.equal(logits.argmax(-1), want.argmax(-1)))
+    if not diff <= LONG_TOL * scale:
+        fail(f"window: the decode's last logits differ from the windowed forward's by "
+             f"{diff:.4f} (max |logit| {scale:.3f}, tolerance {LONG_TOL:.0%} of it)")
+    log(f"[window] {cfg.name}, batch {BATCH}: max_seq {max_seq} → a rotating cache of "
+        f"{window} positions; a {prompt_len}-token prompt rolled in ({prefill_wall * 1e3:.0f} "
+        f"ms), {n_decode} teacher-forced dense decode steps ({decode_wall / n_decode * 1e3:.1f} "
+        f"ms/step): last logits vs the windowed forward over {s} positions max abs diff "
+        f"{diff:.4f} (max |logit| {scale:.3f}, tolerance {LONG_TOL:.0%} of it; argmax equal: "
+        f"{same_argmax})  ({card})")
+
+    # served on the kernel backend, against the twin
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    eng = ServeEngine(model, params, max_seq=max_seq, batch_size=BATCH, method="chunk",
+                      backend="kernel", wbits=16, torch_device=dev)
+    last = eng.prefill(prompt)
+    tok0 = torch.argmax(last, dim=-1)[:, None]
+    sync()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    out = eng.decode(tok0, n_decode)
+    launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+    gelu_family = cfg.mlp == "gelu"
+    want_launches = {
+        "chunk_gather_matmul_dma": (6 if gelu_family else 4) * cfg.n_layers * n_decode,
+        "chunk_gather_mlp_dma": 0 if gelu_family else cfg.n_layers * n_decode,
+        "greedy_select": n_decode + TIME_SELECTION_LAUNCHES}
+    if on_card and launches != want_launches:
+        fail(f"window: launch counts {launches} != per-step counts {want_launches}")
+    if eng.cache["k"].shape[2] != window or eng.cache["length"] != prompt_len + n_decode:
+        fail(f"window: the served cache holds {eng.cache['k'].shape[2]} positions, length "
+             f"{eng.cache['length']}")
+    loop_wall = sum(st.wall_s for st in eng.stats if st.kind == "decode")
+    del eng
+    ref = ServeEngine(model, params, max_seq=max_seq, batch_size=BATCH, method="chunk",
+                      backend="reference", wbits=16, torch_device=dev)
+    ref.prefill(prompt)
+    out_ref = ref.decode(tok0, REF_DECODE)
+    del ref
+    if not torch.equal(out_ref, out[:, : REF_DECODE + 1]):
+        fail(f"window: kernel tokens {out[:, :REF_DECODE + 1].tolist()} != reference backend "
+             f"tokens {out_ref.tolist()}")
+    log(f"[window] served on the kernel backend: {loop_wall / n_decode * 1e3:.2f} ms/step, "
+        f"launches {launches} (exact), first {REF_DECODE + 1} tokens identical to the "
+        f"reference backend  ({card})")
+    report["window"] = {"arch": cfg.name, "max_seq": max_seq, "window": window,
+                        "prompt": prompt_len, "decode": n_decode, "max_abs_diff": diff,
+                        "max_abs_logit": scale, "same_argmax": same_argmax,
+                        "prefill_wall_s": prefill_wall, "dense_decode_wall_per_step_s":
+                        decode_wall / n_decode, "served_wall_per_step_s": loop_wall / n_decode,
+                        "launches": launches, "tokens": out.tolist()}
 
 
 if __name__ == "__main__":

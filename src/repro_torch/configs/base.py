@@ -22,10 +22,12 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
     rope_theta: Optional[float] = 10000.0
-    norm: str = "rmsnorm"
-    mlp: str = "swiglu"
-    tie_embeddings: bool = False
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    mlp: str = "swiglu"  # swiglu | gelu
+    tie_embeddings: bool = False  # the head is embed.T
     n_experts: int = 0
+    # rotating-window KV cache, engaged past WINDOW_ENGAGE_THRESHOLD
+    # positions (models/model.py); reduced() keeps it
     sliding_window: Optional[int] = None
     # VLM frontend: the vision embedding width fed to the projector, and the
     # tokens of one frame

@@ -5,9 +5,13 @@ frame-append paths use).
 Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
 positions the direct (materialized-scores) attention, above it the
 blockwise online-softmax attention, whose score memory is one (block_q,
-block_kv) tile per head. The sequence-sharded path and rotating windows
-come with later slices. The cache is updated in place (PyTorch idiom; the
-reference returns new arrays).
+block_kv) tile per head; either masks keys outside a sliding ``window``.
+The sequence-sharded path comes with a later slice. The cache is updated
+in place (PyTorch idiom; the reference returns new arrays).
+
+A rotating-window cache (``CacheSpec.window``) holds ``min(max_seq,
+window)`` positions: a decode step writes position p at slot ``p % P``,
+and once full every slot is valid — the last P positions.
 
 The decode functions take the cache length as a host ``int`` (one stream
 of lockstep rows) or as an int32 ``(b,)`` tensor on the device (slot mode:
@@ -110,11 +114,13 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
                          n_kv_heads: int, head_dim: int,
                          positions: Optional[torch.Tensor] = None,
                          rope_theta: Optional[float] = 10000.0,
-                         blockwise_threshold: Optional[int] = None) -> torch.Tensor:
+                         blockwise_threshold: Optional[int] = None,
+                         window: Optional[int] = None) -> torch.Tensor:
     """Causal self-attention sublayer (projections + attention): (b, s, d)
     → (b, s, d). Above ``blockwise_threshold`` positions (None: the module's
     ``BLOCKWISE_THRESHOLD``, read at call time) the blockwise online-softmax
-    attention, else the direct one, as in the reference."""
+    attention, else the direct one, as in the reference. ``window``: each
+    query sees only the keys of its last ``window`` positions."""
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
@@ -130,26 +136,31 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
     if blockwise_threshold is None:
         blockwise_threshold = BLOCKWISE_THRESHOLD
     if max(s, sk) > blockwise_threshold:
-        out = _blockwise_attention(q, k, v, sk - s, True)
+        out = _blockwise_attention(q, k, v, sk - s, True, window)
     else:
         qi = torch.arange(s, device=x.device)[:, None] + (sk - s)
         kj = torch.arange(sk, device=x.device)[None, :]
-        out = _direct_attention(q, k, v, kj <= qi)
+        mask = kj <= qi
+        if window is not None:
+            mask = mask & (kj > qi - window)
+        out = _direct_attention(q, k, v, mask)
     return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
 
 
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """Static geometry of one layer's KV cache (linear: no window)."""
+    """Static geometry of one layer's KV cache; ``window`` caps the physical
+    length (rotating writes)."""
 
     batch: int
     max_seq: int
     n_kv_heads: int
     head_dim: int
+    window: Optional[int] = None
 
     @property
     def physical_len(self) -> int:
-        return self.max_seq
+        return min(self.max_seq, self.window) if self.window else self.max_seq
 
 
 def init_kv_cache(spec: CacheSpec, n_layers: int, dtype, device=None) -> Dict:
@@ -233,18 +244,21 @@ def _decode_positions(length: Length, b: int, device) -> torch.Tensor:
 
 
 def cache_layer_update(layer_k: torch.Tensor, layer_v: torch.Tensor, new_k: torch.Tensor,
-                       new_v: torch.Tensor, length: Length) -> None:
-    """Write one decode step's (b, 1, kv, hd) entries at ``length`` in place
-    (clamped to the last slot once full, like the reference). A (b,)
+                       new_v: torch.Tensor, length: Length,
+                       window: Optional[int] = None) -> None:
+    """Write one decode step's (b, 1, kv, hd) entries at ``length`` in place:
+    at slot ``length % P`` with a ``window`` (the rotating cache), else
+    clamped to the last slot once full, like the reference. A (b,)
     ``length`` writes each row at its own position, on the device."""
     phys = layer_k.shape[1]
     if isinstance(length, torch.Tensor):
         rows = torch.arange(layer_k.shape[0], device=layer_k.device)
-        slot = torch.clamp(length, max=phys - 1).to(torch.int64)
+        slot = (torch.remainder(length, phys) if window
+                else torch.clamp(length, max=phys - 1)).to(torch.int64)
         layer_k[rows, slot] = new_k[:, 0]
         layer_v[rows, slot] = new_v[:, 0]
         return
-    slot = min(length, phys - 1)
+    slot = length % phys if window else min(length, phys - 1)
     layer_k[:, slot] = new_k[:, 0]
     layer_v[:, slot] = new_v[:, 0]
 
@@ -264,11 +278,13 @@ def project_kv_for_decode(k: torch.Tensor, v: torch.Tensor, n_kv_heads: int, hea
 
 def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
                      length: Length, n_heads: int, n_kv_heads: int, head_dim: int,
-                     rope_theta: Optional[float], out_dtype) -> torch.Tensor:
+                     rope_theta: Optional[float], out_dtype,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Single-token attention of a precomputed q projection (b, 1, h*hd)
     against the cache; ``length`` counts the current token (a (b,) tensor:
-    each row's own count). Returns the pre-o-projection (b, 1, h*hd) in
-    ``out_dtype``."""
+    each row's own count). With a ``window`` the cache rotates: its slots
+    hold the last ``min(length, P)`` positions. Returns the
+    pre-o-projection (b, 1, h*hd) in ``out_dtype``."""
     b = q.shape[0]
     phys = layer_k.shape[1]
     q = q.reshape(b, 1, n_heads, head_dim)
@@ -281,9 +297,10 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
                           k.to(torch.float32)) * head_dim ** -0.5
     slot = torch.arange(phys, device=q.device)
     if isinstance(length, torch.Tensor):
-        valid = (slot[None, :] < length[:, None])[:, None, None, :]
+        filled = torch.clamp(length, max=phys) if window else length
+        valid = (slot[None, :] < filled[:, None])[:, None, None, :]
     else:
-        valid = (slot < length)[None, None, None, :]
+        valid = (slot < (min(length, phys) if window else length))[None, None, None, :]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32)).to(out_dtype)

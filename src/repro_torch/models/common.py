@@ -1,4 +1,4 @@
-"""Shared model building blocks: norms, RoPE, activation (the port's copy
+"""Shared model building blocks: norms, RoPE, activations (the port's copy
 of ``repro.models.common``; params are plain dicts of tensors)."""
 from __future__ import annotations
 
@@ -11,6 +11,23 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.to(torch.float32)).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with a bias, in f32 and cast back (the reference's
+    biased variance)."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32) + bias.to(torch.float32)).to(dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of gelu (``jax.nn.gelu``'s default)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ path the plan of every layer is refreshed once, before the loop
 (``SparseExecution.refresh_step``: one selection over all layers' sites),
 and every sparsification site computes through the execution backend off
 the plan's chunk tables: q/k/v and o through ``backend.project`` (K1 on the
-kernel backend), the MLP through ``backend.swiglu_mlp`` (K2). With
+kernel backend), the SwiGLU MLP through ``backend.swiglu_mlp`` (K2), the
+non-gated gelu MLP (StarCoder2) through two ``backend.project`` calls (K1
+on w_fc, then on w_proj). The norms are RMSNorm or LayerNorm with biases by
+``cfg.norm`` (``apply_norm``). With
 corruption injection the refresh verifies the streamed payloads against
 their ``_ck`` lanes (``_integrity_weights``), the kernels fetch those lanes
 beside the payloads, and with recovery off the refresh's damaged rows are
@@ -25,10 +28,15 @@ In slot mode the decode's ``cache["length"]`` is an int32 (b,) device
 tensor (each row its own request); with a paged cache every layer gathers
 its dense view through the page table, decodes on it, and scatters the new
 entry back (``attention.gather_paged_kv`` / ``scatter_paged_kv``).
+
+With a sliding ``window`` the prefill's attention masks keys older than the
+window and the cache is a rotating one of ``phys_len`` positions: the
+prefill keeps the prompt's last ``phys_len`` positions at slot ``pos %
+phys_len``, and each decode step writes at ``length % phys_len``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -44,21 +52,38 @@ from .attention import (
     project_kv_for_decode,
     scatter_paged_kv,
 )
-from .common import apply_rope, rms_norm, swish
-from .mlp import swiglu_mlp, swiglu_mlp_planned
+from .common import apply_rope, gelu, layer_norm, rms_norm, swish
+from .mlp import gelu_mlp, gelu_mlp_planned, swiglu_mlp, swiglu_mlp_planned
 
 # the offloaded per-layer matrices governed by sparsification — the set the
-# engine quantizes at wbits=8
-SPARSE_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# engine quantizes at wbits=8; names absent from a family are skipped
+SPARSE_WEIGHT_NAMES = (
+    "wq", "wk", "wv", "wo",
+    "w_gate", "w_up", "w_down",  # swiglu family
+    "w_fc", "w_proj",  # non-gated gelu family
+)
 
 
 def site_matrix_names(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
-    """Which stored matrices stream through each sparsification site."""
+    """Which stored matrices stream through each sparsification site, in
+    site matrix order (the gelu family's hidden_mlp site streams one
+    matrix, w_fc)."""
     names = {"hidden_attn": ("wq", "wk", "wv"), "attn_out": ("wo",)}
     if cfg.d_ff and not cfg.has_moe:
-        names["hidden_mlp"] = ("w_gate", "w_up")
-        names["ffn"] = ("w_down",)
+        if cfg.mlp == "gelu":
+            names["hidden_mlp"] = ("w_fc",)
+            names["ffn"] = ("w_proj",)
+        else:
+            names["hidden_mlp"] = ("w_gate", "w_up")
+            names["ffn"] = ("w_down",)
     return names
+
+
+def apply_norm(x: torch.Tensor, params, cfg: ModelConfig, name: str) -> torch.Tensor:
+    """The block's ``name`` norm: LayerNorm (weight and bias) or RMSNorm."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, params[f"{name}_w"], params[f"{name}_b"])
+    return rms_norm(x, params[f"{name}_w"])
 
 
 def layer_slice(stacked: Dict[str, torch.Tensor], layer: int) -> Dict[str, torch.Tensor]:
@@ -98,53 +123,76 @@ def _site_mask(sparse_ctx, kind: str, acts: torch.Tensor):
     return sparse_ctx.mask(kind, acts)
 
 
-def _mlp_maybe_sparse(h: torch.Tensor, params, sparse_ctx):
-    """SwiGLU with the paper's gate(+up-shared) and down masks selected in
-    the step (the unplanned paths). Returns (y, estimated I/O seconds)."""
+def _dense_mlp(h: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
+    return gelu_mlp(h, params) if cfg.mlp == "gelu" else swiglu_mlp(h, params)
+
+
+def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
+    """The MLP (SwiGLU, or the gelu family's with biases, added in the
+    compute dtype) with the paper's hidden (gate+up-shared) and ffn masks
+    selected in the step (the unplanned paths). Returns (y, estimated I/O
+    seconds)."""
     if sparse_ctx is None:
-        return swiglu_mlp(h, params), 0.0
+        return _dense_mlp(h, params, cfg), 0.0
     mask_g, io_g = _site_mask(sparse_ctx, "hidden_mlp", h)
     hm = _apply_mask(h, mask_g)
+    if cfg.mlp == "gelu":
+        mid = gelu(hm @ params["w_fc"] + params["b_fc"])
+        mask_f, io_f = _site_mask(sparse_ctx, "ffn", mid)
+        y = _apply_mask(mid, mask_f) @ params["w_proj"] + params["b_proj"]
+        return y, io_g + io_f
     mid = swish(hm @ params["w_gate"]) * (hm @ params["w_up"])
     mask_f, io_f = _site_mask(sparse_ctx, "ffn", mid)
     return _apply_mask(mid, mask_f) @ params["w_down"], io_g + io_f
 
 
-def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  window: Optional[int] = None, phys_len: Optional[int] = None):
     """Dense block over a full sequence; returns (x_out, k, v) where k/v are
     this layer's cache fill (k roped). Above ``BLOCKWISE_THRESHOLD``
-    positions the attention is the blockwise one, as in the reference."""
+    positions the attention is the blockwise one, as in the reference;
+    ``window`` masks keys older than the window. With a ``phys_len``
+    shorter than the sequence, k/v keep its last ``phys_len`` positions,
+    rolled so that position p sits at slot ``p % phys_len`` (the rotating
+    cache's layout)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h = rms_norm(x, params["ln1_w"])
+    h = apply_norm(x, params, cfg, "ln1")
     k = (h @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = (h @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.rope_theta is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
+    if phys_len is not None and phys_len < s:
+        roll = s % phys_len
+        k = torch.roll(k[:, -phys_len:], shifts=roll, dims=1)
+        v = torch.roll(v[:, -phys_len:], shifts=roll, dims=1)
     x = x + multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads, hd,
-                                 positions=positions, rope_theta=cfg.rope_theta)
-    x = x + swiglu_mlp(rms_norm(x, params["ln2_w"]), params)
+                                 positions=positions, rope_theta=cfg.rope_theta,
+                                 window=window)
+    x = x + _dense_mlp(apply_norm(x, params, cfg, "ln2"), params, cfg)
     return x, k, v
 
 
 def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                  cache: Dict[str, Any]) -> torch.Tensor:
-    """Run every layer over the prompt, filling ``cache`` in place."""
+                  cache: Dict[str, Any], window: Optional[int] = None) -> torch.Tensor:
+    """Run every layer over the prompt, filling ``cache`` in place (its
+    physical length is the ``phys_len`` of a rotating cache)."""
     s = x.shape[1]
+    phys = cache["k"].shape[2]
     for layer in range(cfg.n_layers):
-        x, k, v = block_prefill(layer_slice(stacked, layer), x, cfg, positions)
-        cache["k"][layer, :, :s] = k
-        cache["v"][layer, :, :s] = v
+        x, k, v = block_prefill(layer_slice(stacked, layer), x, cfg, positions, window, phys)
+        cache["k"][layer, :, :k.shape[1]] = k
+        cache["v"][layer, :, :v.shape[1]] = v
     cache["length"] = s
     return x
 
 
-def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor) -> torch.Tensor:
+def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  window: Optional[int] = None) -> torch.Tensor:
     """Every layer over a whole sequence, no cache (the reference's
     ``stack_forward`` without a sparse context)."""
     for layer in range(cfg.n_layers):
-        x, _, _ = block_prefill(layer_slice(stacked, layer), x, cfg, positions)
+        x, _, _ = block_prefill(layer_slice(stacked, layer), x, cfg, positions, window)
     return x
 
 
@@ -154,7 +202,7 @@ def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
     place at ``length …``. With a sparse context every site selects its
     mask from this frame's activations. Returns (x_out, estimated I/O
     seconds)."""
-    h = rms_norm(x, params["ln1_w"])
+    h = apply_norm(x, params, cfg, "ln1")
     mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
     attn = append_attention(_apply_mask(h, mask_q), params, layer_k, layer_v, length,
                             cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -164,7 +212,7 @@ def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         io = io + lat
         attn = _apply_mask(attn, mask_o) @ params["wo"]
     x = x + attn
-    y, lat = _mlp_maybe_sparse(rms_norm(x, params["ln2_w"]), params, sparse_ctx)
+    y, lat = _mlp_maybe_sparse(apply_norm(x, params, cfg, "ln2"), params, cfg, sparse_ctx)
     return x + y, io + lat
 
 
@@ -186,25 +234,36 @@ def stack_append(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     return x, io
 
 
-def _planned_mlp(h, params, sparse_ctx, plan, layer: int) -> torch.Tensor:
+def _planned_mlp(h, params, cfg: ModelConfig, sparse_ctx, plan, layer: int) -> torch.Tensor:
     """Planned-decode sparse MLP: read this layer's masks and tables, run
-    the backend's fused SwiGLU, record both MLP sites' importances for the
-    next refresh."""
+    the backend's fused SwiGLU (or the gelu family's two projections),
+    record both MLP sites' importances for the next refresh. Quantized
+    when the first MLP matrix has its int8 payload at wbits 8."""
     mask_g = plan["hidden_mlp"]["mask"][layer]
     mask_f = plan["ffn"]["mask"][layer]
     sparse_ctx.record_importance("hidden_mlp", h, plan, layer)
-    starts, sizes = sparse_ctx.mlp_kernel_plan(plan, layer)
-    y, mid = swiglu_mlp_planned(h, params, sparse_ctx.backend, mask_g, mask_f, starts, sizes,
-                                quantized=sparse_ctx.wbits == 8)
+    gelu_family = cfg.mlp == "gelu"
+    first = "w_fc" if gelu_family else "w_gate"
+    quantized = sparse_ctx.wbits == 8 and first + QUANT_SUFFIX_PAYLOAD in params
+    if gelu_family:
+        y, mid = gelu_mlp_planned(h, params, sparse_ctx.backend, mask_g, mask_f,
+                                  sparse_ctx.kernel_tables(plan, "hidden_mlp", layer),
+                                  sparse_ctx.kernel_tables(plan, "ffn", layer),
+                                  quantized=quantized)
+    else:
+        starts, sizes = sparse_ctx.mlp_kernel_plan(plan, layer)
+        y, mid = swiglu_mlp_planned(h, params, sparse_ctx.backend, mask_g, mask_f, starts,
+                                    sizes, quantized=quantized)
     sparse_ctx.record_importance("ffn", mid, plan, layer)
     return y
 
 
 def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
                  length: Length, cfg: ModelConfig, sparse_ctx=None, plan=None,
-                 layer: int = 0):
+                 layer: int = 0, window: Optional[int] = None):
     """One decode token through one layer. ``length``: tokens in the cache
-    before this one (a host int, or each slot's in a (b,) tensor). With a sparse context and a decode plan (the planned
+    before this one (a host int, or each slot's in a (b,) tensor); a
+    ``window`` makes the cache a rotating one. With a sparse context and a decode plan (the planned
     path, already refreshed for this step by ``stack_decode``) every site
     computes through the execution backend off the plan's tables; with a
     sparse context and an empty plan (method ``dense``) each site takes
@@ -215,7 +274,7 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
     b = x.shape[0]
     planned = sparse_ctx is not None and bool(plan)
     io = 0.0
-    h = rms_norm(x, params["ln1_w"])
+    h = apply_norm(x, params, cfg, "ln1")
     if planned:
         mask_q = plan["hidden_attn"]["mask"][layer]
         sparse_ctx.record_importance("hidden_attn", h, plan, layer)
@@ -233,9 +292,9 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         h = _apply_mask(h, mask_q)
         q, k, v = (h @ params[name] for name in ("wq", "wk", "wv"))
     new_k, new_v = project_kv_for_decode(k, v, cfg.n_kv_heads, hd, length, cfg.rope_theta)
-    cache_layer_update(layer_k, layer_v, new_k, new_v, length)
+    cache_layer_update(layer_k, layer_v, new_k, new_v, length, window)
     attn = decode_attention(q, layer_k, layer_v, length + 1, cfg.n_heads, cfg.n_kv_heads, hd,
-                            cfg.rope_theta, x.dtype)
+                            cfg.rope_theta, x.dtype, window)
     if planned:
         mask_o = plan["attn_out"]["mask"][layer]
         sparse_ctx.record_importance("attn_out", attn, plan, layer)
@@ -249,19 +308,21 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         io = io + lat
         attn = _apply_mask(attn, mask_o) @ params["wo"]
     x = x + attn
-    h = rms_norm(x, params["ln2_w"])
+    h = apply_norm(x, params, cfg, "ln2")
     if planned:
-        return x + _planned_mlp(h, params, sparse_ctx, plan, layer), io
-    y, lat = _mlp_maybe_sparse(h, params, sparse_ctx)
+        return x + _planned_mlp(h, params, cfg, sparse_ctx, plan, layer), io
+    y, lat = _mlp_maybe_sparse(h, params, cfg, sparse_ctx)
     return x + y, io + lat
 
 
 def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
-                 sparse_ctx=None, plan=None, refresh: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                 sparse_ctx=None, plan=None, refresh: bool = True,
+                 window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode token through every layer; the cache (and plan) update in
     place and ``cache["length"]`` advances by one (every slot's, free ones
     too, as in the reference). A paged cache is decoded layer by layer
-    through dense views of its pools. On the planned path the
+    through dense views of its pools (never with a ``window``, which makes
+    the dense cache a rotating one). On the planned path the
     plan of every layer is refreshed first, in one selection
     (``refresh_step``; a refresh of layer l reads only the importances
     layer l recorded on the previous step). Returns (x, io (L,)) — the
@@ -283,13 +344,15 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     else:
         io = torch.zeros((cfg.n_layers,), dtype=torch.float32, device=x.device)
     table = cache.get("page_table")
+    if table is not None and window is not None:
+        raise ValueError("paged KV does not compose with sliding windows")
     try:
         for layer in range(cfg.n_layers):
             layer_k, layer_v = cache["k"][layer], cache["v"][layer]
             if table is not None:
                 layer_k, layer_v = gather_paged_kv(layer_k, table), gather_paged_kv(layer_v, table)
             x, lat = block_decode(layer_slice(stacked, layer), x, layer_k, layer_v, length, cfg,
-                                  sparse_ctx, plan, layer)
+                                  sparse_ctx, plan, layer, window)
             if table is not None:
                 scatter_paged_kv(cache["k"][layer], layer_k, table, length)
                 scatter_paged_kv(cache["v"][layer], layer_v, table, length)

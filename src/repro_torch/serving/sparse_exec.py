@@ -357,7 +357,11 @@ class SparseExecution:
 
     def site_matrix_count(self, kind: str) -> int:
         """How many stored matrices stream through a site (the width of its
-        integrity lanes): q/k/v, gate/up, else one."""
+        integrity lanes): q/k/v, gate/up, else one — the gelu family's
+        hidden_mlp streams w_fc alone, though ``decode_site_shapes`` prices
+        it as two lanes of d_ff columns, as the reference does."""
+        if kind == "hidden_mlp" and self.cfg.mlp == "gelu":
+            return 1
         return {"hidden_attn": 3, "hidden_mlp": 2}.get(kind, 1)
 
     def apply_corruption(self, plan, layers, names) -> list:
