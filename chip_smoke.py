@@ -123,10 +123,21 @@ Phases, each of which fails the run on error:
      prompt rolled in, 16 teacher-forced dense decode steps against a
      windowed forward over all positions (LONG_TOL), and a kernel-backend
      serve against the reference backend's tokens.
+ 12. the mixture-of-experts decoders at full width: olmoe-1b-7b at all 16
+     layers (64 experts top-8, d_ff 1024) and llama4-scout-17b-a16e at 8
+     of its 48 layers (16 experts top-1 + the shared expert, d_ff 8192,
+     d_frontend 1408; all 48 layers' 215 GB of bf16 do not fit one card):
+     K1 bitwise at the attention sites' widths; then, as phase 11 serves
+     its archs, a prompt of PROMPT tokens (Scout: half vision, then
+     MOE_FRAMES frames), DECODE decode tokens at wbits 16 and 8 — exact
+     launch counts (K1 4 a layer a step, K2 none: a MoE layer has no MLP
+     sites), tokens equal to the reference backend's, every K1/K5 call
+     timed held bitwise, wall and idle share a step; and the MoE FFN at the
+     decode's shape, device µs a layer beside its HBM bound.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
-10's slot rows, phase 11's rows per arch), then,
+10's slot rows, phase 11's and phase 12's rows per arch), then,
 as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
@@ -147,6 +158,8 @@ OUT = ROOT / "chiprun_out"
 # the tensor cores (the kernels contract in fp32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense bf16 on the tensor cores (the MoE's batched expert products)
+BF16_OPS_PER_S = 989e12
 
 BATCH, PROMPT, DECODE, REF_DECODE, PROFILE_TOKENS = 2, 32, 16, 4, 4
 # phase 6: rows of activations a plan sees, the sparsity, and the output
@@ -211,6 +224,16 @@ VLM_SLOTS, VLM_REQUESTS, VLM_SLOT_NEW = 4, 8, 8
 # BLOCKWISE_THRESHOLD), WINDOW_DECODE decode steps
 DENSE_ARCHS, WINDOW_ARCH = ("starcoder2-7b", "granite-3-2b"), "starcoder2-7b"
 WINDOW_MAX_SEQ, WINDOW_PROMPT, WINDOW_DECODE = 65_600, 4_160, 16
+
+
+# phase 12: the mixture-of-experts decoders at full width, (arch, layers
+# kept): OLMoE-1B-7B whole (13.8 GB of bf16); Llama-4-Scout cut to 8 of its
+# 48 layers (a layer is 4.4 GB of bf16 and embed + head 4.1 GB: 8 layers
+# take ~39 GB, all 48 ~215 GB, over one card's 80). Scout's prompt is half
+# vision, then MOE_FRAMES frames of frontend_tokens // 4 tokens; max_seq
+# MOE_MAX_SEQ
+MOE_ARCHS = (("olmoe-1b-7b", None), ("llama4-scout-17b-a16e", 8))
+MOE_FRAMES, MOE_MAX_SEQ = 3, 256
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -334,7 +357,7 @@ def decode_timings(eng, wbits, randn, cuda_ms, host_ms, card, tag, batch=BATCH):
             k1_bound += max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
             k1_sites.append(name)
             k1_bounds.append(max(byts / HBM_BYTES_PER_S, ops / F32_OPS_PER_S))
-        if gelu_family:
+        if gelu_family or cfg.has_moe:  # no K2: the MLP is K1's, or a MoE layer's
             continue
         ws = [lp[n][layer] if wbits == 16 else lp[n + "_q8"][layer]
               for n in ("w_gate", "w_up", "w_down")]
@@ -818,6 +841,9 @@ def main():
             window_path(dev, model, params, card, report)
             done(f"phase 11, {arch} rotating window")
         del model, params
+    for arch, n_layers in MOE_ARCHS:
+        kernels += moe_path(dev, get_config(arch), n_layers, card, report)
+        done(f"phase 12, {arch}")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -831,11 +857,11 @@ def profile_decode(eng, token, card):
                         f"{PROFILE_TOKENS} steps", card)
 
 
-def profile_call(fn, what, card):
-    """A profiled ``fn()`` (it ends in a host sync): device time by kernel,
-    the device's busy share of the call's wall, and the host ops that take
-    the most time. The profiler's own overhead inflates the wall, so the
-    shares are of the profiled call."""
+def profiled(fn):
+    """``fn()`` (ending in a host sync) under ``torch.profiler``: (wall µs,
+    {device event: µs}, {host op: (self µs, count)}). The device's own
+    events (kernels, copies) are each counted once: an aten op's device
+    time is its kernels', listed under them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -847,14 +873,21 @@ def profile_call(fn, what, card):
     kernels, cpu_ops = {}, {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            # the device's own events (kernels, copies), each counted once:
-            # an aten op's device time is its kernels', listed under them
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us
         elif ev.self_cpu_time_total > 0:
             cpu_ops[ev.key] = (ev.self_cpu_time_total, ev.count)
+    return wall_us, kernels, cpu_ops
+
+
+def profile_call(fn, what, card):
+    """A profiled ``fn()`` (it ends in a host sync): device time by kernel,
+    the device's busy share of the call's wall, and the host ops that take
+    the most time. The profiler's own overhead inflates the wall, so the
+    shares are of the profiled call."""
+    wall_us, kernels, cpu_ops = profiled(fn)
     busy = sum(kernels.values())
     if busy == 0:
         log("[profile] the profiler recorded no device time")
@@ -2939,6 +2972,59 @@ def vlm_slots(dev, cfg, model, params, card, report):
 
 
 
+def width_tables(dev, k, randn):
+    """(table, stored): ``table(n)`` → (starts, sizes) of ``k`` entries (a
+    serve-width table, zero-padded) over runs of 32 of n rows kept with
+    probability 0.6, and the keep mask as f32; ``stored(n, cols, wname)`` →
+    an (n, cols) matrix of fan-in normals as the planned path streams it,
+    (bf16, None) or (int8 payload, per-8-row scales)."""
+    import torch
+
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.kernels.quantize import quantize_rows
+
+    def table(n):
+        keep = (randn(n // 32) > -0.25).repeat_interleave(32)
+        s, z = cg.masks_to_block_tables(keep[None], 8, 512)
+        st = torch.zeros(k, dtype=torch.int32, device=dev)
+        sz = torch.zeros_like(st)
+        st[: s.shape[1]], sz[: z.shape[1]] = s[0], z[0]
+        return st, sz, keep.float()
+
+    def stored(n, cols, wname):
+        w = randn(n, cols, std=n ** -0.5)
+        return (w.to(torch.bfloat16), None) if wname == "bf16" else quantize_rows(w, 8)
+
+    return table, stored
+
+
+def k1_width_checks(dev, name, sites, k, randn, check):
+    """K1 at one model's site widths ``sites`` [(site, n, cols)] on tables
+    of ``k`` entries (``width_tables``), bf16 and int8, ring depths 0-3,
+    with x pre-masked (the ``project`` path) and with an input mask (K2's
+    phase-2 path; at n past the x slab the per-block input records); every
+    launch bitwise against its plain version."""
+    from repro_torch.kernels import chunk_gather_dma as cg
+
+    on_card = dev.type == "cuda"
+    table, stored = width_tables(dev, k, randn)
+    for wname in ("bf16", "int8"):
+        for site, n, cols in sites:
+            w, sc = stored(n, cols, wname)
+            st, sz, xmask = table(n)
+            xk = randn(BATCH, n)
+            want = cg.chunk_gather_matmul_plain(w, xk * xmask, st, sz, sc)
+            want_m = cg.chunk_gather_matmul_plain(w, xk, st, sz, sc, xmask)
+            for depth in range(cg.MAX_PREFETCH_DEPTH + 1):
+                check("chunk_gather_matmul_dma", f"{name} {site} {wname} d{depth}",
+                      cg.chunk_gather_matmul_dma(w, xk * xmask, st, sz, sc,
+                                                 prefetch_depth=depth), want)
+                y = cg._launch_k1(w, xk, st, sz, sc, xmask, 512, depth) if on_card else want_m
+                check("chunk_gather_matmul_dma", f"{name} {site} masked {wname} d{depth}", y,
+                      want_m)
+            del w, sc
+
+
 def dense_width_checks(dev, dcfgs, randn, check, failures):
     """Phase 3 at the widths of the other dense decoders ``dcfgs``, on
     tables as wide as their serve path's (d_ff / 8 entries, every site
@@ -2952,43 +3038,15 @@ def dense_width_checks(dev, dcfgs, randn, check, failures):
     import torch
 
     from repro_torch.kernels import chunk_gather_dma as cg
-    from repro_torch.kernels.quantize import quantize_rows
 
-    on_card = dev.type == "cuda"
     depths = range(cg.MAX_PREFETCH_DEPTH + 1)
     for cfg in dcfgs:
         d, f, k = cfg.d_model, cfg.d_ff, cfg.d_ff // 8
-
-        def table(n):
-            keep = (randn(n // 32) > -0.25).repeat_interleave(32)
-            s, z = cg.masks_to_block_tables(keep[None], 8, 512)
-            st = torch.zeros(k, dtype=torch.int32, device=dev)
-            sz = torch.zeros_like(st)
-            st[: s.shape[1]], sz[: z.shape[1]] = s[0], z[0]
-            return st, sz, keep.float()
-
-        def stored(n, cols, wname):
-            w = randn(n, cols, std=n ** -0.5)
-            return (w.to(torch.bfloat16), None) if wname == "bf16" else quantize_rows(w, 8)
-
+        if cfg.mlp == "gelu":
+            k1_width_checks(dev, cfg.name, (("w_fc", d, f), ("w_proj", f, d)), k, randn, check)
+            continue
+        table, stored = width_tables(dev, k, randn)
         for wname in ("bf16", "int8"):
-            if cfg.mlp == "gelu":
-                for site, n, cols in (("w_fc", d, f), ("w_proj", f, d)):
-                    w, sc = stored(n, cols, wname)
-                    st, sz, xmask = table(n)
-                    xk = randn(BATCH, n)
-                    want = cg.chunk_gather_matmul_plain(w, xk * xmask, st, sz, sc)
-                    want_m = cg.chunk_gather_matmul_plain(w, xk, st, sz, sc, xmask)
-                    for depth in depths:
-                        check("chunk_gather_matmul_dma", f"{cfg.name} {site} {wname} d{depth}",
-                              cg.chunk_gather_matmul_dma(w, xk * xmask, st, sz, sc,
-                                                         prefetch_depth=depth), want)
-                        y = cg._launch_k1(w, xk, st, sz, sc, xmask, 512, depth) if on_card \
-                            else want_m
-                        check("chunk_gather_matmul_dma",
-                              f"{cfg.name} {site} masked {wname} d{depth}", y, want_m)
-                    del w, sc
-                continue
             (wg, sg), (wu, su), (wd, sd) = (stored(d, f, wname), stored(d, f, wname),
                                             stored(f, d, wname))
             scales = None if wname == "bf16" else (sg, su, sd)
@@ -3266,6 +3324,248 @@ def window_path(dev, model, params, card, report, max_seq=None, prompt_len=None,
                         "prefill_wall_s": prefill_wall, "dense_decode_wall_per_step_s":
                         decode_wall / n_decode, "served_wall_per_step_s": loop_wall / n_decode,
                         "launches": launches, "tokens": out.tolist()}
+
+
+def moe_path(dev, full_cfg, n_layers, card, report):
+    """Phase 12, one MoE arch: ``full_cfg`` at full width, depth cut to
+    ``n_layers`` (None: all), random weights from seed 0. First K1 bitwise
+    at the attention sites' widths (``k1_width_checks`` on serve-width
+    tables). Then, at wbits 16 and 8, ``ServeEngine`` with ``--method chunk
+    --sparsity 0.4 --device nano --backend kernel``, batch BATCH: prefill of
+    PROMPT tokens (half of them vision for an early-fusion arch), then
+    MOE_FRAMES frames of frontend_tokens // 4 tokens (early fusion only),
+    then DECODE decode tokens. The launch counts are set to 0 just before
+    the prefill and read just after the decode, and must be exact: K1 at q,
+    k, v, o of every layer each step (a MoE layer has no MLP sites, so K2
+    never launches), K5 once per refresh step (and once per site and layer
+    of each frame). The first REF_DECODE + 1 tokens must equal the
+    reference backend's (the twin, on the same prompt and frames). Then,
+    outside the counted runs: the K1/K5 timings as in phase 5, every K1 and
+    K5 call timed held bitwise against its plain version, wall per step,
+    the profiled idle share, and the MoE FFN at the decode's shape (BATCH
+    tokens) on every layer's weights: device µs per layer (the profiler's
+    kernel times) beside its bound, every expert's bytes read once over
+    3.35 TB/s (the reference's semantics run all E experts over their
+    capacity slots), and the expert products alone from CUDA-graph
+    replays. Returns the phase's kernel rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import FRONT_DTYPE, make_dummy_batch
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import layer_slice, moe_cfg_of
+    from repro_torch.serving import ServeEngine
+
+    on_card = dev.type == "cuda"
+    cfg = dataclasses.replace(full_cfg, n_layers=n_layers or full_cfg.n_layers)
+    n_layers = cfg.n_layers
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hd_all, kv_all = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    n_frames = MOE_FRAMES if cfg.d_frontend else 0
+    frame_tokens = max(cfg.frontend_tokens // 4, 4)
+    mc = moe_cfg_of(cfg)
+    tag = f"[moe] {cfg.name}"
+    cut = ("all" if n_layers == full_cfg.n_layers else
+           f"depth cut to {n_layers} of {full_cfg.n_layers}: all of them do not fit one card")
+    log(f"{tag}: {n_layers} layers ({cut}), d_model {d}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"of {hd}, {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff}"
+        f"{' + a shared expert' if cfg.moe_shared_expert else ''}, capacity factor "
+        f"{cfg.moe_capacity_factor}, vocab {cfg.vocab_size}"
+        + (f", d_frontend {cfg.d_frontend}" if cfg.d_frontend else "")
+        + f"; random weights from seed 0; batch {BATCH}, prompt {PROMPT}"
+        + (f" (half vision), {n_frames} frames of {frame_tokens} tokens" if n_frames else "")
+        + f", {DECODE} decode tokens")
+    randn, sync = seeded(dev, 2468)
+    cuda_ms, host_ms = timers(on_card)
+    check = Checks(("chunk_gather_matmul_dma", "greedy_select"))
+
+    # K1 at this arch's site widths (q, k/v, o), on serve-width tables
+    widths = list(dict.fromkeys(((d, hd_all), (d, kv_all), (hd_all, d))))
+    k1_width_checks(dev, cfg.name, [(f"{n}->{c}", n, c) for n, c in widths],
+                    max(d, hd_all) // 8, randn, check)
+    if check.failures:
+        for msg in check.failures:
+            log(f"{tag} {msg}")
+        fail(f"{len(check.failures)} phase-12 K1 width checks failed ({cfg.name})")
+    width_checks = check.n
+    log(f"{tag} K1 at {', '.join(f'{n}->{c}' for n, c in widths)}: {width_checks} bitwise "
+        f"checks (bf16 and int8, depths 0-{cg.MAX_PREFETCH_DEPTH}, x pre-masked and with an "
+        f"input mask), max abs err {check.errs['chunk_gather_matmul_dma']:.1e}")
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("moe", PROMPT, BATCH, "train"), seed=0,
+                             device=dev)
+    rng = np.random.default_rng(0)
+    frames = [torch.from_numpy(rng.normal(0, 1, (BATCH, frame_tokens, cfg.d_frontend)))
+              .to(FRONT_DTYPE).to(dev) for _ in range(n_frames)]
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in params["layers"].values())
+    top_bytes = sum(t.numel() * t.element_size() for t in params.values()
+                    if isinstance(t, torch.Tensor))
+    log(f"{tag} weights made in {time.perf_counter() - t0:.1f} s: {n_bytes / 2**30:.2f} GiB "
+        f"of layers, {top_bytes / 2**30:.2f} GiB embed/head/projector")
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+
+    def serve(backend, wbits, n_decode):
+        eng = ServeEngine(model, params, max_seq=MOE_MAX_SEQ, batch_size=BATCH,
+                          device="nano", sparsity=0.4, method="chunk", backend=backend,
+                          wbits=wbits, torch_device=dev)
+        last = eng.prefill(batch)
+        hidden = [eng.append_frame(fr) for fr in frames]
+        out = eng.decode(torch.argmax(last, dim=-1)[:, None], n_decode)
+        return eng, out, last, hidden
+
+    runs, timing = {}, {}
+    for wbits in (16, 8):
+        sync()
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        eng, out, last, hidden = serve("kernel", wbits, DECODE)
+        sync()
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        want = {"chunk_gather_matmul_dma": 4 * n_layers * DECODE, "chunk_gather_mlp_dma": 0,
+                "greedy_select": DECODE + TIME_SELECTION_LAUNCHES + 2 * n_layers * n_frames}
+        if on_card and launches != want:
+            fail(f"{cfg.name} w{wbits}: launch counts {launches} != per-step counts {want}")
+        if not (bool(torch.isfinite(last).all())
+                and all(bool(torch.isfinite(h).all()) for h in hidden)):
+            fail(f"{cfg.name} w{wbits}: non-finite prefill logits or frame hidden states")
+        if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            fail(f"{cfg.name} w{wbits}: bad tokens {out.tolist()}")
+        if eng.cache["length"] != PROMPT + n_frames * frame_tokens + DECODE:
+            fail(f"{cfg.name} w{wbits}: cache length {eng.cache['length']}")
+        st = {k: [x for x in eng.stats if x.kind == k] for k in ("prefill", "frame", "decode")}
+        if len(st["frame"]) != n_frames or not all(x.io_est_s > 0 for x in st["frame"]):
+            fail(f"{cfg.name} w{wbits}: frame stats {st['frame']}")
+        ref, out_ref, _, _ = serve("reference", wbits, REF_DECODE)
+        if not torch.equal(out_ref, out[:, : REF_DECODE + 1]):
+            fail(f"{cfg.name} w{wbits}: kernel tokens {out[:, :REF_DECODE + 1].tolist()} != "
+                 f"reference backend tokens {out_ref.tolist()}")
+        del ref
+        if on_card:
+            torch.cuda.empty_cache()
+        loop_wall = sum(x.wall_s for x in st["decode"])
+        profile = profile_decode(eng, out[:, -1:].to(dev), card) if on_card else {}
+        io = eng.io_summary()
+        timing[wbits], calls = decode_timings(eng, wbits, randn, cuda_ms, host_ms, card,
+                                              f"{tag} w{wbits}")
+        for i, (name, (w, xm, s_, z, sc)) in enumerate(zip(calls["k1_sites"], calls["k1"])):
+            check("chunk_gather_matmul_dma", f"{cfg.name} w{wbits} L{i // 4} {name}",
+                  cg.chunk_gather_matmul_dma(w, xm, s_, z, sc),
+                  cg.chunk_gather_matmul_plain(w, xm, s_, z, sc))
+        for args in calls["k5"]:
+            for got, want_ in zip(chunking.greedy_select(*args),
+                                  chunking.greedy_select_plain(*args)):
+                check("greedy_select", f"{cfg.name} w{wbits} {args[0].shape[0]} lanes", got,
+                      want_)
+        if check.failures:
+            for msg in check.failures:
+                log(f"{tag} {msg}")
+            fail(f"{len(check.failures)} phase-12 kernel checks failed ({cfg.name})")
+        runs[wbits] = {"launches": launches, "loop_wall_s": loop_wall,
+                       "wall_per_step_s": loop_wall / DECODE,
+                       "tokens_per_s": BATCH * DECODE / loop_wall, "profile": profile,
+                       "prefill_wall_s": st["prefill"][0].wall_s,
+                       "frame_wall_s": [x.wall_s for x in st["frame"]],
+                       "io_bytes": io["io_bytes"], "io_sim_s": io["io_sim_s"],
+                       "tokens": out.tolist()}
+        log(f"{tag} w{wbits} served: prefill {st['prefill'][0].wall_s * 1e3:.1f} ms"
+            + ("" if not n_frames else ", frames " + ", ".join(
+                f"{x.wall_s * 1e3:.1f}" for x in st["frame"]) + " ms")
+            + f", decode {loop_wall / DECODE * 1e3:.2f} ms/step "
+            f"({BATCH * DECODE / loop_wall:.2f} tokens/s), io_bytes {io['io_bytes'] / 1e6:.1f} "
+            f"MB, launches {launches} (exact), first {REF_DECODE + 1} tokens identical to the "
+            f"reference backend  ({card})")
+        for k, v in timing[wbits].items():
+            lib = "n/a" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f} us"
+            log(f"{tag} w{wbits} {k}: {v['ms'] * 1e3:.1f} us/launch  plain "
+                f"{v['plain_ms'] * 1e3:.1f} us  library {lib}  bound {v['bound_ms'] * 1e3:.2f} us "
+                f"({v['bound_by']})  ({card})")
+        del eng, calls
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"{tag}: {check.n} bitwise checks ({width_checks} at the widths, then every K1 and K5 "
+        "call timed), max abs err " + ", ".join(f"{k} {v:.1e}" for k, v in check.errs.items()))
+
+    # the MoE FFN at the decode's shape, every layer's weights
+    h = randn(BATCH, 1, d).to(torch.bfloat16)
+    layers = [layer_slice(params["layers"], layer) for layer in range(n_layers)]
+    names = ("router", "we_gate", "we_up", "we_down") + (
+        ("ws_gate", "ws_up", "ws_down") if cfg.moe_shared_expert else ())
+    layer_bytes = sum(layers[0][n].numel() * layers[0][n].element_size() for n in names)
+    cap = mc.capacity(BATCH)
+    flops = 2.0 * 3 * d * cfg.d_ff * (cfg.n_experts * cap
+                                      + (BATCH if cfg.moe_shared_expert else 0))
+    bound_us = max(layer_bytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e6
+    bound_by = "bytes" if layer_bytes / HBM_BYTES_PER_S >= flops / BF16_OPS_PER_S \
+        else "operations"
+
+    def run_moe():
+        for lp in layers:
+            moe_ffn(h, lp, mc)
+        sync()
+
+    # the expert products alone (the three batched matmuls over every
+    # expert's cap slots, and the shared expert's), on a fixed buffer
+    x_buf = randn(cfg.n_experts, cap, d).to(torch.bfloat16)
+    x_sh = randn(BATCH, d).to(torch.bfloat16)
+
+    def run_products():
+        for lp in layers:
+            torch.bmm(torch.bmm(x_buf, lp["we_gate"]) * torch.bmm(x_buf, lp["we_up"]),
+                      lp["we_down"])
+            if cfg.moe_shared_expert:
+                ((x_sh @ lp["ws_gate"]) * (x_sh @ lp["ws_up"])) @ lp["ws_down"]
+
+    run_moe()
+    t0 = time.perf_counter()
+    run_moe()
+    host_us = (time.perf_counter() - t0) * 1e6 / n_layers
+    products_us = cuda_ms(run_products, 5) * 1e3 / n_layers
+    moe = {"cap": cap, "layer_bytes": layer_bytes, "bound_us": bound_us, "bound_by": bound_by,
+           "host_wall_us_per_layer": host_us, "products_us_per_layer": products_us}
+    if on_card:
+        wall_us, kernels, _ = profiled(run_moe)
+        busy = sum(kernels.values()) / n_layers
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+        moe.update({"device_us_per_layer": busy, "profiled_wall_us_per_layer":
+                    wall_us / n_layers, "top_kernels_us_per_layer":
+                    {k: v / n_layers for k, v in top}})
+        log(f"{tag} MoE FFN at decode ({BATCH} tokens, cap {cap} of {cfg.n_experts} experts): "
+            f"{busy:.1f} us a layer on the device (profiled kernel time; host wall "
+            f"{host_us:.1f} us), bound {bound_us:.1f} us ({layer_bytes / 1e6:.1f} MB of "
+            f"router and experts a layer over 3.35 TB/s, {bound_by}), {bound_us / busy:.0%} "
+            f"of it; the expert products alone {products_us:.1f} us a layer (CUDA-graph "
+            f"replay, {layer_bytes / products_us / 1e6:.2f} TB/s); top kernels a layer: "
+            + ", ".join(f"{k[:60]} {v / n_layers:.1f} us" for k, v in top) + f"  ({card})")
+    report.setdefault("moe", {})[cfg.name] = {
+        "config": dataclasses.asdict(cfg), "layers_of": full_cfg.n_layers, "runs": runs,
+        "timing": timing, "moe_ffn": moe, "errs": check.errs, "n_checks": check.n,
+        "width_checks": width_checks}
+    del params, layers, x_buf
+    meta = {
+        "chunk_gather_matmul_dma": ("src/repro_torch/kernels/csrc/chunk_gather.cu",
+                                    "src/repro/kernels/chunk_gather_dma.py:284"),
+        "greedy_select": ("src/repro_torch/kernels/csrc/greedy_select.cu",
+                          "src/repro/core/chunking.py:362"),
+    }
+    depth = (f"{n_layers} layers" if n_layers == full_cfg.n_layers
+             else f"{n_layers} of {full_cfg.n_layers} layers")
+    return [
+        {"name": f"{name} [{cfg.name}, {depth}]", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": runs[16]["launches"][name],
+         "max_abs_err": check.errs[name], "ms": timing[16][name]["ms"],
+         "plain_ms": timing[16][name]["plain_ms"], "bound_ms": timing[16][name]["bound_ms"],
+         "bound_by": timing[16][name]["bound_by"], "library_ms": timing[16][name]["library_ms"]}
+        for name, (source, replaces) in meta.items()]
 
 
 if __name__ == "__main__":

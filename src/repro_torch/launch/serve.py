@@ -15,6 +15,9 @@ Runs on the GPU unless asked otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b \
       --reduced --frames 2 --torch-device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \
+      --reduced --frames 2 --torch-device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --torch-device cpu --cache-mb 1 --per-token
 

@@ -8,6 +8,9 @@ otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.video_stream
   PYTHONPATH=src python -m repro_torch.launch.video_stream --torch-device cpu
+
+``--arch`` takes any early-fusion arch: the VLM (the default) or
+Llama-4-Scout, whose MoE layers plan only their attention sites.
 """
 from __future__ import annotations
 

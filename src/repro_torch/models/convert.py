@@ -26,9 +26,9 @@ def params_from_reference(params_np: Dict[str, Any], cfg, device=None) -> Dict[s
     """Reference param pytree (numpy leaves; stacked (L, ...) layer leaves,
     optional ``_q8``/``_sc`` quantized leaves) → the port's params dict on
     ``device`` (default ``cuda``; no card raises). Checks each leaf's shape
-    against the port's model (the VLM ``projector``, LayerNorm biases and
-    the gelu MLP's leaves included; no ``head`` when the embeddings are
-    tied)."""
+    against the port's model (the VLM ``projector``, LayerNorm biases, the
+    gelu MLP's leaves and a MoE layer's router, experts and shared expert
+    included; no ``head`` when the embeddings are tied)."""
     from .model import Model
 
     device = resolve_device(device)

@@ -1,8 +1,10 @@
-"""Model builder of the port: the decoder LM of the dense and early-fusion
-VLM families (the reference's ``_DecoderLM`` of ``repro.models.model``):
-RMSNorm or LayerNorm with biases, a SwiGLU or a non-gated gelu MLP with
-biases, a separate or a tied head (``embed.T``). MoE and the other families
-raise until their slice lands (ROADMAP.md, queue 1).
+"""Model builder of the port: the decoder LM of the dense, mixture-of-experts
+and early-fusion VLM families (the reference's ``_DecoderLM`` of
+``repro.models.model``): RMSNorm or LayerNorm with biases, a SwiGLU or a
+non-gated gelu MLP with biases or a MoE layer (``models/moe.py``; with a
+shared expert, and with a projector for an early-fusion MoE such as
+Llama-4-Scout), a separate or a tied head (``embed.T``). The SSM, hybrid
+and audio families raise until their slice lands (ROADMAP.md, queue 1).
 
     model.init(seed, device)                       -> params (stacked leaves)
     model.init_cache(b, max_seq, device)           -> linear KV cache (rotating
@@ -43,7 +45,8 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from .attention import CacheSpec, init_kv_cache, init_paged_kv_cache
 from .common import layer_norm, rms_norm
-from .transformer import stack_append, stack_decode, stack_forward, stack_prefill
+from .moe import moe_param_shapes
+from .transformer import moe_cfg_of, stack_append, stack_decode, stack_forward, stack_prefill
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -66,9 +69,9 @@ class Model:
     {name: (L, ...)}}."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.arch_type not in ("dense", "vlm") or cfg.has_moe:
+        if cfg.arch_type not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"repro_torch serves the dense and early-fusion VLM decoders only; "
+                f"repro_torch serves the dense, MoE and early-fusion VLM decoders only; "
                 f"{cfg.name} ({cfg.arch_type}) lands in a later slice — see ROADMAP.md, "
                 "queue 1"
             )
@@ -85,8 +88,10 @@ class Model:
     def param_shapes(self) -> Dict[str, tuple]:
         """{name: (shape, init std, 'ones' or 'zeros')} with layer leaves
         stacked: LayerNorm's biases beside its weights, the gelu family's
-        w_fc/b_fc/w_proj/b_proj in place of gate/up/down, no head when the
-        embeddings are tied."""
+        w_fc/b_fc/w_proj/b_proj in place of gate/up/down, a MoE layer's
+        router/we_gate/we_up/we_down (and ws_gate/ws_up/ws_down with the
+        shared expert) in place of the MLP, no head when the embeddings are
+        tied."""
         c = self.cfg
         d, f, n_l = c.d_model, c.d_ff, c.n_layers
         hd_all = c.n_heads * c.resolved_head_dim
@@ -104,7 +109,10 @@ class Model:
         if c.norm == "layernorm":
             shapes.update({"final_norm_b": ((d,), "zeros"), "layers/ln1_b": ((n_l, d), "zeros"),
                            "layers/ln2_b": ((n_l, d), "zeros")})
-        if c.mlp == "gelu":
+        if c.has_moe:
+            shapes.update({f"layers/{name}": ((n_l,) + shape, std)
+                           for name, (shape, std) in moe_param_shapes(moe_cfg_of(c)).items()})
+        elif c.mlp == "gelu":
             shapes.update({"layers/w_fc": ((n_l, d, f), 1.0 / math.sqrt(d)),
                            "layers/b_fc": ((n_l, f), "zeros"),
                            "layers/w_proj": ((n_l, f, d), 1.0 / math.sqrt(f)),
@@ -189,9 +197,9 @@ class Model:
 
     def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Dense forward over a whole sequence, no cache: the final-normed
-        hidden states (b, s, d) (the reference also returns a MoE auxiliary
-        loss; the port serves no MoE). Past the window threshold the
-        attention is windowed."""
+        hidden states (b, s, d) (the reference also returns the MoE
+        auxiliary loss, which serving drops; ``moe.moe_ffn`` returns it).
+        Past the window threshold the attention is windowed."""
         x = self._embed_input(params, batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)

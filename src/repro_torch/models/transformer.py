@@ -1,5 +1,5 @@
-"""Decoder block + layer loop of the dense and VLM families (the port's copy
-of the forward, prefill, decode and frame-append parts of
+"""Decoder block + layer loop of the dense, MoE and VLM families (the
+port's copy of the forward, prefill, decode and frame-append parts of
 ``repro.models.transformer``).
 
 The layer loop is a Python loop over the stacked (L, ...) params; the
@@ -10,8 +10,10 @@ and every sparsification site computes through the execution backend off
 the plan's chunk tables: q/k/v and o through ``backend.project`` (K1 on the
 kernel backend), the SwiGLU MLP through ``backend.swiglu_mlp`` (K2), the
 non-gated gelu MLP (StarCoder2) through two ``backend.project`` calls (K1
-on w_fc, then on w_proj). The norms are RMSNorm or LayerNorm with biases by
-``cfg.norm`` (``apply_norm``). With
+on w_fc, then on w_proj). A MoE layer has no MLP sites: its experts run
+``moe.moe_ffn`` on every path (prefill, frame append, decode), over the
+call's own tokens, as in the reference. The norms are RMSNorm or LayerNorm
+with biases by ``cfg.norm`` (``apply_norm``). With
 corruption injection the refresh verifies the streamed payloads against
 their ``_ck`` lanes (``_integrity_weights``), the kernels fetch those lanes
 beside the payloads, and with recovery off the refresh's damaged rows are
@@ -54,6 +56,7 @@ from .attention import (
 )
 from .common import apply_rope, gelu, layer_norm, rms_norm, swish
 from .mlp import gelu_mlp, gelu_mlp_planned, swiglu_mlp, swiglu_mlp_planned
+from .moe import MoEConfig, moe_ffn
 
 # the offloaded per-layer matrices governed by sparsification — the set the
 # engine quantizes at wbits=8; names absent from a family are skipped
@@ -62,6 +65,12 @@ SPARSE_WEIGHT_NAMES = (
     "w_gate", "w_up", "w_down",  # swiglu family
     "w_fc", "w_proj",  # non-gated gelu family
 )
+
+
+def moe_cfg_of(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(n_experts=cfg.n_experts, top_k=cfg.moe_top_k, d_model=cfg.d_model,
+                     d_ff=cfg.d_ff, capacity_factor=cfg.moe_capacity_factor,
+                     shared_expert=cfg.moe_shared_expert, dispatch=cfg.moe_dispatch)
 
 
 def site_matrix_names(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
@@ -124,15 +133,20 @@ def _site_mask(sparse_ctx, kind: str, acts: torch.Tensor):
 
 
 def _dense_mlp(h: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's feed-forward, unmasked: the MoE (its aux loss dropped,
+    as the serving paths drop it), the gelu MLP or SwiGLU."""
+    if cfg.has_moe:
+        return moe_ffn(h, params, moe_cfg_of(cfg))[0]
     return gelu_mlp(h, params) if cfg.mlp == "gelu" else swiglu_mlp(h, params)
 
 
 def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
     """The MLP (SwiGLU, or the gelu family's with biases, added in the
     compute dtype) with the paper's hidden (gate+up-shared) and ffn masks
-    selected in the step (the unplanned paths). Returns (y, estimated I/O
+    selected in the step (the unplanned paths); a MoE layer's experts
+    unmasked at no I/O (it has no MLP sites). Returns (y, estimated I/O
     seconds)."""
-    if sparse_ctx is None:
+    if sparse_ctx is None or cfg.has_moe:
         return _dense_mlp(h, params, cfg), 0.0
     mask_g, io_g = _site_mask(sparse_ctx, "hidden_mlp", h)
     hm = _apply_mask(h, mask_g)
@@ -309,7 +323,7 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         attn = _apply_mask(attn, mask_o) @ params["wo"]
     x = x + attn
     h = apply_norm(x, params, cfg, "ln2")
-    if planned:
+    if planned and not cfg.has_moe:
         return x + _planned_mlp(h, params, cfg, sparse_ctx, plan, layer), io
     y, lat = _mlp_maybe_sparse(h, params, cfg, sparse_ctx)
     return x + y, io + lat

@@ -14,8 +14,8 @@
     carved out of the ``cache_mb`` DRAM budget before the residency cache
     sees the rest.
 
-``prefill(batch)`` runs the dense prompt forward (a VLM prompt's vision
-tokens first); ``append_frame(frame)`` extends the cache by one video
+``prefill(batch)`` runs the dense prompt forward (a VLM's or an
+early-fusion MoE's prompt: its vision tokens first); ``append_frame(frame)`` extends the cache by one video
 frame's tokens, selecting every site's mask from the frame's activations;
 ``decode(tok, n)`` runs the fused decode loop: n greedy steps on the
 device — the plan refresh is the host-known ``step % plan_refresh_interval
@@ -27,6 +27,12 @@ after its ``lax.scan``. ``decode_per_token`` runs the same step function
 with one host sync per token (the reference's baseline loop); its tokens
 are byte-identical to ``decode``'s. ``reprice_timeline(depth)`` re-runs
 the prefetch timeline of the logged decode calls at another depth.
+
+A MoE model serves as a dense one does, with only its attention sites
+planned: its experts run unmasked on every path, streaming nothing the
+simulator charges, as in the reference (``models/moe.py``); their
+capacity is over each call's own tokens (in slot mode, free slots'
+tokens too).
 
 ``cache_mb`` turns on the dynamic residency cache (paper §5,
 ``SparseExecution``): only cache-miss rows are charged, and

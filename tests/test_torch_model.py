@@ -143,25 +143,34 @@ def test_dense_decode_step_without_sparse_ctx(pair):
 
 
 def test_build_model_refuses_unported_families():
+    """The SSM, hybrid and audio families still raise (MoE is served since
+    its slice; ``tests/test_torch_moe_serve.py``)."""
     import dataclasses
 
-    cfg = dataclasses.replace(tget("tinyllama-1.1b").reduced(), arch_type="moe", n_experts=4)
-    with pytest.raises(NotImplementedError):
-        tbuild(cfg)
+    for family in ("ssm", "hybrid", "audio"):
+        cfg = dataclasses.replace(tget("tinyllama-1.1b").reduced(), arch_type=family)
+        with pytest.raises(NotImplementedError):
+            tbuild(cfg)
     with pytest.raises(KeyError):
-        tget("olmoe-1b-7b")
+        tget("xlstm-125m")
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "params_from_reference",
                                    "make_dummy_batch", "SparseExecution", "append_embeds",
                                    "ServeEngine", "BatchedChunkSelector.build",
-                                   "profile_table", "DeviceProfile.build_table"])
+                                   "profile_table", "DeviceProfile.build_table",
+                                   "moe init", "moe params_from_reference",
+                                   "moe append_embeds", "moe ServeEngine"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Without a device the entry points run on ``cuda``: with no card they
     raise instead of falling back to the CPU; ``device="cpu"`` still runs.
-    Whether there is a card is decided here, by the patched probe."""
+    Whether there is a card is decided here, by the patched probe. The
+    ``moe`` entries take reduced Llama-4-Scout (experts, shared expert,
+    projector)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    tcfg = tget("tinyllama-1.1b").reduced()
+    arch = "llama4-scout-17b-a16e" if entry.startswith("moe ") else "tinyllama-1.1b"
+    entry = entry.removeprefix("moe ")
+    tcfg = tget(arch).reduced()
     model = tbuild(tcfg)
     calls = {
         "init": lambda **kw: model.init(seed=0, **kw),
@@ -174,7 +183,7 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "SparseExecution": lambda **kw: TSparse(
             tcfg, torch_device=kw.get("device")).init_plan(tcfg.n_layers),
         "append_embeds": lambda **kw: dict(zip(("hidden", "io"), model.append_embeds(
-            model.init(seed=0, device="cpu"), torch.zeros(2, 3, tcfg.d_model),
+            model.init(seed=0, device="cpu"), torch.zeros(2, 3, tcfg.d_frontend or tcfg.d_model),
             model.init_cache(2, 16, device="cpu"), **kw))),
         "ServeEngine": lambda **kw: TEngine(
             model, model.init(seed=0, device="cpu"), max_seq=16, batch_size=2,
