@@ -133,11 +133,25 @@ Phases, each of which fails the run on error:
      launch counts (K1 4 a layer a step, K2 none: a MoE layer has no MLP
      sites), tokens equal to the reference backend's, every K1/K5 call
      timed held bitwise, wall and idle share a step; and the MoE FFN at the
-     decode's shape, device µs a layer beside its HBM bound.
+     decode's shape, device µs a layer from CUDA-graph replays of the layer
+     loop (the profiler's kernel sum beside it) against its HBM bound.
+ 13. the hybrid, recurrent and audio families at full width and depth:
+     zamba2-7b (81 Mamba2 layers, the shared attention block after every
+     6), xlstm-125m (12 blocks) and whisper-small (12 + 12 layers over 1500
+     audio positions), served as phase 4 serves TinyLlama with chunk and
+     dense_free — exact launch counts (no K1 or K2: their decode reaches no
+     sparsification site; K5 in the engine's selection timing), tokens of
+     dense_free equal to chunk's, wall a step and of the prefill, idle
+     share and host launches a step, io_summary; K5 on the selection
+     timing's lanes bitwise and timed; prefill + sequential decode against
+     a forward's last logits in f32 (Zamba at 15 layers); the reduced
+     config on the card against the CPU; paged KV, wbits 8 and the frame
+     append refused.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
-10's slot rows, phase 11's and phase 12's rows per arch), then,
+10's slot rows, phase 11's and phase 12's rows per arch, phase 13's K5 row
+per arch), then,
 as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
@@ -234,6 +248,22 @@ WINDOW_MAX_SEQ, WINDOW_PROMPT, WINDOW_DECODE = 65_600, 4_160, 16
 # MOE_MAX_SEQ
 MOE_ARCHS = (("olmoe-1b-7b", None), ("llama4-scout-17b-a16e", 8))
 MOE_FRAMES, MOE_MAX_SEQ = 3, 256
+
+
+# phase 13: the hybrid, recurrent and audio families at full width and
+# depth (Zamba2-7B: 81 Mamba2 layers and 13 applications of the shared
+# block, 13.6 GB of bf16; xLSTM-125M; Whisper-small: 12 + 12 layers over
+# 1500 audio positions), served as phase 4 serves TinyLlama with a cache of
+# FAMILY_MAX_SEQ positions. Their decode reaches no sparsification site: K1
+# and K2 never launch, K5 only in SparseExecution.time_selection. The f32
+# consistency check (prefill + sequential decode against a forward's last
+# logits, CONSIST_SEQ tokens, CONSIST_TOL: the reference suite's 1e-3) runs
+# Zamba at CONSIST_ZAMBA_LAYERS (two groups of six and a tail of three);
+# card against CPU at the reduced configs within CPU_TOL (the port's bf16
+# tolerance), over CPU_DECODE teacher-forced decode steps
+FAMILY_ARCHS, FAMILY_MAX_SEQ = ("zamba2-7b", "xlstm-125m", "whisper-small"), 64
+CONSIST_SEQ, CONSIST_ZAMBA_LAYERS, CONSIST_TOL = 12, 15, dict(atol=1e-3, rtol=1e-3)
+CPU_TOL, CPU_DECODE = dict(atol=4e-2, rtol=4e-2), 4
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -844,6 +874,9 @@ def main():
     for arch, n_layers in MOE_ARCHS:
         kernels += moe_path(dev, get_config(arch), n_layers, card, report)
         done(f"phase 12, {arch}")
+    for arch in FAMILY_ARCHS:
+        kernels += family_path(dev, get_config(arch), card, report)
+        done(f"phase 13, {arch}")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -894,7 +927,9 @@ def profile_call(fn, what, card):
         return {"wall_us": wall_us}
     out = {"wall_us": wall_us, "device_busy_us": busy, "device_busy_share": busy / wall_us,
            "device_us": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15]),
-           "host_ops": dict(sorted(cpu_ops.items(), key=lambda kv: -kv[1][0])[:15])}
+           "host_ops": dict(sorted(cpu_ops.items(), key=lambda kv: -kv[1][0])[:15]),
+           # the host's kernel launches (cudaLaunchKernel and its variants)
+           "launch_calls": sum(n for k, (_, n) in cpu_ops.items() if "LaunchKernel" in k)}
     ours = {name: sum(v for k, v in kernels.items() if name in k)
             for name in ("k1_kernel", "k2_gate_up_kernel", "k5_kernel")}
     log(f"[profile] {what}, wall {wall_us / 1e3:.1f} ms (profiled): device busy "
@@ -3343,8 +3378,9 @@ def moe_path(dev, full_cfg, n_layers, card, report):
     outside the counted runs: the K1/K5 timings as in phase 5, every K1 and
     K5 call timed held bitwise against its plain version, wall per step,
     the profiled idle share, and the MoE FFN at the decode's shape (BATCH
-    tokens) on every layer's weights: device µs per layer (the profiler's
-    kernel times) beside its bound, every expert's bytes read once over
+    tokens) on every layer's weights: device µs per layer from replays of
+    a CUDA graph of the layer loop (the profiler's kernel sum beside it, a
+    second reading) beside its bound, every expert's bytes read once over
     3.35 TB/s (the reference's semantics run all E experts over their
     capacity slots), and the expert products alone from CUDA-graph
     replays. Returns the phase's kernel rows."""
@@ -3508,9 +3544,12 @@ def moe_path(dev, full_cfg, n_layers, card, report):
     bound_by = "bytes" if layer_bytes / HBM_BYTES_PER_S >= flops / BF16_OPS_PER_S \
         else "operations"
 
-    def run_moe():
+    def moe_loop():  # no host sync inside: capturable in a CUDA graph
         for lp in layers:
             moe_ffn(h, lp, mc)
+
+    def run_moe():
+        moe_loop()
         sync()
 
     # the expert products alone (the three batched matmuls over every
@@ -3533,18 +3572,38 @@ def moe_path(dev, full_cfg, n_layers, card, report):
     moe = {"cap": cap, "layer_bytes": layer_bytes, "bound_us": bound_us, "bound_by": bound_by,
            "host_wall_us_per_layer": host_us, "products_us_per_layer": products_us}
     if on_card:
+        # the whole FFN's device time from replays of a CUDA graph of the
+        # layer loop; if capture fails, CUDA events around the loop (that
+        # wall includes the host's gaps between launches)
+        try:
+            ffn_us, timed_by = cuda_ms(moe_loop, 5) * 1e3 / n_layers, "CUDA-graph replay"
+        except RuntimeError as err:
+            log(f"{tag} MoE FFN: CUDA-graph capture failed ({err}); timing with events")
+            sync()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(5):
+                moe_loop()
+            b.record()
+            b.synchronize()
+            ffn_us = a.elapsed_time(b) * 1e3 / 5 / n_layers
+            timed_by = "CUDA events around the loop: this wall includes the host's gaps"
+        # the profiler's kernel sum, a second reading (it undercounted
+        # cuBLAS's kernels at Scout in PR 20)
         wall_us, kernels, _ = profiled(run_moe)
         busy = sum(kernels.values()) / n_layers
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
-        moe.update({"device_us_per_layer": busy, "profiled_wall_us_per_layer":
-                    wall_us / n_layers, "top_kernels_us_per_layer":
-                    {k: v / n_layers for k, v in top}})
+        moe.update({"device_us_per_layer": ffn_us, "timed_by": timed_by,
+                    "profiler_kernel_sum_us_per_layer": busy,
+                    "profiled_wall_us_per_layer": wall_us / n_layers,
+                    "top_kernels_us_per_layer": {k: v / n_layers for k, v in top}})
         log(f"{tag} MoE FFN at decode ({BATCH} tokens, cap {cap} of {cfg.n_experts} experts): "
-            f"{busy:.1f} us a layer on the device (profiled kernel time; host wall "
-            f"{host_us:.1f} us), bound {bound_us:.1f} us ({layer_bytes / 1e6:.1f} MB of "
-            f"router and experts a layer over 3.35 TB/s, {bound_by}), {bound_us / busy:.0%} "
-            f"of it; the expert products alone {products_us:.1f} us a layer (CUDA-graph "
-            f"replay, {layer_bytes / products_us / 1e6:.2f} TB/s); top kernels a layer: "
+            f"{ffn_us:.1f} us a layer on the device ({timed_by}; the profiler's kernel sum "
+            f"{busy:.1f} us; host wall {host_us:.1f} us), bound {bound_us:.1f} us "
+            f"({layer_bytes / 1e6:.1f} MB of router and experts a layer over 3.35 TB/s, "
+            f"{bound_by}), {bound_us / ffn_us:.0%} of it; the expert products alone "
+            f"{products_us:.1f} us a layer (CUDA-graph replay, "
+            f"{layer_bytes / products_us / 1e6:.2f} TB/s); top kernels a layer (profiler): "
             + ", ".join(f"{k[:60]} {v / n_layers:.1f} us" for k, v in top) + f"  ({card})")
     report.setdefault("moe", {})[cfg.name] = {
         "config": dataclasses.asdict(cfg), "layers_of": full_cfg.n_layers, "runs": runs,
@@ -3566,6 +3625,279 @@ def moe_path(dev, full_cfg, n_layers, card, report):
          "plain_ms": timing[16][name]["plain_ms"], "bound_ms": timing[16][name]["bound_ms"],
          "bound_by": timing[16][name]["bound_by"], "library_ms": timing[16][name]["library_ms"]}
         for name, (source, replaces) in meta.items()]
+
+
+def selection_input(eng):
+    """K5's arguments in ``SparseExecution.time_selection``: every site of
+    every layer, importances |sin(i)| over the padded lanes (the engine's
+    selection timing, the one K5 launch of a decode call of a family
+    without sparsification sites)."""
+    import torch
+
+    sp = eng.sparse_ctx
+    b = sp.batched
+    n_layers = eng.model.cfg.n_layers
+    lanes = n_layers * b.n_sites
+    n = torch.arange(lanes * b.n_max, dtype=torch.float32, device=eng.torch_device)
+    vs = torch.sin(n).abs().reshape(n_layers, b.n_sites, b.n_max)
+    starts, sizes = b.sorted_candidates(vs)
+    return (starts.reshape(lanes, -1), sizes.reshape(lanes, -1), sp.lane_budgets,
+            sp.lane_min_sizes, b.n_max)
+
+
+def family_consistency(dev, cfg, on_card):
+    """The reference suite's consistency of the serving path, in f32 on
+    ``dev`` (``models.model.COMPUTE_DTYPE`` set to f32 for the call): Zamba
+    prefills all but the last token and decodes it (the reference's
+    ``test_zamba_prefill_matches_forward_f32``); xLSTM decodes every token
+    from an empty state and Whisper prefills the first and decodes the
+    rest (``test_sequential_decode_matches_forward_f32``). Returns (max abs
+    error of the last logits against a forward's, max |logit|)."""
+    import torch
+
+    import repro_torch.models.model as mm
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+
+    old = mm.COMPUTE_DTYPE
+    mm.COMPUTE_DTYPE = torch.float32
+    try:
+        model = build_model(cfg)
+        params = model.init(seed=1, device=dev)
+        batch = make_dummy_batch(cfg, InputShape("consist", CONSIST_SEQ, BATCH, "train"), seed=1,
+                                 device=dev)
+        toks = batch["tokens"]
+        if cfg.arch_type == "hybrid":
+            _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, 32)
+            lg, _ = model.decode_step(params, toks[:, -1:], cache)
+        elif cfg.is_encdec:
+            lg, cache = model.prefill(params, {**batch, "tokens": toks[:, :1]}, 32)
+            for i in range(1, toks.shape[1]):
+                lg, _ = model.decode_step(params, toks[:, i: i + 1], cache)
+        else:
+            cache = model.init_cache(BATCH, 32, dev)
+            for i in range(toks.shape[1]):
+                lg, _ = model.decode_step(params, toks[:, i: i + 1], cache)
+        want = model.logits(params, model.forward(params, batch))[:, -1].to(torch.float32)
+        err = float((lg - want).abs().max())
+        ok = torch.allclose(lg, want, **CONSIST_TOL)
+        big = float(want.abs().max())
+        del model, params, cache
+        if on_card:
+            torch.cuda.empty_cache()
+        return err, big, ok
+    finally:
+        mm.COMPUTE_DTYPE = old
+
+
+def family_on_cpu(dev, full_cfg):
+    """The reduced config with the same seeded weights on ``dev`` and on
+    the CPU (made on the CPU, copied to the card): prefill logits and
+    CPU_DECODE teacher-forced decode steps. Returns the max abs error over
+    them and whether all sit within CPU_TOL."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+
+    cfg = full_cfg.reduced()
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    p_cpu = model.init(seed=0, device=cpu)
+    p_dev = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+             for k, v in p_cpu.items()}
+    b_cpu = make_dummy_batch(cfg, InputShape("cpu", PROMPT, BATCH, "train"), seed=0, device=cpu)
+    outs = []
+    for params, batch in ((p_cpu, b_cpu), (p_dev, {k: v.to(dev) for k, v in b_cpu.items()})):
+        last, cache = model.prefill(params, batch, FAMILY_MAX_SEQ)
+        lgs = [last.to(torch.float32)]
+        for i in range(CPU_DECODE):
+            lg, _ = model.decode_step(params, batch["tokens"][:, i: i + 1], cache)
+            lgs.append(lg)
+        outs.append(torch.stack(lgs).cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    return err, torch.allclose(outs[1], outs[0], **CPU_TOL)
+
+
+def family_path(dev, full_cfg, card, report):
+    """Phase 13, one arch of FAMILY_ARCHS: ``full_cfg`` at full width and
+    depth, random weights from seed 0, ``ServeEngine`` with ``--method chunk
+    --sparsity 0.4 --device nano --backend kernel``, batch BATCH: prefill of
+    PROMPT tokens (Whisper's prompt carries its frontend_tokens encoder
+    frames), then DECODE decode tokens. The launch counts are set to 0 just
+    before the prefill and read just after the decode, and must be exact:
+    no K1 or K2 (the family's decode reaches no sparsification site), K5
+    TIME_SELECTION_LAUNCHES times (the engine's selection timing). Held:
+    tokens in range, the cache length, prefill charged the dense I/O and
+    every decode step none, ``dense_free`` giving the same tokens (the
+    decode ignores the sparse context); then the wall a step and of the
+    prefill, a profiled PROFILE_TOKENS-step call (idle share, host
+    launches a step), K5 on the selection timing's input bitwise against its
+    plain version and timed, the f32 consistency check
+    (``family_consistency``), card against CPU at the reduced config
+    (``family_on_cpu``), and the refusals: paged KV, wbits 8 and the frame
+    append. Returns the phase's kernel row (K5)."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import IO_SUMMARY_KEYS, ServeEngine
+
+    on_card = dev.type == "cuda"
+    cfg = full_cfg
+    tag = f"[family] {cfg.name}"
+    t_phase = time.perf_counter()
+    shape = {"hybrid": f"{cfg.n_layers} Mamba2 layers (d_state {cfg.ssm_state}, head "
+                       f"{cfg.ssm_head_dim}), the shared attention + SwiGLU block after every "
+                       f"{cfg.attn_every} ({cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff "
+                       f"{cfg.d_ff})",
+             "ssm": f"{cfg.n_layers} blocks (sLSTM at {list(cfg.slstm_layers)}), "
+                    f"{cfg.n_heads} heads",
+             "audio": f"{cfg.encoder_layers} + {cfg.n_layers} layers, {cfg.frontend_tokens} "
+                      f"audio positions of {cfg.d_frontend}"}[cfg.arch_type]
+    log(f"{tag}: {shape}, d_model {cfg.d_model}, vocab {cfg.vocab_size}; full width and depth, "
+        f"random weights from seed 0; batch {BATCH}, prompt {PROMPT}, {DECODE} decode tokens")
+    _, sync = seeded(dev, 1357)
+    cuda_ms, host_ms = timers(on_card)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("family", PROMPT, BATCH, "train"), seed=0,
+                             device=dev)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for v in params.values()
+                  for t in (v.values() if isinstance(v, dict) else (v,)))
+    log(f"{tag} weights made in {time.perf_counter() - t0:.1f} s: {n_bytes / 2**30:.2f} GiB")
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+
+    def serve(method, n_decode=DECODE):
+        eng = ServeEngine(model, params, max_seq=FAMILY_MAX_SEQ, batch_size=BATCH,
+                          device="nano", sparsity=0.4, method=method, backend="kernel",
+                          torch_device=dev)
+        last = eng.prefill(batch)
+        out = eng.decode(torch.argmax(last, dim=-1)[:, None], n_decode)
+        return eng, out, last
+
+    sync()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    eng, out, last = serve("chunk")
+    sync()
+    launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+    want = {"chunk_gather_matmul_dma": 0, "chunk_gather_mlp_dma": 0,
+            "greedy_select": TIME_SELECTION_LAUNCHES}
+    if on_card and launches != want:
+        fail(f"{cfg.name}: launch counts {launches} != {want}")
+    if not bool(torch.isfinite(last).all()):
+        fail(f"{cfg.name}: non-finite prefill logits")
+    if out.shape != (BATCH, DECODE + 1) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        fail(f"{cfg.name}: bad tokens {out.tolist()}")
+    if eng.cache["length"] != PROMPT + DECODE:
+        fail(f"{cfg.name}: cache length {eng.cache['length']}")
+    st = {k: [x for x in eng.stats if x.kind == k] for k in ("prefill", "decode")}
+    io = eng.io_summary()
+    if tuple(io) != IO_SUMMARY_KEYS or not st["prefill"][0].io_est_s > 0 \
+            or any(x.io_est_s != 0 for x in st["decode"]) or len(st["decode"]) != DECODE:
+        fail(f"{cfg.name}: accounting {io}, prefill {st['prefill']}")
+    loop_wall = sum(x.wall_s for x in st["decode"])
+    free, out_free, _ = serve("dense_free")
+    if not torch.equal(out_free, out):
+        fail(f"{cfg.name}: dense_free tokens {out_free.tolist()} != chunk's {out.tolist()}")
+    free_wall = sum(x.wall_s for x in free.stats if x.kind == "decode")
+    free_prefill = free.stats[0].wall_s
+    del free
+    profile = profile_decode(eng, out[:, -1:].to(dev), card) if on_card else {}
+    launch_calls = profile.get("launch_calls", 0) / PROFILE_TOKENS
+    log(f"{tag} served: prefill {st['prefill'][0].wall_s * 1e3:.1f} ms (dense_free "
+        f"{free_prefill * 1e3:.1f}), decode {loop_wall / DECODE * 1e3:.2f} ms/step (dense_free "
+        f"{free_wall / DECODE * 1e3:.2f}), {BATCH * DECODE / loop_wall:.2f} tokens/s, device idle "
+        f"{1 - profile.get('device_busy_share', 0.0):.1%} of a profiled {PROFILE_TOKENS}-step "
+        f"call, {launch_calls:.0f} host launches a step; launches {launches} (exact); tokens "
+        f"of dense_free identical  ({card})")
+    log(f"{tag} io_summary: io_est {io['io_est_s'] * 1e3:.3f} ms, io_sim "
+        f"{io['io_sim_s'] * 1e3:.3f} ms, io_bytes {io['io_bytes'] / 1e6:.1f} MB (the prefill's), "
+        f"steps {io['steps']}, decode_compute {io['decode_compute_s'] * 1e3:.3f} ms, "
+        f"decode_overlap {io['decode_overlap_s'] * 1e3:.3f} ms, select_overhead "
+        f"{io['select_overhead_s'] * 1e3:.3f} ms")
+
+    # the refusals, on the card as on the CPU
+    refusals = []
+    for kw, err_type in (({"kv_page_tokens": 16}, ValueError), ({"wbits": 8}, ValueError)):
+        try:
+            ServeEngine(model, params, max_seq=FAMILY_MAX_SEQ, batch_size=BATCH, method="chunk",
+                        backend="kernel", torch_device=dev, **kw)
+        except err_type as err:
+            refusals.append(f"{next(iter(kw))}: {type(err).__name__}")
+        else:
+            fail(f"{cfg.name}: ServeEngine({kw}) did not refuse")
+    try:
+        eng.append_frame(torch.zeros((BATCH, 4, cfg.d_frontend or cfg.d_model), device=dev))
+    except NotImplementedError as err:
+        refusals.append(f"append_frame: {type(err).__name__}")
+    else:
+        fail(f"{cfg.name}: append_frame did not refuse")
+
+    # K5 on the selection timing's input: bitwise against the plain walk,
+    # then timed
+    args = selection_input(eng)
+    got, ref = chunking.greedy_select(*args), chunking.greedy_select_plain(*args)
+    err5 = max(float((g.to(torch.float64) - r.to(torch.float64)).abs().max())
+               for g, r in zip(got, ref))
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        fail(f"{cfg.name}: K5 on the selection input is not bitwise its plain version "
+             f"(max abs err {err5:.3e})")
+    walked = []
+    plain_ms = host_ms(lambda: chunking.greedy_select_plain(*args, walked=walked))
+    lanes = len(walked)
+    k5_bytes = sum(walked) * 8 + lanes * (args[4] + 12)
+    k5 = {"ms": cuda_ms(lambda: chunking.greedy_select(*args), 5), "plain_ms": plain_ms,
+          "bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3, "lanes": lanes,
+          "walked_per_lane": sum(walked) / lanes}
+    log(f"{tag} greedy_select on the selection timing's {lanes} lanes: {k5['ms'] * 1e3:.1f} "
+        f"us/launch, plain {plain_ms * 1e3:.1f} us, bound {k5['bound_ms'] * 1e3:.2f} us "
+        f"(bytes; {k5['walked_per_lane']:.0f} candidates walked a lane), bitwise  ({card})")
+    del eng, args, got, ref
+    if on_card:
+        torch.cuda.empty_cache()
+
+    ccfg = dataclasses.replace(cfg, n_layers=CONSIST_ZAMBA_LAYERS) \
+        if cfg.arch_type == "hybrid" else cfg
+    c_err, c_big, c_ok = family_consistency(dev, ccfg, on_card)
+    if not c_ok:
+        fail(f"{cfg.name}: f32 prefill + decode vs forward, max abs err {c_err:.3e} over "
+             f"{CONSIST_TOL}")
+    p_err, p_ok = family_on_cpu(dev, cfg)
+    if not p_ok:
+        fail(f"{cfg.name}: reduced config, card vs CPU max abs err {p_err:.3e} over {CPU_TOL}")
+    depth = (f"{ccfg.n_layers} of {cfg.n_layers} layers" if ccfg.n_layers != cfg.n_layers
+             else "all layers")
+    log(f"{tag} checks: f32 prefill + sequential decode vs a forward's last logits ({depth}, "
+        f"{CONSIST_SEQ} tokens): max abs err {c_err:.2e} (max |logit| {c_big:.2f}; tolerance "
+        f"{CONSIST_TOL}); reduced config card vs CPU (prefill + {CPU_DECODE} decode steps, "
+        f"bf16): max abs err {p_err:.2e} (tolerance {CPU_TOL}); refused: "
+        f"{', '.join(refusals)}; phase {time.perf_counter() - t_phase:.1f} s  ({card})")
+    report.setdefault("families", {})[cfg.name] = {
+        "config": dataclasses.asdict(cfg), "launches": launches, "tokens": out.tolist(),
+        "prefill_wall_s": st["prefill"][0].wall_s, "wall_per_step_s": loop_wall / DECODE,
+        "dense_free_wall_per_step_s": free_wall / DECODE, "dense_free_prefill_wall_s":
+        free_prefill, "profile": profile, "launch_calls_per_step": launch_calls,
+        "io_summary": io, "k5": k5, "consistency": {"layers": ccfg.n_layers, "max_abs_err": c_err,
+                                                     "max_logit": c_big},
+        "card_vs_cpu_max_abs_err": p_err, "refusals": refusals,
+        "phase_s": time.perf_counter() - t_phase}
+    del model, params
+    return [{"name": f"greedy_select [{cfg.name}, selection timing, {lanes} lanes]",
+             "route": "cuda", "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
+             "replaces": "src/repro/core/chunking.py:362", "launches": launches["greedy_select"],
+             "max_abs_err": err5, "ms": k5["ms"], "plain_ms": plain_ms,
+             "bound_ms": k5["bound_ms"], "bound_by": "bytes", "library_ms": None}]
 
 
 if __name__ == "__main__":

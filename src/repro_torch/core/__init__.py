@@ -40,6 +40,7 @@ from .latency_model import (
     get_profile,
     profile_table,
     row_stream_bytes,
+    table_from_measurements,
 )
 from .offload import (
     ComputeModel,

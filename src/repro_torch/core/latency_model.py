@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .contiguity import mask_run_sizes, mask_to_runs, resident_rows_in_windows
+from .contiguity import mask_run_sizes, mask_to_chunks_np, mask_to_runs, resident_rows_in_windows
 
 KB = 1024.0
 MB = 1024.0 * 1024.0
@@ -59,9 +59,25 @@ class DeviceProfile:
             raise ValueError(f"cache_mb must be >= 0, got {mb}")
         return int(mb * MB)
 
+    @property
+    def knee_bytes(self) -> float:
+        """The request size at which the per-request and transfer terms are
+        equal: peak_bw / iops."""
+        return self.peak_bw / self.iops
+
+    def saturation_bytes(self, frac: float = 0.99) -> float:
+        """The request size at which throughput reaches ``frac`` of peak:
+        thr(s)/bw = 1/(1 + knee/s) = frac ⇒ s = knee·frac/(1-frac)."""
+        return self.knee_bytes * frac / (1.0 - frac)
+
     def latency_bytes(self, nbytes) -> np.ndarray:
         s = np.asarray(nbytes, dtype=np.float64)
         return self.base_latency + 1.0 / self.iops + s / self.peak_bw
+
+    def throughput_bytes(self, nbytes) -> np.ndarray:
+        """Bytes per second of one request of ``nbytes``."""
+        s = np.asarray(nbytes, dtype=np.float64)
+        return s / self.latency_bytes(s)
 
     def build_table(self, row_bytes: float, max_rows: int, device=None) -> "LatencyTable":
         """T[0..max_rows] for rows of ``row_bytes``, on ``device`` (default
@@ -116,6 +132,13 @@ class LatencyTable:
         miss = sizes - resident_rows_in_windows(starts, sizes, resident)
         return (self.lookup(miss) * (miss > 0)).sum(dim=-1)
 
+    def mask_latency_np(self, mask: np.ndarray) -> float:
+        """``mask_latency`` of a host mask, as a float: each chunk's f32
+        table latency summed in float64, chunk by chunk (the reference's
+        order)."""
+        sizes = torch.tensor([c.size for c in mask_to_chunks_np(mask)], dtype=torch.int64)
+        return float(sum(self.lookup(sizes).tolist()))
+
     def padded_table(self, max_rows: int) -> np.ndarray:
         """T[0..max_rows] as a float64 host array, extrapolated past the
         table end like ``lookup`` (one row of a batched selector's cost
@@ -151,3 +174,40 @@ def profile_table(device: str | DeviceProfile, row_bytes: float, max_rows: int,
     no card raises)."""
     prof = device if isinstance(device, DeviceProfile) else get_profile(device)
     return prof.build_table(row_bytes=row_bytes, max_rows=max_rows, device=torch_device)
+
+
+def table_from_measurements(device: str, row_bytes: float, sizes_rows, latencies_s,
+                            torch_device=None) -> LatencyTable:
+    """A LatencyTable from measured (size in rows, latency) points by
+    linear interpolation — what a deployment would build from its own
+    microbenchmarks instead of a synthetic profile — on ``torch_device``
+    (default ``cuda``; no card raises). Refuses duplicate sizes and
+    latencies that fall as the size grows (measurement errors that would
+    interpolate into a table that mis-ranks every selection); equal
+    latencies at growing sizes (a request-bound plateau) are fine."""
+    sizes_rows = np.asarray(sizes_rows, dtype=np.int64)
+    latencies_s = np.asarray(latencies_s, dtype=np.float64)
+    if sizes_rows.ndim != 1 or sizes_rows.shape != latencies_s.shape:
+        raise ValueError("sizes/latencies must be matching 1-D arrays")
+    order = np.argsort(sizes_rows)
+    sizes_rows, latencies_s = sizes_rows[order], latencies_s[order]
+    dup = np.flatnonzero(np.diff(sizes_rows) == 0)
+    if dup.size:
+        raise ValueError(
+            f"duplicate measurement sizes {sorted(set(sizes_rows[dup].tolist()))}: each size "
+            "must be measured once (aggregate repeated runs — e.g. take the median — before "
+            "building the table)")
+    dec = np.flatnonzero(np.diff(latencies_s) < 0)
+    if dec.size:
+        i = int(dec[0])
+        raise ValueError(
+            f"non-monotone latency samples: latency drops from {latencies_s[i]:.3e}s at "
+            f"{int(sizes_rows[i])} rows to {latencies_s[i + 1]:.3e}s at "
+            f"{int(sizes_rows[i + 1])} rows — reading more can't be faster; re-measure or "
+            "drop the outlier")
+    grid = np.arange(int(sizes_rows[-1]) + 1, dtype=np.float64)
+    lat = np.interp(grid, sizes_rows.astype(np.float64), latencies_s)
+    lat[0] = 0.0
+    return LatencyTable(device=device, row_bytes=row_bytes,
+                        table=torch.tensor(lat, dtype=torch.float32,
+                                           device=resolve_device(torch_device)))

@@ -1,11 +1,12 @@
 """Flash-offload I/O simulator, compute model and decode-site geometry.
 
-The port's copy of the parts of ``repro.core.offload`` the one-stream
-decode path uses. The simulator turns additive-model estimates into
-"measured" latencies with the reference's lift + lognormal jitter, drawing
-from the same numpy RNG stream, so equal estimates give equal simulated
-times. These are simulated flash times of the paper's Jetson devices, not
-times of the GPU. A ``FaultModel`` (core/faults.py) perturbs each measured
+The port's copy of ``repro.core.offload`` but the sharded accounting. The
+simulator prices an access pattern (a mask or its chunks) with the pure
+additive model (``estimate``), "measures" it or an additive-model estimate
+with the reference's lift + lognormal jitter (``measure``,
+``measure_from_estimate``), drawing from the same numpy RNG stream, so
+equal patterns and estimates give equal simulated times. These are
+simulated flash times of the paper's Jetson devices, not times of the GPU. A ``FaultModel`` (core/faults.py) perturbs each measured
 event at this boundary, with its own RNG stream; the integrity ladder's
 re-read seconds (``integrity_s``) are added after it. ``pack_checksums``
 emits the bf16 pack path's checksum lane.
@@ -13,11 +14,12 @@ emits the bf16 pack path's checksum lane.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, block_checksums
+from .contiguity import Chunk, mask_to_chunks_np
 from .faults import FaultModel
 from .latency_model import DeviceProfile, get_profile
 from .pipeline import PipelineModel
@@ -71,6 +73,35 @@ class FlashOffloadSimulator:
         out = self.faults.perturb(latency_s, self.device_time_s)
         self.device_time_s += out.charged_s
         return out.charged_s, out.retries, out.extra_s
+
+    def estimate_chunks(self, chunks: Sequence[Chunk], row_bytes: float) -> float:
+        """The pure additive model: Σ chunks T(size · row_bytes)."""
+        return float(sum(self.profile.latency_bytes(c.size * row_bytes) for c in chunks))
+
+    def estimate(self, mask: np.ndarray, row_bytes: float) -> float:
+        return self.estimate_chunks(mask_to_chunks_np(mask), row_bytes)
+
+    def measure_chunks(self, chunks: Sequence[Chunk], row_bytes: float, name: str = "") -> float:
+        """One simulated measurement of an access pattern: the estimate ×
+        the profile's lift (growing with the diversity of chunk sizes) ×
+        one lognormal jitter draw, then the fault model; logged."""
+        base = self.estimate_chunks(chunks, row_bytes)
+        sizes = np.array([c.size for c in chunks]) if chunks else np.array([1])
+        diversity = float(np.unique(sizes).size) / max(len(chunks), 1)
+        lift = self.profile.interleave_lift * (1.0 + 0.1 * diversity)
+        jitter = self.rng.lognormal(mean=0.0, sigma=self.noise)
+        latency, retries, fault_s = self._charge(base * lift * jitter)
+        self.log.append(IOEvent(name=name, nbytes=float(sizes.sum()) * row_bytes,
+                                n_chunks=len(chunks), latency_s=latency, retries=retries,
+                                fault_s=fault_s))
+        return latency
+
+    def measure(self, mask: np.ndarray, row_bytes: float, name: str = "") -> float:
+        return self.measure_chunks(mask_to_chunks_np(mask), row_bytes, name=name)
+
+    def measure_full_load(self, n_rows: int, row_bytes: float, name: str = "") -> float:
+        """A dense load: one saturating sequential read of every row."""
+        return self.measure_chunks([Chunk(0, n_rows)], row_bytes, name=name)
 
     def measure_from_estimate(self, est_s: float, n_chunks: int = 32,
                               diversity: float = 0.5, name: str = "",
@@ -131,6 +162,16 @@ class FlashOffloadSimulator:
             ))
         return latency
 
+    def total_io_seconds(self) -> float:
+        return float(sum(e.latency_s for e in self.log))
+
+    def total_bytes(self) -> float:
+        return float(sum(e.nbytes for e in self.log))
+
+    def reset(self) -> None:
+        """Clear the event log (the RNG stream and busy clock go on)."""
+        self.log.clear()
+
 
 def pack_checksums(layers, names, block_rows: int = 8):
     """The bf16 pack path's integrity lane (wbits 16): one ``block_checksums``
@@ -179,12 +220,37 @@ class ComputeModel:
     def matmul_seconds(self, rows_loaded, cols: int, tokens: int = 1) -> float:
         return 2.0 * rows_loaded * cols * tokens / self.flops_per_s
 
-    def decode_layer_seconds(self, cfg, sparsity=0.0, tokens: int = 1) -> np.ndarray:
+    def decode_layer_seconds(self, cfg, sparsity=0.0, tokens: int = 1,
+                             layer_scale=None) -> np.ndarray:
         """Per-layer decode-step compute seconds, (n_layers,): each site's
-        GEMV over its kept rows ``(1 - sparsity) * N``."""
+        GEMV over its kept rows ``(1 - sparsity) * N``, times
+        ``layer_scale`` (optional (n_layers,) non-negative multipliers: a
+        real stack is not uniform; ``calibrate_layer_scale`` makes them from
+        measured walls)."""
         sp = normalize_site_sparsity(sparsity)
         sec = sum(
             self.matmul_seconds((1.0 - sp.get(kind, 0.0)) * n, sum(cols), tokens)
             for kind, n, cols in decode_site_shapes(cfg)
         )
-        return np.full((cfg.n_layers,), sec, np.float64)
+        out = np.full((cfg.n_layers,), sec, np.float64)
+        if layer_scale is None:
+            return out
+        scale = np.asarray(layer_scale, np.float64).reshape(-1)
+        if scale.shape != (cfg.n_layers,):
+            raise ValueError(f"layer_scale must have shape ({cfg.n_layers},), got {scale.shape}")
+        if np.any(scale < 0):
+            raise ValueError("layer_scale must be non-negative")
+        return out * scale
+
+    @staticmethod
+    def calibrate_layer_scale(layer_walls_s) -> np.ndarray:
+        """Measured per-layer decode walls → mean-1 multipliers for
+        ``decode_layer_seconds(layer_scale=...)``: the model's per-step
+        total, spread over the layers as the hardware spends it."""
+        walls = np.asarray(layer_walls_s, np.float64).reshape(-1)
+        if walls.size == 0 or np.any(walls < 0):
+            raise ValueError("layer walls must be a non-empty, non-negative vector")
+        mean = walls.mean()
+        if mean <= 0.0:
+            return np.ones_like(walls)
+        return walls / mean

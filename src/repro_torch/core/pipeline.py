@@ -28,6 +28,29 @@ class PipelineTimeline:
     stall_s: np.ndarray  # (n,) compute idle waiting on a fetch
     bubble_s: np.ndarray  # (n,) fetch engine idle waiting for a buffer
 
+    @property
+    def serial_total_s(self) -> float:
+        return float(self.serial_s.sum())
+
+    @property
+    def overlap_total_s(self) -> float:
+        return float(self.overlap_s.sum())
+
+    @property
+    def hidden_s(self) -> float:
+        """The time overlapping removed (>= 0 by construction)."""
+        return self.serial_total_s - self.overlap_total_s
+
+    @property
+    def hideable_s(self) -> float:
+        """Per step a perfect two-stage overlap hides min(io, compute):
+        the sum of that over the steps."""
+        return float(np.minimum(self.io_s.sum(axis=1), self.compute_s.sum(axis=1)).sum())
+
+    def overlap_efficiency(self) -> float:
+        return overlap_efficiency(self.serial_s, self.overlap_s, self.io_s.sum(axis=1),
+                                  self.compute_s.sum(axis=1))
+
 
 def overlap_efficiency(serial_s, overlap_s, io_s, compute_s) -> float:
     """Hidden / hideable time, clipped to [0, 1]; 1.0 when nothing is
@@ -94,3 +117,8 @@ class PipelineModel:
             stall_s=stall.reshape(n, n_layers).sum(axis=1),
             bubble_s=bubble.reshape(n, n_layers).sum(axis=1),
         )
+
+    def serial_timeline(self, io_s, compute_s) -> PipelineTimeline:
+        """The baseline: the same inputs at depth 0, where each step's
+        overlap_s equals its serial_s."""
+        return self.with_depth(0).timeline(io_s, compute_s)

@@ -18,6 +18,9 @@ Runs on the GPU unless asked otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \
       --reduced --frames 2 --torch-device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --reduced --torch-device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --torch-device cpu --cache-mb 1 --per-token
 
@@ -30,9 +33,12 @@ Runs on the GPU unless asked otherwise:
       --decode-tokens 6 --max-seq 64 --prompt-len 16 --kv-page-tokens 8
 
 ``--device`` names the simulated flash profile (nano / agx), as in the
-reference CLI; ``--torch-device`` picks where the model runs. The
-reference CLI's ``--mesh`` (sharded serving) is not ported yet and is
-refused with a pointer to ROADMAP.md.
+reference CLI; ``--torch-device`` picks where the model runs. ``--arch``
+takes every family: the hybrid (zamba2-7b), recurrent (xlstm-125m) and
+audio (whisper-small, whose prompt carries its encoder's frames) archs
+serve one stream with no frames, at wbits 16, without corruption injection
+or ``--streams``. The reference CLI's ``--mesh`` (sharded serving) is not
+ported yet and is refused with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -226,7 +232,7 @@ def main(argv=None):
                              seed=args.seed, device=dev)
     last = eng.prefill(batch)
     print(f"[prefill] {args.prompt_len} tokens")
-    if cfg.d_frontend:
+    if cfg.d_frontend and not cfg.is_encdec:
         rng = np.random.default_rng(args.seed)
         n_tok = max(cfg.frontend_tokens // 4, 4)
         for i in range(args.frames):

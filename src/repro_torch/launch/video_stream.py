@@ -10,7 +10,8 @@ otherwise:
   PYTHONPATH=src python -m repro_torch.launch.video_stream --torch-device cpu
 
 ``--arch`` takes any early-fusion arch: the VLM (the default) or
-Llama-4-Scout, whose MoE layers plan only their attention sites.
+Llama-4-Scout, whose MoE layers plan only their attention sites; the
+others, which take no frames, are refused.
 """
 from __future__ import annotations
 
@@ -94,6 +95,9 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.torch_device)
 
     cfg = get_config(args.arch).reduced()
+    if not cfg.d_frontend or cfg.is_encdec:
+        ap.error(f"--arch {args.arch} takes no frames (append_frame serves the early-fusion "
+                 "archs: internvl2-76b, llama4-scout-17b-a16e)")
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     prompt = make_dummy_batch(cfg, InputShape("s", 32, 2, "train"), device=dev)

@@ -1,6 +1,7 @@
 """GQA attention with RoPE, a linear KV cache and a paged one (the port's
 copy of the parts of ``repro.models.attention`` the prefill, decode and
-frame-append paths use).
+frame-append paths use); non-causal and cross-attention for the audio
+encoder-decoder.
 
 Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
 positions the direct (materialized-scores) attention, above it the
@@ -29,7 +30,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from .common import apply_rope
+from .common import apply_rope, causal_mask
 
 # a decode cache length: a host int, or an int32 (b,) device tensor per slot
 Length = Union[int, torch.Tensor]
@@ -115,36 +116,45 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
                          positions: Optional[torch.Tensor] = None,
                          rope_theta: Optional[float] = 10000.0,
                          blockwise_threshold: Optional[int] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Causal self-attention sublayer (projections + attention): (b, s, d)
-    → (b, s, d). Above ``blockwise_threshold`` positions (None: the module's
-    ``BLOCKWISE_THRESHOLD``, read at call time) the blockwise online-softmax
-    attention, else the direct one, as in the reference. ``window``: each
-    query sees only the keys of its last ``window`` positions."""
+                         window: Optional[int] = None, causal: bool = True,
+                         kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         prefix: str = "") -> torch.Tensor:
+    """Attention sublayer (projections + attention): (b, s, d) → (b, s, d),
+    through ``{prefix}wq`` … ``{prefix}wo``. Causal self-attention by
+    default; ``causal=False`` attends to every key (the audio encoder), and
+    ``kv_override`` = (k, v), each (b, sk, kv, hd), replaces the k/v
+    projections with pre-projected keys and values (cross-attention over the
+    encoder's states; no RoPE on them). Above ``blockwise_threshold``
+    positions (None: the module's ``BLOCKWISE_THRESHOLD``, read at call
+    time) the blockwise online-softmax attention, else the direct one, as in
+    the reference. ``window``: each query sees only the keys of its last
+    ``window`` positions."""
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, s, n_kv_heads, head_dim)
-    if rope_theta is not None:
-        if positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
-    n_rep = n_heads // n_kv_heads
+    p = prefix
+    q = (x @ params[f"{p}wq"]).reshape(b, s, n_heads, head_dim)
+    if kv_override is None:
+        k = (x @ params[f"{p}wk"]).reshape(b, s, n_kv_heads, head_dim)
+        v = (x @ params[f"{p}wv"]).reshape(b, s, n_kv_heads, head_dim)
+        if rope_theta is not None:
+            if positions is None:
+                positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = kv_override
+    n_rep = n_heads // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     sk = k.shape[1]
     if blockwise_threshold is None:
         blockwise_threshold = BLOCKWISE_THRESHOLD
     if max(s, sk) > blockwise_threshold:
-        out = _blockwise_attention(q, k, v, sk - s, True, window)
+        out = _blockwise_attention(q, k, v, sk - s if causal else 0, causal, window)
     else:
-        qi = torch.arange(s, device=x.device)[:, None] + (sk - s)
-        kj = torch.arange(sk, device=x.device)[None, :]
-        mask = kj <= qi
-        if window is not None:
-            mask = mask & (kj > qi - window)
+        mask = causal_mask(s, sk, sk - s, x.device) if causal else None
+        if causal and window is not None:  # and key j > query i - window
+            mask = mask & ~causal_mask(s, sk, sk - s - window, x.device)
         out = _direct_attention(q, k, v, mask)
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+    return out.reshape(b, s, n_heads * head_dim) @ params[f"{p}wo"]
 
 
 @dataclasses.dataclass(frozen=True)

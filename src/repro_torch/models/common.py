@@ -1,7 +1,9 @@
-"""Shared model building blocks: norms, RoPE, activations (the port's copy
-of ``repro.models.common``; params are plain dicts of tensors)."""
+"""Shared model building blocks: norms, RoPE, activations, sinusoidal
+positions and the causal mask (the port's copy of ``repro.models.common``;
+params are plain dicts of tensors)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,6 +34,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def sinusoidal_positions(n_pos: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (n_pos, dim), f32: computed in
+    numpy float64 and rounded once, as the reference does."""
+    pos = np.arange(n_pos)[:, None]
+    idx = np.arange(dim // 2)[None, :]
+    angles = pos / np.power(10000.0, 2 * idx / dim)
+    emb = np.concatenate([np.sin(angles), np.cos(angles)], axis=-1)
+    return torch.tensor(emb, dtype=torch.float32, device=device)
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask: query i attends key j iff j <= i + offset."""
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
+    kj = torch.arange(kv_len, device=device)[None, :]
+    return kj <= qi
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -5,7 +5,10 @@ Geometry, as in the reference:
   * text LMs: tokens (B, S);
   * early-fusion VLMs: tokens (B, S - n_front) + frontend (B, n_front,
     d_frontend) with n_front = min(frontend_tokens, S // 2), so the residual
-    stream is S long.
+    stream is S long;
+  * the audio encoder-decoder: tokens (B, S) for the decoder + frontend
+    (B, frontend_tokens, d_frontend), the encoder's frames (the stubbed
+    conv frontend's output).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ FRONT_DTYPE = torch.bfloat16
 
 def _geometry(cfg: ModelConfig, shape: InputShape) -> Dict[str, Tuple[int, ...]]:
     b, s = shape.global_batch, shape.seq_len
+    if cfg.is_encdec:
+        return {"tokens": (b, s), "frontend": (b, cfg.frontend_tokens, cfg.d_frontend)}
     if cfg.d_frontend:
         n_front = min(cfg.frontend_tokens, s // 2)
         return {"tokens": (b, s - n_front), "frontend": (b, n_front, cfg.d_frontend)}
@@ -31,7 +36,8 @@ def _geometry(cfg: ModelConfig, shape: InputShape) -> Dict[str, Tuple[int, ...]]
 def make_dummy_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
                      device=None) -> Dict[str, torch.Tensor]:
     """{"tokens": (B, S_text) int64 uniform over the vocabulary, and for a
-    VLM "frontend": (B, n_front, d_frontend) bf16 standard normals}, drawn
+    VLM or the audio family "frontend": (B, n, d_frontend) bf16 standard
+    normals}, drawn
     from one ``np.random.default_rng(seed)`` in the reference's order, on
     ``device`` (default ``cuda``; no card raises)."""
     device = resolve_device(device)

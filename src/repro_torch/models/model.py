@@ -1,16 +1,34 @@
-"""Model builder of the port: the decoder LM of the dense, mixture-of-experts
-and early-fusion VLM families (the reference's ``_DecoderLM`` of
-``repro.models.model``): RMSNorm or LayerNorm with biases, a SwiGLU or a
-non-gated gelu MLP with biases or a MoE layer (``models/moe.py``; with a
-shared expert, and with a projector for an early-fusion MoE such as
-Llama-4-Scout), a separate or a tied head (``embed.T``). The SSM, hybrid
-and audio families raise until their slice lands (ROADMAP.md, queue 1).
+"""Model builder of the port: one front door (``Model``) over the
+reference's families (``repro.models.model``).
+
+  * ``_DecoderLM`` — the dense, mixture-of-experts and early-fusion VLM
+    decoders: RMSNorm or LayerNorm with biases, a SwiGLU or a non-gated
+    gelu MLP with biases or a MoE layer (``models/moe.py``; with a shared
+    expert, and with a projector for an early-fusion MoE such as
+    Llama-4-Scout), a separate or a tied head (``embed.T``). Its decode is
+    the planned sparse decode, and it takes frames and a paged cache.
+  * ``_Zamba`` — the hybrid (Zamba2): groups of ``attn_every`` Mamba2
+    layers (``models/ssm.py``), each followed by one shared attention +
+    SwiGLU block whose weights every application reuses, with a KV cache per
+    application; then a tail of the remaining Mamba2 layers.
+  * ``_XLSTM`` — the recurrent (xLSTM): mLSTM and sLSTM blocks
+    (``models/xlstm.py``), the state their cache.
+  * ``_Whisper`` — the audio encoder-decoder: a non-causal encoder over the
+    projected frontend plus sinusoidal positions, then a decoder with learned
+    positions, causal self-attention with a KV cache and cross-attention
+    over the encoder's keys and values, which prefill computes once.
+
+The three non-decoder families reach no sparsification site: their decode
+ignores the sparse context, ``decode_step_planned`` spreads their one I/O
+figure (0) evenly over the layers, and frame append and paged KV refuse
+them, as in the reference.
 
     model.init(seed, device)                       -> params (stacked leaves)
-    model.init_cache(b, max_seq, device)           -> linear KV cache (rotating
-        past WINDOW_ENGAGE_THRESHOLD positions: ``effective_window``)
+    model.init_cache(b, max_seq, device)           -> the family's cache (a KV
+        cache rotates past WINDOW_ENGAGE_THRESHOLD positions:
+        ``effective_window``)
     model.init_paged_cache(b, max_seq, page_tokens, n_pages, device)
-                                                   -> paged KV cache
+                                                   -> paged KV cache (decoders)
     model.forward(params, batch)                   -> hidden
     model.final_norm(params, x), model.logits(params, hidden)
                                                    -> the norm after the last layer,
@@ -19,15 +37,19 @@ and audio families raise until their slice lands (ROADMAP.md, queue 1).
         (prompts over 2048 positions, a VLM's vision tokens included, take
         the blockwise attention, as in the reference)
     model.append_embeds(params, frame, cache, sparse_ctx, device)
-                                                   -> (hidden, io)
+                                                   -> (hidden, io) (decoders)
+    model.decode_step(params, token, cache, sparse_ctx)
+                                                   -> (logits, io)
     model.decode_step_planned(params, token, cache, sparse_ctx, plan, refresh)
                                                    -> (logits, io (L,))
-        (the cache's ``length`` is a host int, or an int32 (b,) tensor of
-        per-slot lengths in slot mode, where the cache may be paged)
+        (the cache's ``length`` is a host int, or for a decoder an int32 (b,)
+        tensor of per-slot lengths in slot mode, where the cache may be paged)
 
-A batch is {"tokens": (b, s_text)} plus, for a VLM, {"frontend": (b,
-n_front, d_frontend)}: the projected frontend embeddings come first in the
-residual stream (early fusion: [vision | text]).
+The cache and the plan update in place. A batch is {"tokens": (b, s_text)}
+plus, for a VLM, {"frontend": (b, n_front, d_frontend)} — the projected
+frontend embeddings come first in the residual stream (early fusion:
+[vision | text]) — and for the audio family {"frontend": (b,
+frontend_tokens, d_frontend)}, the encoder's input.
 
 Weights are made on the target device from a seeded ``torch.Generator``
 with the reference's init scales (fan-in normal, 0.02 for the embedding
@@ -43,16 +65,49 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import CacheSpec, init_kv_cache, init_paged_kv_cache
-from .common import layer_norm, rms_norm
+from .attention import (
+    CacheSpec,
+    cache_layer_update,
+    decode_attention,
+    init_kv_cache,
+    init_paged_kv_cache,
+    multi_head_attention,
+    project_kv_for_decode,
+)
+from .common import layer_norm, rms_norm, sinusoidal_positions
+from .mlp import gelu_mlp
 from .moe import moe_param_shapes
-from .transformer import moe_cfg_of, stack_append, stack_decode, stack_forward, stack_prefill
+from .ssm import Mamba2Config, mamba2_decode_step, mamba2_forward, mamba2_param_shapes, \
+    mamba2_state_init
+from .transformer import (
+    apply_norm,
+    block_decode,
+    block_prefill,
+    layer_slice,
+    moe_cfg_of,
+    stack_append,
+    stack_decode,
+    stack_forward,
+    stack_prefill,
+)
+from .xlstm import (
+    XLSTMConfig,
+    mlstm_forward,
+    mlstm_param_shapes,
+    mlstm_state_init,
+    slstm_forward,
+    slstm_param_shapes,
+    slstm_state_init,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 
 # sliding windows engage only for ultra-long decode, as in the reference;
 # read at call time (tests lower it to reach the rotating cache cheaply)
 WINDOW_ENGAGE_THRESHOLD = 65_536
+
+# Whisper's learned decoder positions (indexed modulo their count)
+DEC_POSITIONS = 4096
 
 
 def effective_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
@@ -63,116 +118,252 @@ def effective_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
     return None
 
 
+def _phys_len(cfg: ModelConfig, max_seq: int) -> int:
+    """A KV cache's physical length: the window when it engages."""
+    window = effective_window(cfg, max_seq)
+    return min(max_seq, window) if window else max_seq
+
+
+def _decode_window(cfg: ModelConfig, phys: int) -> Optional[int]:
+    """The window a decode step runs with, read off the dense cache's
+    physical length, as in the reference: a cache of exactly
+    ``sliding_window`` positions rotates."""
+    return cfg.sliding_window if cfg.sliding_window and phys == cfg.sliding_window else None
+
+
+def block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """{name: (shape, init std, 'ones' or 'zeros')} of one decoder block:
+    the norms (LayerNorm's biases beside its weights), q/k/v/o, and the
+    SwiGLU MLP, the gelu family's w_fc/b_fc/w_proj/b_proj or a MoE layer's
+    router/we_gate/we_up/we_down (and ws_gate/ws_up/ws_down with the
+    shared expert)."""
+    d, f = cfg.d_model, cfg.d_ff
+    hd_all = cfg.n_heads * cfg.resolved_head_dim
+    kv_all = cfg.n_kv_heads * cfg.resolved_head_dim
+    shapes = {
+        "ln1_w": ((d,), "ones"),
+        "ln2_w": ((d,), "ones"),
+        "wq": ((d, hd_all), 1.0 / math.sqrt(d)),
+        "wk": ((d, kv_all), 1.0 / math.sqrt(d)),
+        "wv": ((d, kv_all), 1.0 / math.sqrt(d)),
+        "wo": ((hd_all, d), 1.0 / math.sqrt(hd_all)),
+    }
+    if cfg.norm == "layernorm":
+        shapes.update({"ln1_b": ((d,), "zeros"), "ln2_b": ((d,), "zeros")})
+    if cfg.has_moe:
+        shapes.update(moe_param_shapes(moe_cfg_of(cfg)))
+    elif cfg.mlp == "gelu":
+        shapes.update({"w_fc": ((d, f), 1.0 / math.sqrt(d)), "b_fc": ((f,), "zeros"),
+                       "w_proj": ((f, d), 1.0 / math.sqrt(f)), "b_proj": ((d,), "zeros")})
+    else:
+        shapes.update({"w_gate": ((d, f), 1.0 / math.sqrt(d)),
+                       "w_up": ((d, f), 1.0 / math.sqrt(d)),
+                       "w_down": ((f, d), 1.0 / math.sqrt(f))})
+    return shapes
+
+
+def _nested(top: str, shapes: Dict[str, tuple], *lead: int) -> Dict[str, tuple]:
+    """``shapes`` under ``top/``, each leaf stacked over ``lead`` dims."""
+    return {f"{top}/{k}": ((*lead, *shape), std) for k, (shape, std) in shapes.items()}
+
+
+def _embed_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The embedding, the final norm, the head (none when tied) and an
+    early-fusion model's projector."""
+    d = cfg.d_model
+    shapes = {"embed": ((cfg.vocab_size, d), 0.02), "final_norm_w": ((d,), "ones")}
+    if cfg.norm == "layernorm":
+        shapes["final_norm_b"] = ((d,), "zeros")
+    if not cfg.tie_embeddings:
+        shapes["head"] = ((d, cfg.vocab_size), 0.02)
+    if cfg.d_frontend and not cfg.is_encdec:
+        shapes["projector"] = ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend))
+    return shapes
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.to(torch.int64)].to(COMPUTE_DTYPE)
+
+
+def _final_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, params["final_norm_w"], params["final_norm_b"])
+    return rms_norm(x, params["final_norm_w"])
+
+
+def _logits(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return hidden @ head.to(hidden.dtype)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
 class Model:
-    """Decoder LM over a params dict {embed, final_norm_w (and _b for
-    LayerNorm), head (absent when tied), projector (VLM only), layers:
-    {name: (L, ...)}}."""
+    """The front door: dispatches on ``cfg.arch_type`` to the family's
+    implementation and gives every family the same calls."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.arch_type not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"repro_torch serves the dense, MoE and early-fusion VLM decoders only; "
-                f"{cfg.name} ({cfg.arch_type}) lands in a later slice — see ROADMAP.md, "
-                "queue 1"
-            )
+        if cfg.arch_type not in _FAMILIES:
+            raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
         self.cfg = cfg
         self.family = cfg.arch_type
-        self.has_frontend = bool(cfg.d_frontend)
+        self._impl = _FAMILIES[cfg.arch_type](cfg)
 
     @property
     def text_offset(self) -> int:
         """Where the token-aligned hidden states start (after the vision
         prefix of a VLM prompt)."""
-        return self.cfg.frontend_tokens if self.has_frontend else 0
+        return self._impl.text_offset
 
     def param_shapes(self) -> Dict[str, tuple]:
-        """{name: (shape, init std, 'ones' or 'zeros')} with layer leaves
-        stacked: LayerNorm's biases beside its weights, the gelu family's
-        w_fc/b_fc/w_proj/b_proj in place of gate/up/down, a MoE layer's
-        router/we_gate/we_up/we_down (and ws_gate/ws_up/ws_down with the
-        shared expert) in place of the MLP, no head when the embeddings are
-        tied."""
-        c = self.cfg
-        d, f, n_l = c.d_model, c.d_ff, c.n_layers
-        hd_all = c.n_heads * c.resolved_head_dim
-        kv_all = c.n_kv_heads * c.resolved_head_dim
-        shapes = {
-            "embed": ((c.vocab_size, d), 0.02),
-            "final_norm_w": ((d,), "ones"),
-            "layers/ln1_w": ((n_l, d), "ones"),
-            "layers/ln2_w": ((n_l, d), "ones"),
-            "layers/wq": ((n_l, d, hd_all), 1.0 / math.sqrt(d)),
-            "layers/wk": ((n_l, d, kv_all), 1.0 / math.sqrt(d)),
-            "layers/wv": ((n_l, d, kv_all), 1.0 / math.sqrt(d)),
-            "layers/wo": ((n_l, hd_all, d), 1.0 / math.sqrt(hd_all)),
-        }
-        if c.norm == "layernorm":
-            shapes.update({"final_norm_b": ((d,), "zeros"), "layers/ln1_b": ((n_l, d), "zeros"),
-                           "layers/ln2_b": ((n_l, d), "zeros")})
-        if c.has_moe:
-            shapes.update({f"layers/{name}": ((n_l,) + shape, std)
-                           for name, (shape, std) in moe_param_shapes(moe_cfg_of(c)).items()})
-        elif c.mlp == "gelu":
-            shapes.update({"layers/w_fc": ((n_l, d, f), 1.0 / math.sqrt(d)),
-                           "layers/b_fc": ((n_l, f), "zeros"),
-                           "layers/w_proj": ((n_l, f, d), 1.0 / math.sqrt(f)),
-                           "layers/b_proj": ((n_l, d), "zeros")})
-        else:
-            shapes.update({"layers/w_gate": ((n_l, d, f), 1.0 / math.sqrt(d)),
-                           "layers/w_up": ((n_l, d, f), 1.0 / math.sqrt(d)),
-                           "layers/w_down": ((n_l, f, d), 1.0 / math.sqrt(f))})
-        if not c.tie_embeddings:
-            shapes["head"] = ((d, c.vocab_size), 0.02)
-        if self.has_frontend:
-            shapes["projector"] = ((c.d_frontend, d), 1.0 / math.sqrt(c.d_frontend))
-        return shapes
+        """{"top" or "top/leaf": (shape, init std, 'ones' or 'zeros')}: the
+        reference's param tree, two levels deep, stacked leaves included."""
+        return self._impl.param_shapes()
 
     def init(self, seed: int = 0, device=None) -> Dict:
         """Random weights on ``device`` (default ``cuda``; no card raises)
-        from a seeded generator. A stacked leaf is drawn layer by layer, so
-        the f32 transient is one layer's (an (8, 8192, 28672) leaf of
-        InternVL2-76B would take 7.5 GB at once)."""
+        from a seeded generator, leaves in sorted order. A leaf of 3 or more
+        dims is drawn slice by slice along its first, so the f32 transient
+        is one layer's (an (8, 8192, 28672) leaf of InternVL2-76B would take
+        7.5 GB at once)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        params: Dict = {"layers": {}}
+        params: Dict = {}
         for name, (shape, std) in sorted(self.param_shapes().items()):
             top, _, sub = name.partition("/")
             if std in ("ones", "zeros"):
                 fill = torch.ones if std == "ones" else torch.zeros
                 leaf = fill(shape, dtype=COMPUTE_DTYPE, device=device)
-            elif sub:
+            elif len(shape) >= 3:
                 leaf = torch.empty(shape, dtype=COMPUTE_DTYPE, device=device)
-                for layer in range(shape[0]):
-                    leaf[layer] = torch.randn(shape[1:], generator=gen, device=device) * std
+                for i in range(shape[0]):
+                    leaf[i] = torch.randn(shape[1:], generator=gen, device=device) * std
             else:
                 leaf = (torch.randn(shape, generator=gen, device=device) * std).to(COMPUTE_DTYPE)
             if sub:
-                params[top][sub] = leaf
+                params.setdefault(top, {})[sub] = leaf
             else:
                 params[top] = leaf
         return params
 
     def init_cache(self, batch_size: int, max_seq: int, device=None) -> Dict:
-        """A linear KV cache of ``max_seq`` positions, or past the window
-        threshold a rotating one of ``min(max_seq, sliding_window)``."""
-        device = resolve_device(device)
-        cfg = self.cfg
-        spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_kv_heads,
-                         head_dim=cfg.resolved_head_dim, window=effective_window(cfg, max_seq))
-        return init_kv_cache(spec, cfg.n_layers, COMPUTE_DTYPE, device)
+        """The family's empty decode cache for ``max_seq`` positions on
+        ``device`` (default ``cuda``): a KV cache (rotating past the window
+        threshold), recurrent states, or both."""
+        return self._impl.init_cache(batch_size, max_seq, resolve_device(device))
+
+    @property
+    def is_decoder(self) -> bool:
+        """A decoder family (dense/moe/vlm): the one with sparsification
+        sites, frame append, slot mode and a paged cache."""
+        return isinstance(self._impl, _DecoderLM)
 
     @property
     def supports_paged_kv(self) -> bool:
-        """Every family the port serves (the decoder LMs) takes a paged cache."""
-        return True
+        """The reference's name for ``is_decoder`` where a paged cache is
+        meant."""
+        return self.is_decoder
 
     def init_paged_cache(self, batch_size: int, max_seq: int, page_tokens: int, n_pages: int,
                          device=None) -> Dict:
         """The paged twin of ``init_cache`` (``attention.init_paged_kv_cache``):
         ``n_pages`` pages of ``page_tokens`` positions per layer, a per-slot
         page table and per-slot lengths, on ``device`` (default ``cuda``).
-        Refuses a ``max_seq`` that pages do not tile, and sliding windows."""
-        device = resolve_device(device)
+        Refuses a ``max_seq`` that pages do not tile, sliding windows, and
+        the non-decoder families."""
+        if not self.is_decoder:
+            raise NotImplementedError(f"paged KV not supported for {self.family}")
+        return self._impl.init_paged_cache(batch_size, max_seq, page_tokens, n_pages,
+                                           resolve_device(device))
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Dense forward over a whole sequence, no cache: the final-normed
+        hidden states (b, s, d) (the reference also returns the MoE
+        auxiliary loss, which serving drops; ``moe.moe_ffn`` returns it).
+        Past the window threshold the attention is windowed."""
+        return self._impl.forward(params, batch)
+
+    def final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The norm after the last layer: LayerNorm (weight and bias) or
+        RMSNorm, by the config's ``norm``."""
+        return _final_norm(params, x, self.cfg)
+
+    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden (..., d) @ the LM head (d, vocab), in hidden's dtype; the
+        head is ``embed.T`` when the embeddings are tied."""
+        return _logits(params, hidden, self.cfg)
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
+        """The prompt through every layer: (last-position logits (b, vocab)
+        in the compute dtype, a freshly filled cache)."""
+        return self._impl.prefill(params, batch, max_seq)
+
+    def append_embeds(self, params, frame_embeds: torch.Tensor, cache: Dict,
+                      sparse_ctx=None, device=None):
+        """The frame-append stage (paper §2.1, ``_DecoderLM.append_embeds``);
+        the non-decoder families refuse it."""
+        if not self.is_decoder:
+            raise NotImplementedError(f"append_frame not supported for {self.family}")
+        return self._impl.append_embeds(params, frame_embeds, cache, sparse_ctx,
+                                        resolve_device(device))
+
+    def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
+        """One greedy-decode step: token (b, 1) → (logits (b, vocab) f32,
+        the step's estimated I/O seconds, a 0-d f32 tensor); ``cache``
+        updates in place. A decoder with a sparse context takes the
+        unplanned path (each site's mask selected in the step)."""
+        return self._impl.decode_step(params, token, cache, sparse_ctx)
+
+    def decode_step_planned(self, params, token: torch.Tensor, cache: Dict,
+                            sparse_ctx=None, plan: Optional[Dict] = None,
+                            refresh: bool = True):
+        """``decode_step`` with the chunk plan threaded through (``plan``
+        and ``cache`` update in place; ``refresh``, a host bool, selects
+        recompute vs reuse): (logits, io (L,) per-layer I/O estimates).
+        Families without sparsification sites run their plain step, spread
+        its I/O evenly over the layers, and leave ``plan`` as it was."""
+        if self.is_decoder:
+            return self._impl.decode_step_planned(params, token, cache, sparse_ctx, plan,
+                                                  refresh)
+        logits, io = self._impl.decode_step(params, token, cache, sparse_ctx)
+        n_layers = self.cfg.n_layers
+        return logits, (io / n_layers).expand(n_layers)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# dense / moe / vlm decoder LM
+# ---------------------------------------------------------------------------
+
+
+class _DecoderLM:
+    """Params {embed, final_norm_w (and _b for LayerNorm), head (absent when
+    tied), projector (VLM only), layers: {name: (L, ...)}}."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.has_frontend = bool(cfg.d_frontend)
+        self.text_offset = cfg.frontend_tokens if self.has_frontend else 0
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        return {**_embed_shapes(self.cfg),
+                **_nested("layers", block_param_shapes(self.cfg), self.cfg.n_layers)}
+
+    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+        """A linear KV cache of ``max_seq`` positions, or past the window
+        threshold a rotating one of ``min(max_seq, sliding_window)``."""
+        cfg = self.cfg
+        spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_kv_heads,
+                         head_dim=cfg.resolved_head_dim, window=effective_window(cfg, max_seq))
+        return init_kv_cache(spec, cfg.n_layers, COMPUTE_DTYPE, device)
+
+    def init_paged_cache(self, batch_size: int, max_seq: int, page_tokens: int, n_pages: int,
+                         device) -> Dict:
         cfg = self.cfg
         if max_seq % page_tokens != 0:
             raise ValueError(f"max_seq ({max_seq}) must be divisible by page_tokens "
@@ -183,92 +374,405 @@ class Model:
                                    cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers,
                                    COMPUTE_DTYPE, device)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.to(torch.int64)].to(COMPUTE_DTYPE)
-
     def _embed_input(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The residual stream of a prompt: [frontend @ projector | embed
         (tokens)] for a VLM, the token embeddings otherwise."""
-        x = self._embed(params, batch["tokens"])
+        x = _embed(params, batch["tokens"])
         if self.has_frontend:
             front = batch["frontend"].to(COMPUTE_DTYPE)
             x = torch.cat([front @ params["projector"].to(COMPUTE_DTYPE), x], dim=1)
         return x
 
     def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Dense forward over a whole sequence, no cache: the final-normed
-        hidden states (b, s, d) (the reference also returns the MoE
-        auxiliary loss, which serving drops; ``moe.moe_ffn`` returns it).
-        Past the window threshold the attention is windowed."""
         x = self._embed_input(params, batch)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x = stack_forward(params["layers"], x, self.cfg, positions,
+        x = stack_forward(params["layers"], x, self.cfg, _positions(b, s, x.device),
                           effective_window(self.cfg, s))
-        return self.final_norm(params, x)
-
-    def final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
-        """The norm after the last layer: LayerNorm (weight and bias) or
-        RMSNorm, by the config's ``norm``."""
-        if self.cfg.norm == "layernorm":
-            return layer_norm(x, params["final_norm_w"], params["final_norm_b"])
-        return rms_norm(x, params["final_norm_w"])
-
-    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (..., d) @ the LM head (d, vocab), in hidden's dtype; the
-        head is ``embed.T`` when the embeddings are tied."""
-        head = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return hidden @ head.to(hidden.dtype)
+        return _final_norm(params, x, self.cfg)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
-        """Dense forward over the prompt. Returns (last-position logits
-        (b, vocab) in the compute dtype, a freshly filled cache). A prompt
-        longer than ``attention.BLOCKWISE_THRESHOLD`` positions (vision
-        tokens included) takes the blockwise attention. Past the window
-        threshold (of ``max_seq``) the attention is windowed and the cache
-        rotating: it keeps the prompt's last ``sliding_window`` positions."""
+        """A prompt longer than ``attention.BLOCKWISE_THRESHOLD`` positions
+        (vision tokens included) takes the blockwise attention. Past the
+        window threshold (of ``max_seq``) the attention is windowed and the
+        cache rotating: it keeps the prompt's last ``sliding_window``
+        positions."""
         x = self._embed_input(params, batch)
         b, s, _ = x.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
         cache = self.init_cache(b, max_seq, x.device)
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x = stack_prefill(params["layers"], x, self.cfg, positions, cache,
+        x = stack_prefill(params["layers"], x, self.cfg, _positions(b, s, x.device), cache,
                           effective_window(self.cfg, max_seq))
-        return self.logits(params, self.final_norm(params, x)[:, -1]), cache
+        return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
 
     def append_embeds(self, params, frame_embeds: torch.Tensor, cache: Dict,
-                      sparse_ctx=None, device=None):
+                      sparse_ctx, device):
         """One frame of patch embeddings (b, n, d_frontend) → projector →
         an n-token extension of every layer's cache (the paper's frame
-        append, §2.1), on ``device`` (default ``cuda``; no card raises).
-        Without a projector the embeddings enter the stack as they are.
-        ``cache`` updates in place. Returns (final-normed hidden (b, n, d),
-        io: the frame's estimated I/O seconds, a scalar tensor)."""
-        x = frame_embeds.to(resolve_device(device)).to(COMPUTE_DTYPE)
+        append, §2.1), on ``device``. Without a projector the embeddings
+        enter the stack as they are. ``cache`` updates in place. Returns
+        (final-normed hidden (b, n, d), io: the frame's estimated I/O
+        seconds, a scalar tensor)."""
+        x = frame_embeds.to(device).to(COMPUTE_DTYPE)
         if "projector" in params:
             x = x @ params["projector"].to(COMPUTE_DTYPE)
         x, io = stack_append(params["layers"], x, cache, self.cfg, sparse_ctx)
-        return self.final_norm(params, x), io
+        return _final_norm(params, x, self.cfg), io
+
+    def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
+        logits, io = self.decode_step_planned(params, token, cache, sparse_ctx)
+        return logits, io.sum()
 
     def decode_step_planned(self, params, token: torch.Tensor, cache: Dict,
                             sparse_ctx=None, plan: Optional[Dict] = None,
                             refresh: bool = True):
-        """One greedy-decode step: token (b, 1) → (logits (b, vocab) f32,
-        io (L,) per-layer I/O estimates). ``cache`` and ``plan`` update in
-        place; ``refresh`` (host bool) selects recompute vs reuse of the
-        chunk plan. The window is read off the cache, as in the reference:
-        a dense cache whose physical length equals ``sliding_window``
-        rotates; a paged one never does."""
+        """The window is read off the cache, as in the reference: a dense
+        cache whose physical length equals ``sliding_window`` rotates; a
+        paged one never does."""
         cfg = self.cfg
-        window = None
-        if "page_table" not in cache and cfg.sliding_window \
-                and cache["k"].shape[2] == cfg.sliding_window:
-            window = cfg.sliding_window
-        x = self._embed(params, token)
+        window = None if "page_table" in cache else _decode_window(cfg, cache["k"].shape[2])
+        x = _embed(params, token)
         x, io = stack_decode(params["layers"], x, cache, cfg, sparse_ctx, plan, refresh, window)
-        return self.logits(params, self.final_norm(params, x)[:, 0]).to(torch.float32), io
+        return _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32), io
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+# ---------------------------------------------------------------------------
+# zamba2 hybrid: groups of Mamba2 layers + one shared attention/MLP block
+# ---------------------------------------------------------------------------
+
+
+class _Zamba:
+    """Params {embed, final_norm_w, head, mamba_groups: {name: (groups,
+    group size, ...)}, mamba_tail: {name: (tail, ...)} (when the layers do
+    not split into whole groups), shared: {one decoder block}}. Cache
+    {mamba_groups / mamba_tail: {"conv", "ssm"} stacked over their layers,
+    attn_k / attn_v (groups, b, phys, kv, hd): one KV cache per application
+    of the shared block, length}."""
+
+    text_offset = 0
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.mcfg = Mamba2Config(d_model=cfg.d_model, d_state=cfg.ssm_state, d_conv=cfg.ssm_conv,
+                                 expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim)
+        self.group_size = cfg.attn_every
+        self.n_groups = cfg.n_layers // cfg.attn_every
+        self.n_tail = cfg.n_layers - self.n_groups * self.group_size
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        cfg = self.cfg
+        layer = {**mamba2_param_shapes(self.mcfg), "mnorm_w": ((cfg.d_model,), "ones")}
+        shapes = {**_embed_shapes(cfg),
+                  **_nested("mamba_groups", layer, self.n_groups, self.group_size),
+                  **_nested("shared", block_param_shapes(cfg))}
+        if self.n_tail:
+            shapes.update(_nested("mamba_tail", layer, self.n_tail))
+        return shapes
+
+    def _layers(self, params):
+        """(layer params, its state's stack in the cache, its index there,
+        the shared block's application after it or None), in order."""
+        for g in range(self.n_groups):
+            for j in range(self.group_size):
+                yield (layer_slice(params["mamba_groups"], (g, j)), "mamba_groups",
+                       g * self.group_size + j, g if j == self.group_size - 1 else None)
+        for j in range(self.n_tail):
+            yield layer_slice(params["mamba_tail"], j), "mamba_tail", j, None
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        x = _embed(params, batch["tokens"])
+        b, s, _ = x.shape
+        positions, window = _positions(b, s, x.device), effective_window(cfg, s)
+        for lp, _, _, app in self._layers(params):
+            x = x + mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg)
+            if app is not None:
+                x = block_prefill(params["shared"], x, cfg, positions, window)[0]
+        return _final_norm(params, x, cfg)
+
+    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+        cfg = self.cfg
+        phys = _phys_len(cfg, max_seq)
+
+        def stacked_state(n):
+            st = mamba2_state_init(self.mcfg, batch_size, COMPUTE_DTYPE, device)
+            return {k: v[None].repeat(n, *([1] * v.ndim)) for k, v in st.items()}
+
+        kv = (self.n_groups, batch_size, phys, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache = {"mamba_groups": stacked_state(self.n_groups * self.group_size),
+                 "attn_k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
+                 "attn_v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
+                 "length": 0}
+        if self.n_tail:
+            cache["mamba_tail"] = stacked_state(self.n_tail)
+        return cache
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
+        """The chunked-SSD forward over the prompt through every Mamba2
+        layer, keeping each one's final state, and each application of the
+        shared block fills its KV cache."""
+        cfg = self.cfg
+        x = _embed(params, batch["tokens"])
+        b, s, _ = x.shape
+        cache = self.init_cache(b, max_seq, x.device)
+        positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)
+        phys = cache["attn_k"].shape[2]
+        for lp, stack, i, app in self._layers(params):
+            out, st = mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg,
+                                     return_state=True)
+            x = x + out
+            for key, v in st.items():
+                cache[stack][key][i] = v
+            if app is not None:
+                x, k, v = block_prefill(params["shared"], x, cfg, positions, window, phys)
+                cache["attn_k"][app, :, :k.shape[1]] = k
+                cache["attn_v"][app, :, :v.shape[1]] = v
+        cache["length"] = s
+        return _logits(params, _final_norm(params, x, cfg)[:, -1], cfg), cache
+
+    def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
+        """The recurrent step of every Mamba2 layer and the shared block's
+        decode against each application's cache; ``sparse_ctx`` is
+        ignored."""
+        cfg = self.cfg
+        x = _embed(params, token)
+        length = cache["length"]
+        window = _decode_window(cfg, cache["attn_k"].shape[2])
+        for lp, stack, i, app in self._layers(params):
+            states = cache[stack]
+            out, st = mamba2_decode_step(rms_norm(x, lp["mnorm_w"]),
+                                         {k: v[i] for k, v in states.items()}, lp, self.mcfg)
+            x = x + out
+            for key, v in st.items():
+                states[key][i] = v
+            if app is not None:
+                x, _ = block_decode(params["shared"], x, cache["attn_k"][app],
+                                    cache["attn_v"][app], length, cfg, window=window)
+        cache["length"] = length + 1
+        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: a Python loop over heterogeneous blocks
+# ---------------------------------------------------------------------------
+
+
+class _XLSTM:
+    """Params {embed, final_norm_w, head, block_i: {the block's leaves,
+    bnorm_w}}: sLSTM at ``cfg.slstm_layers``, mLSTM elsewhere. Cache
+    {block_i: the block's state tuple, length}."""
+
+    text_offset = 0
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.xcfg = XLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads)
+
+    def _is_slstm(self, i: int) -> bool:
+        return i in self.cfg.slstm_layers
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        shapes = _embed_shapes(self.cfg)
+        for i in range(self.cfg.n_layers):
+            block = slstm_param_shapes(self.xcfg) if self._is_slstm(i) \
+                else mlstm_param_shapes(self.xcfg)
+            shapes.update(_nested(f"block_{i}",
+                                  {**block, "bnorm_w": ((self.cfg.d_model,), "ones")}))
+        return shapes
+
+    def _run(self, params, x: torch.Tensor, cache: Dict) -> torch.Tensor:
+        """Every block over x, each from its state in ``cache``, which takes
+        the new states in place."""
+        for i in range(self.cfg.n_layers):
+            bp = params[f"block_{i}"]
+            fn = slstm_forward if self._is_slstm(i) else mlstm_forward
+            out, cache[f"block_{i}"] = fn(rms_norm(x, bp["bnorm_w"]), bp, self.xcfg,
+                                          state=cache[f"block_{i}"])
+            x = x + out
+        return x
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = _embed(params, batch["tokens"])
+        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device))
+        return _final_norm(params, x, self.cfg)
+
+    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+        cache = {f"block_{i}": (slstm_state_init(self.xcfg, batch_size, device)
+                                if self._is_slstm(i)
+                                else mlstm_state_init(self.xcfg, batch_size, device))
+                 for i in range(self.cfg.n_layers)}
+        cache["length"] = 0
+        return cache
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
+        x = _embed(params, batch["tokens"])
+        cache = self.init_cache(x.shape[0], max_seq, x.device)
+        x = self._run(params, x, cache)
+        cache["length"] = x.shape[1]
+        return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
+
+    def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
+        """Every block's recurrent step; ``sparse_ctx`` is ignored."""
+        x = self._run(params, _embed(params, token), cache)
+        cache["length"] += 1
+        logits = _logits(params, _final_norm(params, x, self.cfg)[:, 0], self.cfg)
+        return logits.to(torch.float32), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# whisper-style encoder-decoder (audio)
+# ---------------------------------------------------------------------------
+
+
+class _Whisper:
+    """Params {embed, final_norm_w/_b, head, pos_embed_dec (4096, d),
+    frontend_proj, enc_final_w/_b, encoder: {block: (E, ...)}, decoder:
+    {block + the cross-attention's x_wq/x_wk/x_wv/x_wo and ln_x_w/_b: (L,
+    ...)}}. Cache {k, v (L, b, phys, kv, hd): self-attention; enc_k, enc_v
+    (L, b, frontend_tokens, kv, hd): the encoder's keys and values; length}."""
+
+    text_offset = 0
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def param_shapes(self) -> Dict[str, tuple]:
+        cfg = self.cfg
+        d = cfg.d_model
+        block = block_param_shapes(cfg)
+        dec = {**block, **{f"x_{k}": block[k] for k in ("wq", "wk", "wv", "wo")},
+               "ln_x_w": ((d,), "ones"), "ln_x_b": ((d,), "zeros")}
+        return {**_embed_shapes(cfg),
+                "pos_embed_dec": ((DEC_POSITIONS, d), 0.01),
+                "frontend_proj": ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend)),
+                "enc_final_w": ((d,), "ones"), "enc_final_b": ((d,), "zeros"),
+                **_nested("encoder", block, cfg.encoder_layers),
+                **_nested("decoder", dec, cfg.n_layers)}
+
+    def _attention(self, h, lp, **kw):
+        cfg = self.cfg
+        return multi_head_attention(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                                    rope_theta=None, **kw)
+
+    def _encode(self, params, frontend: torch.Tensor) -> torch.Tensor:
+        """The frontend (b, n, d_frontend) → projection + sinusoidal
+        positions → the non-causal encoder blocks → the final LayerNorm."""
+        cfg = self.cfg
+        x = frontend.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(COMPUTE_DTYPE)[None]
+        for layer in range(cfg.encoder_layers):
+            lp = layer_slice(params["encoder"], layer)
+            x = x + self._attention(apply_norm(x, lp, cfg, "ln1"), lp, causal=False)
+            x = x + gelu_mlp(apply_norm(x, lp, cfg, "ln2"), lp)
+        return layer_norm(x, params["enc_final_w"], params["enc_final_b"])
+
+    def _enc_kv(self, lp, enc: torch.Tensor):
+        """One decoder layer's cross-attention keys and values over the
+        encoder's states, each (b, sk, kv, hd)."""
+        cfg = self.cfg
+        b, sk, _ = enc.shape
+        shape = (b, sk, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return (enc @ lp["x_wk"]).reshape(shape), (enc @ lp["x_wv"]).reshape(shape)
+
+    def _dec_pos(self, params, positions) -> torch.Tensor:
+        """The learned decoder positions (an int, or a tensor of them),
+        indexed modulo the table's 4096 rows (the assigned decode contexts
+        exceed Whisper's trained 448, as in the reference)."""
+        table = params["pos_embed_dec"]
+        return table[positions % table.shape[0]].to(COMPUTE_DTYPE)
+
+    def _cross_mlp(self, lp, x: torch.Tensor, enc_kv) -> torch.Tensor:
+        """The decoder block after its self-attention: cross-attention over
+        ``enc_kv``, then the MLP."""
+        cfg = self.cfg
+        h = layer_norm(x, lp["ln_x_w"], lp["ln_x_b"])
+        x = x + self._attention(h, lp, causal=False, kv_override=enc_kv, prefix="x_")
+        return x + gelu_mlp(apply_norm(x, lp, cfg, "ln2"), lp)
+
+    def _block(self, lp, x: torch.Tensor, enc_kv, positions, window) -> torch.Tensor:
+        """One decoder block over a whole sequence (no cache)."""
+        x = x + self._attention(apply_norm(x, lp, self.cfg, "ln1"), lp, positions=positions,
+                                causal=True, window=window)
+        return self._cross_mlp(lp, x, enc_kv)
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        enc = self._encode(params, batch["frontend"])
+        b, s = batch["tokens"].shape
+        x = _embed(params, batch["tokens"])
+        x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
+        positions, window = _positions(b, s, x.device), effective_window(cfg, s)
+        for layer in range(cfg.n_layers):
+            lp = layer_slice(params["decoder"], layer)
+            x = self._block(lp, x, self._enc_kv(lp, enc), positions, window)
+        return _final_norm(params, x, cfg)
+
+    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+        cfg = self.cfg
+        kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (cfg.n_layers, batch_size, _phys_len(cfg, max_seq), kv, hd)
+        enc_shape = (cfg.n_layers, batch_size, cfg.frontend_tokens, kv, hd)
+        return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                "enc_k": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
+                "enc_v": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
+                "length": 0}
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
+        """Encode the audio, fill every decoder layer's cross-attention keys
+        and values once, and prefill the decoder with the prompt tokens. A
+        prompt longer than the cache keeps its last positions unrotated
+        (the reference's layout, copied)."""
+        cfg = self.cfg
+        enc = self._encode(params, batch["frontend"])
+        b, s = batch["tokens"].shape
+        cache = self.init_cache(b, max_seq, enc.device)
+        x = _embed(params, batch["tokens"])
+        x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
+        positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)
+        phys = cache["k"].shape[2]
+        kv_shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        enc_kvs = []
+        for layer in range(cfg.n_layers):
+            lp = layer_slice(params["decoder"], layer)
+            enc_kv = self._enc_kv(lp, enc)
+            enc_kvs.append(enc_kv)
+            h = apply_norm(x, lp, cfg, "ln1")
+            k = (h @ lp["wk"]).reshape(kv_shape)[:, -phys:]
+            v = (h @ lp["wv"]).reshape(kv_shape)[:, -phys:]
+            cache["k"][layer, :, :k.shape[1]] = k
+            cache["v"][layer, :, :v.shape[1]] = v
+            x = self._block(lp, x, enc_kv, positions, window)
+        # stacked whole, as in the reference: the frames may be fewer than
+        # the config's frontend_tokens the empty cache was sized for
+        cache["enc_k"] = torch.stack([k for k, _ in enc_kvs])
+        cache["enc_v"] = torch.stack([v for _, v in enc_kvs])
+        cache["length"] = s
+        return _logits(params, _final_norm(params, x, cfg)[:, -1], cfg), cache
+
+    def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
+        """Self-attention against the cache, cross-attention against the
+        encoder's keys and values, the MLP; ``sparse_ctx`` is ignored."""
+        cfg = self.cfg
+        n_kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        length = cache["length"]
+        x = _embed(params, token) + self._dec_pos(params, length)
+        window = _decode_window(cfg, cache["k"].shape[2])
+        for layer in range(cfg.n_layers):
+            lp = layer_slice(params["decoder"], layer)
+            lk, lv = cache["k"][layer], cache["v"][layer]
+            h = apply_norm(x, lp, cfg, "ln1")
+            nk, nv = project_kv_for_decode(h @ lp["wk"], h @ lp["wv"], n_kv, hd, length, None)
+            cache_layer_update(lk, lv, nk, nv, length, window)
+            attn = decode_attention(h @ lp["wq"], lk, lv, length + 1, cfg.n_heads, n_kv, hd,
+                                    None, x.dtype, window)
+            x = x + attn @ lp["wo"]
+            x = self._cross_mlp(lp, x, (cache["enc_k"][layer], cache["enc_v"][layer]))
+        cache["length"] = length + 1
+        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+_FAMILIES = {"dense": _DecoderLM, "moe": _DecoderLM, "vlm": _DecoderLM, "hybrid": _Zamba,
+             "ssm": _XLSTM, "audio": _Whisper}

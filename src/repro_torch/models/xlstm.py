@@ -1,0 +1,177 @@
+"""xLSTM blocks (sLSTM + mLSTM), the substrate of xLSTM-125M (the port's
+copy of ``repro.models.xlstm``).
+
+mLSTM: a matrix memory C (dh × dh) per head with exponential gating and a
+max-stabiliser state; the block up-projects by 2, takes q/k/v from the inner
+stream, gates the output and projects down. sLSTM: a scalar memory whose
+gates mix the previous hidden state head by head, then a gelu feed-forward
+(factor 4/3). Both run their recurrence step by step in f32. The reference
+pads the sequence to whole chunks of 64 steps (its ``XLSTMConfig.chunk``,
+a rematerialisation grain) whose padded steps never touch the state; they
+are skipped here, so a decode step is one step, not 64, and the config has
+no chunk. The m states start at −1e30.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .common import gelu, rms_norm, swish
+
+NEG_M = -1e30  # the initial max-stabiliser, as in the reference
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    d_model: int
+    n_heads: int
+    m_proj_factor: float = 2.0
+    s_ff_factor: float = 1.3334
+
+    @property
+    def d_inner(self) -> int:
+        return int(self.m_proj_factor * self.d_model)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_inner // self.n_heads
+
+    @property
+    def s_head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def d_ff_s(self) -> int:
+        return int(self.s_ff_factor * self.d_model)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object]]:
+    """{name: (shape, init std, 'ones' or 'zeros')} of one mLSTM block, the
+    reference's ``ParamDef``s (the gate projections at std 0.02, the forget
+    bias at ones)."""
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
+    return {
+        "w_up": ((d, 2 * di), 1.0 / math.sqrt(d)),
+        "w_q": ((di, di), 1.0 / math.sqrt(di)),
+        "w_k": ((di, di), 1.0 / math.sqrt(di)),
+        "w_v": ((di, di), 1.0 / math.sqrt(di)),
+        "w_ig": ((di, h), 0.02),
+        "b_ig": ((h,), "zeros"),
+        "w_fg": ((di, h), 0.02),
+        "b_fg": ((h,), "ones"),
+        "norm_w": ((di,), "ones"),
+        "w_down": ((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def mlstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
+    """(C (b, h, dh, dh), n (b, h, dh), m (b, h)), f32."""
+    h, dh = cfg.n_heads, cfg.head_dim
+    return (torch.zeros((batch, h, dh, dh), dtype=torch.float32, device=device),
+            torch.zeros((batch, h, dh), dtype=torch.float32, device=device),
+            torch.full((batch, h), NEG_M, dtype=torch.float32, device=device))
+
+
+def _mlstm_scan(q, k, v, log_i, log_f, state):
+    """The mLSTM recurrence over (b, s, h, dh) f32 inputs, one step at a
+    time. Returns (y (b, s, h, dh), the state after the last step)."""
+    c, n, m = state
+    ys = []
+    for t in range(q.shape[1]):
+        qt, kt, vt, li, lf = q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t]
+        m_new = torch.maximum(lf + m, li)
+        i_p = torch.exp(li - m_new)[..., None]  # (b, h, 1)
+        f_p = torch.exp(lf + m - m_new)[..., None]
+        c = f_p[..., None] * c + i_p[..., None] * torch.einsum("bhv,bhk->bhvk", vt, kt)
+        n = f_p * n + i_p * kt
+        num = torch.einsum("bhvk,bhk->bhv", c, qt)
+        den = torch.einsum("bhk,bhk->bh", n, qt).abs()
+        den = torch.maximum(den, torch.exp(-m_new))[..., None]
+        m = m_new
+        ys.append(num / den)
+    return torch.stack(ys, dim=1), (c, n, m)
+
+
+def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
+                  state=None):
+    """(b, s, d) → (out (b, s, d), the new state); ``state`` None starts
+    from ``mlstm_state_init``."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    xm, z = (x @ params["w_up"]).chunk(2, dim=-1)  # (b, s, di) each
+    qf = (xm @ params["w_q"]).reshape(b, s, h, dh).to(torch.float32)
+    kf = (xm @ params["w_k"]).reshape(b, s, h, dh).to(torch.float32) / (dh ** 0.5)
+    vf = (xm @ params["w_v"]).reshape(b, s, h, dh).to(torch.float32)
+    log_i = (xm @ params["w_ig"] + params["b_ig"]).to(torch.float32)
+    log_f = F.logsigmoid((xm @ params["w_fg"] + params["b_fg"]).to(torch.float32))
+    if state is None:
+        state = mlstm_state_init(cfg, b, x.device)
+    y, state = _mlstm_scan(qf, kf, vf, log_i, log_f, state)
+    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y, params["norm_w"]) * swish(z)
+    return y @ params["w_down"], state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object]]:
+    """{name: (shape, init std, 'ones' or 'zeros')} of one sLSTM block: the
+    z/i/f/o gate pre-activations, their head-wise recurrent mix (std 0.02)
+    and the feed-forward."""
+    d, h, sdh = cfg.d_model, cfg.n_heads, cfg.s_head_dim
+    return {
+        "w_gates": ((d, 4 * d), 1.0 / math.sqrt(d)),
+        "r_gates": ((h, sdh, 4 * sdh), 0.02),
+        "b_gates": ((4 * d,), "zeros"),
+        "norm_w": ((d,), "ones"),
+        "w_ff_up": ((d, cfg.d_ff_s), 1.0 / math.sqrt(d)),
+        "w_ff_down": ((cfg.d_ff_s, d), 1.0 / math.sqrt(cfg.d_ff_s)),
+    }
+
+
+def slstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
+    """(c, n, m, h), each (b, d) f32; m at −1e30."""
+    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+    return (z, z.clone(), torch.full_like(z, NEG_M), z.clone())
+
+
+def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
+                  state=None):
+    """sLSTM with the head-wise recurrent gate mix, then the feed-forward:
+    (b, s, d) → (out, the new state)."""
+    b, s, d = x.shape
+    h, sdh = cfg.n_heads, cfg.s_head_dim
+    pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
+    if state is None:
+        state = slstm_state_init(cfg, b, x.device)
+    r_w = params["r_gates"].to(torch.float32)  # (h, sdh, 4 sdh)
+    c, n, m, h_prev = state
+    ys = []
+    for t in range(s):
+        rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
+        # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
+        rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, 4 * d)
+        zt, it, ft, ot = (pre[:, t] + rec).chunk(4, dim=-1)
+        zt, ot, log_f = torch.tanh(zt), torch.sigmoid(ot), F.logsigmoid(ft)
+        m_new = torch.maximum(log_f + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        c = f_p * c + i_p * zt
+        n = f_p * n + i_p
+        h_prev = ot * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        ys.append(h_prev)
+    y = rms_norm(torch.stack(ys, dim=1).to(x.dtype), params["norm_w"])
+    return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], (c, n, m, h_prev)

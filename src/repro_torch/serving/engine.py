@@ -34,6 +34,16 @@ simulator charges, as in the reference (``models/moe.py``); their
 capacity is over each call's own tokens (in slot mode, free slots'
 tokens too).
 
+The hybrid (Zamba2), recurrent (xLSTM) and audio (Whisper) families serve
+single-stream through ``Model.decode_step_planned``, as in the reference:
+their decode reaches no sparsification site, so a decode step carries the
+family's I/O figure (0) spread over the layers and the plan passes through
+unchanged, while the prefill is charged the dense I/O and the offloaded
+bytes of the config's site geometry like any other. Paged KV, slot mode,
+frames, ``wbits=8`` and corruption injection are refused for them (the
+reference fails on the last two: it quantizes and packs
+``params["layers"]``, which these families do not have).
+
 ``cache_mb`` turns on the dynamic residency cache (paper §5,
 ``SparseExecution``): only cache-miss rows are charged, and
 ``io_summary``'s ``cache_hit_rate`` reads the plan's real hits.
@@ -154,7 +164,7 @@ class ServeEngine:
                  device: str = "nano", sparsity=0.4, method: str = "chunk",
                  reorderings: Optional[dict] = None, seed: int = 0,
                  plan_refresh_interval: int = 1, cache_mb: Optional[float] = None,
-                 overlap: bool = True, prefetch_depth: int = 1,
+                 overlap: bool = True, prefetch_depth: int = 1, compute_layer_scale=None,
                  backend: str = "reference", wbits: int = 16, torch_device=None,
                  fault_profile=None, fault_seed: int = 0, degrade: bool = False,
                  corruption_profile=None, corruption_seed: int = 0, max_reread: int = 2,
@@ -173,7 +183,10 @@ class ServeEngine:
         ``Reordering``s (reference backend only). ``prefetch_depth``: any
         depth ≥ 0; it prices the pipeline, and the kernels' ring runs at
         most ``MAX_PREFETCH_DEPTH`` ahead — tokens are byte-identical at
-        every depth.
+        every depth. ``compute_layer_scale``: optional (n_layers,)
+        multipliers of the pipeline's per-layer compute lane
+        (``ComputeModel.decode_layer_seconds``; e.g. from
+        ``calibrate_layer_scale``); None keeps it uniform.
 
         ``fault_profile`` / ``fault_seed``: a ``FAULT_PROFILES`` name (or a
         ``FaultProfile``) perturbing the simulator's measured events with
@@ -204,10 +217,15 @@ class ServeEngine:
         if degrade and method not in ("chunk", "topk"):
             raise ValueError(f"degrade=True needs a selecting method ('chunk' | 'topk') whose "
                              f"budget the controller can tighten, got {method!r}")
-        if (method == "dense_free" and corruption_profile is not None
-                and CorruptionModel(corruption_profile, max_reread=max_reread).enabled):
+        corrupting = (corruption_profile is not None
+                      and CorruptionModel(corruption_profile, max_reread=max_reread).enabled)
+        if method == "dense_free" and corrupting:
             raise ValueError("corruption injection needs an offloaded data plane — "
                              "method='dense_free' streams nothing from flash")
+        if not model.is_decoder and method != "dense_free" and (wbits == 8 or corrupting):
+            raise ValueError(f"wbits=8 and corruption injection quantize or checksum the "
+                             f"decoder layers' offloaded matrices; the {model.family!r} "
+                             f"family ({model.cfg.name}) has none")
         self.torch_device = resolve_device(torch_device)
         self.backend = backend
         self.model = model
@@ -237,8 +255,8 @@ class ServeEngine:
         self.kv_page_tokens = kv_page_tokens
         if kv_page_tokens is not None:
             if not model.supports_paged_kv:
-                raise ValueError(f"paged KV is only supported for decoder families, "
-                                 f"not {model.family!r}")
+                raise ValueError(f"paged KV is only supported for decoder families "
+                                 f"(dense/moe/vlm), not {model.family!r}")
             if kv_page_tokens < 1 or max_seq % kv_page_tokens != 0:
                 raise ValueError(f"kv_page_tokens ({kv_page_tokens}) must be >= 1 and "
                                  f"divide max_seq ({max_seq})")
@@ -287,7 +305,7 @@ class ServeEngine:
         # their kept rows, dense and dense_free over every row
         self.compute_layer_s = ComputeModel().decode_layer_seconds(
             model.cfg, sparsity=sparsity if method in ("chunk", "topk") else 0.0,
-            tokens=batch_size
+            tokens=batch_size, layer_scale=compute_layer_scale,
         )
         self.kv_pool: Optional[KVPagePool] = None
         # slot mode's host mirror of the per-slot lengths (None in single-
@@ -592,7 +610,11 @@ class ServeEngine:
     def enable_slots(self) -> None:
         """Switch the cache to per-slot lengths: each batch row becomes an
         independent request slot (empty until ``admit_slot``); a paged
-        engine rebuilds its pool."""
+        engine rebuilds its pool. The decoder families only: the others'
+        caches have no per-slot layout."""
+        if not self.model.is_decoder:
+            raise NotImplementedError(f"slot mode (continuous batching) serves the decoder "
+                                      f"families (dense/moe/vlm), not {self.model.family!r}")
         if self.kv_pool is not None:
             self._init_paged_state()
         else:

@@ -104,8 +104,7 @@ def fam(request):
 
 def test_configs_registered_and_full_models_build():
     """The three configs carry the reference's numbers; their full-size
-    models build (param shapes only), and the families not yet served
-    still refuse."""
+    models build (param shapes only), and an unknown family is refused."""
     import dataclasses
 
     for arch in ARCHS + ("starcoder2-7b",):
@@ -119,8 +118,8 @@ def test_configs_registered_and_full_models_build():
         assert ("head" in shapes) != t.tie_embeddings
         assert ("layers/w_fc" in shapes) == (t.mlp == "gelu") != ("layers/w_gate" in shapes)
         assert ("final_norm_b" in shapes) == (t.norm == "layernorm")
-    with pytest.raises(NotImplementedError):
-        tbuild(dataclasses.replace(tget("starcoder2-3b"), arch_type="ssm"))
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        tbuild(dataclasses.replace(tget("starcoder2-3b"), arch_type="diffusion"))
 
 
 def test_params_carried_over_exactly(fam):

@@ -143,16 +143,19 @@ def test_dense_decode_step_without_sparse_ctx(pair):
 
 
 def test_build_model_refuses_unported_families():
-    """The SSM, hybrid and audio families still raise (MoE is served since
-    its slice; ``tests/test_torch_moe_serve.py``)."""
+    """Every family of the reference builds (the SSM, hybrid and audio ones
+    since their slice; ``tests/test_torch_families.py``), and ``get_config``
+    finds their archs; only an arch_type no package knows is refused."""
     import dataclasses
 
-    for family in ("ssm", "hybrid", "audio"):
-        cfg = dataclasses.replace(tget("tinyllama-1.1b").reduced(), arch_type=family)
-        with pytest.raises(NotImplementedError):
-            tbuild(cfg)
+    for family, arch in (("ssm", "xlstm-125m"), ("hybrid", "zamba2-7b"),
+                         ("audio", "whisper-small")):
+        model = tbuild(tget(arch).reduced())
+        assert model.family == family and not model.is_decoder
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        tbuild(dataclasses.replace(tget("tinyllama-1.1b").reduced(), arch_type="diffusion"))
     with pytest.raises(KeyError):
-        tget("xlstm-125m")
+        tget("xlstm-1b")
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "params_from_reference",
