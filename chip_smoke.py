@@ -147,11 +147,22 @@ Phases, each of which fails the run on error:
      a forward's last logits in f32 (Zamba at 15 layers); the reduced
      config on the card against the CPU; paged KV, wbits 8 and the frame
      append refused.
+ 14. training: tinyllama-1.1b at full width and depth (22 layers, d_model
+     2048, d_ff 5632, vocab 32000), random weights from a seed, batch 8 x
+     512 tokens of the synthetic pipeline (drawn before the timed window,
+     its host time printed apart), remat on, the chunked-CE loss, AdamW:
+     2 warm-up and 6 timed steps (wall a step, tokens/s, 6·N·T FLOPs a step
+     against the bf16 dense peak, peak memory), one profiled step (idle
+     share, host launches), every loss and grad_norm finite, no chunk-gather
+     kernel launched; one step with remat off from the same state as a
+     remat-on step (equal loss, both peaks); then each family's reduced
+     config, one bf16 step on the card against the CPU, and a checkpoint
+     saved from the card and loaded on the CPU, bitwise.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
 10's slot rows, phase 11's and phase 12's rows per arch, phase 13's K5 row
-per arch), then,
+per arch; phase 14's training path launches none of the kernels), then,
 as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
@@ -160,6 +171,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -264,6 +276,29 @@ MOE_FRAMES, MOE_MAX_SEQ = 3, 256
 FAMILY_ARCHS, FAMILY_MAX_SEQ = ("zamba2-7b", "xlstm-125m", "whisper-small"), 64
 CONSIST_SEQ, CONSIST_ZAMBA_LAYERS, CONSIST_TOL = 12, 15, dict(atol=1e-3, rtol=1e-3)
 CPU_TOL, CPU_DECODE = dict(atol=4e-2, rtol=4e-2), 4
+
+
+# phase 14: training. TRAIN_ARCH at full width and depth with remat, batch
+# TRAIN_BATCH x TRAIN_SEQ tokens, loss chunk TRAIN_LOSS_CHUNK, AdamW at lr
+# TRAIN_LR after TRAIN_WARMUP warmup steps: TRAIN_WARM untimed steps, then
+# TRAIN_TIMED timed ones, then one profiled; then one step from a saved
+# state with remat on and one from the same state with remat off (a dense
+# model's step repeats the same products with or without the recomputation,
+# so the loss, grad_norm and the first moments, which hold the clipped
+# gradients, are bitwise equal). Each family of TRAIN_FAMILIES at its reduced
+# config: one bf16 step on the card against the same step on the CPU, same
+# weights and batch (TRAIN_CPU_BATCH x TRAIN_CPU_SEQ, loss chunk
+# TRAIN_CPU_CHUNK, lr 1e-2 after one warmup step), loss, ce and moe_aux
+# within TRAIN_CPU_RTOL and grad_norm within TRAIN_CPU_GNORM_RTOL (the
+# bounds of the CPU parity tests against the reference,
+# tests/test_torch_training_families.py); TRAIN_CKPT_ARCH's stepped params
+# saved from the card and loaded on the CPU, bitwise
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_CHUNK = "tinyllama-1.1b", 8, 512, 512
+TRAIN_LR, TRAIN_WARMUP, TRAIN_WARM, TRAIN_TIMED = 3e-4, 2, 2, 6
+TRAIN_FAMILIES = ("tinyllama-1.1b", "internvl2-76b", "olmoe-1b-7b", "starcoder2-3b",
+                  "granite-3-2b", "zamba2-7b", "xlstm-125m", "whisper-small")
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_CHUNK = 2, 32, 16
+TRAIN_CPU_RTOL, TRAIN_CPU_GNORM_RTOL, TRAIN_CKPT_ARCH = 5e-3, 2e-2, "granite-3-2b"
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -877,6 +912,10 @@ def main():
     for arch in FAMILY_ARCHS:
         kernels += family_path(dev, get_config(arch), card, report)
         done(f"phase 13, {arch}")
+    train_path(dev, card, report)
+    done("phase 14, training")
+    train_families(dev, card, report)
+    done("phase 14, families card vs CPU, checkpoint")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3302,7 +3341,7 @@ def window_path(dev, model, params, card, report, max_seq=None, prompt_len=None,
     s = prompt_len + n_decode
     x = params["embed"][tokens].to(torch.bfloat16)
     positions = torch.arange(s, device=dev)[None].expand(BATCH, s)
-    hidden = transformer.stack_forward(params["layers"], x, cfg, positions, window)
+    hidden = transformer.stack_forward(params["layers"], x, cfg, positions, window)[0]
     want = model.logits(params, model.final_norm(params, hidden[:, -1])).float()
     del x, hidden
     diff = float((logits - want).abs().max())
@@ -3393,7 +3432,8 @@ def moe_path(dev, full_cfg, n_layers, card, report):
     from repro_torch.models import build_model
     from repro_torch.models.inputs import FRONT_DTYPE, make_dummy_batch
     from repro_torch.models.moe import moe_ffn
-    from repro_torch.models.transformer import layer_slice, moe_cfg_of
+    from repro_torch.models.common import unstack
+    from repro_torch.models.transformer import moe_cfg_of
     from repro_torch.serving import ServeEngine
 
     on_card = dev.type == "cuda"
@@ -3533,7 +3573,7 @@ def moe_path(dev, full_cfg, n_layers, card, report):
 
     # the MoE FFN at the decode's shape, every layer's weights
     h = randn(BATCH, 1, d).to(torch.bfloat16)
-    layers = [layer_slice(params["layers"], layer) for layer in range(n_layers)]
+    layers = unstack(params["layers"])
     names = ("router", "we_gate", "we_up", "we_down") + (
         ("ws_gate", "ws_up", "ws_down") if cfg.moe_shared_expert else ())
     layer_bytes = sum(layers[0][n].numel() * layers[0][n].element_size() for n in names)
@@ -3679,7 +3719,7 @@ def family_consistency(dev, cfg, on_card):
             cache = model.init_cache(BATCH, 32, dev)
             for i in range(toks.shape[1]):
                 lg, _ = model.decode_step(params, toks[:, i: i + 1], cache)
-        want = model.logits(params, model.forward(params, batch))[:, -1].to(torch.float32)
+        want = model.logits(params, model.forward(params, batch)[0])[:, -1].to(torch.float32)
         err = float((lg - want).abs().max())
         ok = torch.allclose(lg, want, **CONSIST_TOL)
         big = float(want.abs().max())
@@ -3898,6 +3938,334 @@ def family_path(dev, full_cfg, card, report):
              "replaces": "src/repro/core/chunking.py:362", "launches": launches["greedy_select"],
              "max_abs_err": err5, "ms": k5["ms"], "plain_ms": plain_ms,
              "bound_ms": k5["bound_ms"], "bound_by": "bytes", "library_ms": None}]
+
+
+def matmul_params(model) -> int:
+    """N of the 6·N·T rule: the weights that enter a matrix product once a
+    token — every stacked layer matrix (3 or more dims) and the head (the
+    embedding when tied); the embedding lookup and the norms are not
+    products."""
+    shapes = model.param_shapes()
+    n = sum(math.prod(shape) for name, (shape, _) in shapes.items()
+            if name.startswith("layers/") and len(shape) >= 3)
+    return n + math.prod(shapes["embed" if model.cfg.tie_embeddings else "head"][0])
+
+
+def train_path(dev, card, report, cfg=None):
+    """Phase 14: TRAIN_ARCH at full width and depth, random weights from
+    seed 0, through ``Trainer.train_step`` (the entry point of
+    ``python -m repro_torch.launch.train``) with remat: batches of the
+    synthetic pipeline drawn first (their host time printed on its own
+    line), TRAIN_WARM + TRAIN_TIMED steps each timed by the host clock
+    around a synchronised step, one profiled step (its bf16 products
+    checked against ``train_gemm_ms``), then the same state
+    stepped with remat on and with remat off (the state kept on the host
+    between them), each step's peak memory measured from its start. The
+    chunk-gather kernels' launch counts are set to 0 before the steps and
+    must stay 0: the training path reaches no TPU kernel. ``cfg`` (default:
+    TRAIN_ARCH's) lets a CPU rehearsal run a reduced config."""
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import chunking
+    from repro_torch.data import DataConfig, lm_batches
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, OptState, Trainer, adamw_update
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    on_card = dev.type == "cuda"
+    cfg = cfg or get_config(TRAIN_ARCH)
+    tag = f"[train] {cfg.name}"
+    t_phase = time.perf_counter()
+    _, sync = seeded(dev, 0)
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    t0 = time.perf_counter()
+    host = list(itertools.islice(lm_batches(cfg, DataConfig(batch=TRAIN_BATCH,
+                                                             seq_len=TRAIN_SEQ, seed=0)),
+                                 n_steps + 2))
+    pipe_s = time.perf_counter() - t0
+    log(f"{tag} data pipeline: {len(host)} batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{pipe_s:.3f} s on the host ({pipe_s / len(host) * 1e3:.1f} ms a batch: one "
+        f"rng.choice a token), drawn before the timed window")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=n_steps + 3)
+    trainer = Trainer(model, opt, loss_chunk=TRAIN_LOSS_CHUNK)
+    t0 = time.perf_counter()
+    params, state = trainer.init_state(seed=0, device=dev)
+    sync()
+    n_mm = matmul_params(model)
+    log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; random weights from seed 0 made in "
+        f"{time.perf_counter() - t0:.1f} s; N = {n_mm / 1e9:.3f}e9 matmul params; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, loss chunk {TRAIN_LOSS_CHUNK}, remat {cfg.remat}, "
+        f"AdamW lr {TRAIN_LR} (warmup {TRAIN_WARMUP})")
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    def reset_peak():
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    walls, metrics = [], []
+    reset_peak()
+    for i in range(n_steps):
+        sync()
+        t0 = time.perf_counter()
+        params, state, m = trainer.train_step(params, state, batches[i])
+        sync()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+    peak_on = peak_gb()
+    launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+    if any(launches.values()):
+        fail(f"training launched chunk-gather kernels: {launches}")
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"training: non-finite loss or grad_norm: {losses} {gnorms}")
+    timed = walls[TRAIN_WARM:]
+    wall = sum(timed) / len(timed)
+    flops = 6 * n_mm * tokens
+    rate = flops / wall
+    lrs = [float(m["lr"]) for m in metrics]
+    log(f"{tag} losses {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x, 3) for x in gnorms]}, lr {[float(f'{x:.3g}') for x in lrs]}")
+    log(f"{tag} {TRAIN_TIMED} timed steps: {wall * 1e3:.2f} ms a step (min "
+        f"{min(timed) * 1e3:.2f}, max {max(timed) * 1e3:.2f}; warm-up "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls[:TRAIN_WARM])} ms), "
+        f"{tokens / wall:.0f} tokens/s; 6·N·T = {flops:.3e} FLOP a step ({8 * n_mm * tokens:.3e} "
+        f"with remat's second forward): {rate / 1e12:.1f} TFLOP/s, {rate / BF16_OPS_PER_S:.1%} "
+        f"of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak; peak memory "
+        f"{peak_on:.2f} GB; launches {launches} (none)  ({card})")
+
+    profile = {}
+    if on_card:
+        wall_us, kernels, cpu_ops = profiled(
+            lambda: (trainer.train_step(params, state, batches[n_steps]), sync()))
+        busy = sum(kernels.values())
+        classes = dict.fromkeys(("bf16 GEMM", "f32 GEMM (attention)", "softmax", "reduction",
+                                 "elementwise", "other"), 0.0)
+        for name, us in kernels.items():
+            classes[train_kernel_class(name)] += us
+        profile = {"wall_us": wall_us, "device_busy_us": busy,
+                   "device_busy_share": busy / wall_us, "device_us_by_class": classes,
+                   "launch_calls": sum(n for k, (_, n) in cpu_ops.items() if "LaunchKernel" in k),
+                   "device_us": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])}
+    log(f"{tag} profiled step: wall {profile.get('wall_us', 0) / 1e3:.1f} ms, device idle "
+        f"{1 - profile.get('device_busy_share', 0.0):.1%}, {profile.get('launch_calls', 0)} host "
+        f"launches; device ms by class: " + ", ".join(
+            f"{k} {v / 1e3:.1f}" for k, v in profile.get("device_us_by_class", {}).items())
+        + f"  ({card})")
+    if on_card:
+        gemm_ms, gemm_flop = train_gemm_ms(model, dev)
+        prof_ms = profile["device_us_by_class"]["bf16 GEMM"] / 1e3
+        profile["bf16_gemm_events_ms"] = gemm_ms
+        log(f"{tag} bf16 products of a step, each timed alone by CUDA events at the step's "
+            f"shapes: {gemm_ms:.1f} ms for {gemm_flop:.3e} FLOP, {gemm_flop / gemm_ms / 1e9:.1f} "
+            f"TFLOP/s ({gemm_flop / gemm_ms / 1e-3 / BF16_OPS_PER_S:.1%} of the peak); the "
+            f"profiler's bf16 GEMM sum {prof_ms:.1f} ms ({prof_ms / gemm_ms:.0%} of it)  ({card})")
+    # the optimizer alone, on zero gradients (its cost does not depend on them)
+    zeros = tree_map(torch.zeros_like, params)
+    opt_walls = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        params, state, _ = adamw_update(opt, params, zeros, state)
+        sync()
+        opt_walls.append(time.perf_counter() - t0)
+    del zeros
+    log(f"{tag} AdamW alone: {opt_walls[-1] * 1e3:.1f} ms a step (first call "
+        f"{opt_walls[0] * 1e3:.1f}), of the step's {wall * 1e3:.1f}  ({card})")
+
+    # remat on against off from one state, kept on the host between them
+    saved = (tree_map(lambda t: t.to("cpu", copy=True), params),
+             tree_map(lambda t: t.to("cpu", copy=True), state.m),
+             tree_map(lambda t: t.to("cpu", copy=True), state.v), state.step.clone())
+    steps, moments = {}, {}
+    for remat in (True, False):
+        params = tree_map(lambda t: t.to(dev, copy=True), saved[0])
+        state = OptState(step=saved[3].clone(), m=tree_map(lambda t: t.to(dev, copy=True),
+                                                            saved[1]),
+                         v=tree_map(lambda t: t.to(dev, copy=True), saved[2]))
+        tr = trainer if remat else Trainer(build_model(dataclasses.replace(cfg, remat=False)),
+                                           opt, loss_chunk=TRAIN_LOSS_CHUNK)
+        reset_peak()
+        t0 = time.perf_counter()
+        params, state, m = tr.train_step(params, state, batches[n_steps + 1])
+        sync()
+        steps[remat] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "wall_s": time.perf_counter() - t0, "peak_gb": peak_gb()}
+        moments[remat] = tree_map(lambda t: t.to("cpu"), state.m)  # off the peak
+        del params, state
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    on, off = steps[True], steps[False]
+    # the first moments after the step: b1·m + (1 - b1)·g·clip from one m,
+    # so a leaf differs exactly where its gradient does
+    m_on, m_off = dict(tree_leaves(moments[True])), dict(tree_leaves(moments[False]))
+    m_gap = {k: float(torch.linalg.vector_norm(m_off[k] - a) / torch.linalg.vector_norm(a))
+             for k, a in m_on.items()}
+    m_same = all(torch.equal(a, m_off[k]) for k, a in m_on.items())
+    del moments, m_on, m_off
+    if off["loss"] != on["loss"] or off["grad_norm"] != on["grad_norm"] or not m_same:
+        fail(f"training: remat off {off} against remat on {on}: not bitwise; first moments' "
+             f"relative L2 gaps by leaf {m_gap}")
+    log(f"{tag} one step from one state: remat on loss {on['loss']:.6f}, grad_norm "
+        f"{on['grad_norm']:.5f}, {on['wall_s'] * 1e3:.1f} ms, peak {on['peak_gb']:.2f} GB; remat "
+        f"off: loss, grad_norm and the first moments of all {len(m_gap)} leaves bitwise equal, "
+        f"{off['wall_s'] * 1e3:.1f} ms, peak {off['peak_gb']:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s  ({card})")
+    report["training"] = {
+        "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "matmul_params": n_mm,
+        "pipeline_s": pipe_s, "walls_s": walls, "wall_per_step_s": wall,
+        "tokens_per_s": tokens / wall, "flops_6nt": flops, "flop_rate": rate,
+        "peak_share_bf16": rate / BF16_OPS_PER_S, "peak_gb_remat_on": peak_on,
+        "losses": losses, "grad_norms": gnorms, "lrs": lrs, "profile": profile,
+        "adamw_s": opt_walls[-1], "remat": steps,
+        "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    del model, trainer, batches, saved
+
+
+def train_gemm_ms(model, dev, reps=20):
+    """The bf16 products of one train step of ``model`` at TRAIN_BATCH x
+    TRAIN_SEQ with remat, each timed alone by CUDA events on random operands
+    of the step's shapes, ``reps`` of a product in one CUDA graph: every
+    layer's weight products and the head's, each twice forward (the forward and remat's recomputation; the loss chunk is
+    recomputed too) and once as each backward product (dX = dY·Wᵀ,
+    dW = Xᵀ·dY). A check on the profiler's per-kernel sum, which can miss
+    cuBLAS's kernels. Returns (ms, FLOP)."""
+    import torch
+
+    t = TRAIN_BATCH * TRAIN_SEQ
+    shapes = model.param_shapes()
+    products = [(shape[-2:], math.prod(shape[:-2])) for name, (shape, _) in shapes.items()
+                if name.startswith("layers/") and len(shape) >= 3]
+    head = shapes["embed"][0][::-1] if model.cfg.tie_embeddings else shapes["head"][0]
+    products.append((tuple(head), 1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def ms(fn):
+        # ``reps`` calls back to back in one CUDA graph, so no launch gap
+        # counts
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        del graph
+        return a.elapsed_time(b) / reps
+
+    total = flop = 0.0
+    for (k, n), count in products:
+        x, w, dy = rand(t, k), rand(k, n), rand(t, n)
+        total += count * (2 * ms(lambda: x @ w) + ms(lambda: dy @ w.t()) + ms(lambda: x.t() @ dy))
+        flop += count * 4 * 2 * t * k * n
+        del x, w, dy
+    return total, flop
+
+
+def train_kernel_class(name: str) -> str:
+    """The class of a device kernel of a train step, by its name: cuBLAS's
+    bf16 products (``nvjet``, ``bf16`` GEMMs), the f32 products of the
+    attention (TF32 off), softmax, reductions, elementwise, or other."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low:
+        return "f32 GEMM (attention)" if "f32f32" in low or "sgemm" in low else "bf16 GEMM"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reduction"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def train_families(dev, card, report):
+    """Phase 14, the families: each of TRAIN_FAMILIES at its reduced
+    config, weights made on the CPU from seed 0 and copied to ``dev``, one
+    bf16 train step on each with the same batch of the pipeline: loss, ce
+    and moe_aux within TRAIN_CPU_RTOL, grad_norm within
+    TRAIN_CPU_GNORM_RTOL, lr equal. Then TRAIN_CKPT_ARCH's stepped params
+    saved from ``dev`` and loaded into CPU tensors, bitwise."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, Trainer, init_opt_state, load_checkpoint,
+                                      save_checkpoint)
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    rows, stepped = {}, None
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced()
+        trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10),
+                          loss_chunk=TRAIN_CPU_CHUNK)
+        p_cpu = trainer.model.init(seed=0, device=cpu)
+        p_dev = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        batch = next(lm_batches(cfg, DataConfig(batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ,
+                                                seed=3)))
+        out = {}
+        for name, where, params in (("cpu", cpu, p_cpu), ("dev", dev, p_dev)):
+            b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+            _, _, m = trainer.train_step(params, init_opt_state(params), b)
+            out[name] = {k: float(v) for k, v in m.items()}
+        got, want = out["dev"], out["cpu"]
+        gaps = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in ("loss", "ce", "moe_aux", "grad_norm", "lr")}
+        bad = [k for k, g in gaps.items()
+               if g > {"grad_norm": TRAIN_CPU_GNORM_RTOL, "lr": 1e-6}.get(k, TRAIN_CPU_RTOL)
+               and not (k == "moe_aux" and want[k] == got[k] == 0.0)]
+        if bad or not all(math.isfinite(v) for v in got.values()):
+            fail(f"training {cfg.name}: card vs CPU {got} vs {want} ({bad})")
+        if (got["moe_aux"] > 0) != cfg.has_moe:
+            fail(f"training {cfg.name}: moe_aux {got['moe_aux']}")
+        rows[cfg.name] = {"card": got, "cpu": want, "gaps": gaps}
+        log(f"[train] {cfg.name}: one step card vs CPU (bf16): loss {got['loss']:.5f} / "
+            f"{want['loss']:.5f}, moe_aux {got['moe_aux']:.5f}, grad_norm {got['grad_norm']:.4f} / "
+            f"{want['grad_norm']:.4f}; relative gaps loss {gaps['loss']:.2e}, grad_norm "
+            f"{gaps['grad_norm']:.2e} (tolerances {TRAIN_CPU_RTOL} / {TRAIN_CPU_GNORM_RTOL})")
+        if arch == TRAIN_CKPT_ARCH:
+            stepped = (trainer.model, p_dev)
+    model, p_dev = stepped
+    path = OUT / "train_ckpt"
+    save_checkpoint(str(path), p_dev, step=1, extra={"saved_on": card})
+    loaded, step = load_checkpoint(str(path), model.init(seed=1, device=cpu))
+    pairs = list(zip(tree_leaves(loaded), tree_leaves(p_dev)))
+    same = step == 1 and all(ka == kb and a.device.type == "cpu" and torch.equal(a, b.cpu())
+                             for (ka, a), (kb, b) in pairs)
+    shutil.rmtree(path)
+    if not same:
+        fail(f"training: checkpoint of {model.cfg.name} saved on {dev} does not load bitwise "
+             "on the CPU")
+    log(f"[train] checkpoint: {model.cfg.name}'s stepped params ({len(pairs)} leaves) saved "
+        f"from {dev}, loaded on the CPU: bitwise equal")
+    report["training_families"] = rows
 
 
 if __name__ == "__main__":

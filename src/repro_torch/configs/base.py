@@ -1,9 +1,10 @@
 """ModelConfig: the port's copy of ``repro.configs.base``.
 
-Only the fields the served families read are kept; ``reduced()`` derives
-the same smoke-test variant as the reference (2 layers, d_model ≤ 256,
-≤ 4 heads, ≤ 4 experts of top-k ≤ 2 at capacity factor 8, the SSM and
-encoder widths cut by the reference's rules).
+Only the fields the served and trained families read are kept;
+``reduced()`` derives the same smoke-test variant as the reference (2
+layers, d_model ≤ 256, ≤ 4 heads, ≤ 4 experts of top-k ≤ 2 at capacity
+factor 8, the SSM and encoder widths cut by the reference's rules; ``remat``
+carried as it is).
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ class ModelConfig:
     d_frontend: int = 0
     frontend_tokens: int = 0
     encoder_layers: int = 0
+    # training: rematerialise each layer's activations in the backward
+    # (``torch.utils.checkpoint``) instead of keeping them
+    remat: bool = True
     citation: str = ""
 
     @property

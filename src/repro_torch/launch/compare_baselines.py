@@ -74,7 +74,7 @@ def main(argv=None) -> List[dict]:
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     batch = make_dummy_batch(cfg, InputShape("s", 64, 2, "train"), device=dev)
-    hidden = model.forward(params, batch)
+    hidden = model.forward(params, batch)[0]
     # layer 0's down projection transposed, (d, d_ff): an (n, cols) matrix
     # whose input is the hidden state
     rows = sweep(hidden, params["layers"]["w_down"][0].T)

@@ -1,10 +1,68 @@
 """Shared model building blocks: norms, RoPE, activations, sinusoidal
 positions and the causal mask (the port's copy of ``repro.models.common``;
-params are plain dicts of tensors)."""
+params are plain dicts of tensors); the per-layer views of stacked leaves
+the per-layer rematerialisation of the training forward; and the flat
+view of the nested param dict (paths ``top`` or ``top/sub``)."""
 from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
+
+
+def unstack(stacked: Dict[str, torch.Tensor], lead: int = 1) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's params of leaves stacked over ``lead`` leading dims, in
+    order (row-major over those dims): one ``torch.unbind`` a leaf. Under
+    autograd the backward of an unbind stacks the layers' gradients once,
+    where indexing the leaf layer by layer writes a zero tensor the size of
+    the whole leaf for each layer."""
+    names = list(stacked)
+    per_leaf = [stacked[n].flatten(0, lead - 1).unbind(0) for n in names]
+    return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
+
+
+def rematerialised(fn: Callable, remat: bool) -> Callable:
+    """``fn`` as it is, or with ``remat`` under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint``): the backward recomputes its
+    activations instead of keeping them. The forward draws no random
+    numbers, so no RNG state is kept for the recomputation."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def tree_leaves(tree) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path "top" or "top/sub", leaf) of a nested dict, keys sorted at
+    every level: the order of ``jax.tree.leaves`` over the reference's
+    tree."""
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            for sub, leaf in tree_leaves(val):
+                yield f"{key}/{sub}", leaf
+        else:
+            yield key, val
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nested dict, the nesting kept."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_unflatten(pairs) -> Dict[str, Any]:
+    """The nested dict of (path, leaf) pairs (``tree_leaves``' inverse)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in pairs:
+        *tops, last = path.split("/")
+        node = tree
+        for top in tops:
+            node = node.setdefault(top, {})
+        node[last] = leaf
+    return tree
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

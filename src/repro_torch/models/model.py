@@ -29,7 +29,10 @@ them, as in the reference.
         ``effective_window``)
     model.init_paged_cache(b, max_seq, page_tokens, n_pages, device)
                                                    -> paged KV cache (decoders)
-    model.forward(params, batch)                   -> hidden
+    model.forward(params, batch, remat=None)       -> (hidden, aux): the
+        final-normed hidden states and the summed MoE load-balance loss
+        (0.0 for the other families); ``remat`` (default ``cfg.remat``)
+        recomputes each layer in the backward, at the reference's grain
     model.final_norm(params, x), model.logits(params, hidden)
                                                    -> the norm after the last layer,
                                                       hidden @ head (embed.T when tied)
@@ -74,7 +77,7 @@ from .attention import (
     multi_head_attention,
     project_kv_for_decode,
 )
-from .common import layer_norm, rms_norm, sinusoidal_positions
+from .common import layer_norm, rematerialised, rms_norm, sinusoidal_positions, unstack
 from .mlp import gelu_mlp
 from .moe import moe_param_shapes
 from .ssm import Mamba2Config, mamba2_decode_step, mamba2_forward, mamba2_param_shapes, \
@@ -82,8 +85,8 @@ from .ssm import Mamba2Config, mamba2_decode_step, mamba2_forward, mamba2_param_
 from .transformer import (
     apply_norm,
     block_decode,
+    block_forward,
     block_prefill,
-    layer_slice,
     moe_cfg_of,
     stack_append,
     stack_decode,
@@ -278,12 +281,16 @@ class Model:
         return self._impl.init_paged_cache(batch_size, max_seq, page_tokens, n_pages,
                                            resolve_device(device))
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Dense forward over a whole sequence, no cache: the final-normed
-        hidden states (b, s, d) (the reference also returns the MoE
-        auxiliary loss, which serving drops; ``moe.moe_ffn`` returns it).
-        Past the window threshold the attention is windowed."""
-        return self._impl.forward(params, batch)
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: Optional[bool] = None):
+        """Dense forward over a whole sequence, no cache: (the final-normed
+        hidden states (b, s, d), the MoE layers' summed load-balance aux
+        loss, a 0-d f32 tensor — 0.0 for the families without MoE). With
+        ``remat`` (None: the config's) each layer is recomputed in the
+        backward, at the reference's grain: every decoder layer, every
+        Mamba2 layer of a group (not the tail, not the shared block), every
+        xLSTM block, every Whisper decoder layer (not the encoder). Past the
+        window threshold the attention is windowed."""
+        return self._impl.forward(params, batch, self.cfg.remat if remat is None else remat)
 
     def final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
         """The norm after the last layer: LayerNorm (weight and bias) or
@@ -383,12 +390,12 @@ class _DecoderLM:
             x = torch.cat([front @ params["projector"].to(COMPUTE_DTYPE), x], dim=1)
         return x
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         x = self._embed_input(params, batch)
         b, s, _ = x.shape
-        x = stack_forward(params["layers"], x, self.cfg, _positions(b, s, x.device),
-                          effective_window(self.cfg, s))
-        return _final_norm(params, x, self.cfg)
+        x, aux = stack_forward(params["layers"], x, self.cfg, _positions(b, s, x.device),
+                               effective_window(self.cfg, s), remat)
+        return _final_norm(params, x, self.cfg), aux
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """A prompt longer than ``attention.BLOCKWISE_THRESHOLD`` positions
@@ -472,23 +479,27 @@ class _Zamba:
     def _layers(self, params):
         """(layer params, its state's stack in the cache, its index there,
         the shared block's application after it or None), in order."""
-        for g in range(self.n_groups):
-            for j in range(self.group_size):
-                yield (layer_slice(params["mamba_groups"], (g, j)), "mamba_groups",
-                       g * self.group_size + j, g if j == self.group_size - 1 else None)
-        for j in range(self.n_tail):
-            yield layer_slice(params["mamba_tail"], j), "mamba_tail", j, None
+        for i, lp in enumerate(unstack(params["mamba_groups"], 2)):
+            g, j = divmod(i, self.group_size)
+            yield lp, "mamba_groups", i, g if j == self.group_size - 1 else None
+        if self.n_tail:
+            for j, lp in enumerate(unstack(params["mamba_tail"])):
+                yield lp, "mamba_tail", j, None
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _mamba_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg)
+
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         cfg = self.cfg
         x = _embed(params, batch["tokens"])
         b, s, _ = x.shape
         positions, window = _positions(b, s, x.device), effective_window(cfg, s)
-        for lp, _, _, app in self._layers(params):
-            x = x + mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg)
+        in_group = rematerialised(self._mamba_layer, remat)
+        for lp, stack, _, app in self._layers(params):
+            x = (in_group if stack == "mamba_groups" else self._mamba_layer)(lp, x)
             if app is not None:
-                x = block_prefill(params["shared"], x, cfg, positions, window)[0]
-        return _final_norm(params, x, cfg)
+                x = block_forward(params["shared"], x, cfg, positions, window)[0]
+        return _final_norm(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
         cfg = self.cfg
@@ -581,21 +592,27 @@ class _XLSTM:
                                   {**block, "bnorm_w": ((self.cfg.d_model,), "ones")}))
         return shapes
 
-    def _run(self, params, x: torch.Tensor, cache: Dict) -> torch.Tensor:
+    def _block(self, i: int, bp, x: torch.Tensor, state):
+        """Block i over x from ``state``: (x + its output, its new state)."""
+        fn = slstm_forward if self._is_slstm(i) else mlstm_forward
+        out, state = fn(rms_norm(x, bp["bnorm_w"]), bp, self.xcfg, state=state)
+        return x + out, state
+
+    def _run(self, params, x: torch.Tensor, cache: Dict, remat: bool = False) -> torch.Tensor:
         """Every block over x, each from its state in ``cache``, which takes
-        the new states in place."""
+        the new states in place. With ``remat`` each block is recomputed in
+        the backward (the reference rematerialises inside its chunked scan;
+        one checkpoint a block is the port's analogue)."""
+        block = rematerialised(self._block, remat)
         for i in range(self.cfg.n_layers):
-            bp = params[f"block_{i}"]
-            fn = slstm_forward if self._is_slstm(i) else mlstm_forward
-            out, cache[f"block_{i}"] = fn(rms_norm(x, bp["bnorm_w"]), bp, self.xcfg,
-                                          state=cache[f"block_{i}"])
-            x = x + out
+            x, cache[f"block_{i}"] = block(i, params[f"block_{i}"], x, cache[f"block_{i}"])
         return x
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         x = _embed(params, batch["tokens"])
-        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device))
-        return _final_norm(params, x, self.cfg)
+        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device), remat)
+        return _final_norm(params, x, self.cfg), torch.zeros((), dtype=torch.float32,
+                                                             device=x.device)
 
     def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
         cache = {f"block_{i}": (slstm_state_init(self.xcfg, batch_size, device)
@@ -661,8 +678,7 @@ class _Whisper:
         cfg = self.cfg
         x = frontend.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(COMPUTE_DTYPE)[None]
-        for layer in range(cfg.encoder_layers):
-            lp = layer_slice(params["encoder"], layer)
+        for lp in unstack(params["encoder"]):
             x = x + self._attention(apply_norm(x, lp, cfg, "ln1"), lp, causal=False)
             x = x + gelu_mlp(apply_norm(x, lp, cfg, "ln2"), lp)
         return layer_norm(x, params["enc_final_w"], params["enc_final_b"])
@@ -696,17 +712,22 @@ class _Whisper:
                                 causal=True, window=window)
         return self._cross_mlp(lp, x, enc_kv)
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _layer(self, lp, x: torch.Tensor, enc: torch.Tensor, positions, window) -> torch.Tensor:
+        """One decoder layer over a whole sequence, its cross-attention keys
+        and values computed from the encoder's states."""
+        return self._block(lp, x, self._enc_kv(lp, enc), positions, window)
+
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         cfg = self.cfg
         enc = self._encode(params, batch["frontend"])
         b, s = batch["tokens"].shape
         x = _embed(params, batch["tokens"])
         x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
         positions, window = _positions(b, s, x.device), effective_window(cfg, s)
-        for layer in range(cfg.n_layers):
-            lp = layer_slice(params["decoder"], layer)
-            x = self._block(lp, x, self._enc_kv(lp, enc), positions, window)
-        return _final_norm(params, x, cfg)
+        layer = rematerialised(self._layer, remat)
+        for lp in unstack(params["decoder"]):
+            x = layer(lp, x, enc, positions, window)
+        return _final_norm(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
         cfg = self.cfg
@@ -734,8 +755,7 @@ class _Whisper:
         phys = cache["k"].shape[2]
         kv_shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
         enc_kvs = []
-        for layer in range(cfg.n_layers):
-            lp = layer_slice(params["decoder"], layer)
+        for layer, lp in enumerate(unstack(params["decoder"])):
             enc_kv = self._enc_kv(lp, enc)
             enc_kvs.append(enc_kv)
             h = apply_norm(x, lp, cfg, "ln1")
@@ -759,8 +779,7 @@ class _Whisper:
         length = cache["length"]
         x = _embed(params, token) + self._dec_pos(params, length)
         window = _decode_window(cfg, cache["k"].shape[2])
-        for layer in range(cfg.n_layers):
-            lp = layer_slice(params["decoder"], layer)
+        for layer, lp in enumerate(unstack(params["decoder"])):
             lk, lv = cache["k"][layer], cache["v"][layer]
             h = apply_norm(x, lp, cfg, "ln1")
             nk, nv = project_kv_for_decode(h @ lp["wk"], h @ lp["wv"], n_kv, hd, length, None)

@@ -2,8 +2,12 @@
 port's copy of the forward, prefill, decode and frame-append parts of
 ``repro.models.transformer``).
 
-The layer loop is a Python loop over the stacked (L, ...) params; the
-decode plan and the KV cache are updated in place. On the planned decode
+The layer loop is a Python loop over the stacked (L, ...) params, each
+layer's weights views taken with one ``unstack`` a call; the decode plan
+and the KV cache are updated in place. The training forward
+(``stack_forward``) carries the MoE layers' auxiliary loss out, and with ``remat``
+recomputes each layer in the backward (``jax.checkpoint`` of the
+reference's layer scan). On the planned decode
 path the plan of every layer is refreshed once, before the loop
 (``SparseExecution.refresh_step``: one selection over all layers' sites),
 and every sparsification site computes through the execution backend off
@@ -54,7 +58,7 @@ from .attention import (
     project_kv_for_decode,
     scatter_paged_kv,
 )
-from .common import apply_rope, gelu, layer_norm, rms_norm, swish
+from .common import apply_rope, gelu, layer_norm, rematerialised, rms_norm, swish, unstack
 from .mlp import gelu_mlp, gelu_mlp_planned, swiglu_mlp, swiglu_mlp_planned
 from .moe import MoEConfig, moe_ffn
 
@@ -95,11 +99,6 @@ def apply_norm(x: torch.Tensor, params, cfg: ModelConfig, name: str) -> torch.Te
     return rms_norm(x, params[f"{name}_w"])
 
 
-def layer_slice(stacked: Dict[str, torch.Tensor], layer: int) -> Dict[str, torch.Tensor]:
-    """One layer's params as views of the stacked (L, ...) leaves."""
-    return {name: leaf[layer] for name, leaf in stacked.items()}
-
-
 def _site_weight(params, sparse_ctx, name):
     """One offloaded matrix as the planned path streams it: (int8 payload,
     per-block scales) at wbits=8, (bf16 weight, None) at 16."""
@@ -132,12 +131,13 @@ def _site_mask(sparse_ctx, kind: str, acts: torch.Tensor):
     return sparse_ctx.mask(kind, acts)
 
 
-def _dense_mlp(h: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
-    """The layer's feed-forward, unmasked: the MoE (its aux loss dropped,
-    as the serving paths drop it), the gelu MLP or SwiGLU."""
+def _dense_mlp(h: torch.Tensor, params, cfg: ModelConfig):
+    """The layer's feed-forward, unmasked: (y, the MoE's load-balance aux
+    loss — a 0-d f32 tensor — or None for the gelu MLP and SwiGLU). The
+    serving paths drop the aux loss; the training forward sums it."""
     if cfg.has_moe:
-        return moe_ffn(h, params, moe_cfg_of(cfg))[0]
-    return gelu_mlp(h, params) if cfg.mlp == "gelu" else swiglu_mlp(h, params)
+        return moe_ffn(h, params, moe_cfg_of(cfg))
+    return (gelu_mlp(h, params) if cfg.mlp == "gelu" else swiglu_mlp(h, params)), None
 
 
 def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
@@ -147,7 +147,7 @@ def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
     unmasked at no I/O (it has no MLP sites). Returns (y, estimated I/O
     seconds)."""
     if sparse_ctx is None or cfg.has_moe:
-        return _dense_mlp(h, params, cfg), 0.0
+        return _dense_mlp(h, params, cfg)[0], 0.0
     mask_g, io_g = _site_mask(sparse_ctx, "hidden_mlp", h)
     hm = _apply_mask(h, mask_g)
     if cfg.mlp == "gelu":
@@ -158,6 +158,20 @@ def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
     mid = swish(hm @ params["w_gate"]) * (hm @ params["w_up"])
     mask_f, io_f = _site_mask(sparse_ctx, "ffn", mid)
     return _apply_mask(mid, mask_f) @ params["w_down"], io_g + io_f
+
+
+def block_forward(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  window: Optional[int] = None, h: Optional[torch.Tensor] = None):
+    """Dense block over a full sequence, no cache: (x_out, the MoE's aux
+    loss or None). ``h`` is the block's first norm of x, where the caller
+    has it already."""
+    if h is None:
+        h = apply_norm(x, params, cfg, "ln1")
+    x = x + multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim, positions=positions,
+                                 rope_theta=cfg.rope_theta, window=window)
+    y, aux = _dense_mlp(apply_norm(x, params, cfg, "ln2"), params, cfg)
+    return x + y, aux
 
 
 def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -180,11 +194,7 @@ def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
         roll = s % phys_len
         k = torch.roll(k[:, -phys_len:], shifts=roll, dims=1)
         v = torch.roll(v[:, -phys_len:], shifts=roll, dims=1)
-    x = x + multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads, hd,
-                                 positions=positions, rope_theta=cfg.rope_theta,
-                                 window=window)
-    x = x + _dense_mlp(apply_norm(x, params, cfg, "ln2"), params, cfg)
-    return x, k, v
+    return block_forward(params, x, cfg, positions, window, h)[0], k, v
 
 
 def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -193,8 +203,8 @@ def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
     physical length is the ``phys_len`` of a rotating cache)."""
     s = x.shape[1]
     phys = cache["k"].shape[2]
-    for layer in range(cfg.n_layers):
-        x, k, v = block_prefill(layer_slice(stacked, layer), x, cfg, positions, window, phys)
+    for layer, params in enumerate(unstack(stacked)):
+        x, k, v = block_prefill(params, x, cfg, positions, window, phys)
         cache["k"][layer, :, :k.shape[1]] = k
         cache["v"][layer, :, :v.shape[1]] = v
     cache["length"] = s
@@ -202,12 +212,18 @@ def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
 
 
 def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  window: Optional[int] = None, remat: bool = False):
     """Every layer over a whole sequence, no cache (the reference's
-    ``stack_forward`` without a sparse context)."""
-    for layer in range(cfg.n_layers):
-        x, _, _ = block_prefill(layer_slice(stacked, layer), x, cfg, positions, window)
-    return x
+    ``stack_forward`` without a sparse context): (x, the layers' summed MoE
+    aux loss, a 0-d f32 tensor). With ``remat`` each layer is recomputed in
+    the backward."""
+    block = rematerialised(block_forward, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for params in unstack(stacked):
+        x, layer_aux = block(params, x, cfg, positions, window)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
@@ -240,9 +256,9 @@ def stack_append(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
         raise NotImplementedError("frame append extends one stream's linear cache; slot "
                                   "mode (per-slot lengths) has no frame append")
     io = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.n_layers):
-        x, lat = block_append(layer_slice(stacked, layer), x, cache["k"][layer],
-                              cache["v"][layer], length, cfg, sparse_ctx)
+    for layer, params in enumerate(unstack(stacked)):
+        x, lat = block_append(params, x, cache["k"][layer], cache["v"][layer], length, cfg,
+                              sparse_ctx)
         io = io + lat
     cache["length"] = length + x.shape[1]
     return x, io
@@ -361,12 +377,12 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     if table is not None and window is not None:
         raise ValueError("paged KV does not compose with sliding windows")
     try:
-        for layer in range(cfg.n_layers):
+        for layer, params in enumerate(unstack(stacked)):
             layer_k, layer_v = cache["k"][layer], cache["v"][layer]
             if table is not None:
                 layer_k, layer_v = gather_paged_kv(layer_k, table), gather_paged_kv(layer_v, table)
-            x, lat = block_decode(layer_slice(stacked, layer), x, layer_k, layer_v, length, cfg,
-                                  sparse_ctx, plan, layer, window)
+            x, lat = block_decode(params, x, layer_k, layer_v, length, cfg, sparse_ctx, plan,
+                                  layer, window)
             if table is not None:
                 scatter_paged_kv(cache["k"][layer], layer_k, table, length)
                 scatter_paged_kv(cache["v"][layer], layer_v, table, length)

@@ -169,7 +169,7 @@ def test_params_carried_over_exactly(fam):
 
 
 def test_forward_matches_reference(fam, f32):
-    np.testing.assert_allclose(fam["tm"].forward(fam["tp"], fam["tb"]).numpy(), fam["jh"],
+    np.testing.assert_allclose(fam["tm"].forward(fam["tp"], fam["tb"])[0].numpy(), fam["jh"],
                                **F32_TOL)
 
 
@@ -268,7 +268,7 @@ def test_sequential_decode_matches_forward_f32(arch, f32):
         cache = model.init_cache(2, 32, "cpu")
         for i in range(toks.shape[1]):
             lg, _ = model.decode_step(params, toks[:, i: i + 1], cache)
-    want = model.logits(params, model.forward(params, batch))[:, -1]
+    want = model.logits(params, model.forward(params, batch)[0])[:, -1]
     np.testing.assert_allclose(lg.numpy(), want.numpy(), atol=1e-3, rtol=1e-3)
 
 
@@ -280,7 +280,7 @@ def test_zamba_prefill_matches_forward_f32(f32):
     toks = batch["tokens"]
     _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, 32)
     lg, _ = model.decode_step(params, toks[:, -1:], cache)
-    want = model.logits(params, model.forward(params, batch))[:, -1]
+    want = model.logits(params, model.forward(params, batch)[0])[:, -1]
     np.testing.assert_allclose(lg.numpy(), want.numpy(), atol=1e-3)
 
 
@@ -312,5 +312,5 @@ def test_whisper_prefill_takes_fewer_frames_f32(f32):
     lg, cache = model.prefill(params, {**batch, "tokens": batch["tokens"][:, :5]}, 16)
     assert cache["enc_k"].shape[2] == 9 < cfg.frontend_tokens
     lg, _ = model.decode_step(params, batch["tokens"][:, 5:], cache)
-    want = model.logits(params, model.forward(params, batch))[:, -1]
+    want = model.logits(params, model.forward(params, batch)[0])[:, -1]
     np.testing.assert_allclose(lg.numpy(), want.numpy(), atol=1e-3, rtol=1e-3)

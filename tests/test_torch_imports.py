@@ -53,6 +53,7 @@ def test_default_device_raises_without_cuda(no_cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
+    from repro_torch.training import Trainer
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
@@ -60,14 +61,20 @@ def test_default_device_raises_without_cuda(no_cuda):
     params = model.init(seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(model, params, max_seq=32, batch_size=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model).init_state(seed=0)
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_cli_default_device_raises_without_cuda(no_cuda):
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train, train_smol
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_smol.main([])
 
 
 def _run_chip_smoke(cwd, env_extra):

@@ -219,12 +219,12 @@ def test_prefill_then_decode_matches_forward(moe):
     that token, at the reference's tolerances."""
     tm, tp, tb = moe["tm"], moe["tp"], moe["tb"]
     last, cache = tm.prefill(tp, tb, 32)
-    lg_fwd = tm.logits(tp, tm.forward(tp, tb))[:, -1].float()
+    lg_fwd = tm.logits(tp, tm.forward(tp, tb)[0])[:, -1].float()
     np.testing.assert_allclose(last.float().numpy(), lg_fwd.numpy(), atol=2e-2, rtol=1e-2)
     nxt = tb["tokens"][:, :1]
     lg_dec, _ = tm.decode_step_planned(tp, nxt, cache)
     b2 = {**tb, "tokens": torch.cat([tb["tokens"], nxt], dim=1)}
-    lg2 = tm.logits(tp, tm.forward(tp, b2))[:, -1].float()
+    lg2 = tm.logits(tp, tm.forward(tp, b2)[0])[:, -1].float()
     np.testing.assert_allclose(lg_dec.numpy(), lg2.numpy(), atol=5e-2, rtol=2e-2)
 
 

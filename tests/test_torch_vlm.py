@@ -48,9 +48,9 @@ from repro_torch.launch import video_stream as tvideo
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import params_from_reference
 from repro_torch.models.attention import append_attention as t_append_attention
+from repro_torch.models.common import unstack
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.models.transformer import block_append as t_block_append
-from repro_torch.models.transformer import layer_slice
 from repro_torch.models.transformer import stack_append as t_stack_append
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
@@ -168,7 +168,7 @@ def test_prefill_with_frontend_matches_reference(pair):
     np.testing.assert_allclose(_np(tcache["k"]), _jnp(jcache["k"]), **BF16_TOL)
     assert tm.text_offset == jm.text_offset == tcfg.frontend_tokens
     jh, _ = jm.forward(jp, jb, remat=False)
-    np.testing.assert_allclose(_np(tm.forward(tp, tb)), _jnp(jh), **BF16_TOL)
+    np.testing.assert_allclose(_np(tm.forward(tp, tb)[0]), _jnp(jh), **BF16_TOL)
 
 
 @pytest.mark.parametrize("project_out", [True, False])
@@ -181,7 +181,7 @@ def test_append_attention_matches_reference(pair, prefilled, project_out):
                                       jcfg.n_heads, jcfg.n_kv_heads, jcfg.resolved_head_dim,
                                       jcfg.rope_theta, project_out=project_out)
     tk, tv = _t(jcache["k"][0]), _t(jcache["v"][0])
-    tout = t_append_attention(_t(x), layer_slice(tp["layers"], 0), tk, tv, length,
+    tout = t_append_attention(_t(x), unstack(tp["layers"])[0], tk, tv, length,
                               tcfg.n_heads, tcfg.n_kv_heads, tcfg.resolved_head_dim,
                               tcfg.rope_theta, project_out=project_out)
     np.testing.assert_allclose(_np(tout), _jnp(jout), **BF16_TOL)
@@ -207,7 +207,7 @@ def test_block_append_matches_reference(pair, prefilled, method):
                                      jcfg, jctx)
     tctx = None if jctx is None else _Replay(jctx.log)
     tk, tv = _t(jcache["k"][0]), _t(jcache["v"][0])
-    tx, tio = t_block_append(layer_slice(tp["layers"], 0), _t(x), tk, tv, length, tcfg, tctx)
+    tx, tio = t_block_append(unstack(tp["layers"])[0], _t(x), tk, tv, length, tcfg, tctx)
     np.testing.assert_allclose(_np(tx), _jnp(jx), **BF16_TOL)
     new = slice(length, length + FRAME_TOKENS)
     np.testing.assert_allclose(_np(tk[:, new]), _jnp(jk[:, new]), **BF16_TOL)

@@ -123,7 +123,7 @@ def test_rolled_prefill_and_decode_past_the_window(win, method):
         assert written == [(PROMPT + i) % WINDOW]
         assert tc["length"] == int(jc["length"]) == PROMPT + i + 1
     if method is None:
-        hidden = tm.forward(tp, {"tokens": torch.from_numpy(tokens)})
+        hidden = tm.forward(tp, {"tokens": torch.from_numpy(tokens)})[0]
         np.testing.assert_allclose(tlog.numpy(), tm.logits(tp, hidden[:, -1]).float().numpy(),
                                    **BF16_TOL)
         jhidden, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens)})
