@@ -158,6 +158,22 @@ Phases, each of which fails the run on error:
      remat-on step (equal loss, both peaks); then each family's reduced
      config, one bf16 step on the card against the CPU, and a checkpoint
      saved from the card and loaded on the CPU, bitwise.
+ 15. sharded serving: tinyllama-1.1b at full width and depth, batch 2,
+     chunk at sparsity 0.4 on nano, the kernel backend, wbits 16 and 8.
+     The card runs the one-rank mesh only (NCCL refuses two ranks on one
+     device; the 2×2 mesh runs on the CPU in the tests): (a)
+     ``ServeMesh.create(1, 1)`` is inert — tokens equal the engine's
+     without a mesh, ``shard_summary`` one shard holding the I/O, no event
+     with shard bytes; (b) a world-size-1 NCCL process group (a file://
+     store in a temporary directory) and a (1, 1) DeviceMesh under a
+     ``ServeMesh(1, 1, mesh, rules)``, so the sharded code path runs on the
+     card (placement, ``_gather``, the data-group gather of the
+     selection's activations, per-shard lanes of width 1): tokens equal
+     (a)'s with exact K1/K2/K5 launch counts, the per-shard bytes summing
+     to ``io_bytes``, the decode step's wall against the unsharded one, the
+     gathers' span a step by CUDA events and their device time (a layer's
+     slices gathered alone under the profiler). The group is destroyed at
+     the end.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
@@ -299,6 +315,11 @@ TRAIN_FAMILIES = ("tinyllama-1.1b", "internvl2-76b", "olmoe-1b-7b", "starcoder2-
                   "granite-3-2b", "zamba2-7b", "xlstm-125m", "whisper-small")
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_CHUNK = 2, 32, 16
 TRAIN_CPU_RTOL, TRAIN_CPU_GNORM_RTOL, TRAIN_CKPT_ARCH = 5e-3, 2e-2, "granite-3-2b"
+
+
+# phase 15: sharded serving on the one-rank mesh, MESH_ARCH at full width
+# and depth
+MESH_ARCH, GATHER_REPS = "tinyllama-1.1b", 20
 
 
 # the K1 body's edge cases of phase 3 (see k1_case)
@@ -916,6 +937,8 @@ def main():
     done("phase 14, training")
     train_families(dev, card, report)
     done("phase 14, families card vs CPU, checkpoint")
+    mesh_path(dev, get_config(MESH_ARCH), card, report)
+    done("phase 15, sharded serving")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -933,7 +956,9 @@ def profiled(fn):
     """``fn()`` (ending in a host sync) under ``torch.profiler``: (wall µs,
     {device event: µs}, {host op: (self µs, count)}). The device's own
     events (kernels, copies) are each counted once: an aten op's device
-    time is its kernels', listed under them."""
+    time is its kernels', listed under them. A user annotation's device
+    range (NCCL names each collective's so) spans the kernels and copies
+    inside it, gaps included, and is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -944,6 +969,8 @@ def profiled(fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, cpu_ops = {}, {}
     for ev in prof.key_averages():
+        if getattr(ev, "is_user_annotation", False):
+            continue
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
@@ -4266,6 +4293,181 @@ def train_families(dev, card, report):
     log(f"[train] checkpoint: {model.cfg.name}'s stepped params ({len(pairs)} leaves) saved "
         f"from {dev}, loaded on the CPU: bitwise equal")
     report["training_families"] = rows
+
+
+
+def mesh_path(dev, cfg, card, report):
+    """Phase 15: ``cfg`` at full width and depth, random weights from seed
+    0, batch BATCH, prompt PROMPT, DECODE decode tokens through
+    ``ServeEngine`` (chunk, sparsity 0.4, nano, the kernel backend) at
+    wbits 16 and 8: without a mesh, on ``ServeMesh.create(1, 1)`` (inert),
+    and on a one-rank DeviceMesh in a world-size-1 process group (NCCL on
+    the card, gloo on a CPU rehearsal), which runs the sharded code path.
+    Its launch counts are set to 0 just before its decode and read just
+    after (exact: K1 at q, k, v, o and K2 at every layer a step, K5 once a
+    refresh plus the selection timing's). A second decode call of
+    PROFILE_TOKENS steps gives the wall a step (warm), a third one on the one-rank mesh
+    times the operand gathers by CUDA events around each (their span holds
+    the host's issue time too); then one layer's slices are gathered
+    GATHER_REPS times alone under the profiler, whose sum is their device
+    time. The group is destroyed at the end."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sharding import MESH_AXES, MeshRules, ServeMesh
+    from repro_torch.sharding import serve as sserve
+
+    on_card = dev.type == "cuda"
+    tag = f"[mesh] {cfg.name}"
+    t_phase = time.perf_counter()
+    log(f"{tag}: the 2x2 (data, model) mesh runs only on the CPU (four gloo ranks, "
+        "tests/test_torch_sharded_serving.py): this machine has one card and NCCL refuses two "
+        "ranks on one device, so the card runs the one-rank mesh")
+    _, sync = seeded(dev, 0)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = make_dummy_batch(cfg, InputShape("mesh", PROMPT, BATCH, "train"), seed=0, device=dev)
+    counters = (cg.LAUNCHES, chunking.LAUNCHES)
+    want = {"chunk_gather_matmul_dma": 4 * cfg.n_layers * DECODE,
+            "chunk_gather_mlp_dma": cfg.n_layers * DECODE,
+            "greedy_select": DECODE + TIME_SELECTION_LAUNCHES}
+
+    def serve(mesh, wbits, count=False, warm=True):
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          sparsity=0.4, device="nano", backend="kernel", wbits=wbits,
+                          torch_device=dev, mesh=mesh)
+        tok0 = torch.argmax(eng.prefill(batch), dim=-1)[:, None]
+        sync()
+        if count:
+            for c in counters:
+                for key in c:
+                    c[key] = 0
+        out = eng.decode(tok0, DECODE)
+        launches = {**cg.LAUNCHES, **chunking.LAUNCHES}
+        if not warm:
+            return eng, out, launches, None
+        eng.decode(out[:, -1:].to(dev), PROFILE_TOKENS)  # warm: its wall a step
+        wall = sum(s.wall_s for s in eng.stats[-PROFILE_TOKENS:]) / PROFILE_TOKENS
+        return eng, out, launches, wall
+
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{os.path.join(store, 'store')}", rank=0,
+                            world_size=1)
+    runs = {}
+    try:
+        dmesh = make_mesh((1, 1), MESH_AXES, dev.type)
+        one_rank = ServeMesh(1, 1, dmesh, MeshRules.for_mesh(dmesh))
+        for wbits in (16, 8):
+            plain, out_plain, _, wall_plain = serve(None, wbits)
+            io = plain.io_summary()["io_bytes"]
+            del plain
+            inert = ServeMesh.create(1, 1, dev.type)
+            eng, out_inert, _, _ = serve(inert, wbits, warm=False)
+            ss = eng.shard_summary()
+            if inert.is_sharded or not torch.equal(out_inert, out_plain):
+                fail(f"{tag} w{wbits}: ServeMesh.create(1, 1) is not inert: tokens "
+                     f"{out_inert.tolist()} vs {out_plain.tolist()}")
+            if ss["n_shards"] != 1 or ss["io_bytes_per_shard"] != [eng.io_summary()["io_bytes"]] \
+                    or any(e.shard_bytes is not None for e in eng.simulator.log):
+                fail(f"{tag} w{wbits}: the inert mesh's shard summary {ss}")
+            del eng
+            eng, out, launches, wall = serve(one_rank, wbits, count=True)
+            if on_card and launches != want:
+                fail(f"{tag} w{wbits}: one-rank mesh launch counts {launches} != {want}")
+            if not torch.equal(out, out_inert):
+                fail(f"{tag} w{wbits}: one-rank mesh tokens {out.tolist()} != the unsharded "
+                     f"mesh's {out_inert.tolist()}")
+            ss = eng.shard_summary()
+            io_mesh = eng.io_summary()["io_bytes"]
+            sharded = [k for k, v in eng.params["layers"].items()
+                       if type(v).__name__ == "DTensor"]
+            if not sharded or len(ss["io_bytes_per_shard"]) != 1 \
+                    or abs(sum(ss["io_bytes_per_shard"]) - io_mesh) > 1e-6 * io_mesh \
+                    or abs(io_mesh - io) > 1e-6 * io \
+                    or any(e.shard_bytes is None for e in eng.simulator.log):
+                fail(f"{tag} w{wbits}: one-rank mesh accounting: {ss}, io_bytes {io_mesh} vs "
+                     f"{io}, sharded leaves {sharded}")
+            events = []
+            gather = sserve.gather_shards
+
+            def timed(w):
+                if not on_card:
+                    events.append(None)
+                    return gather(w)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                y = gather(w)
+                b.record()
+                events.append((a, b))
+                return y
+
+            sserve.gather_shards = timed
+            try:
+                eng.decode(out[:, -1:].to(dev), PROFILE_TOKENS)  # a third call
+            finally:
+                sserve.gather_shards = gather
+            sync()
+            gather_us = (sum(a.elapsed_time(b) for a, b in events) * 1e3 / PROFILE_TOKENS
+                         if on_card else None)
+            # one layer's slice of every sharded leaf gathered alone, back to
+            # back, under the profiler: every device event of the loop is a
+            # gather's (NCCL's kernel and its copies), so their sum over the
+            # reps is one layer's gathers' device time; against the copy
+            # bound of those bytes (each read once and written once)
+            slices = [eng.params["layers"][n][0] for n in sharded]
+            n_bytes = sum(t.to_local().numel() * t.to_local().element_size() for t in slices)
+            bound_us = 2 * n_bytes / HBM_BYTES_PER_S * 1e6
+            layer_us, kinds = None, {}
+            if on_card:
+                [gather(t) for t in slices]
+                _, kern, _ = profiled(lambda: ([gather(t) for t in slices
+                                                for _ in range(GATHER_REPS)], sync()))
+                layer_us = sum(kern.values()) / GATHER_REPS
+                kinds = {k: v / GATHER_REPS for k, v in
+                         sorted(kern.items(), key=lambda kv: -kv[1])[:3]}
+            runs[wbits] = {"launches": launches, "wall_ms": wall * 1e3,
+                           "wall_unsharded_ms": wall_plain * 1e3,
+                           "gathers_per_step": len(events) / PROFILE_TOKENS,
+                           "gather_event_us_per_step": gather_us,
+                           "gather_device_us_per_layer": layer_us,
+                           "gather_device_us_per_step": (None if layer_us is None
+                                                         else layer_us * cfg.n_layers),
+                           "gather_bytes_per_layer": n_bytes, "gather_bound_us_per_layer": bound_us,
+                           "gather_device_events": kinds,
+                           "io_bytes": io_mesh,
+                           "io_bytes_per_shard": ss["io_bytes_per_shard"],
+                           "sharded_leaves": len(sharded), "tokens": out.tolist()}
+            gtxt = ("n/a" if gather_us is None else
+                    f"{gather_us:.1f} us a step between the events around them (the host's issue "
+                    f"time too); their device time {layer_us:.1f} us a layer, "
+                    f"{layer_us * cfg.n_layers:.1f} us a step (each layer's slices gathered "
+                    f"{GATHER_REPS} times alone, the profiler's sum: "
+                    + ", ".join(f"{k[:40]} {v:.1f}" for k, v in kinds.items()) + ")")
+            log(f"{tag} w{wbits}: one-rank mesh tokens identical to ServeMesh.create(1, 1)'s and "
+                f"the unsharded engine's; launches {launches} (exact); io_bytes {io_mesh / 1e6:.1f} "
+                f"MB = sum of the per-shard lane {ss['io_bytes_per_shard'][0] / 1e6:.1f} MB; "
+                f"{len(sharded)} leaves model-sharded; decode step (warm) {wall * 1e3:.2f} ms sharded "
+                f"vs {wall_plain * 1e3:.2f} ms unsharded; {len(events) / PROFILE_TOKENS:.0f} operand "
+                f"gathers a step, {gtxt}; a layer's slices {n_bytes / 2**20:.1f} MiB, copy bound "
+                f"{bound_us:.1f} us  ({card})")
+            del eng
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    report["mesh"] = {"arch": cfg.name, "runs": runs, "phase_s": time.perf_counter() - t_phase}
+    log(f"{tag}: phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -54,6 +54,13 @@ class ModelConfig:
     d_frontend: int = 0
     frontend_tokens: int = 0
     encoder_layers: int = 0
+    # KV-cache head replication: each kv head is stored ``kv_replicate``
+    # times in the decode/prefill cache, so the cache's heads divide a
+    # model-parallel degree (``with_kv_replication``); attention is the same
+    kv_replicate: int = 1
+    # shard the weights over the data axis too (``MeshRules.for_mesh`` reads
+    # it; the port's sharded training is not written yet)
+    fsdp: bool = False
     # training: rematerialise each layer's activations in the backward
     # (``torch.utils.checkpoint``) instead of keeping them
     remat: bool = True
@@ -62,6 +69,32 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def n_cache_kv_heads(self) -> int:
+        """KV heads as the decode cache stores them (with replication)."""
+        return self.n_kv_heads * self.kv_replicate
+
+    def with_kv_replication(self, tp: int) -> "ModelConfig":
+        """The smallest replication whose cache kv heads divide ``tp`` while
+        still dividing ``n_heads`` (attention groups stay whole); the config
+        as it is for the SSM family, or where no replication fits."""
+        if self.arch_type == "ssm":
+            return self
+        for r in range(1, tp + 1):
+            kv_eff = self.n_kv_heads * r
+            if kv_eff % tp == 0 and self.n_heads % kv_eff == 0:
+                return dataclasses.replace(self, kv_replicate=r)
+        return self
+
+    def optimized_for(self, tp: int) -> "ModelConfig":
+        """The reference's config changes for a model-parallel degree: the
+        shardable KV cache, and for a MoE the ``ep_shard_map`` dispatch
+        (which the port runs as ``gather`` until expert parallelism lands)."""
+        cfg = self.with_kv_replication(tp)
+        if cfg.has_moe:
+            cfg = dataclasses.replace(cfg, moe_dispatch="ep_shard_map")
+        return cfg
 
     @property
     def has_moe(self) -> bool:
@@ -76,8 +109,8 @@ class ModelConfig:
         ≤ 4 heads, d_ff scaled with d_model, ≤ 4 experts with top-k ≤ 2 at
         capacity factor 8.0, d_frontend ≤ 64 and ≤ 16 frontend tokens, SSM
         heads ≤ 32 wide with a state ≤ 16, a shared attention block after
-        every layer, one sLSTM block (the second) and ≤ 2 encoder layers
-        (the reference's rules)."""
+        every layer, one sLSTM block (the second), ≤ 2 encoder layers and no
+        fsdp (the reference's rules)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
@@ -105,6 +138,7 @@ class ModelConfig:
             d_frontend=min(self.d_frontend, 64) if self.d_frontend else 0,
             frontend_tokens=min(self.frontend_tokens, 16) if self.frontend_tokens else 0,
             encoder_layers=min(self.encoder_layers, 2) if self.encoder_layers else 0,
+            fsdp=False,
         )
 
 

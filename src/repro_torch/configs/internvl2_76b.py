@@ -20,5 +20,6 @@ CONFIG = ModelConfig(
     d_frontend=3200,  # InternViT-6B embedding width
     frontend_tokens=256,  # visual tokens per frame after pixel-shuffle
     sliding_window=8192,  # engages only past 65536 tokens (models/model.py)
+    fsdp=True,  # the reference's: weights shard over the data axis too
     citation="arXiv:2404.16821",
 )

@@ -24,5 +24,6 @@ CONFIG = ModelConfig(
     d_frontend=1408,  # vision embedding width (MetaCLIP-style stub)
     frontend_tokens=144,
     sliding_window=8192,  # engages only past 65536 tokens (models/model.py)
+    fsdp=True,  # the reference's: weights shard over the data axis too
     citation="hf:meta-llama/Llama-4-Scout-17B-16E",
 )

@@ -19,5 +19,6 @@ CONFIG = ModelConfig(
     norm="layernorm",
     mlp="gelu",
     sliding_window=4096,  # engages only past 65536 tokens (models/model.py)
+    fsdp=True,  # the reference's: weights shard over the data axis too
     citation="arXiv:2402.19173",
 )

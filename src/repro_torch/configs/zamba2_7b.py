@@ -23,5 +23,6 @@ CONFIG = ModelConfig(
     ssm_head_dim=64,
     attn_every=6,
     sliding_window=8192,  # engages only past 65536 tokens (models/model.py)
+    fsdp=True,  # the reference's: weights shard over the data axis too
     citation="arXiv:2411.15242",
 )

@@ -1,6 +1,6 @@
 """Flash-offload I/O simulator, compute model and decode-site geometry.
 
-The port's copy of ``repro.core.offload`` but the sharded accounting. The
+The port's copy of ``repro.core.offload``. The
 simulator prices an access pattern (a mask or its chunks) with the pure
 additive model (``estimate``), "measures" it or an additive-model estimate
 with the reference's lift + lognormal jitter (``measure``,
@@ -34,13 +34,17 @@ class IOEvent:
     and the seconds the fault model charged above the clean latency;
     ``integrity_s``: the integrity ladder's re-read + backoff seconds. All
     three stay at their defaults with faults and corruption off, so such a
-    log equals one without them."""
+    log equals one without them. ``shard_bytes`` (sharded serving): the
+    event's volume split by the model shard each byte streams from,
+    summing to ``nbytes``; None on the unsharded path, so one-device logs
+    are unchanged."""
 
     name: str
     nbytes: float
     n_chunks: int
     latency_s: float
     hit_rate: float = 0.0
+    shard_bytes: Optional[Tuple[float, ...]] = None
     retries: int = 0
     fault_s: float = 0.0
     integrity_s: float = 0.0
@@ -106,11 +110,13 @@ class FlashOffloadSimulator:
     def measure_from_estimate(self, est_s: float, n_chunks: int = 32,
                               diversity: float = 0.5, name: str = "",
                               hit_rate: float = 0.0, nbytes: float = 0.0,
+                              shard_bytes: Optional[Sequence[float]] = None,
                               integrity_s: float = 0.0) -> float:
         """An additive-model estimate → one simulated measurement (lift ×
         lognormal jitter, then the fault model), plus ``integrity_s``
         verbatim (re-reads draw no jitter); a zero estimate draws nothing,
-        and with no re-read seconds logs nothing either."""
+        and with no re-read seconds logs nothing either. ``shard_bytes``:
+        the volume by source model shard, recorded on the event."""
         if est_s <= 0.0 and integrity_s <= 0.0:
             return 0.0
         lift = self.profile.interleave_lift * (1.0 + 0.1 * diversity)
@@ -123,7 +129,8 @@ class FlashOffloadSimulator:
             latency += float(integrity_s)
             self.device_time_s += float(integrity_s)
         self.log.append(IOEvent(name=name, nbytes=float(nbytes), n_chunks=n_chunks,
-                                latency_s=latency, hit_rate=float(hit_rate), retries=retries,
+                                latency_s=latency, hit_rate=float(hit_rate),
+                                shard_bytes=_lanes(shard_bytes), retries=retries,
                                 fault_s=fault_s, integrity_s=float(integrity_s)))
         return latency
 
@@ -131,13 +138,15 @@ class FlashOffloadSimulator:
                                     diversity: float = 0.5, name: str = "",
                                     hit_rates: Optional[np.ndarray] = None,
                                     nbytes: Optional[np.ndarray] = None,
+                                    shard_bytes: Optional[np.ndarray] = None,
                                     integrity_s: Optional[np.ndarray] = None) -> np.ndarray:
         """Vectorized ``measure_from_estimate`` for one decode call's
         (n_steps,) estimates: one jitter draw per positive estimate, in
         order — the same RNG stream as the scalar path — then, event by
         event (the thermal clock advances in log order), the fault model and
         the step's re-read seconds; one IOEvent per step that charged
-        anything."""
+        anything. ``shard_bytes`` (n_steps, n_shards): each step's volume by
+        source model shard."""
         est = np.asarray(est_s, dtype=np.float64).reshape(-1)
         extra = (np.zeros_like(est) if integrity_s is None
                  else np.asarray(integrity_s, dtype=np.float64).reshape(-1))
@@ -158,6 +167,7 @@ class FlashOffloadSimulator:
                 nbytes=float(nbytes[i]) if nbytes is not None else 0.0,
                 n_chunks=n_chunks, latency_s=float(latency[i]),
                 hit_rate=float(hit_rates[i]) if hit_rates is not None else 0.0,
+                shard_bytes=_lanes(shard_bytes[i]) if shard_bytes is not None else None,
                 retries=retries, fault_s=fault_s, integrity_s=float(extra[i]),
             ))
         return latency
@@ -168,9 +178,31 @@ class FlashOffloadSimulator:
     def total_bytes(self) -> float:
         return float(sum(e.nbytes for e in self.log))
 
+    def total_bytes_by_shard(self, n_shards: int) -> Tuple[float, ...]:
+        """Lifetime volume by source model shard: events logged with
+        ``shard_bytes`` add their split, the others split evenly — so the
+        tuple sums to ``total_bytes()`` and is ``(total_bytes(),)`` at one
+        shard."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        out = np.zeros(n_shards, np.float64)
+        for e in self.log:
+            if e.shard_bytes is not None:
+                if len(e.shard_bytes) != n_shards:
+                    raise ValueError(f"event {e.name!r} recorded {len(e.shard_bytes)} shard "
+                                     f"lanes, asked for {n_shards}")
+                out += np.asarray(e.shard_bytes, np.float64)
+            else:
+                out += e.nbytes / n_shards
+        return tuple(float(b) for b in out)
+
     def reset(self) -> None:
         """Clear the event log (the RNG stream and busy clock go on)."""
         self.log.clear()
+
+
+def _lanes(shard_bytes) -> Optional[Tuple[float, ...]]:
+    return None if shard_bytes is None else tuple(float(b) for b in shard_bytes)
 
 
 def pack_checksums(layers, names, block_rows: int = 8):

@@ -15,11 +15,17 @@ sparse projections through one of two implementations, chosen by
 
 Both realize the same masked-matmul semantics (paper App. B.2); on one
 device their decode tokens are byte-identical.
+
+On a sharded serve mesh (``mesh``, sharding/serve.py) the decode-streamed
+weights, scales and checksum lanes live model-sharded (DTensor slices);
+``_gather`` all-gathers each operand over the model group at the compute
+boundary, so the f32 accumulation runs over the whole table in the
+single-device block order and the tokens equal the 1×1 mesh's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -80,25 +86,41 @@ class ExecutionBackend:
     """Dispatch object carried by ``SparseExecution`` into the model blocks.
     ``prefetch_depth``: how far the kernels' ring may run ahead — any depth
     ≥ 0, as in the reference; on the card the ring runs at
-    ``min(depth, MAX_PREFETCH_DEPTH)`` (numerics are depth-invariant)."""
+    ``min(depth, MAX_PREFETCH_DEPTH)`` (numerics are depth-invariant).
+    ``mesh``: the serve mesh's ``DeviceMesh`` (None unsharded), whose
+    sharded operands ``_gather`` makes whole."""
 
     name: str = "reference"
     prefetch_depth: int = 1
     block_rows: int = BLOCK_ROWS
     max_chunk_rows: int = 512
+    mesh: Any = None
 
     @staticmethod
     def create(name: str = "reference", prefetch_depth: int = 1,
-               block_rows: int = BLOCK_ROWS, max_chunk_rows: int = 512) -> "ExecutionBackend":
+               block_rows: int = BLOCK_ROWS, max_chunk_rows: int = 512,
+               mesh: Any = None) -> "ExecutionBackend":
         validate_backend(name)
         if prefetch_depth < 0:
             raise ValueError(f"prefetch_depth must be >= 0, got {prefetch_depth}")
         return ExecutionBackend(name=name, prefetch_depth=prefetch_depth,
-                                block_rows=block_rows, max_chunk_rows=max_chunk_rows)
+                                block_rows=block_rows, max_chunk_rows=max_chunk_rows, mesh=mesh)
 
     @property
     def is_kernel(self) -> bool:
         return self.name == "kernel"
+
+    def _gather(self, w):
+        """A (possibly model-sharded) weight, scales or checksum operand made
+        whole at the compute boundary: its slices all-gathered over the
+        model group in rank order (row order for the row-sharded matrices,
+        column order for the rest). The identity without a mesh, and on a
+        tensor that is whole already."""
+        if self.mesh is None or w is None:
+            return w
+        from ..sharding.serve import gather_shards
+
+        return gather_shards(w)
 
     def project(self, w: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                 starts: torch.Tensor, sizes: torch.Tensor,
@@ -110,6 +132,7 @@ class ExecutionBackend:
         not here); the twin, whose operands never leave device memory,
         ignores it. Bit-identical either way."""
         xm = (x * mask.to(x.dtype)).to(torch.float32)
+        w, scales, checksums = self._gather(w), self._gather(scales), self._gather(checksums)
         if self.is_kernel:
             return chunk_gather_matmul_dma(
                 w, xm, starts, sizes, scales, checksums, block_rows=self.block_rows,
@@ -126,6 +149,11 @@ class ExecutionBackend:
         only (see ``project``)."""
         xm = (x * hidden_mask.to(x.dtype)).to(torch.float32)
         fm = ffn_mask.to(torch.float32)
+        w_gate, w_up, w_down = self._gather(w_gate), self._gather(w_up), self._gather(w_down)
+        if scales is not None:
+            scales = tuple(self._gather(t) for t in scales)
+        if checksums is not None:
+            checksums = tuple(self._gather(t) for t in checksums)
         if self.is_kernel:
             return chunk_gather_mlp_dma(
                 w_gate, w_up, w_down, xm, starts, sizes, fm, scales, checksums,

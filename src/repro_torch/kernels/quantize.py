@@ -26,10 +26,24 @@ QUANT_BLOCK_ROWS = 8
 QUANT_SUFFIX_PAYLOAD = "_q8"
 QUANT_SUFFIX_SCALE = "_sc"
 QUANT_SUFFIX_CHECKSUM = "_ck"
+# the sharded serve path's bf16 decode copies at wbits 16 ("<name>_dec"): a
+# model-sharded copy of the original that only the planned decode streams;
+# the original stays whole for prefill and frame append
+DECODE_COPY_SUFFIX = "_dec"
 _U32 = 0xFFFFFFFF
 # blocks checksummed at once: bounds the int64 transient (a 28672-column
 # bf16 matrix takes 64 · 8 · 28672 · 8 bytes = 117 MB a pass)
 _CK_CHUNK_BLOCKS = 64
+
+
+def streamed_operand(params, name: str, quantized: bool):
+    """Matrix ``name`` as the planned decode streams it: (int8 payload,
+    per-block scales) when ``quantized``, else (bf16 weight, None) — the
+    ``<name>_dec`` copy where a sharded serve mesh made one. The one place
+    that reads the storage format of the streamed leaves."""
+    if quantized:
+        return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
+    return params.get(name + DECODE_COPY_SUFFIX, params[name]), None
 
 
 def quantize_rows(w: torch.Tensor, block_rows: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,13 +32,21 @@ Runs on the GPU unless asked otherwise:
       --reduced --torch-device cpu --streams 5 --arrival-rate 300 \
       --decode-tokens 6 --max-seq 64 --prompt-len 16 --kv-page-tokens 8
 
+``--mesh DATA,MODEL`` serves on a sharded (data, model) mesh, one process
+per rank: launch it with torchrun (gloo ranks on the CPU, NCCL ranks on
+cards), or from processes that initialised a process group already; the
+tokens equal the 1,1 mesh's. A bad ``--mesh`` fails at parse time, before a
+model is built:
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch internvl2-76b --reduced --torch-device cpu --mesh 2,2
+
 ``--device`` names the simulated flash profile (nano / agx), as in the
 reference CLI; ``--torch-device`` picks where the model runs. ``--arch``
 takes every family: the hybrid (zamba2-7b), recurrent (xlstm-125m) and
 audio (whisper-small, whose prompt carries its encoder's frames) archs
 serve one stream with no frames, at wbits 16, without corruption injection
-or ``--streams``. The reference CLI's ``--mesh`` (sharded serving) is not
-ported yet and is refused with a pointer to ROADMAP.md.
+or ``--streams``.
 """
 from __future__ import annotations
 
@@ -56,9 +64,8 @@ from ..kernels.backend import BACKENDS
 from ..models import build_model
 from ..models.inputs import FRONT_DTYPE, make_dummy_batch
 from ..serving import SERVE_METHODS, PoissonArrivalDriver, Request, Scheduler, ServeEngine
-
-# flags of the reference CLI (repro/launch/serve.py) the port does not serve
-NOT_PORTED_FLAGS = ("--mesh",)
+from ..sharding.serve import ServeMesh, parse_mesh_spec, validate_serve_mesh
+from .mesh import world_size
 
 
 def _nonneg(kind, name: str):
@@ -133,6 +140,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="how many layers the pipeline's fetch engine may run ahead of "
                          "compute (>= 0); the kernels' ring runs at most 3 ahead. Tokens "
                          "are byte-identical at every depth")
+    ap.add_argument("--mesh", type=str, default="1,1", metavar="DATA,MODEL",
+                    help="serve-mesh shape 'data,model' (default 1,1 = unsharded), one "
+                         "process per rank (torchrun --nproc-per-node DATA*MODEL): serve "
+                         "slots partition over the data axis (--batch and --streams must "
+                         "divide it), the offloaded decode weights over the model axis (ffn "
+                         "rows must divide model x 8). Greedy tokens are byte-identical to "
+                         "the 1,1 mesh at both --wbits")
     ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     ap.add_argument("--seed", type=int, default=0, help="weight and prompt seed")
@@ -191,17 +205,26 @@ def validate_seed_flags(ap: argparse.ArgumentParser, args) -> None:
                  "or drop the seed")
 
 
+def resolve_mesh(spec: str, cfg, batch: int, streams: int,
+                 device: str = "cuda") -> ServeMesh:
+    """Parse and validate ``--mesh`` against ``--batch`` / ``--streams``, the
+    config and the process group's world size before any model is built,
+    then build the mesh (joining the group torchrun set up, or the caller's)."""
+    data, model = parse_mesh_spec(spec)
+    validate_serve_mesh(data, model, batch=batch, streams=streams,
+                        d_ff=(cfg.d_ff if (model > 1 and cfg.d_ff and not cfg.has_moe) else 0),
+                        n_devices=world_size())
+    return ServeMesh.create(data, model, device)
+
+
 def parse_args(argv=None):
     ap = build_parser()
-    args, unknown = ap.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED_FLAGS:
-            ap.error(f"{flag} is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
-                     "(the JAX CLI, python -m repro.launch.serve, still has it)")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
     validate_seed_flags(ap, args)
+    try:
+        parse_mesh_spec(args.mesh)
+    except ValueError as err:
+        ap.error(str(err))
     if args.kv_page_tokens is not None and args.streams <= 0:
         ap.error("--kv-page-tokens requires --streams (paged KV is slot-mode only: requests "
                  "are admitted through the page allocator)")
@@ -214,6 +237,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = resolve_mesh(args.mesh, cfg, args.batch, args.streams, dev.type)
     model = build_model(cfg)
     params = model.init(seed=args.seed, device=dev)
     eng = ServeEngine(model, params, max_seq=args.max_seq, batch_size=args.batch,
@@ -225,7 +249,7 @@ def main(argv=None):
                       fault_profile=args.fault_profile, fault_seed=args.fault_seed,
                       degrade=args.degrade, corruption_profile=args.corruption_profile,
                       corruption_seed=args.corruption_seed, max_reread=args.max_reread,
-                      recover=args.recover, kv_page_tokens=args.kv_page_tokens)
+                      recover=args.recover, kv_page_tokens=args.kv_page_tokens, mesh=mesh)
     if args.streams > 0:
         return eng, serve_streams(args, cfg, eng)
     batch = make_dummy_batch(cfg, InputShape("cli", args.prompt_len, args.batch, "train"),
@@ -256,6 +280,7 @@ def main(argv=None):
           f"stall {s['decode_stall_s'] * 1e3:.2f} ms  "
           f"overlap_efficiency {s['overlap_efficiency']:.3f}  "
           f"select_overhead {s['select_overhead_s'] * 1e3:.2f} ms")
+    print_mesh(eng)
     print(f"[total] method={args.method} backend={args.backend} wbits={args.wbits} "
           f"sparsity={args.sparsity} refresh_interval={args.plan_refresh_interval} "
           f"cache_mb={eng.cache_mb:g} "
@@ -272,6 +297,17 @@ def main(argv=None):
     print_integrity(args, s)
     print(f"[tokens] {out[0].tolist()}")
     return eng, out
+
+
+def print_mesh(eng) -> None:
+    """The [mesh] line (sharded meshes only)."""
+    if not eng.mesh.is_sharded:
+        return
+    ss = eng.shard_summary()
+    per = ", ".join(f"{b / 1e6:.1f}" for b in ss["io_bytes_per_shard"])
+    print(f"[mesh] data={eng.mesh.data} model={eng.mesh.model}  "
+          f"slots/data_shard={ss['slots_per_data_shard']}  "
+          f"cache_mb/shard={ss['cache_mb_per_shard']:g}  io_bytes/shard MB=[{per}]")
 
 
 def print_integrity(args, s) -> None:

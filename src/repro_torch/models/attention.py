@@ -301,10 +301,17 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
     if rope_theta is not None:
         q = apply_rope(q, _decode_positions(length - 1, b, q.device), rope_theta)
     n_rep = n_heads // n_kv_heads
-    k = repeat_kv(layer_k, n_rep)
-    v = repeat_kv(layer_v, n_rep)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * head_dim ** -0.5
+    # Both products are broadcast multiplies summed over their innermost,
+    # contiguous dim, so each row's sums run in one order however many rows
+    # share the call (a batched matmul may pick its kernel, and so its
+    # summation order, by the row count — the CPU's does). A data rank of a
+    # sharded serve mesh holds fewer rows than the 1×1 mesh, and its tokens
+    # must equal the 1×1 mesh's.
+    k = repeat_kv(layer_k, n_rep).to(torch.float32)                    # (b, P, h, hd)
+    v_t = repeat_kv(layer_v, n_rep).permute(0, 2, 3, 1).to(
+        torch.float32, memory_format=torch.contiguous_format)          # (b, h, hd, P)
+    q = q.to(torch.float32)
+    scores = (q * k).sum(-1).transpose(1, 2)[:, :, None, :] * head_dim ** -0.5
     slot = torch.arange(phys, device=q.device)
     if isinstance(length, torch.Tensor):
         filled = torch.clamp(length, max=phys) if window else length
@@ -313,17 +320,18 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
         valid = (slot < (min(length, phys) if window else length))[None, None, None, :]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32)).to(out_dtype)
+    out = (probs * v_t).sum(-1).to(out_dtype)                           # (b, h, hd)
     return out.reshape(b, 1, n_heads * head_dim)
 
 
 def append_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], layer_k: torch.Tensor,
                      layer_v: torch.Tensor, length: int, n_heads: int, n_kv_heads: int,
                      head_dim: int, rope_theta: Optional[float],
-                     project_out: bool = True) -> torch.Tensor:
+                     project_out: bool = True, kv_replicate: int = 1) -> torch.Tensor:
     """Multi-token cache-extending attention (the paper's frame append): the
     n new tokens x (b, n, d) take positions ``length … length + n − 1``,
-    their k/v are written into the linear cache at those slots in place,
+    their k/v (each head repeated ``kv_replicate`` times, as the cache
+    stores them) are written into the linear cache at those slots in place,
     and each new query attends causally to all history and to the new
     tokens before it. Returns (b, n, h*hd), through ``wo`` unless
     ``project_out`` is False (the sparse path masks before wo)."""
@@ -338,9 +346,11 @@ def append_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], layer_k: 
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if kv_replicate > 1:
+        k, v = repeat_kv(k, kv_replicate), repeat_kv(v, kv_replicate)
     layer_k[:, length: length + n] = k
     layer_v[:, length: length + n] = v
-    n_rep = n_heads // n_kv_heads
+    n_rep = n_heads // (n_kv_heads * kv_replicate)
     slot = torch.arange(phys, device=x.device)[None, :]
     q_pos = (length + torch.arange(n, device=x.device))[:, None]
     out = _direct_attention(q, repeat_kv(layer_k, n_rep), repeat_kv(layer_v, n_rep),

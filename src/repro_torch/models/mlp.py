@@ -15,16 +15,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
+from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, streamed_operand
 from .common import gelu, swish
-
-
-def _stored(params, name: str, quantized: bool):
-    """One matrix in the planned path's storage form: (int8 payload,
-    per-block scales) at wbits=8, (bf16 weight, None) otherwise."""
-    if quantized:
-        return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
-    return params[name], None
 
 
 def _stored_checksum(params, name: str):
@@ -47,9 +39,9 @@ def swiglu_mlp_planned(x: torch.Tensor, params: Dict[str, torch.Tensor], backend
     refresh's ffn-site importance). The checksum lanes, where the params
     carry them, ride along to the kernel."""
     b, s, d = x.shape
-    wg, sg = _stored(params, "w_gate", quantized)
-    wu, su = _stored(params, "w_up", quantized)
-    wd, sd = _stored(params, "w_down", quantized)
+    wg, sg = streamed_operand(params, "w_gate", quantized)
+    wu, su = streamed_operand(params, "w_up", quantized)
+    wd, sd = streamed_operand(params, "w_down", quantized)
     cks = tuple(_stored_checksum(params, nm) for nm in ("w_gate", "w_up", "w_down"))
     y, h = backend.swiglu_mlp(wg, wu, wd, x.reshape(b * s, d), hidden_mask, ffn_mask,
                               starts, sizes, (sg, su, sd) if quantized else None,
@@ -75,8 +67,8 @@ def gelu_mlp_planned(x: torch.Tensor, params: Dict[str, torch.Tensor], backend,
     mid (b·s, d_ff) f32 — post-gelu, before the ffn mask: the next
     refresh's ffn-site importance)."""
     b, s, d = x.shape
-    w_fc, s_fc = _stored(params, "w_fc", quantized)
-    w_proj, s_proj = _stored(params, "w_proj", quantized)
+    w_fc, s_fc = streamed_operand(params, "w_fc", quantized)
+    w_proj, s_proj = streamed_operand(params, "w_proj", quantized)
     mid = backend.project(w_fc, x.reshape(b * s, d), hidden_mask, *hidden_table, s_fc,
                           _stored_checksum(params, "w_fc")) + params["b_fc"].to(torch.float32)
     mid = gelu(mid)

@@ -257,6 +257,20 @@ class Model:
         threshold), recurrent states, or both."""
         return self._impl.init_cache(batch_size, max_seq, resolve_device(device))
 
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s tree, in its structure: a
+        tuple of axis names (or None) per tensor leaf, () for the length.
+        ``ServeMesh.place_cache`` reads its "batch" dims."""
+        return self._impl.cache_axes()
+
+    def paged_cache_axes(self):
+        """The logical axes of ``init_paged_cache``'s tree: the pools'
+        "kv_page" dim partitions over data ranks as dense caches' "batch"
+        dims do."""
+        if not self.is_decoder:
+            raise NotImplementedError(f"paged KV not supported for {self.family}")
+        return self._impl.paged_cache_axes()
+
     @property
     def is_decoder(self) -> bool:
         """A decoder family (dense/moe/vlm): the one with sparsification
@@ -365,9 +379,17 @@ class _DecoderLM:
         """A linear KV cache of ``max_seq`` positions, or past the window
         threshold a rotating one of ``min(max_seq, sliding_window)``."""
         cfg = self.cfg
-        spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_kv_heads,
+        spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_cache_kv_heads,
                          head_dim=cfg.resolved_head_dim, window=effective_window(cfg, max_seq))
         return init_kv_cache(spec, cfg.n_layers, COMPUTE_DTYPE, device)
+
+    def cache_axes(self):
+        kv = ("layer", "batch", "cache_seq", "cache_kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "length": ()}
+
+    def paged_cache_axes(self):
+        kv = ("layer", "kv_page", "page_tokens", "cache_kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "page_table": ("batch", None), "length": ("batch",)}
 
     def init_paged_cache(self, batch_size: int, max_seq: int, page_tokens: int, n_pages: int,
                          device) -> Dict:
@@ -378,7 +400,7 @@ class _DecoderLM:
         if effective_window(cfg, max_seq):
             raise ValueError("paged KV does not compose with sliding windows")
         return init_paged_kv_cache(n_pages, page_tokens, batch_size, max_seq // page_tokens,
-                                   cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers,
+                                   cfg.n_cache_kv_heads, cfg.resolved_head_dim, cfg.n_layers,
                                    COMPUTE_DTYPE, device)
 
     def _embed_input(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -518,6 +540,15 @@ class _Zamba:
             cache["mamba_tail"] = stacked_state(self.n_tail)
         return cache
 
+    def cache_axes(self):
+        mstate = {"conv": ("layer", "batch", None, "conv_dim"),
+                  "ssm": ("layer", "batch", "ssm_heads", None, None)}
+        kv = ("layer", "batch", "cache_seq", "cache_kv_heads", "head_dim")
+        axes = {"mamba_groups": mstate, "attn_k": kv, "attn_v": kv, "length": ()}
+        if self.n_tail:
+            axes["mamba_tail"] = dict(mstate)
+        return axes
+
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """The chunked-SSD forward over the prompt through every Mamba2
         layer, keeping each one's final state, and each application of the
@@ -621,6 +652,14 @@ class _XLSTM:
                  for i in range(self.cfg.n_layers)}
         cache["length"] = 0
         return cache
+
+    def cache_axes(self):
+        axes = {f"block_{i}": ((("batch", None),) * 4 if self._is_slstm(i) else
+                               (("batch", "heads", None, None), ("batch", "heads", None),
+                                ("batch", "heads")))
+                for i in range(self.cfg.n_layers)}
+        axes["length"] = ()
+        return axes
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         x = _embed(params, batch["tokens"])
@@ -739,6 +778,10 @@ class _Whisper:
                 "enc_k": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
                 "enc_v": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
                 "length": 0}
+
+    def cache_axes(self):
+        kv = ("layer", "batch", "cache_seq", "cache_kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "enc_k": kv, "enc_v": kv, "length": ()}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """Encode the audio, fill every decoder layer's cross-attention keys

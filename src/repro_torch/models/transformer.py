@@ -47,7 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, QUANT_SUFFIX_SCALE
+from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, streamed_operand
 from .attention import (
     Length,
     append_attention,
@@ -56,6 +56,7 @@ from .attention import (
     gather_paged_kv,
     multi_head_attention,
     project_kv_for_decode,
+    repeat_kv,
     scatter_paged_kv,
 )
 from .common import apply_rope, gelu, layer_norm, rematerialised, rms_norm, swish, unstack
@@ -100,11 +101,10 @@ def apply_norm(x: torch.Tensor, params, cfg: ModelConfig, name: str) -> torch.Te
 
 
 def _site_weight(params, sparse_ctx, name):
-    """One offloaded matrix as the planned path streams it: (int8 payload,
-    per-block scales) at wbits=8, (bf16 weight, None) at 16."""
-    if sparse_ctx.wbits == 8 and name + QUANT_SUFFIX_PAYLOAD in params:
-        return params[name + QUANT_SUFFIX_PAYLOAD], params[name + QUANT_SUFFIX_SCALE]
-    return params[name], None
+    """One offloaded matrix as the planned path streams it (quantized where
+    the engine packed an int8 payload at wbits=8)."""
+    return streamed_operand(params, name,
+                            sparse_ctx.wbits == 8 and name + QUANT_SUFFIX_PAYLOAD in params)
 
 
 def _integrity_weights(stacked, sparse_ctx, cfg: ModelConfig):
@@ -182,7 +182,8 @@ def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     ``window`` masks keys older than the window. With a ``phys_len``
     shorter than the sequence, k/v keep its last ``phys_len`` positions,
     rolled so that position p sits at slot ``p % phys_len`` (the rotating
-    cache's layout)."""
+    cache's layout). With ``cfg.kv_replicate`` > 1 each kv head of the
+    fill is repeated that many times, as the cache stores it."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h = apply_norm(x, params, cfg, "ln1")
@@ -190,6 +191,8 @@ def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     v = (h @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.rope_theta is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.kv_replicate > 1:
+        k, v = repeat_kv(k, cfg.kv_replicate), repeat_kv(v, cfg.kv_replicate)
     if phys_len is not None and phys_len < s:
         roll = s % phys_len
         k = torch.roll(k[:, -phys_len:], shifts=roll, dims=1)
@@ -236,7 +239,8 @@ def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
     mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
     attn = append_attention(_apply_mask(h, mask_q), params, layer_k, layer_v, length,
                             cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                            cfg.rope_theta, project_out=sparse_ctx is None)
+                            cfg.rope_theta, project_out=sparse_ctx is None,
+                            kv_replicate=cfg.kv_replicate)
     if sparse_ctx is not None:
         mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
         io = io + lat
@@ -322,8 +326,10 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
         h = _apply_mask(h, mask_q)
         q, k, v = (h @ params[name] for name in ("wq", "wk", "wv"))
     new_k, new_v = project_kv_for_decode(k, v, cfg.n_kv_heads, hd, length, cfg.rope_theta)
+    if cfg.kv_replicate > 1:  # the cache stores each kv head kv_replicate times
+        new_k, new_v = repeat_kv(new_k, cfg.kv_replicate), repeat_kv(new_v, cfg.kv_replicate)
     cache_layer_update(layer_k, layer_v, new_k, new_v, length, window)
-    attn = decode_attention(q, layer_k, layer_v, length + 1, cfg.n_heads, cfg.n_kv_heads, hd,
+    attn = decode_attention(q, layer_k, layer_v, length + 1, cfg.n_heads, cfg.n_cache_kv_heads, hd,
                             cfg.rope_theta, x.dtype, window)
     if planned:
         mask_o = plan["attn_out"]["mask"][layer]

@@ -63,8 +63,21 @@ lanes packed at init and, with ``recover``, heals through the ladder
 (``SparseExecution``). ``fault_summary`` and ``io_summary``'s ``fault_*``,
 ``corruptions_*`` and ``integrity_reread_s`` keys report them.
 
-Not ported yet: sharded meshes, and frame append in slot mode (the
-reference's ``append_frame`` takes a scalar length).
+``mesh``: the (data, model) serve mesh (sharding/serve.py), one process
+per rank. Each data rank holds batch / data rows of the tokens and the KV
+cache and runs the model on them; the decode-streamed weights are
+model-sharded at rest and gathered at the compute boundary; selection is
+replicated, so the plan, the simulator and every counter are the same on
+every rank, and ``prefill`` / ``append_frame`` / ``decode`` return the
+whole batch, gathered in row order. Greedy tokens equal the 1×1 mesh's.
+The model-sharded sites log their bytes per shard (``IOEvent.
+shard_bytes``, ``shard_summary``); on the unsharded path nothing changes.
+A sharded mesh refuses the paged KV cache and, with more than one data
+rank, the MoE decoders (their expert capacity spans the whole batch) —
+both wait for the next slice (ROADMAP.md, queue 1, item 4).
+
+Not ported yet: frame append in slot mode (the reference's
+``append_frame`` takes a scalar length).
 """
 from __future__ import annotations
 
@@ -86,6 +99,7 @@ from ..kernels.quantize import quantize_params
 from ..models.model import Model
 from ..models.transformer import SPARSE_WEIGHT_NAMES
 from .degrade import DegradationController
+from ..sharding.serve import ServeMesh, validate_serve_mesh
 from .kv_pool import KVPagePool, KVPoolExhausted, prompt_prefix_hashes
 from .sparse_exec import (
     INTEGRITY_COUNTER_KEYS,
@@ -169,7 +183,7 @@ class ServeEngine:
                  fault_profile=None, fault_seed: int = 0, degrade: bool = False,
                  corruption_profile=None, corruption_seed: int = 0, max_reread: int = 2,
                  recover: bool = True, kv_page_tokens: Optional[int] = None,
-                 kv_pages: Optional[int] = None):
+                 kv_pages: Optional[int] = None, mesh: Optional[ServeMesh] = None):
         """``device``: the simulated flash profile ("nano" | "agx").
         ``torch_device``: where the model runs — ``cuda`` unless the caller
         passes another device (the weights must already live there).
@@ -207,7 +221,12 @@ class ServeEngine:
         kv_page_tokens + 1``), per-slot page tables and prefix sharing.
         The pool's bytes (``kv_cache_mb``) come out of ``cache_mb``; the
         residency cache gets the rest (``weight_cache_mb``). Greedy tokens
-        equal the dense cache's on the same admissions."""
+        equal the dense cache's on the same admissions.
+
+        ``mesh``: the serve mesh (None: unsharded). Sharded, this process
+        serves its data rank's batch / data rows and holds its model rank's
+        slices of the decode-streamed weights (see the module doc); tokens
+        equal the 1×1 mesh's."""
         validate_method(method, allow_dense_free=True)
         validate_backend(backend)
         if wbits not in WBITS_CHOICES:
@@ -226,6 +245,21 @@ class ServeEngine:
             raise ValueError(f"wbits=8 and corruption injection quantize or checksum the "
                              f"decoder layers' offloaded matrices; the {model.family!r} "
                              f"family ({model.cfg.name}) has none")
+        self.mesh = mesh if mesh is not None else ServeMesh.single()
+        if self.mesh.is_sharded:
+            cfg = model.cfg
+            validate_serve_mesh(self.mesh.data, self.mesh.model, batch=batch_size,
+                                d_ff=(cfg.d_ff if (self.mesh.model > 1 and cfg.d_ff
+                                                   and not cfg.has_moe) else 0))
+            if kv_page_tokens is not None:
+                raise NotImplementedError("paged KV on a sharded serve mesh is not ported yet "
+                                          "(ROADMAP.md, queue 1, item 4); serve the dense "
+                                          "cache or the 1x1 mesh")
+            if cfg.has_moe and self.mesh.data > 1:
+                raise NotImplementedError(
+                    "a MoE decoder over more than one data rank is not ported yet: its expert "
+                    "capacity spans the whole batch (ROADMAP.md, queue 1, item 4, with "
+                    "moe_ffn_ep); use a mesh of data 1")
         self.torch_device = resolve_device(torch_device)
         self.backend = backend
         self.model = model
@@ -267,7 +301,7 @@ class ServeEngine:
             cfg = model.cfg
             # bf16 K and V entries of one page, summed over layers
             self.kv_page_bytes = float(2 * 2 * cfg.n_layers * kv_page_tokens
-                                       * cfg.n_kv_heads * cfg.resolved_head_dim)
+                                       * cfg.n_cache_kv_heads * cfg.resolved_head_dim)
             self.kv_pages = kv_pages
             self.kv_cache_mb = kv_pages * self.kv_page_bytes / MB
         else:
@@ -283,9 +317,13 @@ class ServeEngine:
             kernel_prefetch_depth=prefetch_depth, wbits=wbits,
             torch_device=self.torch_device, degradable=degrade,
             corruption_profile=corruption_profile, corruption_seed=corruption_seed,
-            max_reread=max_reread, corruption_recover=recover,
+            max_reread=max_reread, corruption_recover=recover, mesh=self.mesh,
         )
         self.corruption = None if self.sparse_ctx is None else self.sparse_ctx.corruption
+        # the per-shard accounting's width (1 unsharded, where the shard lanes
+        # stay out of the logs; 1 on a one-rank mesh, where they are kept)
+        self.n_shards = (self.sparse_ctx.n_shards if self.sparse_ctx is not None
+                         else self.mesh.model if self.mesh.is_sharded else 1)
         # engine-lifetime integrity totals, ordered like INTEGRITY_COUNTER_KEYS
         self._integrity_totals = np.zeros(len(INTEGRITY_COUNTER_KEYS))
         self.params = params
@@ -301,6 +339,13 @@ class ServeEngine:
             else:
                 layers.update(pack_checksums(layers, SPARSE_WEIGHT_NAMES))
             self.params = {**params, "layers": layers}
+        if self.sparse_ctx is not None and model.is_decoder:
+            # the decode-streamed leaves shard over 'model' (the _q8/_sc
+            # leaves at wbits 8, <name>_dec copies at 16); the rest stays
+            # whole on every rank. The identity unsharded.
+            self.params = self.mesh.place_params(self.params, wbits, SPARSE_WEIGHT_NAMES)
+        else:
+            self.params = self.mesh.put_replicated(self.params)
         # the pipeline's compute lane: the selecting methods compute over
         # their kept rows, dense and dense_free over every row
         self.compute_layer_s = ComputeModel().decode_layer_seconds(
@@ -314,7 +359,7 @@ class ServeEngine:
         if kv_page_tokens is not None:
             self._init_paged_state()
         else:
-            self.cache = model.init_cache(batch_size, max_seq, self.torch_device)
+            self.cache = self._new_cache()
         self.stats: List[StepStats] = []
         self._plan: Optional[Dict] = None  # the chunk-plan carry, kept across decode calls
         self._select_s_per_refresh: Optional[float] = None
@@ -323,14 +368,34 @@ class ServeEngine:
         # can be repriced at other prefetch depths
         self._layer_io_log: List[np.ndarray] = []
 
+    # -- this rank's share of the batch ------------------------------------------
+    def _new_cache(self) -> Dict:
+        """A fresh single-stream cache: this data rank's rows of it."""
+        cache = self.model.init_cache(self.batch_size, self.max_seq, self.torch_device)
+        return self.mesh.place_cache(cache, self.model.cache_axes())
+
+    @property
+    def _local_rows(self) -> range:
+        """The batch rows (slots) this data rank holds."""
+        n = self.batch_size // self.mesh.data
+        r = self.mesh.rank("data")
+        return range(r * n, (r + 1) * n)
+
+    def _put_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A request batch on the serving device, cut to this data rank's
+        rows."""
+        return {k: self.mesh.put_batch(v.to(self.torch_device)) for k, v in batch.items()}
+
     # -- stages ----------------------------------------------------------------
     def _prefill_charge(self, n: int, name: str, wall: float) -> float:
         """Log a prefill: it streams every matrix once, contiguously, and is
-        charged so. Returns the simulated seconds."""
+        charged so (each model shard its slice). Returns the simulated
+        seconds."""
         n_layers = self.model.cfg.n_layers
         est = self.sparse_ctx.dense_total_latency() * n_layers if self.sparse_ctx else 0.0
         nbytes = self.sparse_ctx.sparsifiable_bytes(n_layers) if self.sparse_ctx else 0.0
-        sim = self.simulator.measure_from_estimate(est, name=name, nbytes=nbytes)
+        sim = self.simulator.measure_from_estimate(est, name=name, nbytes=nbytes,
+                                                   shard_bytes=self._even_shard_bytes(nbytes))
         self.stats.append(StepStats("prefill", n, est, sim, 0.0, wall, nbytes=float(nbytes)))
         return sim
 
@@ -343,8 +408,9 @@ class ServeEngine:
                                       "admit_slot (a single-stream prefill would bypass "
                                       "the page allocator)")
         t0 = time.perf_counter()
-        batch = {k: v.to(self.torch_device) for k, v in batch.items()}
+        batch = self._put_batch(batch)
         last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
+        last = self.mesh.gather_batch(last)
         self._host_lengths = None
         self._prefill_charge(int(batch["tokens"].shape[1]), "prefill", time.perf_counter() - t0)
         self._plan = None  # new sequence → stale plan
@@ -361,20 +427,32 @@ class ServeEngine:
                                       "the single-stream linear cache, which paged "
                                       "engines do not keep")
         t0 = time.perf_counter()
-        hidden, io = self.model.append_embeds(self.params, frame_embeds, self.cache,
+        frame = self.mesh.put_batch(frame_embeds.to(self.torch_device))
+        hidden, io = self.model.append_embeds(self.params, frame, self.cache,
                                               self.sparse_ctx, self.torch_device)
+        hidden = self.mesh.gather_batch(hidden)
         io = float(io)
         wall = time.perf_counter() - t0
         sim = self.simulator.measure_from_estimate(io, name="frame")
         self.stats.append(StepStats("frame", int(frame_embeds.shape[1]), io, sim, 0.0, wall))
         return hidden
 
+    def _shard_bytes_total(self, device) -> Optional[torch.Tensor]:
+        """The plan's cumulative per-model-shard bytes (n_shards,), or None
+        unsharded."""
+        if not self.mesh.is_sharded:
+            return None
+        if self.sparse_ctx is None:
+            return torch.zeros((self.n_shards,), dtype=torch.float32, device=device)
+        return self.sparse_ctx.plan_shard_bytes(self._plan)
+
     def _device_loop(self, token: torch.Tensor, n_tokens: int):
         """The fused decode loop: n greedy steps with no host sync. Returns
-        device tensors (tokens (b, n), io (n, L), cumulative hit/miss/bytes
-        (n,) each, cumulative integrity counters (n, 6))."""
+        device tensors (tokens (b, n) — this rank's rows, io (n, L),
+        cumulative hit/miss/bytes (n,) each, cumulative integrity counters
+        (n, 6), cumulative per-shard bytes (n, n_shards) or None)."""
         k = self.plan_refresh_interval
-        toks, ios, hits, misses, byts, cis = [], [], [], [], [], []
+        toks, ios, hits, misses, byts, cis, sbs = [], [], [], [], [], [], []
         for i in range(n_tokens):
             logits, io = self.model.decode_step_planned(
                 self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0
@@ -388,10 +466,13 @@ class ServeEngine:
             byts.append(plan_transfer_bytes(self._plan, token.device))
             if self.corruption is not None:
                 cis.append(plan_integrity_counters(self._plan, token.device))
+            if self.mesh.is_sharded:
+                sbs.append(self._shard_bytes_total(token.device))
         cis = (torch.stack(cis) if cis else
                torch.zeros((n_tokens, len(INTEGRITY_COUNTER_KEYS)), device=token.device))
         return (torch.stack(toks, dim=1), torch.stack(ios), torch.stack(hits),
-                torch.stack(misses), torch.stack(byts), cis)
+                torch.stack(misses), torch.stack(byts), cis,
+                torch.stack(sbs) if sbs else None)
 
     def _start_decode(self) -> None:
         """A decode call's start: the plan (made on first use, kept across
@@ -416,9 +497,10 @@ class ServeEngine:
         host, each step's charged seconds (n,): the overlapped pipeline's
         critical path, or the serial charge with ``overlap=False``)."""
         self._start_decode()
-        tokens = tokens.to(self.torch_device)
+        tokens = self.mesh.put_batch(tokens.to(self.torch_device))
         t0 = time.perf_counter()
-        dev = self._device_loop(tokens, n_tokens)
+        *dev, sbs = self._device_loop(tokens, n_tokens)
+        dev[0] = self.mesh.gather_batch(dev[0])  # every data rank's rows, in order
         # ONE host transfer for the whole loop (tokens, per-layer estimates,
         # plan counters)
         toks, ios, hits, misses, byts, cis = (t.cpu() for t in dev)
@@ -429,13 +511,18 @@ class ServeEngine:
                               for x in (hits, misses, byts))
         civ = np.diff(cis.numpy().astype(np.float64), axis=0, prepend=0.0)
         self._integrity_totals += civ.sum(axis=0)
+        sbyts = (None if sbs is None else
+                 np.diff(sbs.cpu().numpy().astype(np.float64), axis=0, prepend=0.0))
         if self.method == "dense":
             byts = np.full_like(byts, self._dense_step_bytes())
+            if sbyts is not None:
+                sbyts = np.full_like(sbyts, self._dense_step_bytes() / self.n_shards)
         io_steps = ios.sum(axis=1)
         rows = hits + misses
         hit_rates = np.where(rows > 0, hits / np.maximum(rows, 1.0), 0.0)
         sims = self.simulator.measure_from_estimate_batch(
-            io_steps, name="decode", hit_rates=hit_rates, nbytes=byts, integrity_s=civ[:, 5]
+            io_steps, name="decode", hit_rates=hit_rates, nbytes=byts, shard_bytes=sbyts,
+            integrity_s=civ[:, 5]
         )
         # spread each step's lift + jitter over its layers so the pipeline
         # sees simulated time
@@ -519,8 +606,8 @@ class ServeEngine:
             raise NotImplementedError("sampled decoding is not implemented: "
                                       "decode_per_token always takes the argmax")
         self._start_decode()
-        token = first_token.to(self.torch_device)
-        out = [first_token.cpu().to(torch.int64)]
+        token = self.mesh.put_batch(first_token.to(self.torch_device))
+        out = []
         start = len(self.stats)
         io_rows = []
         det_call = 0.0
@@ -532,6 +619,7 @@ class ServeEngine:
             b0 = plan_transfer_bytes(self._plan, token.device)
             c0 = (plan_integrity_counters(self._plan, token.device)
                   if self.corruption is not None else None)
+            s0 = self._shard_bytes_total(token.device)
             logits, io = self.model.decode_step_planned(
                 self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0)
             token = torch.argmax(logits, dim=-1)[:, None]
@@ -540,33 +628,45 @@ class ServeEngine:
                                   plan_transfer_bytes(self._plan, token.device) - b0])
             dci = (torch.zeros((n_ci,), device=token.device) if c0 is None
                    else plan_integrity_counters(self._plan, token.device) - c0)
+            dsb = (torch.zeros((0,), device=token.device) if s0 is None
+                   else self._shard_bytes_total(token.device) - s0)
+            n_sb = dsb.shape[0]
             # the per-token host sync, one transfer: the tokens (exact in
             # float64), the layers' estimates and the step's counter deltas
             row = torch.cat([token[:, 0].to(torch.float64), io.to(torch.float64),
-                             deltas.to(torch.float64), dci.to(torch.float64)]).cpu()
+                             deltas.to(torch.float64), dci.to(torch.float64),
+                             dsb.to(torch.float64)]).cpu()
             wall = time.perf_counter() - t0
-            b = token.shape[0]
-            tok = row[:b].to(torch.int64)[:, None]
-            io_vec = row[b:-3 - n_ci].numpy()
-            hit, miss, nbytes = row[-3 - n_ci:-n_ci].tolist()
-            dci = row[-n_ci:].numpy()
+            tail = row[token.shape[0]:].numpy()
+            if n_sb:
+                tail, sb = tail[:-n_sb], tail[-n_sb:]
+            io_vec = tail[:-3 - n_ci]
+            hit, miss, nbytes = tail[-3 - n_ci:-n_ci].tolist()
+            dci = tail[-n_ci:]
             self._integrity_totals += dci
             det_call += float(dci[0])
             if self.method == "dense":
                 nbytes = self._dense_step_bytes()
+                if n_sb:
+                    sb = np.full(n_sb, nbytes / n_sb)
             est = float(io_vec.sum())
             rate = hit / (hit + miss) if (hit + miss) > 0 else 0.0
             sim = self.simulator.measure_from_estimate(est, name="decode", hit_rate=rate,
-                                                       nbytes=nbytes, integrity_s=float(dci[5]))
+                                                       nbytes=nbytes,
+                                                       shard_bytes=sb if n_sb else None,
+                                                       integrity_s=float(dci[5]))
             io_rows.append(io_vec * (sim / est if est > 0 else 1.0))
             self.stats.append(StepStats("decode", 1, est, sim, 0.0, wall,
                                         hit_rows=float(hit), miss_rows=float(miss),
                                         nbytes=float(nbytes)))
-            out.append(tok)
+            out.append(token)
         if self._host_lengths is not None:
             self._host_lengths += n_tokens
+        first = first_token.cpu().to(torch.int64)
         if not io_rows:
-            return torch.cat(out, dim=1)
+            return first
+        # every data rank's rows, in order (one gather for the call)
+        out = torch.cat([first, self.mesh.gather_batch(torch.cat(out, dim=1)).cpu()], dim=1)
         recent = self.stats[start:]
         self._observe_degradation([s.io_est_s for s in recent], [s.io_sim_s for s in recent])
         self._observe_corruption(det_call, float(sum(s.miss_rows for s in recent)))
@@ -582,7 +682,7 @@ class ServeEngine:
             st.overlap_s = float(tl.overlap_s[j])
             st.stall_s = float(tl.stall_s[j])
             st.bubble_s = float(tl.bubble_s[j])
-        return torch.cat(out, dim=1)
+        return out
 
     # -- slot mode (continuous batching; driven by serving.scheduler) -----------
     def _init_paged_state(self) -> None:
@@ -618,8 +718,8 @@ class ServeEngine:
         if self.kv_pool is not None:
             self._init_paged_state()
         else:
-            self.cache = self.model.init_cache(self.batch_size, self.max_seq, self.torch_device)
-            self.cache["length"] = torch.zeros((self.batch_size,), dtype=torch.int32,
+            self.cache = self._new_cache()
+            self.cache["length"] = torch.zeros((len(self._local_rows),), dtype=torch.int32,
                                                device=self.torch_device)
             self._host_lengths = np.zeros(self.batch_size, np.int64)
         self._plan = None
@@ -639,7 +739,8 @@ class ServeEngine:
         self._check_slot(slot)
         if self.kv_pool is not None and self.kv_pool.release(slot):
             self._push_table()
-        self.cache["length"][slot].fill_(0)  # a device fill: no host value to copy
+        if slot in self._local_rows:  # a device fill: no host value to copy
+            self.cache["length"][slot - self._local_rows.start].fill_(0)
         self._host_lengths[slot] = 0
 
     def admit_slot(self, slot: int, batch: Dict[str, torch.Tensor]):
@@ -653,7 +754,9 @@ class ServeEngine:
         pages already resident (live or cold) are shared and not rewritten,
         only fresh pages take the prefill's KV. Raises ``KVPoolExhausted``
         when the pool cannot cover the unshared pages (``kv_can_admit``
-        checks first)."""
+        checks first). On a sharded mesh every rank runs the prefill (its
+        logits are every rank's answer) and the rank holding the slot keeps
+        its KV."""
         self._check_slot(slot)
         dev_batch = {k: v.to(self.torch_device) for k, v in batch.items()}
         last, cache1 = self.model.prefill(self.params, dev_batch, self.max_seq)
@@ -673,10 +776,11 @@ class ServeEngine:
                     view = one.reshape(one.shape[0], self.max_seq // pt, pt, *one.shape[2:])
                     self.cache[key][:, pages] = view[:, srcs]
             self._push_table()
-        else:
+        elif slot in self._local_rows:
             for key in ("k", "v"):
-                self.cache[key][:, slot] = cache1[key][:, 0]
-        self.cache["length"][slot].fill_(seq_len)
+                self.cache[key][:, slot - self._local_rows.start] = cache1[key][:, 0]
+        if slot in self._local_rows:
+            self.cache["length"][slot - self._local_rows.start].fill_(seq_len)
         self._host_lengths[slot] = seq_len
         # an admission is priced on the simulated clock only (wall 0, as in
         # the reference)
@@ -715,8 +819,8 @@ class ServeEngine:
 
     def slot_lengths(self) -> np.ndarray:
         """Each slot's cache length, read from the card (a host sync; the
-        decode path reads the host mirror instead)."""
-        return self.cache["length"].cpu().numpy().reshape(-1)
+        decode path reads the host mirror instead), every data rank's."""
+        return self.mesh.gather_batch(self.cache["length"]).cpu().numpy().reshape(-1)
 
     def note_stall_admission(self, hidden_s: float) -> None:
         """Record one scheduler admission whose prefill was (partly) hidden
@@ -753,6 +857,36 @@ class ServeEngine:
             for f in dataclasses.fields(PipelineTimeline)})
 
     # -- accounting -------------------------------------------------------------
+    def _even_shard_bytes(self, nbytes: float):
+        """An even split over the model shards of a transfer that streams
+        every matrix whole (a prefill, an admission: each shard its slice);
+        None unsharded, so one-device events are unchanged."""
+        if not self.mesh.is_sharded:
+            return None
+        return (float(nbytes) / self.n_shards,) * self.n_shards
+
+    def shard_summary(self) -> Dict[str, object]:
+        """The per-shard rollup beside ``io_summary`` (whose key set is
+        pinned): the mesh, the transfer bytes by source model shard (the
+        row-sharded sites by each shard's own miss rows, the rest split
+        evenly; they sum to ``io_summary()['io_bytes']``), the residency
+        budget per shard, the slots per data shard and the paged pool's
+        live pages by home shard. On the 1×1 mesh one shard holds it all."""
+        per_shard = self.simulator.total_bytes_by_shard(self.n_shards)
+        n_data = self.mesh.data
+        return {
+            "mesh_data": self.mesh.data,
+            "mesh_model": self.mesh.model,
+            "n_shards": self.n_shards,
+            "io_bytes": float(sum(per_shard)),
+            "io_bytes_per_shard": [float(b) for b in per_shard],
+            "cache_mb_per_shard": self.cache_mb / self.n_shards,
+            "slots_per_data_shard": self.batch_size // n_data,
+            "kv_pages_in_use": self.kv_pool.pages_in_use if self.kv_pool is not None else 0,
+            "kv_pages_per_shard": (self.kv_pool.pages_per_shard(n_data)
+                                   if self.kv_pool is not None else [0] * n_data),
+        }
+
     def fault_summary(self) -> Dict[str, object]:
         """The fault-injection and degradation rollup beside ``io_summary``:
         the profile and seed, perturbed events, spikes, retries and their

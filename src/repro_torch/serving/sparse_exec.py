@@ -61,7 +61,15 @@ decode step writes into the streamed payloads around its gathers and then
 restores (``apply_corruption``). The verify needs the count of blocks
 drawn corrupt, so a refresh with integrity on syncs with the host once.
 
-Not ported yet (ROADMAP.md): sharded meshes.
+On a sharded serve ``mesh`` (sharding/serve.py) selection stays
+replicated: every site's activations are gathered over the data ranks
+before their importance is reduced (``ServeMesh.replicate``), so every rank
+selects the same chunks; the backend gathers the model-sharded weights at
+the compute boundary. The sites whose streamed rows shard over the model
+axis (``attn_out``: wo's rows, ``ffn``: w_down's / w_proj's) count their
+hit and miss rows per model shard (``hit_shard`` / ``miss_shard`` lanes,
+(L, n_shards)), which ``plan_shard_bytes`` prices; the other sites' bytes
+split evenly. Reorderings and corruption injection are refused there.
 """
 from __future__ import annotations
 
@@ -90,6 +98,7 @@ from ..core.reorder import Reordering
 from ..kernels.backend import ExecutionBackend, pick_tile
 from ..kernels.chunk_gather_dma import masks_to_block_tables
 from ..kernels.quantize import QUANT_SUFFIX_PAYLOAD, checksum_words
+from ..sharding.serve import ServeMesh
 
 WBITS_CHOICES = (16, 8)
 KERNEL_BLOCK_ROWS = 8
@@ -160,7 +169,7 @@ def reset_plan_counters(plan) -> None:
     """Zero the hit/miss/bytes (and integrity) accumulators in place, once
     per decode call."""
     for state in plan.values():
-        for key in ("hit", "miss", "bytes") + INTEGRITY_COUNTER_KEYS:
+        for key in ("hit", "miss", "bytes", "hit_shard", "miss_shard") + INTEGRITY_COUNTER_KEYS:
             if key in state:
                 state[key].zero_()
 
@@ -229,7 +238,7 @@ class SparseExecution:
                  degradable: bool = False,
                  corruption_profile: Optional[str | CorruptionProfile] = None,
                  corruption_seed: int = 0, max_reread: int = 2,
-                 corruption_recover: bool = True):
+                 corruption_recover: bool = True, mesh: Optional[ServeMesh] = None):
         """``device``: the flash profile ("nano" | "agx"); ``torch_device``:
         where the selection runs — ``cuda`` unless the caller passes another
         device (no card raises). ``backend``: "reference" (the kernels'
@@ -250,8 +259,13 @@ class SparseExecution:
         ``corruption_profile`` / ``corruption_seed`` / ``max_reread`` /
         ``corruption_recover``: data-plane corruption and the integrity
         ladder (see the module doc); a profile that corrupts needs a
-        selecting method, no reorderings and sites of whole 8-row blocks.
-        None or "none" is bit-identical to running without them."""
+        selecting method, no reorderings, the unsharded mesh and sites of
+        whole 8-row blocks. None or "none" is bit-identical to running
+        without them.
+
+        ``mesh``: the serve mesh (default: the unsharded 1×1 one). On a
+        sharded mesh selection stays replicated and the row-sharded sites
+        count their rows per model shard (see the module doc)."""
         validate_method(method)
         if cache_mb < 0:
             raise ValueError(f"cache_mb must be >= 0, got {cache_mb}")
@@ -261,6 +275,12 @@ class SparseExecution:
         self.method = method
         self.wbits = int(wbits)
         self.torch_device = resolve_device(torch_device)
+        self.mesh = mesh if mesh is not None else ServeMesh.single()
+        if self.mesh.is_sharded and reorderings:
+            raise ValueError("sharded serving does not support reorderings: per-shard block "
+                             "tables and byte counters assume selection row order equals "
+                             "storage row order (pre-reorder the stored weights offline, or "
+                             "serve on the 1x1 mesh)")
         self.reorderings = dict(reorderings or {})
         self.degradable = bool(degradable)
         self.corruption: Optional[CorruptionModel] = None
@@ -272,6 +292,10 @@ class SparseExecution:
                     raise ValueError("corruption injection needs a selecting method "
                                      "('chunk' | 'topk') whose recovery ladder can edit the "
                                      f"chunk plan, got {method!r}")
+                if self.mesh.is_sharded:
+                    raise ValueError("corruption injection does not support sharded serving: "
+                                     "the recovery ladder edits per-shard block tables it "
+                                     "cannot see (serve on the 1x1 mesh)")
                 if self.reorderings:
                     raise ValueError("corruption injection does not support reorderings: "
                                      "the rung-1 resident-copy check assumes selection row "
@@ -290,6 +314,19 @@ class SparseExecution:
                     raise ValueError(f"corruption injection needs site {kind!r} input dim "
                                      f"{site.n} divisible by block_rows={KERNEL_BLOCK_ROWS}")
         self.site_order: Tuple[str, ...] = tuple(self.sites)
+        # the per-shard I/O geometry: the sites whose streamed rows shard over
+        # the model axis count their rows per shard (shard s owns the
+        # contiguous rows [s·n/S, (s+1)·n/S)); the others split evenly
+        self.n_shards = self.mesh.model if self.mesh.is_sharded else 1
+        self.row_shards: Dict[str, int] = {
+            kind: (self.mesh.row_shard_count(site.n) if kind in ("attn_out", "ffn") else 1)
+            for kind, site in self.sites.items()}
+        # the sites that count their rows per shard: the row-sharded ones on a
+        # sharded mesh (lanes of width 1 on a one-rank mesh)
+        self.shard_lanes: Dict[str, bool] = {
+            kind: (self.mesh.is_sharded and kind in ("attn_out", "ffn")
+                   and self.row_shards[kind] == self.n_shards)
+            for kind in self.sites}
         # each site's full contiguous load, as the f32 the reference charges
         self._dense_latency = {
             kind: torch.tensor(site.dense_latency, dtype=torch.float32,
@@ -325,10 +362,17 @@ class SparseExecution:
                     self._pin_pad[i, : self.sites[kind].n] = self.pinned_sel[kind]
         self._lane_caps: Optional[torch.Tensor] = None  # (S,) caps, set by init_plan
         self._meta: Optional[dict] = None  # the integrity ladder's constants
-        self.backend = backend if isinstance(backend, ExecutionBackend) else \
-            ExecutionBackend.create(backend, prefetch_depth=kernel_prefetch_depth,
-                                    block_rows=KERNEL_BLOCK_ROWS,
-                                    max_chunk_rows=KERNEL_MAX_CHUNK_ROWS)
+        if isinstance(backend, ExecutionBackend):
+            if self.mesh.is_sharded and backend.mesh is None:
+                # the operand gather keeps sharded decode bitwise: a backend
+                # built without the mesh must not skip it
+                backend = dataclasses.replace(backend, mesh=self.mesh.mesh)
+            self.backend = backend
+        else:
+            self.backend = ExecutionBackend.create(backend, prefetch_depth=kernel_prefetch_depth,
+                                                   block_rows=KERNEL_BLOCK_ROWS,
+                                                   max_chunk_rows=KERNEL_MAX_CHUNK_ROWS,
+                                                   mesh=self.mesh.mesh)
         if self.backend.is_kernel:
             if self.reorderings:
                 raise ValueError(
@@ -400,7 +444,8 @@ class SparseExecution:
         site = self.sites[kind]
         if self.method == "dense":
             return None, self._dense_latency[kind]
-        v = self._to_selection(kind, importance(acts))
+        # every data rank reduces the whole batch, in the 1×1 order
+        v = self._to_selection(kind, importance(self.mesh.replicate(acts)))
         pinned = self.pinned_sel.get(kind)
         if pinned is not None:
             v = torch.where(pinned, torch.zeros_like(v), v)  # resident: no I/O
@@ -429,8 +474,10 @@ class SparseExecution:
     # -- per-step plan maintenance --------------------------------------------
     def record_importance(self, kind: str, acts: torch.Tensor, plan, layer: int) -> None:
         """Stash this step's importance of site ``kind`` as the ``pending``
-        vector the next refresh of ``layer`` consumes (in place)."""
+        vector the next refresh of ``layer`` consumes (in place); on a
+        sharded mesh over the whole batch, gathered from every data rank."""
         if kind in plan:
+            acts = self.mesh.replicate(acts)
             plan[kind]["pending"][layer] = self._to_selection(kind, importance(acts))
 
     def _select_lanes(self, vs: torch.Tensor, resident: Optional[torch.Tensor] = None,
@@ -542,8 +589,10 @@ class SparseExecution:
                 res = resident[:, i, : site.n]
                 for t in site.tables:
                     lat = lat + t.mask_latency_miss(mf, res)
-                hit = (m & res).sum(dim=1).to(torch.float32)
-                miss = (mf & ~res).sum(dim=1).to(torch.float32)
+                hit_rows = m & res
+                miss_rows = mf & ~res
+                hit = hit_rows.sum(dim=1).to(torch.float32)
+                miss = miss_rows.sum(dim=1).to(torch.float32)
                 # decay every row, reinforce the selected ones
                 score = RESIDENCY_DECAY * entry["score"] + torch.where(
                     m, entry["pending"], torch.zeros_like(entry["pending"]))
@@ -554,7 +603,16 @@ class SparseExecution:
             else:
                 for t in site.tables:
                     lat = lat + t.mask_latency(mf)
+                hit_rows, miss_rows = None, mf
                 miss = mf.sum(dim=1).to(torch.float32)
+            ns = self.row_shards[kind]
+            if self.shard_lanes[kind]:
+                # which model shard each row streams from, counted in
+                # selection (= storage: no reorderings on a mesh) row order
+                per = (n_layers, ns, site.n // ns)
+                if hit_rows is not None:
+                    entry["hit_shard"] += hit_rows.reshape(per).sum(dim=2).to(torch.float32)
+                entry["miss_shard"] += miss_rows.reshape(per).sum(dim=2).to(torch.float32)
             m = self._to_storage(kind, m)
             if kind in self.cached and not cache:
                 m = m | self.cached[kind]  # cached neurons always compute, free
@@ -766,6 +824,25 @@ class SparseExecution:
         """Streamed bytes of one row across every matrix sharing the site."""
         return float(sum(t.row_bytes for t in self.sites[kind].tables))
 
+    def plan_shard_bytes(self, plan) -> torch.Tensor:
+        """Per-model-shard transfer bytes accumulated in a decode plan,
+        (n_shards,) f32: the row-sharded sites' ``miss_shard`` rows × their
+        row bytes, the other sites' bytes split evenly. Sums to
+        ``plan_transfer_bytes`` up to f32 round-off."""
+        dev = self.torch_device
+        out = torch.zeros((self.n_shards,), dtype=torch.float32, device=dev)
+        if not plan:
+            return out
+        if not self.mesh.is_sharded:
+            return out + plan_transfer_bytes(plan, dev)
+        for kind, state in plan.items():
+            if "miss_shard" in state:
+                rb = torch.tensor(self.site_row_bytes(kind), dtype=torch.float32, device=dev)
+                out = out + state["miss_shard"].reshape(-1, self.n_shards).sum(dim=0) * rb
+            else:
+                out = out + state["bytes"].sum() / self.n_shards
+        return out
+
     def sparsifiable_bytes(self, n_layers: int) -> float:
         return n_layers * sum(site.n * self.site_row_bytes(kind)
                               for kind, site in self.sites.items())
@@ -826,6 +903,14 @@ class SparseExecution:
                 "kstarts": torch.zeros((n_layers, self.kernel_k), dtype=torch.int32, device=dev),
                 "ksizes": torch.zeros((n_layers, self.kernel_k), dtype=torch.int32, device=dev),
             }
+            ns = self.row_shards[kind]
+            if self.shard_lanes[kind]:
+                # per-model-shard hit/miss row counters: summed over the
+                # shards they equal the hit/miss lanes
+                plan[kind]["hit_shard"] = torch.zeros((n_layers, ns), dtype=torch.float32,
+                                                      device=dev)
+                plan[kind]["miss_shard"] = torch.zeros((n_layers, ns), dtype=torch.float32,
+                                                       device=dev)
             if self.cache_enabled:
                 score = torch.zeros((n_layers, site.n), dtype=torch.float32, device=dev)
                 if kind in self.pinned_sel:

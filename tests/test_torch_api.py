@@ -33,6 +33,7 @@ from repro_torch.core.importance import importance_np as t_importance_np
 from repro_torch.core.importance import retention as t_retention
 from repro_torch.core.latency_model import profile_table as t_profile_table
 from repro_torch.launch import quickstart
+from torch_threads import one_thread  # noqa: F401
 
 
 def _dyadic(rng, shape):

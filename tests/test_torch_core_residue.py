@@ -41,6 +41,7 @@ from repro_torch.core.offload import FlashOffloadSimulator
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.serving import ServeEngine as TEngine
+from torch_threads import one_thread  # noqa: F401
 
 KB = 1024.0
 

@@ -48,21 +48,12 @@ from repro_torch.serving import IO_SUMMARY_KEYS
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
 from test_torch_integrity import COUNTER_KEYS, RefDraws
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 ARCHS = ("starcoder2-3b", "granite-3-2b")
 EXACT_KEYS = ("steps", "hit_rows", "miss_rows", "cache_hit_rate", "io_bytes")
 WALL_KEYS = ("select_overhead_s",)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread (restored after): at the reduced widths the
-    CPU's thread pool costs more than the arithmetic."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _randomized(jp, seed):

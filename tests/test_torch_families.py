@@ -37,21 +37,12 @@ from repro_torch.configs.base import InputShape as TShape
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import cache_from_reference, params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("zamba2-7b", "xlstm-125m", "whisper-small")
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 N_DECODE = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread (restored after): at the reduced widths the
-    CPU's thread pool costs more than the arithmetic."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

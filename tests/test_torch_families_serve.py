@@ -36,6 +36,7 @@ from repro_torch.models import params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.serving import IO_SUMMARY_KEYS
 from repro_torch.serving import ServeEngine as TEngine
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ("zamba2-7b", "xlstm-125m", "whisper-small")
 METHODS = ("chunk", "dense_free")
@@ -43,14 +44,6 @@ N_DECODE, MAX_SEQ = 6, 32
 WALL_KEYS = ("select_overhead_s",)
 STAT_FIELDS = ("kind", "tokens", "io_est_s", "io_sim_s", "hit_rows", "miss_rows", "nbytes",
                "compute_s", "serial_s", "overlap_s", "stall_s", "bubble_s")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

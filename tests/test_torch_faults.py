@@ -38,6 +38,7 @@ from repro_torch.serving.sparse_exec import (
     plan_budget_scale,
     set_plan_budget_scale,
 )
+from torch_threads import one_thread  # noqa: F401
 
 # the reference suite's aggressive profile: the throttle engages at once,
 # spikes and retries land often

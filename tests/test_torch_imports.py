@@ -37,7 +37,33 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+def test_sharding_modules_stand_alone():
+    """The serve mesh's modules load neither jax nor the reference package,
+    and importing them starts no process group (a mesh joins one only when
+    it is made)."""
+    mods = ["repro_torch.sharding", "repro_torch.sharding.serve", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh"]
+    code = (
+        "import importlib, sys\n"
+        "import torch.distributed as dist\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad, dist.is_initialized())\n"
+        "sys.exit(1 if bad or dist.is_initialized() else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    for m in mods:
+        path = PORT.parent / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        assert not FORBIDDEN.search(path.read_text()), m
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_phases.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_repro(path):
     assert not FORBIDDEN.search(path.read_text())

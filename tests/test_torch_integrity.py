@@ -41,6 +41,7 @@ from repro_torch.serving.sparse_exec import (
     INTEGRITY_COUNTER_KEYS,
     SparseExecution as TSparse,
 )
+from torch_threads import one_thread  # noqa: F401
 
 COUNTER_KEYS = ("corruptions_detected", "corruptions_recovered", "corruptions_substituted",
                 "corruptions_dropped", "integrity_reread_s")

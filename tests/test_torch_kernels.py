@@ -25,6 +25,7 @@ from repro_torch.core import chunking as tchunk
 from repro_torch.kernels import backend as tbackend
 from repro_torch.kernels import chunk_gather_dma as tk
 from repro_torch.kernels import quantize as tq
+from torch_threads import one_thread  # noqa: F401
 
 DEPTHS = (0, 1, 2)
 

@@ -33,6 +33,7 @@ from repro_torch.models import params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 

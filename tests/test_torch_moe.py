@@ -27,6 +27,7 @@ from repro.models.moe import moe_ffn as j_moe_ffn
 from repro.models.moe import moe_param_defs as j_param_defs
 from repro_torch.models.common import swish
 from repro_torch.models.moe import MoEConfig, dispatch_plan, moe_ffn, moe_param_shapes, route
+from torch_threads import one_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)

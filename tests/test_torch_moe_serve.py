@@ -55,6 +55,7 @@ from repro_torch.models.transformer import site_matrix_names
 from repro_torch.serving import IO_SUMMARY_KEYS
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 ARCHS = ("olmoe-1b-7b", "llama4-scout-17b-a16e")
@@ -67,16 +68,6 @@ PROMPT, MAX_SEQ, FRAME_TOKENS = 12, 48, 8
 # at which the port may choose otherwise than the reference (a few bf16
 # ulps of the logits)
 TIE_MARGIN = 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread (restored after): at the reduced widths the
-    CPU's thread pool costs more than the arithmetic."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=ARCHS)

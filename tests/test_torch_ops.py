@@ -38,6 +38,7 @@ from repro_torch.kernels import ref as tref
 
 # the K1-body edge cases, shared with the K1 suite
 from test_torch_kernels import K1_CASES, k1_case  # noqa: E402
+from torch_threads import one_thread  # noqa: F401
 
 # the package exports functions of the same names as these modules
 tk3 = importlib.import_module("repro_torch.kernels.chunk_gather_matmul")

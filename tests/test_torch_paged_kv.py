@@ -45,16 +45,9 @@ from repro_torch.serving import (
     ServeEngine,
     prompt_prefix_hashes,
 )
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import params_from_reference
 from repro_torch.models import attention as tatt
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 LONG = 2100

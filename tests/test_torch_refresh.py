@@ -23,6 +23,7 @@ from repro.serving.sparse_exec import SparseExecution as JSparse
 from repro_torch.configs import get_config
 from repro_torch.core import chunking as tchunk
 from repro_torch.serving.sparse_exec import SparseExecution
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), n_layers=3)
 JCFG = dataclasses.replace(jget("tinyllama-1.1b").reduced(), n_layers=3)

@@ -57,6 +57,7 @@ from repro_torch.models import params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving import sparse_exec as tse
+from torch_threads import one_thread  # noqa: F401
 
 DECODE_TOKENS = 10
 BUDGETS_MB = (0.0, 1.0, 4.0)

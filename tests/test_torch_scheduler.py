@@ -50,6 +50,7 @@ from repro_torch.serving import (
     Scheduler,
     ServeEngine,
 )
+from torch_threads import one_thread  # noqa: F401
 
 SMOKE = InputShape(name="smoke", seq_len=16, global_batch=2, kind="train")
 BF16_TOL = 4e-2
@@ -57,14 +58,6 @@ BF16_TOL = 4e-2
 PROMPT_SEED = 2
 INT_STATS = ("finished", "decode_tokens", "admitted_during_stall", "deadlines",
              "deadlines_met", "preempted")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

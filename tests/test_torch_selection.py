@@ -27,6 +27,7 @@ from repro_torch.core.contiguity import mask_to_chunks_np as t_chunks
 from repro_torch.core.latency_model import profile_table as t_profile_table
 from repro_torch.kernels import masks_to_block_tables as t_m2t
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
+from torch_threads import one_thread  # noqa: F401
 
 CFG = get_config("tinyllama-1.1b").reduced()
 

@@ -26,6 +26,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import params_from_reference
 from repro_torch.models.inputs import make_dummy_batch as tbatch
 from repro_torch.serving import IO_SUMMARY_KEYS, ServeEngine as TEngine
+from torch_threads import one_thread  # noqa: F401
 
 EXACT_KEYS = ("steps", "hit_rows", "miss_rows", "cache_hit_rate", "io_bytes")
 WALL_KEYS = ("select_overhead_s",)
@@ -148,21 +149,14 @@ def test_cli_runs_on_cpu(capsys):
     assert eng.io_summary()["io_bytes"] > 0
 
 
-@pytest.mark.parametrize("flag", ["--mesh"])
-def test_cli_refuses_unported_flags(flag, capsys):
+@pytest.mark.parametrize("spec,refused", [("2", "--mesh must be 'data,model'"),
+                                           ("a,b", "--mesh axes must be integers")])
+def test_cli_refuses_bad_mesh(spec, refused, capsys):
+    """A malformed ``--mesh`` fails at parse time with the reference's
+    message, before a model is built."""
     with pytest.raises(SystemExit):
-        tserve.parse_args(["--reduced", flag, "2"])
-    assert "ROADMAP.md" in capsys.readouterr().err
-
-
-@pytest.fixture
-def one_thread():
-    """The CLI runs below at one intra-op thread (restored after): at these
-    widths the CPU's thread pool costs ten times the arithmetic."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+        tserve.parse_args(["--reduced", "--mesh", spec])
+    assert refused in capsys.readouterr().err
 
 
 CPU_STREAMS = ["--arch", "tinyllama-1.1b", "--reduced", "--torch-device", "cpu",

@@ -24,6 +24,7 @@ from repro.models import xlstm as jx
 from repro.models.common import init_params
 from repro_torch.models import ssm as tssm
 from repro_torch.models import xlstm as tx
+from torch_threads import one_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)

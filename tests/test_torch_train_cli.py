@@ -11,11 +11,13 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro.launch import train as j_train
 from repro_torch.launch import train, train_smol
 from repro_torch.models import build_model
 from repro_torch.training import load_checkpoint
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--steps", "2", "--batch", "2", "--seq", "32",

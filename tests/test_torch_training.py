@@ -48,20 +48,11 @@ from repro_torch.training import (
 )
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.training.train_step import _chunked_softmax_xent
+from torch_threads import one_thread  # noqa: F401
 
 MOMENT_REL = 1e-6
 REMAT_ARCHS = ("tinyllama-1.1b", "internvl2-76b", "olmoe-1b-7b", "zamba2-7b", "xlstm-125m",
                "whisper-small")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread (restored after): at these widths the CPU's
-    thread pool costs more than the arithmetic."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f32(x) -> np.ndarray:

@@ -40,6 +40,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import params_from_reference
 from repro_torch.training import AdamWConfig, Trainer, init_opt_state, lm_loss
 from repro_torch.models.common import tree_leaves, tree_map
+from torch_threads import one_thread  # noqa: F401
 
 FAMILIES = ("tinyllama-1.1b", "internvl2-76b", "olmoe-1b-7b", "starcoder2-3b", "granite-3-2b",
             "zamba2-7b", "xlstm-125m", "whisper-small")
@@ -47,14 +48,6 @@ OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
 BATCH, SEQ, LOSS_CHUNK = 2, 32, 16
 METRIC_RTOL = {"loss": 5e-3, "ce": 5e-3, "moe_aux": 5e-3, "grad_norm": 2e-2, "lr": 1e-6}
 GRAD_REL, GRAD_COS, M_REL, V_REL = 5e-2, 0.995, 5e-2, 1e-1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f64(x) -> np.ndarray:

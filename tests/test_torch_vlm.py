@@ -54,6 +54,7 @@ from repro_torch.models.transformer import block_append as t_block_append
 from repro_torch.models.transformer import stack_append as t_stack_append
 from repro_torch.serving import ServeEngine as TEngine
 from repro_torch.serving.sparse_exec import SparseExecution as TSparse
+from torch_threads import one_thread  # noqa: F401
 
 BF16_TOL = dict(atol=4e-2, rtol=4e-2)
 PROMPT, MAX_SEQ, FRAME_TOKENS = 32, 64, 8
