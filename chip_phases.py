@@ -8,7 +8,10 @@ Phase 7 is the InternVL2-76B path (``vlm_path``: prefill, frames, decode
 at wbits 16 and 8); phase 10 is TinyLlama-1.1B's continuous batching
 (``slot_path``: 8 slots at full width and depth); phase 15 is sharded
 serving on a one-rank mesh (``mesh_path``: the operand gathers' device
-time a step is on its ``[mesh]`` lines). Each tree builds its own
+time a step is on its ``[mesh]`` lines); phase 16 is training on a
+one-rank mesh (``mesh_train_path``: TinyLlama-1.1B's mesh steps against
+the unsharded ones on its ``[mesh-train]`` lines, OLMoE's expert-parallel
+step, the sequence-sharded attention). Each tree builds its own
 kernels from its own sources. Each run prints the card's name and power
 limit, the phases' own log (the decode step's wall is on its ``[vlm] ...
 served`` and ``[slots] main path`` lines) and, as its last line, one JSON
@@ -27,7 +30,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("7", "10", "15")
+PHASES = ("7", "10", "15", "16")
 
 
 def run_tree(tree: Path, phases, index: int, settings) -> None:
@@ -62,8 +65,10 @@ def run_tree(tree: Path, phases, index: int, settings) -> None:
             smoke.vlm_path(dev, get_config(smoke.VLM_ARCH), card, report)
         elif phase == "10":
             smoke.slot_path(dev, get_config("tinyllama-1.1b"), card, report)
-        else:
+        elif phase == "15":
             smoke.mesh_path(dev, get_config(smoke.MESH_ARCH), card, report)
+        else:
+            smoke.mesh_train_path(dev, card, report)
         seconds[phase] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()

@@ -321,6 +321,22 @@ TRAIN_CPU_RTOL, TRAIN_CPU_GNORM_RTOL, TRAIN_CKPT_ARCH = 5e-3, 2e-2, "granite-3-2
 # and depth
 MESH_ARCH, GATHER_REPS = "tinyllama-1.1b", 20
 
+# phase 16: training on the one-rank (data, model) mesh. MESH_TRAIN_ARCH at
+# full width and depth, FSDP rules, batch TRAIN_BATCH x TRAIN_SEQ with
+# remat: MESH_TRAIN_STEPS steps on the mesh and as many unsharded, from
+# the same seed and batches, each metric within METRIC_RTOL of the
+# unsharded step's (the bounds of tests/test_torch_training_families.py);
+# MESH_MOE_ARCH at full width and MESH_MOE_LAYERS of its layers with the
+# expert-parallel dispatch (``optimized_for(1)``), batch MESH_MOE_BATCH x
+# TRAIN_SEQ, one step at capacity factor 8.0 held to the gather dispatch's
+# and one at the config's own; StarCoder2-7B's attention shape
+# (SEQ_ATTN_SHAPE, bf16, causal) through the sequence-sharded attention
+# against the blockwise one at offset 0
+MESH_TRAIN_ARCH, MESH_TRAIN_STEPS = "tinyllama-1.1b", 3
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_BATCH = "olmoe-1b-7b", 2, 4
+SEQ_ATTN_SHAPE = (1, 4096, 36, 128)
+METRIC_RTOL = {"loss": 5e-3, "ce": 5e-3, "moe_aux": 5e-3, "grad_norm": 2e-2}
+
 
 # the K1 body's edge cases of phase 3 (see k1_case)
 K1_CASES = ("b1", "b8", "b9", "d256", "ragged", "few", "empty", "one512", "k_far", "outside",
@@ -939,6 +955,8 @@ def main():
     done("phase 14, families card vs CPU, checkpoint")
     mesh_path(dev, get_config(MESH_ARCH), card, report)
     done("phase 15, sharded serving")
+    mesh_train_path(dev, card, report)
+    done("phase 16, mesh training")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3973,7 +3991,7 @@ def matmul_params(model) -> int:
     embedding when tied); the embedding lookup and the norms are not
     products."""
     shapes = model.param_shapes()
-    n = sum(math.prod(shape) for name, (shape, _) in shapes.items()
+    n = sum(math.prod(shape) for name, (shape, *_) in shapes.items()
             if name.startswith("layers/") and len(shape) >= 3)
     return n + math.prod(shapes["embed" if model.cfg.tie_embeddings else "head"][0])
 
@@ -4177,7 +4195,7 @@ def train_gemm_ms(model, dev, reps=20):
 
     t = TRAIN_BATCH * TRAIN_SEQ
     shapes = model.param_shapes()
-    products = [(shape[-2:], math.prod(shape[:-2])) for name, (shape, _) in shapes.items()
+    products = [(shape[-2:], math.prod(shape[:-2])) for name, (shape, *_) in shapes.items()
                 if name.startswith("layers/") and len(shape) >= 3]
     head = shapes["embed"][0][::-1] if model.cfg.tie_embeddings else shapes["head"][0]
     products.append((tuple(head), 1))
@@ -4468,6 +4486,233 @@ def mesh_path(dev, cfg, card, report):
         dist.destroy_process_group()
     report["mesh"] = {"arch": cfg.name, "runs": runs, "phase_s": time.perf_counter() - t_phase}
     log(f"{tag}: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_train_path(dev, card, report, cfgs=None, attn_shape=SEQ_ATTN_SHAPE,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 16: training on a (1, 1) ("data", "model") DeviceMesh in a
+    world-size-1 process group (NCCL on the card, gloo on a CPU rehearsal),
+    through ``Trainer`` under ``use_rules`` (the entry point of ``python -m
+    repro_torch.launch.train --mesh``). ``cfgs`` = (dense, MoE) configs
+    (default: MESH_TRAIN_ARCH, and MESH_MOE_ARCH cut to MESH_MOE_LAYERS
+    layers) lets a CPU rehearsal run reduced ones.
+
+    1. The dense model with FSDP rules: MESH_TRAIN_STEPS steps on the mesh
+       (params placed by ``param_axes()``) and as many unsharded, same seed
+       and batches; each step's metrics against the unsharded step's (the
+       max abs difference printed; each within METRIC_RTOL), its wall and
+       its peak memory from its start; the DTensor leaves counted; the
+       host's kernel launches of one profiled mesh step.
+    2. The MoE model with the ``ep_shard_map`` dispatch, one step at
+       capacity factor 8.0 (no drops) against the ``gather`` dispatch's
+       unsharded step on the same weights and batch; the all_to_all
+       launches counted (zero means the gather fallback ran); then both at
+       the config's own factor, their losses and dropped assignments.
+    3. ``_seq_sharded_attention`` on q, k, v of ``attn_shape`` bf16 against
+       ``_blockwise_attention`` at offset 0: max abs error, device µs."""
+    import dataclasses
+    import itertools
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, build_model, moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding import MeshRules, use_rules
+    from repro_torch.training import AdamWConfig, Trainer
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    dense_cfg, moe_cfg = cfgs or (get_config(MESH_TRAIN_ARCH), dataclasses.replace(
+        get_config(MESH_MOE_ARCH), n_layers=MESH_MOE_LAYERS))
+    _, sync = seeded(dev, 0)
+    out = {}
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    def run(cfg, rules, batches, lr=TRAIN_LR, warmup=TRAIN_WARMUP):
+        """Steps of a fresh seed-0 state over ``batches``: (metrics per
+        step as floats, wall per step s, peak GB per step, the trainer, the
+        state)."""
+        trainer = Trainer(build_model(cfg), AdamWConfig(lr=lr, warmup_steps=warmup,
+                                                        total_steps=len(batches) + 3),
+                          loss_chunk=TRAIN_LOSS_CHUNK)
+        with use_rules(rules):
+            params, state = trainer.init_state(seed=0, device=dev, rules=rules)
+            metrics, walls, peaks = [], [], []
+            for b in batches:
+                sync()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params, state, m = trainer.train_step(params, state, b)
+                sync()
+                walls.append(time.perf_counter() - t0)
+                peaks.append(peak_gb())
+                metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, walls, peaks, trainer, (params, state)
+
+    def held(name, got, want, keys):
+        """The max abs difference of each metric over the steps; fails past
+        METRIC_RTOL or on a non-finite value."""
+        diffs = {}
+        for k in keys:
+            for g, w in zip(got, want):
+                if not (math.isfinite(g[k]) and math.isfinite(w[k])):
+                    fail(f"[mesh-train] {name}: non-finite {k}: {g[k]} vs {w[k]}")
+                if abs(g[k] - w[k]) > METRIC_RTOL[k] * abs(w[k]) + 1e-12:
+                    fail(f"[mesh-train] {name}: {k} {g[k]} vs {w[k]} beyond rel "
+                         f"{METRIC_RTOL[k]}")
+            diffs[k] = max(abs(g[k] - w[k]) for g, w in zip(got, want))
+        return diffs
+
+    store = tempfile.mkdtemp(prefix="mesh_train_store_")
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{os.path.join(store, 'store')}", rank=0,
+                            world_size=1)
+    try:
+        dmesh = make_mesh((1, 1), ("data", "model"), dev.type)
+
+        # 1. the dense model, FSDP rules, against the unsharded steps
+        tag = f"[mesh-train] {dense_cfg.name}"
+        host = itertools.islice(lm_batches(dense_cfg, DataConfig(batch=batch, seq_len=seq,
+                                                                 seed=0)), MESH_TRAIN_STEPS)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+        def launches(trainer, params, opt, rules):
+            """The host's kernel launches in one profiled step."""
+            if not on_card:
+                return None
+            with use_rules(rules):
+                _, _, cpu_ops = profiled(lambda: (trainer.train_step(params, opt, batches[0]),
+                                                  sync()))
+            return sum(n for k, (_, n) in cpu_ops.items() if "LaunchKernel" in k)
+
+        plain, walls_plain, peaks_plain, trainer, state = run(dense_cfg, None, batches)
+        launches_plain = launches(trainer, *state, None)
+        del state, trainer
+        rules = MeshRules.for_mesh(dmesh, fsdp=True)
+        mesh, walls_mesh, peaks_mesh, trainer, (params, opt) = run(dense_cfg, rules, batches)
+        diffs = held(dense_cfg.name, mesh, plain, ("loss", "ce", "grad_norm"))
+        n_dt = sum(isinstance(v, DTensor) for _, v in tree_leaves(params))
+        n_leaves = len(list(tree_leaves(params)))
+        if n_dt != n_leaves:
+            fail(f"{tag}: {n_dt} of {n_leaves} param leaves are DTensors")
+        launches_mesh = launches(trainer, params, opt, rules)
+        del params, opt, trainer
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"{tag}: {dense_cfg.n_layers} layers, batch {batch} x {seq}, remat, FSDP rules on the "
+            f"(1, 1) mesh; {n_dt} of {n_leaves} leaves DTensors; losses mesh "
+            f"{[m['loss'] for m in mesh]} vs unsharded {[m['loss'] for m in plain]}; max abs "
+            f"diff " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f"; wall a step mesh {[round(w * 1e3, 1) for w in walls_mesh]} ms vs unsharded "
+            f"{[round(w * 1e3, 1) for w in walls_plain]} ms; peak memory mesh "
+            f"{[round(x, 2) for x in peaks_mesh]} GB vs {[round(x, 2) for x in peaks_plain]} GB; "
+            f"host kernel launches of one profiled step mesh {launches_mesh} vs unsharded "
+            f"{launches_plain}  ({card})")
+        out["dense"] = {"arch": dense_cfg.name, "mesh": mesh, "unsharded": plain,
+                        "max_abs_diff": diffs, "wall_ms_mesh": [w * 1e3 for w in walls_mesh],
+                        "wall_ms_unsharded": [w * 1e3 for w in walls_plain],
+                        "peak_gb_mesh": peaks_mesh, "peak_gb_unsharded": peaks_plain,
+                        "dtensor_leaves": n_dt, "launches_profiled_step_mesh": launches_mesh,
+                        "launches_profiled_step_unsharded": launches_plain}
+
+        # 2. expert parallelism over all_to_all against the gather dispatch
+        ep_cfg = moe_cfg.optimized_for(1)
+        tag = f"[mesh-train] {ep_cfg.name} ({ep_cfg.n_layers} layers)"
+        if ep_cfg.moe_dispatch != "ep_shard_map":
+            fail(f"{tag}: optimized_for(1) gives dispatch {ep_cfg.moe_dispatch!r}")
+        mb = next(lm_batches(ep_cfg, DataConfig(batch=MESH_MOE_BATCH, seq_len=seq, seed=0)))
+        moe_batches = [{k: torch.from_numpy(v).to(dev) for k, v in mb.items()}]
+        ep_rules = MeshRules.for_mesh(dmesh)
+        runs = {}
+        for factor in (8.0, ep_cfg.moe_capacity_factor):
+            for name, cfg, r in (("ep", ep_cfg, ep_rules),
+                                 ("gather", dataclasses.replace(ep_cfg, moe_dispatch="gather"),
+                                  None)):
+                cfg = dataclasses.replace(cfg, moe_capacity_factor=factor)
+                for key in moe.ALL_TO_ALL_COUNT:
+                    moe.ALL_TO_ALL_COUNT[key] = 0
+                moe.DROP_LOG = []
+                try:
+                    m, w, pk, _, state = run(cfg, r, moe_batches)
+                    drops = int(sum(int(x) for x in moe.DROP_LOG))
+                finally:
+                    moe.DROP_LOG = None
+                del state
+                runs[(factor, name)] = {"metrics": m[0], "wall_ms": w[0] * 1e3, "peak_gb": pk[0],
+                                        "all_to_all": dict(moe.ALL_TO_ALL_COUNT),
+                                        "dropped": drops}
+                if on_card:
+                    torch.cuda.empty_cache()
+        a2a = runs[(8.0, "ep")]["all_to_all"]
+        if a2a["forward"] == 0:
+            fail(f"{tag}: no all_to_all launched: the gather fallback ran")
+        # 3 a MoE layer forward, 3 more in remat's recomputation, 2 backward
+        want_a2a = {"forward": 6 * ep_cfg.n_layers, "backward": 2 * ep_cfg.n_layers}
+        if runs[(8.0, "gather")]["all_to_all"]["forward"]:
+            fail(f"{tag}: the gather dispatch launched all_to_all")
+        moe_diffs = held(f"{ep_cfg.name} ep vs gather at capacity 8.0",
+                         [runs[(8.0, "ep")]["metrics"]], [runs[(8.0, "gather")]["metrics"]],
+                         ("loss", "ce", "moe_aux", "grad_norm"))
+        own = ep_cfg.moe_capacity_factor
+        log(f"{tag}: batch {MESH_MOE_BATCH} x {seq}, {ep_cfg.n_experts} experts top-"
+            f"{ep_cfg.moe_top_k}; ep_shard_map on the (1, 1) mesh: all_to_all_single "
+            f"{a2a['forward']} forward + {a2a['backward']} backward a step (predicted {want_a2a}: "
+            f"3 a layer forward, 3 in remat's recomputation, 2 backward); at capacity 8.0 against "
+            f"gather: max abs diff " + ", ".join(f"{k} {v:.3e}" for k, v in moe_diffs.items())
+            + f", dropped {runs[(8.0, 'ep')]['dropped']} / {runs[(8.0, 'gather')]['dropped']}; "
+            f"at {own}: loss ep {runs[(own, 'ep')]['metrics']['loss']:.5f} gather "
+            f"{runs[(own, 'gather')]['metrics']['loss']:.5f}, dropped assignments ep "
+            f"{runs[(own, 'ep')]['dropped']} gather {runs[(own, 'gather')]['dropped']}; step wall "
+            f"ep {runs[(8.0, 'ep')]['wall_ms']:.1f} ms gather "
+            f"{runs[(8.0, 'gather')]['wall_ms']:.1f} ms at 8.0, peak "
+            f"{runs[(8.0, 'ep')]['peak_gb']:.2f} / {runs[(8.0, 'gather')]['peak_gb']:.2f} GB  "
+            f"({card})")
+        out["moe"] = {"arch": ep_cfg.name, "layers": ep_cfg.n_layers, "max_abs_diff": moe_diffs,
+                      "runs": {f"{f}/{n}": v for (f, n), v in runs.items()}}
+
+        # 3. the sequence-sharded attention at StarCoder2-7B's shape
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn(attn_shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        seq_rules = dataclasses.replace(MeshRules.for_mesh(dmesh), seq_shard_attention=True)
+        with use_rules(seq_rules):
+            qd, kd, vd = (seq_rules.distribute(t, ("batch", "act_seq", "heads", "head_dim"))
+                          for t in (q, k, v))
+
+            def sharded():
+                return attention._seq_sharded_attention(qd, kd, vd, None)
+
+            got = sharded().full_tensor()
+        want = attention._blockwise_attention(q, k, v, 0, True, None)
+        err = float((got.float() - want.float()).abs().max())
+        if not math.isfinite(err) or err > 0:
+            fail(f"[mesh-train] sequence-sharded attention {attn_shape}: max abs err {err} on "
+                 "one rank, where the local computation is the blockwise one's")
+        us = {}
+        if on_card:
+            with use_rules(seq_rules):
+                _, kern_s, _ = profiled(lambda: (sharded(), sync()))
+            _, kern_b, _ = profiled(lambda: (attention._blockwise_attention(q, k, v, 0, True,
+                                                                            None), sync()))
+            us = {"seq_sharded": sum(kern_s.values()), "blockwise": sum(kern_b.values())}
+        log(f"[mesh-train] sequence-sharded attention q, k, v {attn_shape} bf16 causal on the "
+            f"(1, 1) mesh against the blockwise attention at offset 0: max abs err {err:.3e}; "
+            f"device us {us or 'n/a'}  ({card})")
+        out["seq_attention"] = {"shape": attn_shape, "max_abs_err": err, "device_us": us}
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["mesh_train"] = out
+    log(f"[mesh-train]: phase 16 took {out['phase_s']:.1f} s  ({card})")
 
 
 if __name__ == "__main__":

@@ -90,7 +90,7 @@ class ModelConfig:
     def optimized_for(self, tp: int) -> "ModelConfig":
         """The reference's config changes for a model-parallel degree: the
         shardable KV cache, and for a MoE the ``ep_shard_map`` dispatch
-        (which the port runs as ``gather`` until expert parallelism lands)."""
+        (``moe_ffn_ep`` under installed mesh rules, ``gather`` without)."""
         cfg = self.with_kv_replication(tp)
         if cfg.has_moe:
             cfg = dataclasses.replace(cfg, moe_dispatch="ep_shard_map")

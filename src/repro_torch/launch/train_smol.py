@@ -51,7 +51,7 @@ def main(argv=None):
 
     cfg, batch, seq = smol_config(args.full)
     model = build_model(cfg)
-    n_params = sum(math.prod(shape) for shape, _ in model.param_shapes().values())
+    n_params = sum(math.prod(shape) for shape, *_ in model.param_shapes().values())
     print(f"model {cfg.name}: {n_params / 1e6:.1f}M params")
 
     trainer = Trainer(model, AdamWConfig(lr=6e-4, warmup_steps=20, total_steps=args.steps),

@@ -7,8 +7,12 @@ Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
 positions the direct (materialized-scores) attention, above it the
 blockwise online-softmax attention, whose score memory is one (block_q,
 block_kv) tile per head; either masks keys outside a sliding ``window``.
-The sequence-sharded path comes with a later slice. The cache is updated
-in place (PyTorch idiom; the reference returns new arrays).
+Under installed mesh rules whose head count does not divide the model
+axis (StarCoder2-7B's 36 heads), a causal self-attention over more than
+2048 positions may shard its query sequence over 'model' instead
+(``_seq_sharded_attention``, with the rules' ``seq_shard_attention``).
+The cache is updated in place (PyTorch idiom; the reference returns new
+arrays).
 
 A rotating-window cache (``CacheSpec.window``) holds ``min(max_seq,
 window)`` positions: a decode step writes position p at slot ``p % P``,
@@ -30,6 +34,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..sharding.specs import current_rules, local_shard, mesh_placements, shard_act, \
+    wrap_local
 from .common import apply_rope, causal_mask
 
 # a decode cache length: a host int, or an int32 (b,) device tensor per slot
@@ -111,6 +117,63 @@ def _blockwise_attention(q, k, v, q_offset: int, causal: bool, window: Optional[
     return out.permute(0, 2, 1, 3)[:, :sq].to(q.dtype)
 
 
+def _want_seq_shard_map(n_heads: int, q_shape) -> bool:
+    """The reference's test for the sequence-sharded attention: rules with
+    ``seq_shard_attention`` installed, a model axis over 1 that the head
+    count does not divide, over 2048 positions that the model axis divides,
+    and a batch the data axes divide."""
+    rules = current_rules()
+    if rules is None or not rules.seq_shard_attention:
+        return False
+    tp = rules.axis_size("model")
+    dp = rules.axis_size(rules.rules.get("batch"))
+    b, s = q_shape[0], q_shape[1]
+    return tp > 1 and n_heads % tp != 0 and s > 2048 and s % tp == 0 and b % dp == 0
+
+
+def _seq_sharded_attention(q, k, v, window: Optional[int]) -> torch.Tensor:
+    """Causal attention with the query sequence sharded over 'model' (the
+    reference's ``shard_map``): each model rank runs the blockwise attention
+    for its ``s / tp`` query rows from their absolute offset ``shard ·
+    s / tp``, against the whole keys and values (all-gathered over 'model';
+    their gradients come back as partial sums over it). The batch stays on
+    the data axes. q, k, v: (b, s, h, hd) DTensors; the result is laid out
+    as q."""
+    rules = current_rules()
+    mesh = rules.mesh
+    dp_axis = rules.rules.get("batch")
+    tp = rules.axis_size("model")
+    s_local = q.shape[1] // tp
+    q_pl = mesh_placements(mesh, {dp_axis: 0, "model": 1})
+    kv_pl = mesh_placements(mesh, {dp_axis: 0})
+    kv_grad = mesh_placements(mesh, {dp_axis: 0}, partial="model")
+    qb = local_shard(q, q_pl)
+    kb, vb = (local_shard(t, kv_pl, kv_grad) for t in (k, v))
+    q_offset = mesh.get_local_rank("model") * s_local
+    out = _blockwise_attention(qb, kb, vb, q_offset, True, window)
+    return wrap_local(out, mesh, q_pl, q.shape)
+
+
+def _per_head(core, q, k, v) -> torch.Tensor:
+    """``core(q, k, v)``, an attention over (b, s, h, hd) tensors. Under
+    installed rules each rank runs it on its batch rows (data axes) and,
+    where the model axis divides the heads, its heads: every (row, head) is
+    independent, so nothing is exchanged but the layout, and DTensor
+    propagates none of its steps. Plain tensors go straight through."""
+    rules = current_rules()
+    if rules is None:
+        return core(q, k, v)
+    b, _, h, _ = q.shape
+    dims = {}
+    if b % rules.axis_size(rules.rules.get("batch")) == 0:
+        dims[rules.rules.get("batch")] = 0
+    if h % rules.axis_size("model") == 0:
+        dims["model"] = 2
+    pl = mesh_placements(rules.mesh, dims)
+    out = core(*(local_shard(t, pl) for t in (q, k, v)))
+    return wrap_local(out, rules.mesh, pl, q.shape)
+
+
 def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
                          n_kv_heads: int, head_dim: int,
                          positions: Optional[torch.Tensor] = None,
@@ -142,18 +205,25 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
             k = apply_rope(k, positions, rope_theta)
     else:
         k, v = kv_override
+    # the sequence takes 'model' only where the heads cannot (a fallback)
+    q = shard_act(q, ("batch", "act_seq", "heads", "head_dim"))
+    k = shard_act(k, ("batch", None, "kv_heads", "head_dim"))
+    v = shard_act(v, ("batch", None, "kv_heads", "head_dim"))
     n_rep = n_heads // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     sk = k.shape[1]
     if blockwise_threshold is None:
         blockwise_threshold = BLOCKWISE_THRESHOLD
-    if max(s, sk) > blockwise_threshold:
-        out = _blockwise_attention(q, k, v, sk - s if causal else 0, causal, window)
+    if causal and kv_override is None and _want_seq_shard_map(n_heads, q.shape):
+        out = _seq_sharded_attention(q, k, v, window)
+    elif max(s, sk) > blockwise_threshold:
+        out = _per_head(lambda *qkv: _blockwise_attention(*qkv, sk - s if causal else 0, causal,
+                                                          window), q, k, v)
     else:
         mask = causal_mask(s, sk, sk - s, x.device) if causal else None
         if causal and window is not None:  # and key j > query i - window
             mask = mask & ~causal_mask(s, sk, sk - s - window, x.device)
-        out = _direct_attention(q, k, v, mask)
+        out = _per_head(lambda *qkv: _direct_attention(*qkv, mask), q, k, v)
     return out.reshape(b, s, n_heads * head_dim) @ params[f"{p}wo"]
 
 
@@ -300,6 +370,7 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
     q = q.reshape(b, 1, n_heads, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, _decode_positions(length - 1, b, q.device), rope_theta)
+    q = shard_act(q, ("batch", None, "heads", "head_dim"))
     n_rep = n_heads // n_kv_heads
     # Both products are broadcast multiplies summed over their innermost,
     # contiguous dim, so each row's sums run in one order however many rows

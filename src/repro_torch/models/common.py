@@ -2,15 +2,37 @@
 positions and the causal mask (the port's copy of ``repro.models.common``;
 params are plain dicts of tensors); the per-layer views of stacked leaves
 the per-layer rematerialisation of the training forward; and the flat
-view of the nested param dict (paths ``top`` or ``top/sub``)."""
+view of the nested param dict (paths ``top`` or ``top/sub``).
+
+A parameter table maps each leaf's name to (shape, init std or
+'ones'/'zeros', logical axes): the reference's ``ParamDef``, so the axes
+that shard a leaf come from the table that makes it."""
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+
+
+# the logical axes of a decoder block's leaves (the reference's ParamDefs
+# of ``attention_param_defs``, the norms, ``mlp_param_defs`` and
+# ``gelu_mlp_param_defs``)
+BLOCK_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "ln1_w": ("embed",), "ln1_b": ("embed",), "ln2_w": ("embed",), "ln2_b": ("embed",),
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"),
+    "w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"), "w_down": ("ffn", "embed"),
+    "w_fc": ("embed", "ffn"), "b_fc": ("ffn",), "w_proj": ("ffn", "embed"),
+    "b_proj": ("embed",),
+}
+
+
+def with_axes(shapes: Dict[str, tuple], axes: Dict[str, tuple]) -> Dict[str, tuple]:
+    """{name: (shape, std)} → {name: (shape, std, axes[name])}."""
+    return {name: (shape, std, axes[name]) for name, (shape, std) in shapes.items()}
 
 
 def unstack(stacked: Dict[str, torch.Tensor], lead: int = 1) -> List[Dict[str, torch.Tensor]]:

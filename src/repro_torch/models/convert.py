@@ -44,7 +44,7 @@ def params_from_reference(params_np: Dict[str, Any], cfg, device=None) -> Dict[s
             out[name] = {sub: _leaf(v, device) for sub, v in leaf.items()}
         else:
             out[name] = _leaf(leaf, device)
-    for key, (shape, _) in want.items():
+    for key, (shape, *_) in want.items():
         top, _, sub = key.partition("/")
         got = out.get(top, {}).get(sub) if sub else out.get(top)
         if got is None:

@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, streamed_operand
+from ..sharding.specs import shard_act
 from .common import gelu, swish
 
 
@@ -26,8 +27,9 @@ def _stored_checksum(params, name: str):
 
 
 def swiglu_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Dense SwiGLU (prefill)."""
-    return (swish(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    """Dense SwiGLU (prefill and training)."""
+    h = shard_act(swish(x @ params["w_gate"]) * (x @ params["w_up"]), ("batch", None, "ffn"))
+    return h @ params["w_down"]
 
 
 def swiglu_mlp_planned(x: torch.Tensor, params: Dict[str, torch.Tensor], backend,
@@ -50,8 +52,9 @@ def swiglu_mlp_planned(x: torch.Tensor, params: Dict[str, torch.Tensor], backend
 
 
 def gelu_mlp(x: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Dense non-gated gelu MLP with biases (prefill), in x's dtype."""
-    h = gelu(x @ params["w_fc"] + params["b_fc"])
+    """Dense non-gated gelu MLP with biases (prefill and training), in x's
+    dtype."""
+    h = shard_act(gelu(x @ params["w_fc"] + params["b_fc"]), ("batch", None, "ffn"))
     return h @ params["w_proj"] + params["b_proj"]
 
 

@@ -68,6 +68,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding.specs import add_residual, over_batch, replicated, shard_act
 from .attention import (
     CacheSpec,
     cache_layer_update,
@@ -77,7 +78,8 @@ from .attention import (
     multi_head_attention,
     project_kv_for_decode,
 )
-from .common import layer_norm, rematerialised, rms_norm, sinusoidal_positions, unstack
+from .common import BLOCK_AXES, layer_norm, rematerialised, rms_norm, sinusoidal_positions, \
+    tree_unflatten, unstack, with_axes
 from .mlp import gelu_mlp
 from .moe import moe_param_shapes
 from .ssm import Mamba2Config, mamba2_decode_step, mamba2_forward, mamba2_param_shapes, \
@@ -112,6 +114,12 @@ WINDOW_ENGAGE_THRESHOLD = 65_536
 # Whisper's learned decoder positions (indexed modulo their count)
 DEC_POSITIONS = 4096
 
+# the layout of a sublayer's input under mesh rules (the reference's
+# ``shard_act`` of a block's normed input): the sequence whole, as a
+# product's input must be (``sharding.specs.add_residual``); the identity
+# with no rules installed
+WHOLE_SEQ = ("batch", None, "act_embed")
+
 
 def effective_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
     """The sliding window a sequence (or cache) of ``seq_len`` positions
@@ -135,11 +143,11 @@ def _decode_window(cfg: ModelConfig, phys: int) -> Optional[int]:
 
 
 def block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """{name: (shape, init std, 'ones' or 'zeros')} of one decoder block:
-    the norms (LayerNorm's biases beside its weights), q/k/v/o, and the
-    SwiGLU MLP, the gelu family's w_fc/b_fc/w_proj/b_proj or a MoE layer's
-    router/we_gate/we_up/we_down (and ws_gate/ws_up/ws_down with the
-    shared expert)."""
+    """{name: (shape, init std or 'ones'/'zeros', logical axes)} of one
+    decoder block: the norms (LayerNorm's biases beside its weights),
+    q/k/v/o, and the SwiGLU MLP, the gelu family's w_fc/b_fc/w_proj/b_proj
+    or a MoE layer's router/we_gate/we_up/we_down (and ws_gate/ws_up/ws_down
+    with the shared expert). The axes are ``BLOCK_AXES``'."""
     d, f = cfg.d_model, cfg.d_ff
     hd_all = cfg.n_heads * cfg.resolved_head_dim
     kv_all = cfg.n_kv_heads * cfg.resolved_head_dim
@@ -154,38 +162,48 @@ def block_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.norm == "layernorm":
         shapes.update({"ln1_b": ((d,), "zeros"), "ln2_b": ((d,), "zeros")})
     if cfg.has_moe:
-        shapes.update(moe_param_shapes(moe_cfg_of(cfg)))
-    elif cfg.mlp == "gelu":
+        return {**with_axes(shapes, BLOCK_AXES), **moe_param_shapes(moe_cfg_of(cfg))}
+    if cfg.mlp == "gelu":
         shapes.update({"w_fc": ((d, f), 1.0 / math.sqrt(d)), "b_fc": ((f,), "zeros"),
                        "w_proj": ((f, d), 1.0 / math.sqrt(f)), "b_proj": ((d,), "zeros")})
     else:
         shapes.update({"w_gate": ((d, f), 1.0 / math.sqrt(d)),
                        "w_up": ((d, f), 1.0 / math.sqrt(d)),
                        "w_down": ((f, d), 1.0 / math.sqrt(f))})
-    return shapes
+    return with_axes(shapes, BLOCK_AXES)
 
 
 def _nested(top: str, shapes: Dict[str, tuple], *lead: int) -> Dict[str, tuple]:
-    """``shapes`` under ``top/``, each leaf stacked over ``lead`` dims."""
-    return {f"{top}/{k}": ((*lead, *shape), std) for k, (shape, std) in shapes.items()}
+    """``shapes`` under ``top/``, each leaf stacked over ``lead`` dims, a
+    "layer" axis each (the reference's ``stack_layer_defs``)."""
+    return {f"{top}/{k}": ((*lead, *shape), std, ("layer",) * len(lead) + axes)
+            for k, (shape, std, axes) in shapes.items()}
 
 
 def _embed_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """The embedding, the final norm, the head (none when tied) and an
     early-fusion model's projector."""
     d = cfg.d_model
-    shapes = {"embed": ((cfg.vocab_size, d), 0.02), "final_norm_w": ((d,), "ones")}
+    shapes = {"embed": ((cfg.vocab_size, d), 0.02, ("vocab", "embed")),
+              "final_norm_w": ((d,), "ones", ("embed",))}
     if cfg.norm == "layernorm":
-        shapes["final_norm_b"] = ((d,), "zeros")
+        shapes["final_norm_b"] = ((d,), "zeros", ("embed",))
     if not cfg.tie_embeddings:
-        shapes["head"] = ((d, cfg.vocab_size), 0.02)
+        shapes["head"] = ((d, cfg.vocab_size), 0.02, ("embed", "vocab"))
     if cfg.d_frontend and not cfg.is_encdec:
-        shapes["projector"] = ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend))
+        shapes["projector"] = ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend),
+                               (None, "embed"))
     return shapes
 
 
+def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.to(torch.int64)]
+
+
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)].to(COMPUTE_DTYPE)
+    """The token embeddings in the compute dtype; on a mesh each data rank
+    looks up its batch rows in the whole table (``over_batch``)."""
+    return over_batch(_lookup, weights=(1,))(tokens, params["embed"]).to(COMPUTE_DTYPE)
 
 
 def _final_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -221,9 +239,17 @@ class Model:
         return self._impl.text_offset
 
     def param_shapes(self) -> Dict[str, tuple]:
-        """{"top" or "top/leaf": (shape, init std, 'ones' or 'zeros')}: the
-        reference's param tree, two levels deep, stacked leaves included."""
+        """{"top" or "top/leaf": (shape, init std or 'ones'/'zeros', logical
+        axes)}: the reference's param tree and its ``ParamDef``s, two levels
+        deep, stacked leaves included (a "layer" axis for each stacking)."""
         return self._impl.param_shapes()
+
+    def param_axes(self) -> Dict:
+        """The logical axes of ``init``'s tree, in its structure: a tuple of
+        axis names (or None) per leaf, from the same tables as the shapes
+        (the reference's ``Model.param_axes``)."""
+        return tree_unflatten((name, axes) for name, (_, _, axes)
+                              in self.param_shapes().items())
 
     def init(self, seed: int = 0, device=None) -> Dict:
         """Random weights on ``device`` (default ``cuda``; no card raises)
@@ -234,7 +260,7 @@ class Model:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         params: Dict = {}
-        for name, (shape, std) in sorted(self.param_shapes().items()):
+        for name, (shape, std, _) in sorted(self.param_shapes().items()):
             top, _, sub = name.partition("/")
             if std in ("ones", "zeros"):
                 fill = torch.ones if std == "ones" else torch.zeros
@@ -314,7 +340,7 @@ class Model:
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (..., d) @ the LM head (d, vocab), in hidden's dtype; the
         head is ``embed.T`` when the embeddings are tied."""
-        return _logits(params, hidden, self.cfg)
+        return shard_act(_logits(params, hidden, self.cfg), ("batch", None, "vocab"))
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """The prompt through every layer: (last-position logits (b, vocab)
@@ -410,7 +436,7 @@ class _DecoderLM:
         if self.has_frontend:
             front = batch["frontend"].to(COMPUTE_DTYPE)
             x = torch.cat([front @ params["projector"].to(COMPUTE_DTYPE), x], dim=1)
-        return x
+        return shard_act(x, ("batch", "act_seq", "act_embed"))
 
     def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         x = self._embed_input(params, batch)
@@ -462,7 +488,8 @@ class _DecoderLM:
         window = None if "page_table" in cache else _decode_window(cfg, cache["k"].shape[2])
         x = _embed(params, token)
         x, io = stack_decode(params["layers"], x, cache, cfg, sparse_ctx, plan, refresh, window)
-        return _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32), io
+        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
+        return shard_act(logits, ("batch", "vocab")), io
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +517,7 @@ class _Zamba:
 
     def param_shapes(self) -> Dict[str, tuple]:
         cfg = self.cfg
-        layer = {**mamba2_param_shapes(self.mcfg), "mnorm_w": ((cfg.d_model,), "ones")}
+        layer = {**mamba2_param_shapes(self.mcfg), "mnorm_w": ((cfg.d_model,), "ones", ("embed",))}
         shapes = {**_embed_shapes(cfg),
                   **_nested("mamba_groups", layer, self.n_groups, self.group_size),
                   **_nested("shared", block_param_shapes(cfg))}
@@ -509,11 +536,12 @@ class _Zamba:
                 yield lp, "mamba_tail", j, None
 
     def _mamba_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg)
+        h = shard_act(rms_norm(x, lp["mnorm_w"]), WHOLE_SEQ)
+        return add_residual(x, mamba2_forward(h, lp, self.mcfg))
 
     def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
         cfg = self.cfg
-        x = _embed(params, batch["tokens"])
+        x = shard_act(_embed(params, batch["tokens"]), ("batch", "act_seq", "act_embed"))
         b, s, _ = x.shape
         positions, window = _positions(b, s, x.device), effective_window(cfg, s)
         in_group = rematerialised(self._mamba_layer, remat)
@@ -620,14 +648,15 @@ class _XLSTM:
             block = slstm_param_shapes(self.xcfg) if self._is_slstm(i) \
                 else mlstm_param_shapes(self.xcfg)
             shapes.update(_nested(f"block_{i}",
-                                  {**block, "bnorm_w": ((self.cfg.d_model,), "ones")}))
+                                  {**block, "bnorm_w": ((self.cfg.d_model,), "ones", ("embed",))}))
         return shapes
 
     def _block(self, i: int, bp, x: torch.Tensor, state):
         """Block i over x from ``state``: (x + its output, its new state)."""
         fn = slstm_forward if self._is_slstm(i) else mlstm_forward
-        out, state = fn(rms_norm(x, bp["bnorm_w"]), bp, self.xcfg, state=state)
-        return x + out, state
+        out, state = fn(shard_act(rms_norm(x, bp["bnorm_w"]), WHOLE_SEQ), bp, self.xcfg,
+                        state=state)
+        return add_residual(x, out), state
 
     def _run(self, params, x: torch.Tensor, cache: Dict, remat: bool = False) -> torch.Tensor:
         """Every block over x, each from its state in ``cache``, which takes
@@ -640,7 +669,7 @@ class _XLSTM:
         return x
 
     def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
-        x = _embed(params, batch["tokens"])
+        x = shard_act(_embed(params, batch["tokens"]), ("batch", "act_seq", "act_embed"))
         x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device), remat)
         return _final_norm(params, x, self.cfg), torch.zeros((), dtype=torch.float32,
                                                              device=x.device)
@@ -698,11 +727,13 @@ class _Whisper:
         d = cfg.d_model
         block = block_param_shapes(cfg)
         dec = {**block, **{f"x_{k}": block[k] for k in ("wq", "wk", "wv", "wo")},
-               "ln_x_w": ((d,), "ones"), "ln_x_b": ((d,), "zeros")}
+               "ln_x_w": ((d,), "ones", ("embed",)), "ln_x_b": ((d,), "zeros", ("embed",))}
         return {**_embed_shapes(cfg),
-                "pos_embed_dec": ((DEC_POSITIONS, d), 0.01),
-                "frontend_proj": ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend)),
-                "enc_final_w": ((d,), "ones"), "enc_final_b": ((d,), "zeros"),
+                "pos_embed_dec": ((DEC_POSITIONS, d), 0.01, (None, "embed")),
+                "frontend_proj": ((cfg.d_frontend, d), 1.0 / math.sqrt(cfg.d_frontend),
+                                  (None, "embed")),
+                "enc_final_w": ((d,), "ones", ("embed",)),
+                "enc_final_b": ((d,), "zeros", ("embed",)),
                 **_nested("encoder", block, cfg.encoder_layers),
                 **_nested("decoder", dec, cfg.n_layers)}
 
@@ -717,10 +748,13 @@ class _Whisper:
         cfg = self.cfg
         x = frontend.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(COMPUTE_DTYPE)[None]
+        x = shard_act(x, ("batch", "act_seq", "act_embed"))
         for lp in unstack(params["encoder"]):
-            x = x + self._attention(apply_norm(x, lp, cfg, "ln1"), lp, causal=False)
-            x = x + gelu_mlp(apply_norm(x, lp, cfg, "ln2"), lp)
-        return layer_norm(x, params["enc_final_w"], params["enc_final_b"])
+            h = shard_act(apply_norm(x, lp, cfg, "ln1"), WHOLE_SEQ)
+            x = add_residual(x, self._attention(h, lp, causal=False))
+            x = add_residual(x, gelu_mlp(shard_act(apply_norm(x, lp, cfg, "ln2"), WHOLE_SEQ),
+                                         lp))
+        return shard_act(layer_norm(x, params["enc_final_w"], params["enc_final_b"]), WHOLE_SEQ)
 
     def _enc_kv(self, lp, enc: torch.Tensor):
         """One decoder layer's cross-attention keys and values over the
@@ -735,20 +769,23 @@ class _Whisper:
         indexed modulo the table's 4096 rows (the assigned decode contexts
         exceed Whisper's trained 448, as in the reference)."""
         table = params["pos_embed_dec"]
-        return table[positions % table.shape[0]].to(COMPUTE_DTYPE)
+        return replicated(lambda t: t[positions % t.shape[0]])(table).to(COMPUTE_DTYPE)
 
     def _cross_mlp(self, lp, x: torch.Tensor, enc_kv) -> torch.Tensor:
         """The decoder block after its self-attention: cross-attention over
         ``enc_kv``, then the MLP."""
         cfg = self.cfg
-        h = layer_norm(x, lp["ln_x_w"], lp["ln_x_b"])
-        x = x + self._attention(h, lp, causal=False, kv_override=enc_kv, prefix="x_")
-        return x + gelu_mlp(apply_norm(x, lp, cfg, "ln2"), lp)
+        h = shard_act(layer_norm(x, lp["ln_x_w"], lp["ln_x_b"]), WHOLE_SEQ)
+        x = add_residual(x, self._attention(h, lp, causal=False, kv_override=enc_kv,
+                                            prefix="x_"))
+        return add_residual(x, gelu_mlp(shard_act(apply_norm(x, lp, cfg, "ln2"), WHOLE_SEQ),
+                                        lp))
 
     def _block(self, lp, x: torch.Tensor, enc_kv, positions, window) -> torch.Tensor:
         """One decoder block over a whole sequence (no cache)."""
-        x = x + self._attention(apply_norm(x, lp, self.cfg, "ln1"), lp, positions=positions,
-                                causal=True, window=window)
+        h = shard_act(apply_norm(x, lp, self.cfg, "ln1"), WHOLE_SEQ)
+        x = add_residual(x, self._attention(h, lp, positions=positions, causal=True,
+                                            window=window))
         return self._cross_mlp(lp, x, enc_kv)
 
     def _layer(self, lp, x: torch.Tensor, enc: torch.Tensor, positions, window) -> torch.Tensor:
@@ -762,6 +799,7 @@ class _Whisper:
         b, s = batch["tokens"].shape
         x = _embed(params, batch["tokens"])
         x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
+        x = shard_act(x, ("batch", "act_seq", "act_embed"))
         positions, window = _positions(b, s, x.device), effective_window(cfg, s)
         layer = rematerialised(self._layer, remat)
         for lp in unstack(params["decoder"]):

@@ -12,12 +12,14 @@ where it casts back to the input's dtype, so does this.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import over_batch, shard_act
 from .common import rms_norm, swish
 
 
@@ -44,19 +46,21 @@ class Mamba2Config:
         return self.d_inner + 2 * self.n_groups * self.d_state
 
 
-def mamba2_param_shapes(cfg: Mamba2Config) -> Dict[str, Tuple[tuple, object]]:
-    """{name: (shape, init std, 'ones' or 'zeros')} of one Mamba2 layer, the
-    reference's ``ParamDef``s (fan-in normal; the conv taps at 0.5)."""
+def mamba2_param_shapes(cfg: Mamba2Config) -> Dict[str, Tuple[tuple, object, tuple]]:
+    """{name: (shape, init std or 'ones'/'zeros', logical axes)} of one
+    Mamba2 layer, the reference's ``ParamDef``s (fan-in normal; the conv
+    taps at 0.5)."""
     d_in_proj = 2 * cfg.d_inner + 2 * cfg.n_groups * cfg.d_state + cfg.n_heads
     return {
-        "w_in": ((cfg.d_model, d_in_proj), 1.0 / math.sqrt(cfg.d_model)),
-        "conv_w": ((cfg.d_conv, cfg.conv_dim), 0.5),
-        "conv_b": ((cfg.conv_dim,), "zeros"),
-        "a_log": ((cfg.n_heads,), "zeros"),
-        "dt_bias": ((cfg.n_heads,), "zeros"),
-        "d_skip": ((cfg.n_heads,), "ones"),
-        "norm_w": ((cfg.d_inner,), "ones"),
-        "w_out": ((cfg.d_inner, cfg.d_model), 1.0 / math.sqrt(cfg.d_inner)),
+        "w_in": ((cfg.d_model, d_in_proj), 1.0 / math.sqrt(cfg.d_model), ("embed", "conv_dim")),
+        "conv_w": ((cfg.d_conv, cfg.conv_dim), 0.5, (None, "conv_dim")),
+        "conv_b": ((cfg.conv_dim,), "zeros", ("conv_dim",)),
+        "a_log": ((cfg.n_heads,), "zeros", ("ssm_heads",)),
+        "dt_bias": ((cfg.n_heads,), "zeros", ("ssm_heads",)),
+        "d_skip": ((cfg.n_heads,), "ones", ("ssm_heads",)),
+        "norm_w": ((cfg.d_inner,), "ones", ("conv_dim",)),
+        "w_out": ((cfg.d_inner, cfg.d_model), 1.0 / math.sqrt(cfg.d_inner),
+                  ("conv_dim", "embed")),
     }
 
 
@@ -69,7 +73,8 @@ def _split_in_proj(zxbcdt: torch.Tensor, cfg: Mamba2Config):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d_conv: int):
     """Depthwise causal conv over (b, s, c), then swish; the taps are summed
-    in f32 and rounded once to xbc's dtype."""
+    in f32 and rounded once to xbc's dtype. On a mesh each data rank runs
+    its batch rows (``over_batch``)."""
     s = xbc.shape[1]
     pad = F.pad(xbc, (0, 0, d_conv - 1, 0))
     views = torch.stack([pad[:, i: i + s] for i in range(d_conv)])  # (d_conv, b, s, c)
@@ -95,30 +100,20 @@ def _dt_decay(dt: torch.Tensor, params, cfg: Mamba2Config):
     return dt, -torch.exp(params["a_log"].to(torch.float32))
 
 
-def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2Config,
-                   return_state: bool = False):
-    """Full-sequence chunked SSD forward: (b, s, d) → (b, s, d). With
-    ``return_state`` also the decode-ready state {"conv": the last d_conv −
-    1 raw xBC inputs (before the conv) in x's dtype, "ssm": (b, h, p, n)
-    f32}."""
-    b, s, _ = x.shape
-    h, pdim, q = cfg.n_heads, cfg.head_dim, cfg.chunk
-    zxbcdt = x @ params["w_in"]
-    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"], cfg.d_conv)
-    xs, b_h, c_h = _heads(xbc, cfg)  # (b, s, h, p), (b, s, h, n) x2
-    dt, a = _dt_decay(dt, params, cfg)  # (b, s, h), (h,)
-    da = dt * a  # per-step log-decay
-
+def _ssd_chunks(xs_f, b_h, c_h, dt, da, q: int, d_state: int):
+    """The chunked SSD scan over (b, s, h, ·) inputs (x in f32, B and C,
+    the step sizes and log-decays), from a zero state: (y (b, s, h, p) f32
+    before the skip, the state at the end (b, h, p, n) f32). On a mesh
+    each data rank runs its batch rows (``over_batch``)."""
+    b, s, h, pdim = xs_f.shape
     pad = (-s) % q
     if pad:  # padded steps: dt = 0 (decay 1), no input
-        xs, b_h, c_h = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xs, b_h, c_h))
+        xs_f, b_h, c_h = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xs_f, b_h, c_h))
         da, dt = F.pad(da, (0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
     nc = (s + pad) // q
-    xs_f = xs.to(torch.float32)
-    iq = torch.arange(q, device=x.device)
+    iq = torch.arange(q, device=xs_f.device)
     causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
-    state = torch.zeros((b, h, pdim, cfg.d_state), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, pdim, d_state), dtype=torch.float32, device=xs_f.device)
     ys = []
     for c in range(nc):
         sl = slice(c * q, (c + 1) * q)
@@ -130,7 +125,7 @@ def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2
         # within the chunk: the masked "attention" form; exp above the
         # diagonal overflows, so it is selected away, never multiplied
         seg = cs[:, :, None, :] - cs[:, None, :, :]  # (b, q, q, h)
-        l_mat = torch.where(causal, torch.exp(seg), torch.zeros((), device=x.device))
+        l_mat = torch.where(causal, torch.exp(seg), torch.zeros((), device=xs_f.device))
         scores = torch.einsum("bqhn,bkhn->bqkh", c_i, b_i).to(torch.float32) \
             * l_mat * dt_i[:, None, :, :]
         y = y + torch.einsum("bqkh,bkhp->bqhp", scores, xs_i)
@@ -140,8 +135,27 @@ def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2
         weighted = xs_i * (dt_i * decay_out)[..., None]
         state = torch.exp(cs[:, -1, :])[..., None, None] * state + torch.einsum(
             "bqhp,bqhn->bhpn", weighted, b_i.to(torch.float32))
-    y = torch.cat(ys, dim=1)[:, :s]
-    y = y + xs_f[:, :s] * params["d_skip"].to(torch.float32)[None, None, :, None]
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2Config,
+                   return_state: bool = False):
+    """Full-sequence chunked SSD forward: (b, s, d) → (b, s, d). With
+    ``return_state`` also the decode-ready state {"conv": the last d_conv −
+    1 raw xBC inputs (before the conv) in x's dtype, "ssm": (b, h, p, n)
+    f32}."""
+    b, s, _ = x.shape
+    zxbcdt = x @ params["w_in"]
+    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
+    xbc = over_batch(functools.partial(_causal_conv, d_conv=cfg.d_conv), weights=(1, 2))(
+        xbc_raw, params["conv_w"], params["conv_b"])
+    xs, b_h, c_h = _heads(xbc, cfg)  # (b, s, h, p), (b, s, h, n) x2
+    xs = shard_act(xs, ("batch", None, "ssm_heads", None))
+    dt, a = _dt_decay(dt, params, cfg)  # (b, s, h), (h,)
+    xs_f = xs.to(torch.float32)
+    y, state = over_batch(functools.partial(_ssd_chunks, q=cfg.chunk, d_state=cfg.d_state))(
+        xs_f, b_h, c_h, dt, dt * a)
+    y = y + xs_f * params["d_skip"].to(torch.float32)[None, None, :, None]
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
     out = rms_norm(y * swish(z), params["norm_w"]) @ params["w_out"]
     if not return_state:

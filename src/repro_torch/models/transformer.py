@@ -59,6 +59,7 @@ from .attention import (
     repeat_kv,
     scatter_paged_kv,
 )
+from ..sharding.specs import add_residual, shard_act
 from .common import apply_rope, gelu, layer_norm, rematerialised, rms_norm, swish, unstack
 from .mlp import gelu_mlp, gelu_mlp_planned, swiglu_mlp, swiglu_mlp_planned
 from .moe import MoEConfig, moe_ffn
@@ -167,11 +168,13 @@ def block_forward(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     has it already."""
     if h is None:
         h = apply_norm(x, params, cfg, "ln1")
-    x = x + multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim, positions=positions,
-                                 rope_theta=cfg.rope_theta, window=window)
-    y, aux = _dense_mlp(apply_norm(x, params, cfg, "ln2"), params, cfg)
-    return x + y, aux
+    h = shard_act(h, ("batch", None, "act_embed"))
+    x = add_residual(x, multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads,
+                                             cfg.resolved_head_dim, positions=positions,
+                                             rope_theta=cfg.rope_theta, window=window))
+    h = shard_act(apply_norm(x, params, cfg, "ln2"), ("batch", None, "act_embed"))
+    y, aux = _dense_mlp(h, params, cfg)
+    return shard_act(add_residual(x, y), ("batch", "act_seq", "act_embed")), aux
 
 
 def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import over_batch, shard_act
 from .common import gelu, rms_norm, swish
 
 NEG_M = -1e30  # the initial max-stabiliser, as in the reference
@@ -54,22 +55,22 @@ class XLSTMConfig:
 # ---------------------------------------------------------------------------
 
 
-def mlstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object]]:
-    """{name: (shape, init std, 'ones' or 'zeros')} of one mLSTM block, the
-    reference's ``ParamDef``s (the gate projections at std 0.02, the forget
-    bias at ones)."""
+def mlstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object, tuple]]:
+    """{name: (shape, init std or 'ones'/'zeros', logical axes)} of one
+    mLSTM block, the reference's ``ParamDef``s (the gate projections at std
+    0.02, the forget bias at ones)."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
     return {
-        "w_up": ((d, 2 * di), 1.0 / math.sqrt(d)),
-        "w_q": ((di, di), 1.0 / math.sqrt(di)),
-        "w_k": ((di, di), 1.0 / math.sqrt(di)),
-        "w_v": ((di, di), 1.0 / math.sqrt(di)),
-        "w_ig": ((di, h), 0.02),
-        "b_ig": ((h,), "zeros"),
-        "w_fg": ((di, h), 0.02),
-        "b_fg": ((h,), "ones"),
-        "norm_w": ((di,), "ones"),
-        "w_down": ((di, d), 1.0 / math.sqrt(di)),
+        "w_up": ((d, 2 * di), 1.0 / math.sqrt(d), ("embed", "ffn")),
+        "w_q": ((di, di), 1.0 / math.sqrt(di), ("ffn", "heads")),
+        "w_k": ((di, di), 1.0 / math.sqrt(di), ("ffn", "heads")),
+        "w_v": ((di, di), 1.0 / math.sqrt(di), ("ffn", "heads")),
+        "w_ig": ((di, h), 0.02, ("ffn", None)),
+        "b_ig": ((h,), "zeros", (None,)),
+        "w_fg": ((di, h), 0.02, ("ffn", None)),
+        "b_fg": ((h,), "ones", (None,)),
+        "norm_w": ((di,), "ones", ("ffn",)),
+        "w_down": ((di, d), 1.0 / math.sqrt(di), ("ffn", "embed")),
     }
 
 
@@ -81,10 +82,12 @@ def mlstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
             torch.full((batch, h), NEG_M, dtype=torch.float32, device=device))
 
 
-def _mlstm_scan(q, k, v, log_i, log_f, state):
-    """The mLSTM recurrence over (b, s, h, dh) f32 inputs, one step at a
-    time. Returns (y (b, s, h, dh), the state after the last step)."""
-    c, n, m = state
+def _mlstm_scan(q, k, v, log_i, f_pre, c, n, m):
+    """The mLSTM recurrence over (b, s, h, dh) f32 inputs and the forget
+    gate's pre-activations, one step at a time, from the state (c, n, m).
+    Returns (y (b, s, h, dh), the state after the last step). On a mesh
+    each data rank runs its batch rows (``over_batch``)."""
+    log_f = F.logsigmoid(f_pre)
     ys = []
     for t in range(q.shape[1]):
         qt, kt, vt, li, lf = q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t]
@@ -108,14 +111,15 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     xm, z = (x @ params["w_up"]).chunk(2, dim=-1)  # (b, s, di) each
+    xm = shard_act(xm, ("batch", None, "ffn"))
     qf = (xm @ params["w_q"]).reshape(b, s, h, dh).to(torch.float32)
     kf = (xm @ params["w_k"]).reshape(b, s, h, dh).to(torch.float32) / (dh ** 0.5)
     vf = (xm @ params["w_v"]).reshape(b, s, h, dh).to(torch.float32)
     log_i = (xm @ params["w_ig"] + params["b_ig"]).to(torch.float32)
-    log_f = F.logsigmoid((xm @ params["w_fg"] + params["b_fg"]).to(torch.float32))
+    f_pre = (xm @ params["w_fg"] + params["b_fg"]).to(torch.float32)
     if state is None:
         state = mlstm_state_init(cfg, b, x.device)
-    y, state = _mlstm_scan(qf, kf, vf, log_i, log_f, state)
+    y, state = over_batch(_mlstm_scan)(qf, kf, vf, log_i, f_pre, *state)
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
     y = rms_norm(y, params["norm_w"]) * swish(z)
     return y @ params["w_down"], state
@@ -126,18 +130,18 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
 # ---------------------------------------------------------------------------
 
 
-def slstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object]]:
-    """{name: (shape, init std, 'ones' or 'zeros')} of one sLSTM block: the
-    z/i/f/o gate pre-activations, their head-wise recurrent mix (std 0.02)
-    and the feed-forward."""
+def slstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object, tuple]]:
+    """{name: (shape, init std or 'ones'/'zeros', logical axes)} of one
+    sLSTM block: the z/i/f/o gate pre-activations, their head-wise recurrent
+    mix (std 0.02) and the feed-forward."""
     d, h, sdh = cfg.d_model, cfg.n_heads, cfg.s_head_dim
     return {
-        "w_gates": ((d, 4 * d), 1.0 / math.sqrt(d)),
-        "r_gates": ((h, sdh, 4 * sdh), 0.02),
-        "b_gates": ((4 * d,), "zeros"),
-        "norm_w": ((d,), "ones"),
-        "w_ff_up": ((d, cfg.d_ff_s), 1.0 / math.sqrt(d)),
-        "w_ff_down": ((cfg.d_ff_s, d), 1.0 / math.sqrt(cfg.d_ff_s)),
+        "w_gates": ((d, 4 * d), 1.0 / math.sqrt(d), ("embed", "ffn")),
+        "r_gates": ((h, sdh, 4 * sdh), 0.02, ("heads", None, None)),
+        "b_gates": ((4 * d,), "zeros", ("ffn",)),
+        "norm_w": ((d,), "ones", ("embed",)),
+        "w_ff_up": ((d, cfg.d_ff_s), 1.0 / math.sqrt(d), ("embed", "ffn")),
+        "w_ff_down": ((cfg.d_ff_s, d), 1.0 / math.sqrt(cfg.d_ff_s), ("ffn", "embed")),
     }
 
 
@@ -151,18 +155,28 @@ def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
                   state=None):
     """sLSTM with the head-wise recurrent gate mix, then the feed-forward:
     (b, s, d) → (out, the new state)."""
-    b, s, d = x.shape
-    h, sdh = cfg.n_heads, cfg.s_head_dim
     pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
     if state is None:
-        state = slstm_state_init(cfg, b, x.device)
-    r_w = params["r_gates"].to(torch.float32)  # (h, sdh, 4 sdh)
-    c, n, m, h_prev = state
+        state = slstm_state_init(cfg, x.shape[0], x.device)
+    ys, state = over_batch(_slstm_scan, weights=(1,))(pre, params["r_gates"].to(torch.float32),
+                                                      *state)
+    y = rms_norm(ys.to(x.dtype), params["norm_w"])
+    return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], state
+
+
+def _slstm_scan(pre, r_w, c, n, m, h_prev):
+    """The sLSTM recurrence over the (b, s, 4d) f32 gate pre-activations
+    with the head-wise recurrent mix r_w (h, sdh, 4 sdh), one step at a
+    time, from the state (c, n, m, h_prev). Returns (the hidden states (b,
+    s, d) f32, the state after the last step). On a mesh each data rank
+    runs its batch rows (``over_batch``)."""
+    b, s, d4 = pre.shape
+    h, sdh = r_w.shape[0], r_w.shape[1]
     ys = []
     for t in range(s):
         rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
         # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
-        rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, 4 * d)
+        rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, d4)
         zt, it, ft, ot = (pre[:, t] + rec).chunk(4, dim=-1)
         zt, ot, log_f = torch.tanh(zt), torch.sigmoid(ot), F.logsigmoid(ft)
         m_new = torch.maximum(log_f + m, it)
@@ -173,5 +187,4 @@ def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
         h_prev = ot * c / torch.clamp(n, min=1e-6)
         m = m_new
         ys.append(h_prev)
-    y = rms_norm(torch.stack(ys, dim=1).to(x.dtype), params["norm_w"])
-    return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], (c, n, m, h_prev)
+    return torch.stack(ys, dim=1), (c, n, m, h_prev)

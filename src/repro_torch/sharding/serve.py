@@ -48,24 +48,19 @@ from ..kernels.quantize import (
     QUANT_SUFFIX_SCALE,
 )
 from ..launch.mesh import TORCHRUN_HINT, make_mesh, world_size
+from ..models.common import BLOCK_AXES
 from .specs import MeshRules, Spec
 
 MESH_AXES = ("data", "model")
 
-# logical axes of the offloaded per-layer matrices (the leading dim is the
-# stacked layer axis). MeshRules maps heads/kv_heads/ffn → 'model' and embed
-# → replicated, so matrices whose STREAMED row dim carries a model axis
-# shard by rows (wo, w_down, w_proj) and the rest by output columns.
+# logical axes of the offloaded per-layer matrices, from the decoder
+# block's parameter table (the leading dim is the stacked layer axis).
+# MeshRules maps heads/kv_heads/ffn → 'model' and embed → replicated, so
+# matrices whose STREAMED row dim carries a model axis shard by rows (wo,
+# w_down, w_proj) and the rest by output columns.
 DECODE_WEIGHT_AXES: Dict[str, Tuple[Optional[str], ...]] = {
-    "wq": ("layer", "embed", "heads"),
-    "wk": ("layer", "embed", "kv_heads"),
-    "wv": ("layer", "embed", "kv_heads"),
-    "wo": ("layer", "heads", "embed"),
-    "w_gate": ("layer", "embed", "ffn"),
-    "w_up": ("layer", "embed", "ffn"),
-    "w_fc": ("layer", "embed", "ffn"),
-    "w_down": ("layer", "ffn", "embed"),
-    "w_proj": ("layer", "ffn", "embed"),
+    name: ("layer",) + BLOCK_AXES[name]
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_fc", "w_down", "w_proj")
 }
 
 # weights whose ROW (streamed) dim shards over 'model': their sites

@@ -21,20 +21,29 @@ Logical axes:
   cache_kv_heads   → 'model'             cache_seq      → fallback 'model'
   conv_dim         → 'model'             layer/state/…  → replicated
 
-The serve path reads the rules to place its decode weights
-(``ServeMesh.weight_spec``) and never installs them: with no rules
-installed ``shard_act`` is the identity, as in the reference. The sharded
-forward that installed rules drive (training's mesh) is not ported yet.
+DTensor is the port's GSPMD: ``MeshRules.placements`` turns a spec into
+DTensor placements (one per mesh dim), ``MeshRules.place`` distributes a
+param tree by its logical axes (``Model.param_axes``), and ``shard_act``
+— the reference's ``with_sharding_constraint`` — redistributes an
+activation to its logical layout. Between those points DTensor's sharding
+propagation places every intermediate, as XLA's does in the reference;
+the values never depend on the layout, only the order of a cross-rank sum
+does. With no rules installed ``shard_act`` is the identity: the serve
+path (which reads the rules to place its decode weights,
+``ServeMesh.weight_spec``, and never installs them), the tests and the
+one-card runs.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
-import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+from ..models.common import tree_leaves, tree_unflatten
 
 Axis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[Axis, ...]
@@ -149,16 +158,51 @@ class MeshRules:
             out.pop()
         return tuple(out)
 
+    def placements(self, logical: Sequence[Optional[str]],
+                   shape: Optional[Sequence[int]] = None) -> tuple:
+        """The DTensor placements of ``spec(logical, shape)`` on this
+        rules' ``DeviceMesh``, one per mesh dim: ``Shard(i)`` where the spec
+        puts that mesh axis on dim i (a dim on a tuple of axes, such as
+        ("pod", "data"), shards over each of them, major to minor),
+        ``Replicate()`` where it puts it nowhere."""
+        from torch.distributed.tensor import Replicate, Shard
 
-_state = threading.local()
+        spec = self.spec(logical, shape)
+        on = {a: i for i, axis in enumerate(spec) for a in self._axis_names(axis)}
+        return tuple(Shard(on[name]) if name in on else Replicate()
+                     for name in mesh_axis_sizes(self.mesh))
+
+    def distribute(self, x: torch.Tensor, logical: Sequence[Optional[str]]):
+        """A whole tensor (the same on every rank) as a DTensor laid out by
+        its logical axes: each rank keeps its slice, nothing is sent."""
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(x, self.mesh, self.placements(logical, x.shape),
+                                 src_data_rank=None)
+
+    def place(self, params, axes):
+        """Every leaf of a param tree distributed by the same-structured
+        tree of logical axes (``Model.param_axes()``): the reference
+        dry-run's ``_shardings_for`` applied to the values."""
+        ax = dict(tree_leaves(axes))
+        return tree_unflatten((path, self.distribute(leaf, ax[path]))
+                              for path, leaf in tree_leaves(params))
+
+
+# the installed rules: process-wide, not per thread (the reference's are
+# thread-local), because a rematerialised layer's forward runs again in the
+# backward, which on a card runs in autograd's own device thread, and it
+# must see the rules the forward saw
+_installed: Optional[MeshRules] = None
 
 
 def set_rules(rules: Optional[MeshRules]) -> None:
-    _state.rules = rules
+    global _installed
+    _installed = rules
 
 
 def current_rules() -> Optional[MeshRules]:
-    return getattr(_state, "rules", None)
+    return _installed
 
 
 @contextlib.contextmanager
@@ -179,14 +223,146 @@ def logical_to_spec(logical: Sequence[Optional[str]], shape=None) -> Spec:
     return rules.spec(logical, shape)
 
 
-def shard_act(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor:
-    """Annotate an activation with logical axes: the identity with no rules
-    installed (the serve path, tests, one-card runs). With rules installed
-    it refuses: the sharded forward those rules drive is training's mesh,
-    which is not ported yet (ROADMAP.md, queue 1, item 4)."""
+def mesh_placements(mesh: Any, dims: Dict[Axis, int], partial: Axis = None) -> tuple:
+    """DTensor placements on ``mesh`` from {mesh axis (or tuple of axes,
+    or None): tensor dim}: ``Shard(dim)`` on each named axis, ``Partial()``
+    on the ``partial`` axes, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    on = {a: dim for axis, dim in dims.items() for a in MeshRules._axis_names(axis)}
+    summed = MeshRules._axis_names(partial)
+    return tuple(Shard(on[name]) if name in on else Partial() if name in summed else Replicate()
+                 for name in mesh_axis_sizes(mesh))
+
+
+def local_shard(x, placements: tuple, grad_placements: Optional[tuple] = None) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` laid out as ``placements``
+    (differentiable). ``grad_placements`` declares the layout of the
+    gradient that comes back (default: ``placements``): ``Partial`` on a
+    mesh axis over which the ranks' local gradients are parts of a sum,
+    as a replicated operand used on sharded data gets them."""
+    x = x.redistribute(x.device_mesh, placements)
+    return x.to_local(grad_placements=grad_placements)
+
+
+def wrap_local(local: torch.Tensor, mesh: Any, placements: tuple, shape) -> Any:
+    """The DTensor of ``shape`` whose block on this rank is ``local`` (made
+    contiguous), laid out as ``placements`` (differentiable;
+    ``local_shard``'s inverse)."""
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local.contiguous(), mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def replicated(fn):
+    """``fn`` run on whole tensors on every rank where the installed rules
+    leave DTensor no sharding strategy to follow (the MoE dispatch's
+    sort, searchsorted and index writes): each DTensor argument is
+    gathered whole, ``fn`` runs on the local copies, each tensor it returns
+    is a replicated DTensor. Every rank computes the same values, so the
+    gradients that come back are replicated too. The identity with no
+    rules installed."""
+    @functools.wraps(fn)
+    def run(*args):
+        rules = current_rules()
+        if rules is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor
+
+        whole = mesh_placements(rules.mesh, {})
+        out = fn(*(local_shard(a, whole) if isinstance(a, DTensor) else a for a in args))
+
+        def wrap(o):
+            if isinstance(o, torch.Tensor) and o.is_floating_point():
+                return DTensor.from_local(o, rules.mesh, whole, run_check=False)
+            return o
+
+        return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+    return run
+
+
+def over_batch(fn, weights: Tuple[int, ...] = ()):
+    """``fn`` run on each data rank's batch rows where the installed rules
+    leave DTensor no sharding strategy to follow (the xLSTM recurrences,
+    step by step over time): every argument but the ``weights`` (their
+    positions) has the batch as dim 0 and is taken local over the batch
+    axes (whole where they do not divide it), replicated over the rest;
+    the weights are taken whole, their gradients partial sums over the
+    batch axes. Each tensor ``fn`` returns, in nested tuples, has the batch
+    as dim 0 too. A plain tensor argument counts as replicated. The
+    identity with no rules installed."""
+    @functools.wraps(fn)
+    def run(*args):
+        rules = current_rules()
+        if rules is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor
+
+        mesh = rules.mesh
+        dp_axis = rules.rules.get("batch")
+        dp = rules.axis_size(dp_axis)
+        b = next(a.shape[0] for i, a in enumerate(args) if i not in weights)
+        rows = {dp_axis: 0} if b % dp == 0 else {}
+        whole = mesh_placements(mesh, {})
+        pl = mesh_placements(mesh, rows)
+        summed = mesh_placements(mesh, {}, dp_axis if rows else None)
+
+        def take(i, a):
+            if not isinstance(a, DTensor):
+                a = DTensor.from_local(a, mesh, whole, run_check=False)
+            return local_shard(a, whole, summed) if i in weights else local_shard(a, pl)
+
+        def give(o):
+            if isinstance(o, tuple):
+                return tuple(map(give, o))
+            n = o.shape[0] * (dp if rows else 1)
+            return wrap_local(o, mesh, pl, (n, *o.shape[1:]))
+
+        return give(fn(*(take(i, a) for i, a in enumerate(args))))
+
+    return run
+
+
+def add_residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` for a residual stream ``x`` and a sublayer's output ``y``:
+    under installed rules ``y`` is first laid out as ``x`` (an explicit,
+    differentiable redistribute), so its gradient comes back in its own
+    layout. Left to the add's propagation, the gradient of a product's
+    output would arrive sharded over the sequence, as the residual is
+    ("act_seq"), and DTensor (torch 2.11) refuses the flatten of a sharded
+    sequence that the product's backward does. Plain ``x + y`` otherwise."""
+    if current_rules() is not None and x.placements != y.placements:
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
+def sharded_compute():
+    """The context of a forward and backward under installed rules: plain
+    tensors made inside it (positions, masks, constants) take part as
+    replicated DTensors (``implicit_replication``). A null context with no
+    rules installed."""
     if current_rules() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def shard_act(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor:
+    """Lay an activation out by its logical axes: with rules installed,
+    the DTensor ``x`` redistributed to ``rules.placements(logical,
+    x.shape)`` (values unchanged; differentiable); with none, ``x`` as it
+    is (the serve path, tests, one-card runs). Under rules a plain tensor
+    is an error: the sharded forward's activations are DTensors."""
+    rules = current_rules()
+    if rules is None:
         return x
-    raise NotImplementedError(
-        "shard_act under installed MeshRules is the sharded forward of training's mesh, "
-        "which repro_torch does not have yet (ROADMAP.md, queue 1, item 4); the serve "
-        "mesh (ServeMesh) installs no rules")
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        raise TypeError(f"shard_act{tuple(logical)} under installed MeshRules needs a DTensor, "
+                        f"got a plain {type(x).__name__} of shape {tuple(x.shape)}")
+    return x.redistribute(rules.mesh, rules.placements(logical, x.shape))

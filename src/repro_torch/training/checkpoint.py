@@ -6,6 +6,11 @@ reorderings applied at load time.
 Keys are the leaves' paths (``top`` or ``top/sub``). numpy's ``.npz`` has
 no bf16, so a bf16 leaf is stored as f32 (lossless) and cast back to the
 target leaf's dtype at load; the manifest records the stored dtypes.
+
+DTensor params (a mesh's) are saved whole: every rank gathers each leaf
+(a collective, so every rank calls ``save_checkpoint``) and global rank 0
+alone writes the files. Loading into DTensor leaves places each whole
+array by the leaf's placements, each rank keeping its blocks.
 """
 from __future__ import annotations
 
@@ -15,8 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.common import tree_leaves, tree_unflatten
+from .optimizer import whole
 
 # torch dtypes numpy stores as they are; the others (bf16) go as f32
 _NATIVE = {torch.float32, torch.float64, torch.int32, torch.int64, torch.int8, torch.uint8,
@@ -24,15 +31,20 @@ _NATIVE = {torch.float32, torch.float64, torch.int32, torch.int64, torch.int8, t
 
 
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
-    leaf = leaf.detach().cpu()
+    leaf = whole(leaf.detach()).cpu()
     if leaf.dtype not in _NATIVE:
         leaf = leaf.to(torch.float32)
     return leaf.numpy()
 
 
 def save_checkpoint(path: str, params, step: int = 0, extra: Optional[dict] = None):
-    os.makedirs(path, exist_ok=True)
+    from torch.distributed.tensor import DTensor
+
     flat = {key: _to_numpy(leaf) for key, leaf in tree_leaves(params)}
+    if any(isinstance(leaf, DTensor) for _, leaf in tree_leaves(params)) \
+            and dist.get_rank() != 0:
+        return
+    os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"), **flat)
     manifest = {
         "step": step,
@@ -47,7 +59,10 @@ def save_checkpoint(path: str, params, step: int = 0, extra: Optional[dict] = No
 
 def load_checkpoint(path: str, like) -> Tuple[Any, int]:
     """Restore into the structure of ``like`` (a param dict): each leaf
-    takes the dtype and device of ``like``'s. Returns (params, step)."""
+    takes the dtype and device of ``like``'s, and a DTensor leaf's mesh and
+    placements. Returns (params, step)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     out = []
@@ -56,7 +71,11 @@ def load_checkpoint(path: str, like) -> Tuple[Any, int]:
             arr = data[key]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
-            out.append((key, torch.from_numpy(arr).to(leaf.dtype).to(leaf.device)))
+            full = torch.from_numpy(arr).to(leaf.dtype).to(leaf.device)
+            if isinstance(leaf, DTensor):
+                full = distribute_tensor(full, leaf.device_mesh, leaf.placements,
+                                         src_data_rank=None)
+            out.append((key, full))
     return tree_unflatten(out), manifest["step"]
 
 

@@ -9,6 +9,13 @@ would update a bf16 param in bf16, which rounds differently. The update
 writes into the params and moments in place, under ``torch.no_grad()``,
 with the values of the reference's functional update; nothing here syncs
 with the host.
+
+On a mesh the params are DTensors: each moment takes its param's
+placements (the dry-run's ``OptState(m=params_sh, v=params_sh)``), each
+gradient is brought to them, and the update runs on every rank's local
+block, which it writes in place. The global norm is the norm of the whole
+tensors: each leaf's sum of squares is reduced over the mesh before the
+leaves are added.
 """
 from __future__ import annotations
 
@@ -53,20 +60,42 @@ class OptState(NamedTuple):
 
 def init_opt_state(params) -> OptState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = next(tree_leaves(params))[1].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value, the same plain tensor on every rank (a
+    collective); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32, leaf by leaf in
-    the reference's order."""
+    the reference's order; a plain 0-d tensor (a DTensor leaf's sum is
+    reduced over its mesh first)."""
     total = 0
     for _, leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        total = total + whole(torch.sum(torch.square(leaf.to(torch.float32))))
     return torch.sqrt(total)
+
+
+def _local(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``p`` laid out as the DTensor ``like`` (the
+    tensor itself, under no_grad, so writes reach the DTensor); a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return p
+    if p.placements != like.placements:
+        p = p.redistribute(like.device_mesh, like.placements)
+    return p.to_local()
 
 
 def _decays(p: torch.Tensor) -> bool:
@@ -90,14 +119,15 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     b2c = 1 - torch.pow(cfg.b2, stepf)
     g_leaves = dict(tree_leaves(grads))
     m_leaves, v_leaves = dict(tree_leaves(state.m)), dict(tree_leaves(state.v))
-    for path, p in tree_leaves(params):
-        g = g_leaves[path].to(torch.float32) * scale
-        m, v = m_leaves[path], v_leaves[path]
+    for path, leaf in tree_leaves(params):
+        p = _local(leaf, leaf)
+        g = _local(g_leaves[path], leaf).to(torch.float32) * scale
+        m, v = _local(m_leaves[path], leaf), _local(v_leaves[path], leaf)
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
         update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         pf = p.to(torch.float32)
-        if _decays(p):
+        if _decays(leaf):
             update = update + cfg.weight_decay * pf
         p.copy_(pf - lr * update)
     return params, OptState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

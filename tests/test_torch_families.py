@@ -136,8 +136,9 @@ def test_configs_registered_and_param_trees_equal(arch):
     got = tbuild(t).param_shapes()
     assert set(got) == set(want)
     for name, pd in want.items():
-        shape, std = got[name]
+        shape, std, axes = got[name]
         assert shape == pd.shape, name
+        assert axes == pd.axes, name
         if pd.init in ("ones", "zeros"):
             assert std == pd.init, name
         else:

@@ -45,7 +45,7 @@ def _params(tcfg, seed=0, dtype="f32"):
     rng = np.random.default_rng(seed)
     jd, td = DTYPES[dtype]
     np_p = {name: rng.normal(0, std, shape).astype(np.float32)
-            for name, (shape, std) in sorted(moe_param_shapes(tcfg).items())}
+            for name, (shape, std, _) in sorted(moe_param_shapes(tcfg).items())}
     return ({k: jnp.asarray(v, jd) for k, v in np_p.items()},
             {k: torch.from_numpy(v).to(td) for k, v in np_p.items()})
 
@@ -293,7 +293,8 @@ def test_param_shapes_and_scales_equal_reference(shared):
     got = moe_param_shapes(tc)
     assert set(got) == set(defs)
     for name, d in defs.items():
-        shape, std = got[name]
+        shape, std, axes = got[name]
         assert shape == d.shape, name
+        assert axes == d.axes, name
         want = d.scale if d.scale is not None else 1.0 / np.sqrt(d.shape[-2])
         assert std == pytest.approx(want), name

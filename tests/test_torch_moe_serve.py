@@ -157,8 +157,8 @@ def test_configs_registered_and_full_models_build():
         want.update({f"layers/{k}": v for k, v in defs["layers"].items()})
         assert set(shapes) == set(want)
         for name, d in want.items():
-            shape, std = shapes[name]
-            assert shape == d.shape, name
+            shape, std, axes = shapes[name]
+            assert shape == d.shape and axes == d.axes, name
             if d.init in ("ones", "zeros"):
                 assert std == d.init, name
             else:

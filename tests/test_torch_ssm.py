@@ -96,8 +96,9 @@ def test_param_shapes_equal_reference(kind):
                      else (tx.mlstm_param_shapes(tc), jx.mlstm_param_defs(jc)))
     assert set(got) == set(defs)
     for name, d in defs.items():
-        shape, std = got[name]
+        shape, std, axes = got[name]
         assert shape == d.shape, name
+        assert axes == d.axes, name
         if d.init in ("ones", "zeros"):
             assert std == d.init, name
         else:

@@ -1,7 +1,8 @@
 """The port's training CLIs: ``python -m repro_torch.launch.train`` prints
 the reference CLI's log line (beside the reference's own run with the same
-flags: the same steps and learning rates), refuses ``--mesh`` (not ported
-yet) and writes a checkpoint that loads; ``launch.train_smol`` trains its
+flags: the same steps and learning rates), refuses a ``--mesh`` its world
+cannot hold and flags it does not know, and writes a checkpoint that
+loads; ``launch.train_smol`` trains its
 ``smol-10m`` config on the CPU."""
 import math
 import os
@@ -58,14 +59,27 @@ def test_train_cli_prints_the_reference_line(monkeypatch, capsys, tmp_path):
     assert step == 2
 
 
-def test_train_cli_refuses_mesh(capsys):
+def test_train_cli_mesh_needs_its_world():
+    """``--mesh 2,2`` in a one-process world is refused before any model is
+    built, with the torchrun hint; so is a malformed mesh (at parse time).
+    The mesh itself trains in tests/test_torch_mesh_training.py (four gloo
+    ranks)."""
+    with pytest.raises(ValueError, match=r"needs 4 ranks, the world has 1; launch one process "
+                                         r"per device with torchrun --nproc-per-node 4"):
+        train.main(["--reduced", "--mesh", "2,2", "--torch-device", "cpu"])
+    assert train.parse_mesh("2,2") == ((2, 2), ("data", "model"))
+    assert train.parse_mesh("2,2,4") == ((2, 2, 4), ("pod", "data", "model"))
+    for bad in ("2", "2,x", "0,2", "1,1,1,1"):
+        with pytest.raises(SystemExit) as err:
+            train.parse_args(["--reduced", "--mesh", bad])
+        assert err.value.code == 2
+
+
+def test_train_cli_refuses_unknown_flags(capsys):
     with pytest.raises(SystemExit) as err:
-        train.parse_args(["--reduced", "--mesh", "2,2"])
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert "--mesh is not ported" in msg and "ROADMAP.md, queue 1, item 4" in msg
-    with pytest.raises(SystemExit):
         train.parse_args(["--reduced", "--no-such-flag"])
+    assert err.value.code == 2
+    assert "unrecognized arguments: --no-such-flag" in capsys.readouterr().err
 
 
 def test_train_smol_cpu(capsys):
