@@ -11,7 +11,10 @@ serving on a one-rank mesh (``mesh_path``: the operand gathers' device
 time a step is on its ``[mesh]`` lines); phase 16 is training on a
 one-rank mesh (``mesh_train_path``: TinyLlama-1.1B's mesh steps against
 the unsharded ones on its ``[mesh-train]`` lines, OLMoE's expert-parallel
-step, the sequence-sharded attention). Each tree builds its own
+step, the sequence-sharded attention); phase 14 is training TinyLlama-1.1B
+at full width and depth (``train_path``), and phase 17 the dry run
+(``dryrun_path``: its ``[dryrun]`` lines), which needs phase 14 before it
+in the same run. Each tree builds its own
 kernels from its own sources. Each run prints the card's name and power
 limit, the phases' own log (the decode step's wall is on its ``[vlm] ...
 served`` and ``[slots] main path`` lines) and, as its last line, one JSON
@@ -30,7 +33,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("7", "10", "15", "16")
+PHASES = ("7", "10", "14", "15", "16", "17")
 
 
 def run_tree(tree: Path, phases, index: int, settings) -> None:
@@ -65,10 +68,16 @@ def run_tree(tree: Path, phases, index: int, settings) -> None:
             smoke.vlm_path(dev, get_config(smoke.VLM_ARCH), card, report)
         elif phase == "10":
             smoke.slot_path(dev, get_config("tinyllama-1.1b"), card, report)
+        elif phase == "14":
+            smoke.train_path(dev, card, report)
         elif phase == "15":
             smoke.mesh_path(dev, get_config(smoke.MESH_ARCH), card, report)
-        else:
+        elif phase == "16":
             smoke.mesh_train_path(dev, card, report)
+        else:
+            if "training" not in report:
+                sys.exit("phase 17 compares with phase 14's step: run --phases 14,17")
+            smoke.dryrun_path(card, report)
         seconds[phase] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()

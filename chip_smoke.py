@@ -172,8 +172,22 @@ Phases, each of which fails the run on error:
      (a)'s with exact K1/K2/K5 launch counts, the per-shard bytes summing
      to ``io_bytes``, the decode step's wall against the unsharded one, the
      gathers' span a step by CUDA events and their device time (a layer's
-     slices gathered alone under the profiler). The group is destroyed at
-     the end.
+     slices gathered alone under the profiler); (c) slot mode with the
+     paged KV cache on the same one-rank mesh (the pool's pages split over
+     the data ranks, reached through the ``PageExchange``): two requests,
+     eight tokens, at wbits 16 — tokens equal the dense slot cache's on the
+     mesh and the unsharded paged engine's, exact K1/K2 launch counts,
+     ``kv_pages_per_shard`` summing to ``kv_pages_in_use``. The group is
+     destroyed at the end.
+ 16. training on the one-rank (data, model) mesh (see ``mesh_train_path``).
+ 17. the dry run (``repro_torch.launch.dryrun``) in a subprocess, on torch's
+     fake process group with device type ``cuda``: tinyllama-1.1b/train_4k
+     (6 of 22 layers) and internvl2-76b/decode_32k (40 of 80) on the fake
+     (16, 16) production mesh, each report printed; then phase 14's own step (TinyLlama-1.1B, batch
+     8 x 512, remat) on a fake 1×1 mesh, whose FLOPs must equal
+     ``FlopCounterMode``'s count of phase 14's real step exactly and whose
+     predicted peak memory, against phase 14's measured
+     ``max_memory_allocated``, must lie within DRYRUN_PEAK_RATIO.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
@@ -320,6 +334,9 @@ TRAIN_CPU_RTOL, TRAIN_CPU_GNORM_RTOL, TRAIN_CKPT_ARCH = 5e-3, 2e-2, "granite-3-2
 # phase 15: sharded serving on the one-rank mesh, MESH_ARCH at full width
 # and depth
 MESH_ARCH, GATHER_REPS = "tinyllama-1.1b", 20
+# (c): slot mode with paged KV, MESH_PAGED_TOKENS decode tokens over two
+# requests of MESH_PAGED_PROMPT tokens, MESH_PAGE_TOKENS a page
+MESH_PAGED_TOKENS, MESH_PAGED_PROMPT, MESH_PAGE_TOKENS = 8, 20, 16
 
 # phase 16: training on the one-rank (data, model) mesh. MESH_TRAIN_ARCH at
 # full width and depth, FSDP rules, batch TRAIN_BATCH x TRAIN_SEQ with
@@ -335,6 +352,35 @@ MESH_ARCH, GATHER_REPS = "tinyllama-1.1b", 20
 MESH_TRAIN_ARCH, MESH_TRAIN_STEPS = "tinyllama-1.1b", 3
 MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_BATCH = "olmoe-1b-7b", 2, 4
 SEQ_ATTN_SHAPE = (1, 4096, 36, 128)
+
+# phase 17: the dry run. DRYRUN_PAIRS (arch, shape, layers) on the fake
+# production (16, 16) mesh, depth cut for the script's time limit (the
+# whole models' reports: `--all`, PERF.md); phase 14's step whole on a
+# fake 1×1 mesh, its predicted peak memory within DRYRUN_PEAK_RATIO of
+# phase 14's measured one
+DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k", 6), ("internvl2-76b", "decode_32k", 40))
+DRYRUN_PEAK_RATIO = (0.8, 1.25)
+DRYRUN_CODE = r"""
+import dataclasses, json, sys
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch.dryrun import run_dryrun
+from repro_torch.launch.mesh import make_dry_mesh, production_shape
+
+pairs, step = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+mesh = make_dry_mesh(*production_shape(False), device_type="cuda")
+for arch, shape, layers in pairs:
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    rep = run_dryrun(cfg, shape, mesh=mesh, verbose=False)
+    print("DRYRUN " + json.dumps({**rep, "n_layers": layers}), flush=True)
+dist.destroy_process_group()
+mesh = make_dry_mesh((1, 1), ("data", "model"), device_type="cuda")
+shape = InputShape("phase14", step["seq"], step["batch"], "train")
+cfg = get_config(step["arch"].removesuffix("-reduced"))  # a CPU rehearsal's reduced step
+cfg = cfg.reduced() if step["arch"].endswith("-reduced") else cfg
+print("DRYRUN " + json.dumps(run_dryrun(cfg, shape, mesh=mesh, verbose=False)), flush=True)
+"""
 METRIC_RTOL = {"loss": 5e-3, "ce": 5e-3, "moe_aux": 5e-3, "grad_norm": 2e-2}
 
 
@@ -957,6 +1003,8 @@ def main():
     done("phase 15, sharded serving")
     mesh_train_path(dev, card, report)
     done("phase 16, mesh training")
+    dryrun_path(card, report)
+    done("phase 17, dry run")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4094,6 +4142,15 @@ def train_path(dev, card, report, cfg=None):
         f"of the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak; peak memory "
         f"{peak_on:.2f} GB; launches {launches} (none)  ({card})")
 
+    # one more step under FlopCounterMode: the products' FLOPs phase 17's
+    # dry run of this step must predict
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as flop_counter:
+        params, state, _ = trainer.train_step(params, state, batches[n_steps])
+    step_flops = flop_counter.get_total_flops()
+    log(f"{tag} FlopCounterMode over one step: {step_flops:.6e} FLOP ({step_flops} exactly)")
+
     profile = {}
     if on_card:
         wall_us, kernels, cpu_ops = profiled(
@@ -4177,6 +4234,7 @@ def train_path(dev, card, report, cfg=None):
         "pipeline_s": pipe_s, "walls_s": walls, "wall_per_step_s": wall,
         "tokens_per_s": tokens / wall, "flops_6nt": flops, "flop_rate": rate,
         "peak_share_bf16": rate / BF16_OPS_PER_S, "peak_gb_remat_on": peak_on,
+        "peak_bytes_remat_on": peak_on * 1e9, "flop_counter_flops": step_flops,
         "losses": losses, "grad_norms": gnorms, "lrs": lrs, "profile": profile,
         "adamw_s": opt_walls[-1], "remat": steps,
         "launches": launches, "phase_s": time.perf_counter() - t_phase}
@@ -4482,10 +4540,113 @@ def mesh_path(dev, cfg, card, report):
             del eng
             if on_card:
                 torch.cuda.empty_cache()
+        runs["paged"] = mesh_paged(dev, cfg, model, params, one_rank, card)
     finally:
         dist.destroy_process_group()
     report["mesh"] = {"arch": cfg.name, "runs": runs, "phase_s": time.perf_counter() - t_phase}
     log(f"{tag}: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_paged(dev, cfg, model, params, one_rank, card):
+    """Phase 15 (c): slot mode on the one-rank mesh with the paged KV cache
+    (MESH_PAGE_TOKENS a page), two requests of MESH_PAGED_PROMPT tokens
+    admitted into the two slots, MESH_PAGED_TOKENS tokens decoded at wbits
+    16 on the kernel backend; the same with the dense slot cache on the
+    mesh and with the paged cache unsharded. The paged mesh run's K1/K2
+    launches are counted from just before its decode to just after."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import chunking
+    from repro_torch.kernels import chunk_gather_dma as cg
+    from repro_torch.models.inputs import make_dummy_batch
+    from repro_torch.serving import ServeEngine
+
+    tag = f"[mesh-paged] {cfg.name}"
+    t0 = time.perf_counter()
+    prompts = [make_dummy_batch(cfg, InputShape("req", MESH_PAGED_PROMPT, 1, "train"),
+                                seed=seed, device=dev) for seed in (1, 2)]
+    want = {"chunk_gather_matmul_dma": 4 * cfg.n_layers * MESH_PAGED_TOKENS,
+            "chunk_gather_mlp_dma": cfg.n_layers * MESH_PAGED_TOKENS}
+
+    def slots(mesh, page_tokens):
+        eng = ServeEngine(model, params, max_seq=64, batch_size=BATCH, method="chunk",
+                          sparsity=0.4, device="nano", backend="kernel", wbits=16,
+                          torch_device=dev, mesh=mesh, kv_page_tokens=page_tokens)
+        eng.enable_slots()
+        toks = torch.cat([torch.argmax(eng.admit_slot(slot, p)[0], dim=-1)[:, None]
+                          for slot, p in enumerate(prompts)])
+        for c in (cg.LAUNCHES, chunking.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        out, _ = eng.decode_slots(toks, MESH_PAGED_TOKENS)
+        launches = {k: cg.LAUNCHES[k] for k in want}
+        return eng, out, launches
+
+    eng, paged, launches = slots(one_rank, MESH_PAGE_TOKENS)
+    ss = eng.shard_summary()
+    eng.kv_pool.check()
+    del eng
+    _, dense, _ = slots(one_rank, None)
+    _, unsharded, _ = slots(None, MESH_PAGE_TOKENS)
+    if not torch.equal(paged, dense) or not torch.equal(paged, unsharded):
+        fail(f"{tag}: paged tokens on the one-rank mesh {paged.tolist()} != the dense slot "
+             f"cache's {dense.tolist()} or the unsharded paged engine's {unsharded.tolist()}")
+    if dev.type == "cuda" and launches != want:
+        fail(f"{tag}: launch counts {launches} != {want}")
+    if sum(ss["kv_pages_per_shard"]) != ss["kv_pages_in_use"] or not ss["kv_pages_in_use"]:
+        fail(f"{tag}: kv_pages_per_shard {ss['kv_pages_per_shard']} does not sum to "
+             f"kv_pages_in_use {ss['kv_pages_in_use']}")
+    out = {"tokens": paged.tolist(), "launches": launches,
+           "kv_pages_per_shard": ss["kv_pages_per_shard"],
+           "kv_pages_in_use": ss["kv_pages_in_use"], "s": time.perf_counter() - t0}
+    log(f"{tag}: 2 slots x {MESH_PAGED_TOKENS} tokens, {MESH_PAGE_TOKENS}-token pages: tokens "
+        f"equal the dense slot cache's on the mesh and the unsharded paged engine's; launches "
+        f"{launches} (exact); kv_pages_per_shard {ss['kv_pages_per_shard']} = "
+        f"{ss['kv_pages_in_use']} pages in use; {out['s']:.1f} s  ({card})")
+    return out
+
+
+def dryrun_path(card, report):
+    """Phase 17: the dry run in a subprocess (DRYRUN_CODE: the fake process
+    group is the process's one default group). Each report is printed; phase
+    14's step's predicted FLOPs must equal its FlopCounterMode count and its
+    predicted peak memory must lie within DRYRUN_PEAK_RATIO of its measured
+    one."""
+    import os
+
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    train = report["training"]
+    step = {"arch": train["arch"], "batch": train["batch"], "seq": train["seq"]}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_PAIRS),
+                          json.dumps(step)], env=env, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"{tag} the dry run failed (rc {res.returncode}): {res.stderr[-3000:]}")
+    reps = [json.loads(line[len("DRYRUN "):]) for line in res.stdout.splitlines()
+            if line.startswith("DRYRUN ")]
+    if len(reps) != len(DRYRUN_PAIRS) + 1:
+        fail(f"{tag} expected {len(DRYRUN_PAIRS) + 1} reports: {res.stdout[-3000:]}")
+    for rep in reps:
+        log(f"{tag} {json.dumps(rep)}")
+    mine = reps[-1]
+    predicted, measured = mine["memory"]["peak_bytes"], train["peak_bytes_remat_on"]
+    ratio = predicted / measured
+    log(f"{tag} phase 14's step ({step['arch']}, batch {step['batch']} x {step['seq']}, remat, "
+        f"1x1): predicted {mine['flops_per_device']} FLOP against FlopCounterMode's "
+        f"{train['flop_counter_flops']} on the real step; predicted peak "
+        f"{predicted / 1e9:.3f} GB against the measured max_memory_allocated "
+        f"{measured / 1e9:.3f} GB: ratio {ratio:.4f}; trace {mine['trace_s']:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s  ({card})")
+    if mine["flops_per_device"] != train["flop_counter_flops"]:
+        fail(f"{tag} predicted FLOPs {mine['flops_per_device']} != the real step's "
+             f"{train['flop_counter_flops']}")
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        fail(f"{tag} peak-memory ratio {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    report["dryrun"] = {"reports": reps, "peak_ratio": ratio,
+                        "phase_s": time.perf_counter() - t0}
 
 
 def mesh_train_path(dev, card, report, cfgs=None, attn_shape=SEQ_ATTN_SHAPE,

@@ -11,6 +11,10 @@ constants, so importing this module touches no process group.
 
 Production topology of the reference (TPU v5e, 256 chips a pod):
   single-pod: (data=16, model=16)        multi-pod: (pod=2, data=16, model=16)
+
+``make_dry_mesh`` builds that topology, or any other, over torch's fake
+process group: one process standing for rank 0 of ``prod(shape)`` ranks,
+whose collectives move nothing (the dry run's mesh; ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -73,6 +77,31 @@ def make_test_mesh(n_data: int = 2, n_model: int = 2, device_type: str = "cuda")
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type)
+    return make_mesh(*production_shape(multi_pod), device_type)
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the reference's production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_dry_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over torch's fake process
+    group of ``prod(shape)`` ranks, this process rank 0: collectives are
+    issued and complete at once, moving nothing. A process has one default
+    group, so the dry run takes a process of its own: an initialised group
+    (a real one, or an earlier dry run's) is refused, never reused."""
+    from torch.distributed.device_mesh import init_device_mesh
+    # importing it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a process group ({dist.get_backend()}, {dist.get_world_size()} ranks) is "
+            "initialised already: the dry run needs a process of its own, with no group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))

@@ -35,8 +35,9 @@ Runs on the GPU unless asked otherwise:
 ``--mesh DATA,MODEL`` serves on a sharded (data, model) mesh, one process
 per rank: launch it with torchrun (gloo ranks on the CPU, NCCL ranks on
 cards), or from processes that initialised a process group already; the
-tokens equal the 1,1 mesh's. A bad ``--mesh`` fails at parse time, before a
-model is built:
+tokens equal the 1,1 mesh's, with ``--streams`` and ``--kv-page-tokens`` (the
+page pool split over the data ranks) and for the MoE archs at any data
+axis. A bad ``--mesh`` fails at parse time, before a model is built:
 
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch internvl2-76b --reduced --torch-device cpu --mesh 2,2
@@ -305,9 +306,11 @@ def print_mesh(eng) -> None:
         return
     ss = eng.shard_summary()
     per = ", ".join(f"{b / 1e6:.1f}" for b in ss["io_bytes_per_shard"])
+    pages = (f"  kv_pages/data_shard={ss['kv_pages_per_shard']}"
+             if eng.kv_pool is not None else "")
     print(f"[mesh] data={eng.mesh.data} model={eng.mesh.model}  "
           f"slots/data_shard={ss['slots_per_data_shard']}  "
-          f"cache_mb/shard={ss['cache_mb_per_shard']:g}  io_bytes/shard MB=[{per}]")
+          f"cache_mb/shard={ss['cache_mb_per_shard']:g}  io_bytes/shard MB=[{per}]{pages}")
 
 
 def print_integrity(args, s) -> None:
@@ -361,6 +364,7 @@ def serve_streams(args, cfg, eng):
               f"(kv {s['kv_cache_mb']:.2f} MB / weights {s['weight_cache_mb']:.2f} MB)  "
               f"shared_hits {ps['shared_hits']}  cow {ps['cow_copies']}  "
               f"evictions {ps['evictions']}")
+    print_mesh(eng)
     if args.deadline_s is not None:
         print(f"[slo] deadline {args.deadline_s * 1e3:.1f} ms  "
               f"attainment {stats.slo_attainment:.3f} ({stats.deadlines_met}/{stats.deadlines})  "

@@ -117,6 +117,16 @@ def _blockwise_attention(q, k, v, q_offset: int, causal: bool, window: Optional[
     return out.permute(0, 2, 1, 3)[:, :sq].to(q.dtype)
 
 
+def split_heads(y: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """(b, s, n·hd) → (b, s, n, hd). Under installed rules whose model axis
+    shards the n·hd dim but does not divide the n heads (8 kv heads on 16
+    model ranks), the heads have no even split: the dim is gathered first."""
+    rules = current_rules()
+    if rules is not None and n_heads % rules.axis_size("model"):
+        y = shard_act(y, ("batch", None, None))
+    return y.reshape(y.shape[0], y.shape[1], n_heads, head_dim)
+
+
 def _want_seq_shard_map(n_heads: int, q_shape) -> bool:
     """The reference's test for the sequence-sharded attention: rules with
     ``seq_shard_attention`` installed, a model axis over 1 that the head
@@ -155,14 +165,18 @@ def _seq_sharded_attention(q, k, v, window: Optional[int]) -> torch.Tensor:
 
 
 def _per_head(core, q, k, v) -> torch.Tensor:
-    """``core(q, k, v)``, an attention over (b, s, h, hd) tensors. Under
-    installed rules each rank runs it on its batch rows (data axes) and,
-    where the model axis divides the heads, its heads: every (row, head) is
-    independent, so nothing is exchanged but the layout, and DTensor
-    propagates none of its steps. Plain tensors go straight through."""
+    """``core(q, k, v)``, an attention over (b, s, h, hd) tensors, with its
+    heads merged: (b, s, h·hd). Under installed rules each rank runs it on
+    its batch rows (data axes) and, where the model axis divides the heads,
+    its heads: every (row, head) is independent, so nothing is exchanged
+    but the layout, and DTensor propagates none of its steps. The heads
+    merge on the local block, so the gradient arriving from the output
+    projection is brought to this layout before it is split into heads
+    again (split over 'model' it would not divide 12 heads on 16 ranks).
+    Plain tensors go straight through."""
     rules = current_rules()
     if rules is None:
-        return core(q, k, v)
+        return core(q, k, v).flatten(2)
     b, _, h, _ = q.shape
     dims = {}
     if b % rules.axis_size(rules.rules.get("batch")) == 0:
@@ -171,7 +185,7 @@ def _per_head(core, q, k, v) -> torch.Tensor:
         dims["model"] = 2
     pl = mesh_placements(rules.mesh, dims)
     out = core(*(local_shard(t, pl) for t in (q, k, v)))
-    return wrap_local(out, rules.mesh, pl, q.shape)
+    return wrap_local(out.flatten(2), rules.mesh, pl, q.shape[:2] + (h * q.shape[3],))
 
 
 def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
@@ -186,25 +200,27 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
     through ``{prefix}wq`` … ``{prefix}wo``. Causal self-attention by
     default; ``causal=False`` attends to every key (the audio encoder), and
     ``kv_override`` = (k, v), each (b, sk, kv, hd), replaces the k/v
-    projections with pre-projected keys and values (cross-attention over the
-    encoder's states; no RoPE on them). Above ``blockwise_threshold``
+    projections with pre-projected keys and values, used as they are (no
+    RoPE on them): cross-attention over the encoder's states, or a prefill's
+    own keys, roped once for its cache fill. Above ``blockwise_threshold``
     positions (None: the module's ``BLOCKWISE_THRESHOLD``, read at call
     time) the blockwise online-softmax attention, else the direct one, as in
     the reference. ``window``: each query sees only the keys of its last
     ``window`` positions."""
     b, s, _ = x.shape
     p = prefix
-    q = (x @ params[f"{p}wq"]).reshape(b, s, n_heads, head_dim)
+    q = split_heads(x @ params[f"{p}wq"], n_heads, head_dim)
+    if rope_theta is not None and positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if kv_override is None:
-        k = (x @ params[f"{p}wk"]).reshape(b, s, n_kv_heads, head_dim)
-        v = (x @ params[f"{p}wv"]).reshape(b, s, n_kv_heads, head_dim)
+        k = split_heads(x @ params[f"{p}wk"], n_kv_heads, head_dim)
+        v = split_heads(x @ params[f"{p}wv"], n_kv_heads, head_dim)
         if rope_theta is not None:
-            if positions is None:
-                positions = torch.arange(s, device=x.device)[None].expand(b, s)
-            q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
     else:
         k, v = kv_override
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
     # the sequence takes 'model' only where the heads cannot (a fallback)
     q = shard_act(q, ("batch", "act_seq", "heads", "head_dim"))
     k = shard_act(k, ("batch", None, "kv_heads", "head_dim"))
@@ -214,8 +230,8 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
     sk = k.shape[1]
     if blockwise_threshold is None:
         blockwise_threshold = BLOCKWISE_THRESHOLD
-    if causal and kv_override is None and _want_seq_shard_map(n_heads, q.shape):
-        out = _seq_sharded_attention(q, k, v, window)
+    if causal and _want_seq_shard_map(n_heads, q.shape):
+        out = _seq_sharded_attention(q, k, v, window).reshape(b, s, n_heads * head_dim)
     elif max(s, sk) > blockwise_threshold:
         out = _per_head(lambda *qkv: _blockwise_attention(*qkv, sk - s if causal else 0, causal,
                                                           window), q, k, v)
@@ -224,7 +240,7 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
         if causal and window is not None:  # and key j > query i - window
             mask = mask & ~causal_mask(s, sk, sk - s - window, x.device)
         out = _per_head(lambda *qkv: _direct_attention(*qkv, mask), q, k, v)
-    return out.reshape(b, s, n_heads * head_dim) @ params[f"{p}wo"]
+    return out @ params[f"{p}wo"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,7 +304,7 @@ def gather_paged_kv(pool_layer: torch.Tensor, table: torch.Tensor) -> torch.Tens
 
 
 def scatter_paged_kv(pool_layer: torch.Tensor, dense_layer: torch.Tensor,
-                     table: torch.Tensor, length: torch.Tensor) -> None:
+                     table: torch.Tensor, length: torch.Tensor, exchange=None) -> None:
     """Write each slot's new decode entry from its updated dense view
     ``dense_layer`` (b, P, kv, hd) back into its page, in place.
 
@@ -303,17 +319,29 @@ def scatter_paged_kv(pool_layer: torch.Tensor, dense_layer: torch.Tensor,
     depend on which duplicate ``index_put_`` lands last (on CUDA that order
     is arbitrary). Free slots read the garbage page back on later steps,
     and their activations feed the batched importance, so the winner
-    matters."""
-    b, phys = dense_layer.shape[:2]
+    matters.
+
+    ``exchange``: a serve mesh's ``PageExchange``, where ``pool_layer`` is
+    this data rank's slice of the pool and ``dense_layer``, ``table`` and
+    ``length`` its slots' rows: every rank's entries and positions are
+    gathered, the winners are taken over the whole batch with the whole
+    table, and this rank writes those whose pages it holds."""
+    phys = dense_layer.shape[1]
     page_tokens = pool_layer.shape[1]
-    rows = torch.arange(b, device=dense_layer.device)
     pos = torch.clamp(length, max=phys - 1).to(torch.int64)
+    new = dense_layer[torch.arange(dense_layer.shape[0], device=dense_layer.device), pos]
+    if exchange is not None:
+        new, pos, table = exchange.rows(new), exchange.rows(pos), exchange.table
+    rows = torch.arange(new.shape[0], device=new.device)
     page = table[rows, pos // page_tokens].to(torch.int64)
     off = pos % page_tokens
     flat = page * page_tokens + off
     same = flat[:, None] == flat[None, :]
     winner = torch.where(same, rows[None, :], torch.zeros_like(same, dtype=torch.int64)).amax(1)
-    pool_layer[page, off] = dense_layer[winner, pos[winner]]
+    value = new[winner]
+    if exchange is not None:
+        page, off, value = exchange.local_writes(pool_layer, page, off, value)
+    pool_layer[page, off] = value
 
 
 def _decode_positions(length: Length, b: int, device) -> torch.Tensor:
@@ -349,8 +377,8 @@ def project_kv_for_decode(k: torch.Tensor, v: torch.Tensor, n_kv_heads: int, hea
     """Precomputed (b, 1, kv*hd) k/v projections → cache entries, RoPE on k
     at position ``length`` (each row's own with a (b,) ``length``)."""
     b = k.shape[0]
-    k = k.reshape(b, 1, n_kv_heads, head_dim)
-    v = v.reshape(b, 1, n_kv_heads, head_dim)
+    k = split_heads(k.reshape(b, 1, -1), n_kv_heads, head_dim)
+    v = split_heads(v.reshape(b, 1, -1), n_kv_heads, head_dim)
     if rope_theta is not None:
         k = apply_rope(k, _decode_positions(length, b, k.device), rope_theta)
     return k, v
@@ -367,7 +395,7 @@ def decode_attention(q: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tens
     pre-o-projection (b, 1, h*hd) in ``out_dtype``."""
     b = q.shape[0]
     phys = layer_k.shape[1]
-    q = q.reshape(b, 1, n_heads, head_dim)
+    q = split_heads(q.reshape(b, 1, -1), n_heads, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, _decode_positions(length - 1, b, q.device), rope_theta)
     q = shard_act(q, ("batch", None, "heads", "head_dim"))

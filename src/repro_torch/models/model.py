@@ -68,8 +68,9 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from ..sharding.specs import add_residual, over_batch, replicated, shard_act
+from ..sharding.specs import add_residual, current_rules, over_batch, replicated, shard_act
 from .attention import (
+    split_heads,
     CacheSpec,
     cache_layer_update,
     decode_attention,
@@ -78,7 +79,7 @@ from .attention import (
     multi_head_attention,
     project_kv_for_decode,
 )
-from .common import BLOCK_AXES, layer_norm, rematerialised, rms_norm, sinusoidal_positions, \
+from .common import BLOCK_AXES, layer_norm, rematerialised, rms_norm, sinusoidal_positions, tree_leaves, \
     tree_unflatten, unstack, with_axes
 from .mlp import gelu_mlp
 from .moe import moe_param_shapes
@@ -119,6 +120,20 @@ DEC_POSITIONS = 4096
 # product's input must be (``sharding.specs.add_residual``); the identity
 # with no rules installed
 WHOLE_SEQ = ("batch", None, "act_embed")
+
+
+def _place_cache(cache: Dict, axes) -> Dict:
+    """A fresh cache laid out by its logical ``axes`` under installed mesh
+    rules (the reference's cache shardings, so a prefill's writes meet a
+    DTensor of their own kind); the cache as it is without rules."""
+    rules = current_rules()
+    if rules is None:
+        return cache
+    ax = dict(tree_leaves(axes))
+    return tree_unflatten(
+        (path, rules.distribute(leaf, ax[path])
+         if isinstance(leaf, torch.Tensor) and leaf.dim() and ax.get(path) else leaf)
+        for path, leaf in tree_leaves(cache))
 
 
 def effective_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
@@ -455,7 +470,7 @@ class _DecoderLM:
         b, s, _ = x.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
-        cache = self.init_cache(b, max_seq, x.device)
+        cache = _place_cache(self.init_cache(b, max_seq, x.device), self.cache_axes())
         x = stack_prefill(params["layers"], x, self.cfg, _positions(b, s, x.device), cache,
                           effective_window(self.cfg, max_seq))
         return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
@@ -577,6 +592,21 @@ class _Zamba:
             axes["mamba_tail"] = dict(mstate)
         return axes
 
+    def _mamba_step(self, lp, h: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor):
+        """One Mamba2 layer's recurrent step: (out, conv window, SSM state).
+        Under mesh rules it runs on each data rank's rows (``over_batch``),
+        the layer's weights whole: DTensor has no strategy for its products
+        of flattened batch-sharded dims."""
+        names = sorted(lp)
+
+        def step(h, conv, ssm, *weights):
+            out, st = mamba2_decode_step(h, {"conv": conv, "ssm": ssm},
+                                         dict(zip(names, weights)), self.mcfg)
+            return out, st["conv"], st["ssm"]
+
+        return over_batch(step, weights=tuple(range(3, 3 + len(names))))(
+            h, conv, ssm, *(lp[n] for n in names))
+
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         """The chunked-SSD forward over the prompt through every Mamba2
         layer, keeping each one's final state, and each application of the
@@ -584,12 +614,12 @@ class _Zamba:
         cfg = self.cfg
         x = _embed(params, batch["tokens"])
         b, s, _ = x.shape
-        cache = self.init_cache(b, max_seq, x.device)
+        cache = _place_cache(self.init_cache(b, max_seq, x.device), self.cache_axes())
         positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)
         phys = cache["attn_k"].shape[2]
         for lp, stack, i, app in self._layers(params):
-            out, st = mamba2_forward(rms_norm(x, lp["mnorm_w"]), lp, self.mcfg,
-                                     return_state=True)
+            out, st = mamba2_forward(shard_act(rms_norm(x, lp["mnorm_w"]), WHOLE_SEQ), lp,
+                                     self.mcfg, return_state=True)
             x = x + out
             for key, v in st.items():
                 cache[stack][key][i] = v
@@ -610,11 +640,10 @@ class _Zamba:
         window = _decode_window(cfg, cache["attn_k"].shape[2])
         for lp, stack, i, app in self._layers(params):
             states = cache[stack]
-            out, st = mamba2_decode_step(rms_norm(x, lp["mnorm_w"]),
-                                         {k: v[i] for k, v in states.items()}, lp, self.mcfg)
+            out, conv, ssm = self._mamba_step(lp, rms_norm(x, lp["mnorm_w"]),
+                                              states["conv"][i], states["ssm"][i])
             x = x + out
-            for key, v in st.items():
-                states[key][i] = v
+            states["conv"][i], states["ssm"][i] = conv, ssm
             if app is not None:
                 x, _ = block_decode(params["shared"], x, cache["attn_k"][app],
                                     cache["attn_v"][app], length, cfg, window=window)
@@ -692,7 +721,7 @@ class _XLSTM:
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         x = _embed(params, batch["tokens"])
-        cache = self.init_cache(x.shape[0], max_seq, x.device)
+        cache = _place_cache(self.init_cache(x.shape[0], max_seq, x.device), self.cache_axes())
         x = self._run(params, x, cache)
         cache["length"] = x.shape[1]
         return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
@@ -760,9 +789,8 @@ class _Whisper:
         """One decoder layer's cross-attention keys and values over the
         encoder's states, each (b, sk, kv, hd)."""
         cfg = self.cfg
-        b, sk, _ = enc.shape
-        shape = (b, sk, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return (enc @ lp["x_wk"]).reshape(shape), (enc @ lp["x_wv"]).reshape(shape)
+        return tuple(split_heads(enc @ lp[name], cfg.n_kv_heads, cfg.resolved_head_dim)
+                     for name in ("x_wk", "x_wv"))
 
     def _dec_pos(self, params, positions) -> torch.Tensor:
         """The learned decoder positions (an int, or a tensor of them),
@@ -829,19 +857,18 @@ class _Whisper:
         cfg = self.cfg
         enc = self._encode(params, batch["frontend"])
         b, s = batch["tokens"].shape
-        cache = self.init_cache(b, max_seq, enc.device)
+        cache = _place_cache(self.init_cache(b, max_seq, enc.device), self.cache_axes())
         x = _embed(params, batch["tokens"])
         x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
         positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)
         phys = cache["k"].shape[2]
-        kv_shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
         enc_kvs = []
         for layer, lp in enumerate(unstack(params["decoder"])):
             enc_kv = self._enc_kv(lp, enc)
             enc_kvs.append(enc_kv)
             h = apply_norm(x, lp, cfg, "ln1")
-            k = (h @ lp["wk"]).reshape(kv_shape)[:, -phys:]
-            v = (h @ lp["wv"]).reshape(kv_shape)[:, -phys:]
+            k, v = (split_heads(h @ lp[name], cfg.n_kv_heads, cfg.resolved_head_dim)[:, -phys:]
+                    for name in ("wk", "wv"))
             cache["k"][layer, :, :k.shape[1]] = k
             cache["v"][layer, :, :v.shape[1]] = v
             x = self._block(lp, x, enc_kv, positions, window)

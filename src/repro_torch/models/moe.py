@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..sharding import serve as serve_mesh  # its row_split, read at call time
 from ..sharding.specs import MeshRules, current_rules, local_shard, mesh_placements, \
     replicated, shard_act, wrap_local
 from .common import swish
@@ -177,9 +178,25 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
     reference. Under rules the routing and the combine run replicated
     (``sharding.specs.replicated``: DTensor has no strategy for their
     sorts and index writes) and the expert buffers take their logical
-    layout ("expert" over 'model', "expert_capacity" over the data axes)."""
+    layout ("expert" over 'model', "expert_capacity" over the data axes).
+
+    On a serve mesh whose data ranks each hold some rows of the batch
+    (``sharding.serve.row_split``), the call's tokens are the whole
+    batch's: the rows are gathered over ``data`` in rank order, routed and
+    computed as the 1×1 mesh does, and this rank keeps its own rows, so a
+    rank's rows never change another row's capacity, drops or arithmetic."""
     if cfg.dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch must be one of {DISPATCHES}, got {cfg.dispatch!r}")
+    split = serve_mesh.row_split()
+    if split is not None and current_rules() is None:
+        y, aux = _moe_ffn(split.replicate(x), params, cfg, prefix)
+        return split.put_batch(y), aux
+    return _moe_ffn(x, params, cfg, prefix)
+
+
+def _moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
+             prefix: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` over the call's own rows."""
     if cfg.dispatch == "ep_shard_map":
         if current_rules() is not None:
             return moe_ffn_ep(x, params, cfg, prefix)

@@ -33,7 +33,9 @@ recovery-off corruption.
 In slot mode the decode's ``cache["length"]`` is an int32 (b,) device
 tensor (each row its own request); with a paged cache every layer gathers
 its dense view through the page table, decodes on it, and scatters the new
-entry back (``attention.gather_paged_kv`` / ``scatter_paged_kv``).
+entry back (``attention.gather_paged_kv`` / ``scatter_paged_kv``), on a
+sharded serve mesh through the cache's ``page_exchange`` (the pages other
+data ranks hold).
 
 With a sliding ``window`` the prefill's attention masks keys older than the
 window and the cache is a rotating one of ``phys_len`` positions: the
@@ -58,6 +60,7 @@ from .attention import (
     project_kv_for_decode,
     repeat_kv,
     scatter_paged_kv,
+    split_heads,
 )
 from ..sharding.specs import add_residual, shard_act
 from .common import apply_rope, gelu, layer_norm, rematerialised, rms_norm, swish, unstack
@@ -162,16 +165,18 @@ def _mlp_maybe_sparse(h: torch.Tensor, params, cfg: ModelConfig, sparse_ctx):
 
 
 def block_forward(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                  window: Optional[int] = None, h: Optional[torch.Tensor] = None):
+                  window: Optional[int] = None, h: Optional[torch.Tensor] = None,
+                  kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Dense block over a full sequence, no cache: (x_out, the MoE's aux
-    loss or None). ``h`` is the block's first norm of x, where the caller
-    has it already."""
+    loss or None). ``h`` is the block's first norm of x and ``kv`` its
+    roped keys and values, where the caller has them already."""
     if h is None:
         h = apply_norm(x, params, cfg, "ln1")
     h = shard_act(h, ("batch", None, "act_embed"))
     x = add_residual(x, multi_head_attention(h, params, cfg.n_heads, cfg.n_kv_heads,
                                              cfg.resolved_head_dim, positions=positions,
-                                             rope_theta=cfg.rope_theta, window=window))
+                                             rope_theta=cfg.rope_theta, window=window,
+                                             kv_override=kv))
     h = shard_act(apply_norm(x, params, cfg, "ln2"), ("batch", None, "act_embed"))
     y, aux = _dense_mlp(h, params, cfg)
     return shard_act(add_residual(x, y), ("batch", "act_seq", "act_embed")), aux
@@ -189,18 +194,19 @@ def block_prefill(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     fill is repeated that many times, as the cache stores it."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h = apply_norm(x, params, cfg, "ln1")
-    k = (h @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    h = shard_act(apply_norm(x, params, cfg, "ln1"), ("batch", None, "act_embed"))
+    k = split_heads(h @ params["wk"], cfg.n_kv_heads, hd)
+    v = split_heads(h @ params["wv"], cfg.n_kv_heads, hd)
     if cfg.rope_theta is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
+    x = block_forward(params, x, cfg, positions, window, h, (k, v))[0]
     if cfg.kv_replicate > 1:
         k, v = repeat_kv(k, cfg.kv_replicate), repeat_kv(v, cfg.kv_replicate)
     if phys_len is not None and phys_len < s:
         roll = s % phys_len
         k = torch.roll(k[:, -phys_len:], shifts=roll, dims=1)
         v = torch.roll(v[:, -phys_len:], shifts=roll, dims=1)
-    return block_forward(params, x, cfg, positions, window, h)[0], k, v
+    return x, k, v
 
 
 def stack_prefill(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -385,16 +391,22 @@ def stack_decode(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConf
     table = cache.get("page_table")
     if table is not None and window is not None:
         raise ValueError("paged KV does not compose with sliding windows")
+    # on a sharded serve mesh: this data rank's slice of the pool, and how
+    # it reaches the pages other ranks hold (sharding.serve.PageExchange)
+    exchange = cache.get("page_exchange")
     try:
         for layer, params in enumerate(unstack(stacked)):
             layer_k, layer_v = cache["k"][layer], cache["v"][layer]
-            if table is not None:
+            if exchange is not None:
+                layer_k, layer_v = (gather_paged_kv(exchange.pages(p), exchange.view)
+                                    for p in (layer_k, layer_v))
+            elif table is not None:
                 layer_k, layer_v = gather_paged_kv(layer_k, table), gather_paged_kv(layer_v, table)
             x, lat = block_decode(params, x, layer_k, layer_v, length, cfg, sparse_ctx, plan,
                                   layer, window)
             if table is not None:
-                scatter_paged_kv(cache["k"][layer], layer_k, table, length)
-                scatter_paged_kv(cache["v"][layer], layer_v, table, length)
+                scatter_paged_kv(cache["k"][layer], layer_k, table, length, exchange)
+                scatter_paged_kv(cache["v"][layer], layer_v, table, length, exchange)
             if sparse_ctx is not None and not planned:
                 io[layer] = lat
     finally:

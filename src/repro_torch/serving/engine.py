@@ -72,9 +72,14 @@ every rank, and ``prefill`` / ``append_frame`` / ``decode`` return the
 whole batch, gathered in row order. Greedy tokens equal the 1×1 mesh's.
 The model-sharded sites log their bytes per shard (``IOEvent.
 shard_bytes``, ``shard_summary``); on the unsharded path nothing changes.
-A sharded mesh refuses the paged KV cache and, with more than one data
-rank, the MoE decoders (their expert capacity spans the whole batch) —
-both wait for the next slice (ROADMAP.md, queue 1, item 4).
+The engine's calls on split rows run inside ``ServeMesh.split_rows``, so a
+MoE layer routes the whole batch (its capacity and drops span it, as in
+the reference) and keeps this rank's rows. A paged pool is split by page
+over ``data`` (``kv_pages`` rounds up to a multiple of it, as in the
+reference); the allocator stays the reference's, global and replicated on
+every rank, and each pushed table carries its ``PageExchange``: per layer
+and decode step, the pages the tables name are all-gathered over ``data``
+and each rank's new K/V entries reach the rank holding their page.
 
 Not ported yet: frame append in slot mode (the reference's
 ``append_frame`` takes a scalar length).
@@ -251,15 +256,6 @@ class ServeEngine:
             validate_serve_mesh(self.mesh.data, self.mesh.model, batch=batch_size,
                                 d_ff=(cfg.d_ff if (self.mesh.model > 1 and cfg.d_ff
                                                    and not cfg.has_moe) else 0))
-            if kv_page_tokens is not None:
-                raise NotImplementedError("paged KV on a sharded serve mesh is not ported yet "
-                                          "(ROADMAP.md, queue 1, item 4); serve the dense "
-                                          "cache or the 1x1 mesh")
-            if cfg.has_moe and self.mesh.data > 1:
-                raise NotImplementedError(
-                    "a MoE decoder over more than one data rank is not ported yet: its expert "
-                    "capacity spans the whole batch (ROADMAP.md, queue 1, item 4, with "
-                    "moe_ffn_ep); use a mesh of data 1")
         self.torch_device = resolve_device(torch_device)
         self.backend = backend
         self.model = model
@@ -294,10 +290,16 @@ class ServeEngine:
             if kv_page_tokens < 1 or max_seq % kv_page_tokens != 0:
                 raise ValueError(f"kv_page_tokens ({kv_page_tokens}) must be >= 1 and "
                                  f"divide max_seq ({max_seq})")
-            if kv_pages is None:  # the dense-equivalent capacity + the garbage page
+            if kv_pages is None:
+                # the dense-equivalent capacity + the garbage page, rounded
+                # up so the pool's page axis splits over 'data'
                 kv_pages = batch_size * (max_seq // kv_page_tokens) + 1
+                kv_pages += -kv_pages % self.mesh.data
             if kv_pages < 2:
                 raise ValueError(f"kv_pages must be >= 2, got {kv_pages}")
+            if kv_pages % self.mesh.data:
+                raise ValueError(f"kv_pages ({kv_pages}) must divide over the mesh's "
+                                 f"{self.mesh.data} data ranks, each of which holds a slice")
             cfg = model.cfg
             # bf16 K and V entries of one page, summed over layers
             self.kv_page_bytes = float(2 * 2 * cfg.n_layers * kv_page_tokens
@@ -409,7 +411,8 @@ class ServeEngine:
                                       "the page allocator)")
         t0 = time.perf_counter()
         batch = self._put_batch(batch)
-        last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
+        with self.mesh.split_rows():
+            last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
         last = self.mesh.gather_batch(last)
         self._host_lengths = None
         self._prefill_charge(int(batch["tokens"].shape[1]), "prefill", time.perf_counter() - t0)
@@ -428,8 +431,9 @@ class ServeEngine:
                                       "engines do not keep")
         t0 = time.perf_counter()
         frame = self.mesh.put_batch(frame_embeds.to(self.torch_device))
-        hidden, io = self.model.append_embeds(self.params, frame, self.cache,
-                                              self.sparse_ctx, self.torch_device)
+        with self.mesh.split_rows():
+            hidden, io = self.model.append_embeds(self.params, frame, self.cache,
+                                                  self.sparse_ctx, self.torch_device)
         hidden = self.mesh.gather_batch(hidden)
         io = float(io)
         wall = time.perf_counter() - t0
@@ -499,7 +503,8 @@ class ServeEngine:
         self._start_decode()
         tokens = self.mesh.put_batch(tokens.to(self.torch_device))
         t0 = time.perf_counter()
-        *dev, sbs = self._device_loop(tokens, n_tokens)
+        with self.mesh.split_rows():
+            *dev, sbs = self._device_loop(tokens, n_tokens)
         dev[0] = self.mesh.gather_batch(dev[0])  # every data rank's rows, in order
         # ONE host transfer for the whole loop (tokens, per-layer estimates,
         # plan counters)
@@ -620,8 +625,9 @@ class ServeEngine:
             c0 = (plan_integrity_counters(self._plan, token.device)
                   if self.corruption is not None else None)
             s0 = self._shard_bytes_total(token.device)
-            logits, io = self.model.decode_step_planned(
-                self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0)
+            with self.mesh.split_rows():
+                logits, io = self.model.decode_step_planned(
+                    self.params, token, self.cache, self.sparse_ctx, self._plan, i % k == 0)
             token = torch.argmax(logits, dim=-1)[:, None]
             h1, m1 = plan_hit_miss(self._plan, token.device)
             deltas = torch.stack([h1 - h0, m1 - m0,
@@ -686,18 +692,35 @@ class ServeEngine:
 
     # -- slot mode (continuous batching; driven by serving.scheduler) -----------
     def _init_paged_state(self) -> None:
-        """(Re)build the page pool, the paged cache and the length mirror."""
+        """(Re)build the page pool, the paged cache (this data rank's slice
+        of the pages and its slots' rows) and the length mirror."""
         self.kv_pool = KVPagePool(self.batch_size, self.max_seq, self.kv_page_tokens,
-                                  self.kv_pages, self.kv_page_bytes)
-        self.cache = self.model.init_paged_cache(self.batch_size, self.max_seq,
-                                                 self.kv_page_tokens, self.kv_pages,
-                                                 self.torch_device)
+                                  self.kv_pages, self.kv_page_bytes,
+                                  n_data_shards=self.mesh.data)
+        cache = self.model.init_paged_cache(self.batch_size, self.max_seq,
+                                            self.kv_page_tokens, self.kv_pages,
+                                            self.torch_device)
+        self.cache = self.mesh.place_cache(cache, self.model.paged_cache_axes())
         self._host_lengths = np.zeros(self.batch_size, np.int64)
+        self._push_table()
+
+    @property
+    def _local_pages(self) -> range:
+        """The global page ids of the pool slice this data rank holds."""
+        n = self.kv_pages // self.mesh.data
+        r = self.mesh.rank("data")
+        return range(r * n, (r + 1) * n)
 
     def _push_table(self) -> None:
-        """Commit the pool's host page table to the card."""
-        self.cache["page_table"] = torch.from_numpy(self.kv_pool.table.copy()).to(
-            self.torch_device)
+        """Commit the pool's host page table to the card: this data rank's
+        slots' rows and, on a sharded mesh, the table's ``PageExchange``."""
+        table = self.kv_pool.table
+        rows = self._local_rows
+        self.cache["page_table"] = torch.from_numpy(
+            table[rows.start:rows.stop].copy()).to(self.torch_device)
+        if self.mesh.is_sharded:
+            self.cache["page_exchange"] = self.mesh.page_exchange(table, self.kv_pages,
+                                                                  self.torch_device)
 
     def _check_slot(self, slot: Optional[int] = None) -> None:
         """Refuse a call of slot mode in single-stream mode, and a slot out
@@ -766,7 +789,10 @@ class ServeEngine:
             # costs no device read)
             n, hashes = prompt_prefix_hashes(batch, self.kv_page_tokens)
             entries = self.kv_pool.admit(slot, n, hashes)
-            fresh = [(j, page) for j, (page, is_fresh) in enumerate(entries) if is_fresh]
+            # fresh pages this data rank holds (every page, unsharded)
+            local = self._local_pages
+            fresh = [(j, page - local.start) for j, (page, is_fresh) in enumerate(entries)
+                     if is_fresh and page in local]
             if fresh:
                 pages = torch.tensor([page for _, page in fresh], device=self.torch_device)
                 srcs = torch.tensor([j for j, _ in fresh], device=self.torch_device)

@@ -21,8 +21,9 @@ has a full final page, but decode clamps its write position to ``max_seq -
 
 Per-data-shard accounting: each page's "home" is the data shard of the
 slot that first allocated it; ``pages_per_shard`` partitions the live pages
-by home and sums to ``pages_in_use``. The port serves one card, so
-``n_data_shards`` is 1 unless a caller asks otherwise.
+by home and sums to ``pages_in_use``. The engine passes its serve mesh's
+data ranks (1 unsharded); the pool stays one global allocator, every rank
+keeping the same copy, whichever rank holds a page's storage.
 """
 from __future__ import annotations
 

@@ -29,15 +29,29 @@ rules.
 Serve slots partition over ``data``: each data rank holds batch / data rows
 of the tokens and the KV cache (``put_batch``, ``place_cache``), and the
 engine's outputs are gathered back to the full batch in row order
-(``gather_batch``), as the reference returns its global arrays. Weight
+(``gather_batch``), as the reference returns its global arrays. Two things
+span the batch and are resolved explicitly where GSPMD resolves them in
+the reference:
+
+  * **A MoE layer's capacity and drops** are the whole batch's: inside
+    ``split_rows`` (the engine's calls on split rows) ``models/moe.py``
+    gathers the layer's rows over ``data``, routes the whole batch and keeps
+    this rank's rows (``row_split``).
+  * **A paged KV pool** is split by page over ``data`` (``place_cache``
+    keeps a contiguous slice of the "kv_page" dim), while the allocator's
+    page ids are global and a slot's table may name a page another rank
+    holds. ``PageExchange`` gathers the pages the tables name and writes
+    each new decode entry on the rank that holds its page. Weight
 specs come from ``MeshRules`` over the matrices' logical axes, so the serve
 mesh uses the training side's vocabulary.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -132,6 +146,65 @@ def gather_shards(w):
     return out
 
 
+# the serve mesh inside whose ``split_rows`` the model runs (None outside
+# one, or where the batch is not split over more than one data rank)
+_row_split: Optional["ServeMesh"] = None
+
+
+def row_split() -> Optional["ServeMesh"]:
+    """The serve mesh whose data ranks each hold some rows of the batch the
+    model is running on (inside ``ServeMesh.split_rows``), or None."""
+    return _row_split
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PageExchange:
+    """One data rank's view of a paged KV pool split by page over the serve
+    mesh's ``data`` group: this rank holds global pages ``[page_lo, page_lo
+    + n_local)``, and its slots' tables may name pages of any rank. Built on
+    the host from the pool's whole table each time the engine pushes it
+    (every rank builds the same one).
+
+    Per layer, a decode step moves (``pages``) the pages any slot's table
+    names, each from the rank holding it to every rank in one all-gather
+    (each rank's list padded to the longest), and (``rows``) each rank's new
+    K or V entries and write positions to every rank; each rank then writes
+    the entries whose pages it holds (``local_writes``)."""
+
+    group: Any
+    page_lo: int
+    send: torch.Tensor   # (M,) int64: this rank's local page ids to send
+    view: torch.Tensor   # (b_local, max_pages) int64: this rank's slots' rows of the buffer
+    table: torch.Tensor  # (b, max_pages) int32: every slot's table, global page ids
+
+    def pages(self, pool_layer: torch.Tensor) -> torch.Tensor:
+        """The pages any table names, gathered over ``data`` in rank order
+        (``view`` indexes them)."""
+        return _all_gather(pool_layer.index_select(0, self.send), self.group, 0)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``x`` (dim 0), in rank order."""
+        return _all_gather(x, self.group, 0)
+
+    def local_writes(self, pool_layer: torch.Tensor, page: torch.Tensor, off: torch.Tensor,
+                     value: torch.Tensor):
+        """The whole batch's writes (global page, offset, value) into this
+        rank's slice ``pool_layer``, cut to the pages it holds without a
+        host sync: a write to another rank's page becomes a copy of the
+        first local write (the same index and value), or, where none is
+        local, a write of the slice's first entry onto itself. Returns
+        (local page, offset, value)."""
+        mine = (page >= self.page_lo) & (page < self.page_lo + pool_layer.shape[0])
+        local = torch.where(mine, page - self.page_lo, torch.zeros_like(page))
+        j = torch.argmax(mine.to(torch.int32))
+        any_mine = mine[j]
+        dflt_page = torch.where(any_mine, local[j], torch.zeros_like(local[j]))
+        dflt_off = torch.where(any_mine, off[j], torch.zeros_like(off[j]))
+        dflt_value = torch.where(any_mine, value[j], pool_layer[0, 0])
+        return (torch.where(mine, local, dflt_page), torch.where(mine, off, dflt_off),
+                torch.where(mine[:, None, None], value, dflt_value))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServeMesh:
     """The serve engine's mesh. ``mesh is None`` ⇔ the unsharded 1×1 path:
@@ -175,6 +248,20 @@ class ServeMesh:
     def rank(self, axis: str) -> int:
         """This process's coordinate on ``axis`` (0 unsharded)."""
         return self.mesh.get_local_rank(axis) if self.is_sharded else 0
+
+    @contextlib.contextmanager
+    def split_rows(self):
+        """The model calls inside run on this data rank's rows of the batch
+        (``row_split`` names this mesh while more than one data rank splits
+        it): a layer whose arithmetic spans the batch gathers its rows over
+        ``data`` first."""
+        global _row_split
+        prev = _row_split
+        _row_split = self if self.is_sharded and self.data > 1 else None
+        try:
+            yield
+        finally:
+            _row_split = prev
 
     # -- batch rows over 'data' ------------------------------------------------
     def replicate(self, x: torch.Tensor) -> torch.Tensor:
@@ -240,6 +327,28 @@ class ServeMesh:
             return c.clone()
 
         return rec(cache, axes)
+
+    def page_exchange(self, table: np.ndarray, n_pages: int, device) -> PageExchange:
+        """The ``PageExchange`` of a paged pool of ``n_pages`` pages (split
+        evenly over ``data``) for the allocator's whole page ``table`` (b,
+        max_pages): every page any row names, grouped by the rank holding
+        it, in page order."""
+        d, r = self.data, self.rank("data")
+        n_local = n_pages // d
+        used = np.unique(table).astype(np.int64)
+        owner = used // n_local
+        width = max(int(np.bincount(owner, minlength=d).max()), 1)
+        slot_of = np.zeros(n_pages, np.int64)
+        for o in range(d):
+            pages = used[owner == o]
+            slot_of[pages] = o * width + np.arange(len(pages))
+        send = np.zeros(width, np.int64)
+        mine = used[owner == r] - r * n_local
+        send[:len(mine)] = mine
+        rows = self._rows(torch.from_numpy(slot_of[table]), 0)
+        return PageExchange(self.mesh.get_group("data"), r * n_local,
+                            torch.from_numpy(send).to(device), rows.to(device),
+                            torch.from_numpy(table.astype(np.int32)).to(device))
 
     # -- decode-weight sharding -----------------------------------------------
     def weight_spec(self, name: str, shape: Tuple[int, ...]) -> Spec:

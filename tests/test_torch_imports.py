@@ -62,6 +62,27 @@ def test_sharding_modules_stand_alone():
         assert not FORBIDDEN.search(path.read_text()), m
 
 
+def test_dryrun_modules_stand_alone():
+    """The dry-run tools load neither jax nor the reference package, and
+    importing them starts no process group and registers no fake backend
+    (``make_dry_mesh`` does both, only when it is called)."""
+    mods = ["repro_torch.configs.shapes", "repro_torch.models.inputs",
+            "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun"]
+    code = (
+        "import importlib, sys\n"
+        "import torch.distributed as dist\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "fake = 'torch.testing._internal.distributed.fake_pg' in sys.modules\n"
+        "print(bad, dist.is_initialized(), fake)\n"
+        "sys.exit(1 if bad or dist.is_initialized() or fake else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py", ROOT / "chip_phases.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

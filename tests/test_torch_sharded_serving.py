@@ -22,6 +22,7 @@ four ranks on the reference's weights and prompt, and compares their
 per-shard bytes.
 """
 import contextlib
+import dataclasses
 import datetime
 import io
 import os
@@ -61,7 +62,13 @@ ENGINE = dict(max_seq=64, batch_size=2, device="nano", sparsity=0.5, method="chu
 N_TOKENS = 6
 CLI = ["--arch", "internvl2-76b", "--reduced", "--torch-device", "cpu", "--decode-tokens", "3",
        "--max-seq", "64", "--prompt-len", "8", "--frames", "1", "--backend", "kernel"]
+# the CLI's continuous batching with paged KV, on a MoE arch
+CLI_STREAMS = ["--arch", "olmoe-1b-7b", "--reduced", "--torch-device", "cpu", "--streams", "4",
+               "--batch", "2", "--kv-page-tokens", "8", "--max-seq", "32", "--prompt-len", "8",
+               "--decode-tokens", "3", "--arrival-rate", "300"]
 RTOL = 1e-6
+MOE_CASES = [(a, w) for a in ("olmoe-1b-7b", "llama4-scout-17b-a16e") for w in (16, 8)]
+MOE_IDS = [f"{a}-{w}" for a, w in MOE_CASES]
 
 
 def _vlm():
@@ -153,10 +160,84 @@ def _slots(cfg, model, params, mesh):
             "io_bytes": eng.io_summary()["io_bytes"], "shard": eng.shard_summary()}
 
 
+def _lm(arch):
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    return cfg, model, model.init(seed=0, device="cpu")
+
+
+def _paged_prompts(cfg):
+    """The reference's ``test_paged_vs_dense_identity_2x2_mesh`` prompts (12
+    tokens each from seeds 100 and 101), then two that share a 16-token
+    prefix (two full pages: the second slot, on the other data rank, reads
+    the first slot's pages)."""
+    out = []
+    for seed in (100, 101):
+        rng = np.random.default_rng(seed)
+        out.append({"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 12)))})
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (1, 16))
+    for _ in range(2):
+        t = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, (1, 4))], axis=1)
+        out.append({"tokens": torch.from_numpy(t)})
+    return out
+
+
+def _paged(cfg, model, params, mesh, backend, wbits):
+    """The reference's 2×2 paged flow on reduced TinyLlama (max_seq 32, 8-token
+    pages, two slots, six tokens), dense and paged, for each pair of
+    prompts: (dense tokens, paged tokens, the paged pool's table, its shard
+    summary) a pair; ``kv_pool.check()`` runs after each."""
+    out = []
+    for pair in (_paged_prompts(cfg)[:2], _paged_prompts(cfg)[2:]):
+        toks = []
+        for pages in (None, 8):
+            eng = ServeEngine(model, params, max_seq=32, batch_size=2, device="nano",
+                              sparsity=0.4, method="chunk", seed=5, cache_mb=64.0,
+                              backend=backend, wbits=wbits, torch_device="cpu",
+                              kv_page_tokens=pages, mesh=mesh)
+            eng.enable_slots()
+            lasts = [torch.argmax(eng.admit_slot(slot, p)[0], -1)[:, None]
+                     for slot, p in enumerate(pair)]
+            toks.append(eng.decode_slots(torch.cat(lasts), N_TOKENS)[0].numpy())
+        eng.kv_pool.check()
+        out.append((toks[0], toks[1], eng.kv_pool.table.copy(), eng.shard_summary()))
+    return out
+
+
+def _moe(arch, mesh, wbits):
+    """A MoE decoder's prefill → 6 greedy tokens (the kernel backend's plain
+    versions), at the reduced config's capacity factor (8.0: nothing drops)
+    and at the full configs' 1.25, where the prefill's capacity binds and
+    drops depend on every row of the batch."""
+    out = []
+    cfg, model, params = _lm(arch)
+    for factor in (cfg.moe_capacity_factor, 1.25):
+        model = build_model(dataclasses.replace(cfg, moe_capacity_factor=factor))
+        eng = ServeEngine(model, params, backend="kernel", wbits=wbits, mesh=mesh, **ENGINE)
+        last = eng.prefill(make_dummy_batch(cfg, SMOKE, seed=0, device="cpu"))
+        out.append(eng.decode(torch.argmax(last, -1)[:, None], N_TOKENS).numpy())
+    return out
+
+
+def _extra(mesh):
+    """The paged and MoE cases: {("paged", backend, wbits): _paged(...),
+    (arch, wbits): tokens}."""
+    res = {}
+    cfg, model, params = _lm("tinyllama-1.1b")
+    for backend, wbits in CASES:
+        res[("paged", backend, wbits)] = _paged(cfg, model, params, mesh, backend, wbits)
+    for arch, wbits in MOE_CASES:
+        res[(arch, wbits)] = _moe(arch, mesh, wbits)
+    return res
+
+
 def _cli(argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         eng, out = tserve.main(argv)
+    if not isinstance(out, torch.Tensor):  # --streams: the scheduler's stats
+        return buf.getvalue(), out.row(), eng.shard_summary()
     return buf.getvalue(), out.numpy(), eng.shard_summary()
 
 
@@ -173,6 +254,8 @@ def _rank_main(rank, world, store, out_dir):
         res["refusals"] = _refusals(cfg, mesh)
         res["slots"] = _slots(cfg, model, params, mesh)
         res["cli"] = _cli(CLI + ["--mesh", "2,2"])
+        res.update(_extra(mesh))
+        res["cli_streams"] = _cli(CLI_STREAMS + ["--mesh", "2,2"])
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -204,6 +287,8 @@ def runs(tmp_path_factory):
         single = {case: _summary(*_run(cfg, model, params, None, *case)) for case in CASES}
         single["slots"] = _slots(cfg, model, params, None)
         single["cli"] = _cli(CLI)
+        single.update(_extra(None))
+        single["cli_streams"] = _cli(CLI_STREAMS)
     finally:
         torch.set_num_threads(n)
     _join(procs)
@@ -341,6 +426,81 @@ def test_cli_mesh_in_ranks(runs):
         assert "[mesh] data=2 model=2  slots/data_shard=1" in text
         np.testing.assert_array_equal(out, out1)
         assert abs(sum(ss["io_bytes_per_shard"]) - ss1["io_bytes"]) <= RTOL * ss1["io_bytes"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_sharded_paged_tokens_equal_dense_and_single_mesh(runs, case):
+    """Paged KV on the 2×2 mesh (the pool split by page over the data ranks,
+    a slot's pages wherever the global allocator put them): its tokens
+    equal the dense cache's on the same mesh and the 1×1 mesh's, for the
+    reference's two prompts and for two that share their first two pages
+    across the data ranks."""
+    ranks, single = runs
+    key = ("paged",) + case
+    for pair, (dense1, paged1, _, _) in enumerate(single[key]):
+        np.testing.assert_array_equal(paged1, dense1)
+        for r in ranks:
+            dense, paged, _, _ = r[key][pair]
+            np.testing.assert_array_equal(dense, dense1)
+            np.testing.assert_array_equal(paged, dense1)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_sharded_paged_pages_per_shard_equal_reference(runs, case):
+    """``kv_pages_per_shard`` sums to ``kv_pages_in_use`` and equals the JAX
+    package's ``KVPagePool(n_data_shards=2)`` after the same admissions and
+    decode growth; the tables equal it too (``kv_pool.check()`` ran in the
+    ranks)."""
+    import jax.numpy as jnp
+
+    from repro.serving.kv_pool import KVPagePool as RefPool
+    from repro.serving.kv_pool import prompt_prefix_hashes as ref_hashes
+
+    ranks, single = runs
+    cfg = get_config("tinyllama-1.1b").reduced()
+    prompts = _paged_prompts(cfg)
+    for pair, i in enumerate((0, 2)):
+        ref = RefPool(2, 32, 8, 10, 1.0, n_data_shards=2)
+        for slot, p in enumerate(prompts[i:i + 2]):
+            n, hashes = ref_hashes({"tokens": jnp.asarray(p["tokens"].numpy(), jnp.int32)}, 8)
+            ref.admit(slot, n, hashes)
+        for slot, p in enumerate(prompts[i:i + 2]):
+            ref.ensure(slot, p["tokens"].shape[1] + N_TOKENS - 1)
+        ref.check()
+        for r in ranks:
+            _, _, table, ss = r[("paged",) + case][pair]
+            np.testing.assert_array_equal(table, ref.table)
+            assert ss["kv_pages_per_shard"] == ref.pages_per_shard()
+            assert sum(ss["kv_pages_per_shard"]) == ss["kv_pages_in_use"] == ref.pages_in_use
+            assert ss["mesh_data"] == 2
+        assert single[("paged",) + case][pair][3]["kv_pages_per_shard"] == [ref.pages_in_use]
+    # the shared-prefix pair shares pages across the data ranks
+    assert ranks[0][("paged",) + case][1][2][1, 0] == ranks[0][("paged",) + case][1][2][0, 0]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=MOE_IDS)
+def test_sharded_moe_data2_equals_single_mesh(runs, case):
+    """Reduced OLMoE and Scout on the 2×2 mesh, one batch row a data rank:
+    each MoE layer routes the whole batch (its capacity and drops), so the
+    greedy tokens equal the 1×1 mesh's, at either capacity factor."""
+    ranks, single = runs
+    for r in ranks:
+        for got, want in zip(r[case], single[case]):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_cli_mesh_paged_moe_streams_in_ranks(runs):
+    """``--mesh 2,2 --streams 4 --kv-page-tokens 8`` on reduced OLMoE (a MoE
+    arch at data 2 with paged KV): the scheduler's row of the 1,1 CLI, and
+    the [mesh] line with the pool's pages per data shard."""
+    ranks, single = runs
+    text1, row1, ss1 = single["cli_streams"]
+    assert "[mesh]" not in text1 and ss1["kv_pages_per_shard"] == [ss1["kv_pages_in_use"]]
+    for r in ranks:
+        text, row, ss = r["cli_streams"]
+        assert row == row1
+        assert "[mesh] data=2 model=2" in text and "kv_pages/data_shard=[" in text
+        assert sum(ss["kv_pages_per_shard"]) == ss["kv_pages_in_use"]
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
