@@ -14,7 +14,9 @@ the unsharded ones on its ``[mesh-train]`` lines, OLMoE's expert-parallel
 step, the sequence-sharded attention); phase 14 is training TinyLlama-1.1B
 at full width and depth (``train_path``), and phase 17 the dry run
 (``dryrun_path``: its ``[dryrun]`` lines), which needs phase 14 before it
-in the same run. Each tree builds its own
+in the same run and judges phase 18's step too where phase 18 ran before it
+(``xlstm_train_path``: xLSTM-125M trained at the scans' chunk grain; run
+``--phases 14,18,17``). Each tree builds its own
 kernels from its own sources. Each run prints the card's name and power
 limit, the phases' own log (the decode step's wall is on its ``[vlm] ...
 served`` and ``[slots] main path`` lines) and, as its last line, one JSON
@@ -33,7 +35,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("7", "10", "14", "15", "16", "17")
+PHASES = ("7", "10", "14", "15", "16", "18", "17")  # 18 before 17, which judges it
 
 
 def run_tree(tree: Path, phases, index: int, settings) -> None:
@@ -74,6 +76,8 @@ def run_tree(tree: Path, phases, index: int, settings) -> None:
             smoke.mesh_path(dev, get_config(smoke.MESH_ARCH), card, report)
         elif phase == "16":
             smoke.mesh_train_path(dev, card, report)
+        elif phase == "18":
+            smoke.xlstm_train_path(dev, card, report)
         else:
             if "training" not in report:
                 sys.exit("phase 17 compares with phase 14's step: run --phases 14,17")

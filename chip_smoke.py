@@ -181,13 +181,27 @@ Phases, each of which fails the run on error:
      destroyed at the end.
  16. training on the one-rank (data, model) mesh (see ``mesh_train_path``).
  17. the dry run (``repro_torch.launch.dryrun``) in a subprocess, on torch's
-     fake process group with device type ``cuda``: tinyllama-1.1b/train_4k
-     (6 of 22 layers) and internvl2-76b/decode_32k (40 of 80) on the fake
-     (16, 16) production mesh, each report printed; then phase 14's own step (TinyLlama-1.1B, batch
-     8 x 512, remat) on a fake 1×1 mesh, whose FLOPs must equal
-     ``FlopCounterMode``'s count of phase 14's real step exactly and whose
-     predicted peak memory, against phase 14's measured
-     ``max_memory_allocated``, must lie within DRYRUN_PEAK_RATIO.
+     fake process group with device type ``cuda``: DRYRUN_PAIRS on the fake
+     (16, 16) production mesh (tinyllama-1.1b/train_4k at 6 of 22 layers,
+     internvl2-76b/decode_32k at 40 of 80, xlstm-125m/train_4k at 4 of 12,
+     olmoe-1b-7b/train_4k at 4 of 16: depths cut for time; whole models:
+     ``--all`` on the CPU, PERF.md), each report and per-rank peak printed;
+     then on a fake 1×1 mesh phase 14's own step (TinyLlama-1.1B, batch 8 x
+     512, remat) and phase 18's two chunk-64 steps, whose predicted peak
+     memory, against the real step's measured ``max_memory_allocated``,
+     must lie within DRYRUN_PEAK_RATIO, and whose FLOPs must equal
+     ``FlopCounterMode``'s count of the real step exactly (phase 14's step
+     and phase 18's 2 x 1024 step: the counter's Python dispatch would
+     make the 2 x 4096 step take minutes).
+ 18. xLSTM training at the scans' chunk grain (runs before phase 17, which
+     judges its predictions): xlstm-125m at full width, XLSTM_TRAIN_LAYERS
+     blocks (one mLSTM and one sLSTM: the config's kinds, depth cut for
+     time), random weights from a seed, one step with remat at batch 2 x
+     4096 and the reference's chunk of 64 steps (wall, peak memory from the
+     step's start); then one step at 2 x 1024 with chunk 64 under
+     ``FlopCounterMode`` and one with a single chunk as long as the
+     sequence, from the same state: loss, grad_norm and the first moments
+     bitwise equal, each step's peak memory printed.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
@@ -197,6 +211,7 @@ as the last line,
 ``{"ok": true, "device": {...}}``. A fuller report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -358,7 +373,8 @@ SEQ_ATTN_SHAPE = (1, 4096, 36, 128)
 # whole models' reports: `--all`, PERF.md); phase 14's step whole on a
 # fake 1×1 mesh, its predicted peak memory within DRYRUN_PEAK_RATIO of
 # phase 14's measured one
-DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k", 6), ("internvl2-76b", "decode_32k", 40))
+DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k", 6), ("internvl2-76b", "decode_32k", 40),
+                ("xlstm-125m", "train_4k", 4), ("olmoe-1b-7b", "train_4k", 4))
 DRYRUN_PEAK_RATIO = (0.8, 1.25)
 DRYRUN_CODE = r"""
 import dataclasses, json, sys
@@ -368,7 +384,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.launch.dryrun import run_dryrun
 from repro_torch.launch.mesh import make_dry_mesh, production_shape
 
-pairs, step = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+pairs, steps = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 mesh = make_dry_mesh(*production_shape(False), device_type="cuda")
 for arch, shape, layers in pairs:
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -376,11 +392,29 @@ for arch, shape, layers in pairs:
     print("DRYRUN " + json.dumps({**rep, "n_layers": layers}), flush=True)
 dist.destroy_process_group()
 mesh = make_dry_mesh((1, 1), ("data", "model"), device_type="cuda")
-shape = InputShape("phase14", step["seq"], step["batch"], "train")
-cfg = get_config(step["arch"].removesuffix("-reduced"))  # a CPU rehearsal's reduced step
-cfg = cfg.reduced() if step["arch"].endswith("-reduced") else cfg
-print("DRYRUN " + json.dumps(run_dryrun(cfg, shape, mesh=mesh, verbose=False)), flush=True)
+for step in steps:
+    shape = InputShape("real_step", step["seq"], step["batch"], "train")
+    cfg = get_config(step["arch"].removesuffix("-reduced"))  # a CPU rehearsal's reduced step
+    cfg = cfg.reduced() if step["arch"].endswith("-reduced") else cfg
+    cfg = dataclasses.replace(cfg, n_layers=step["layers"],
+                              slstm_layers=tuple(step["slstm_layers"]))
+    print("DRYRUN " + json.dumps(run_dryrun(cfg, shape, mesh=mesh, verbose=False)), flush=True)
 """
+
+# phase 18: xLSTM training at the scans' chunk grain. XLSTM_TRAIN_ARCH at
+# full width, XLSTM_TRAIN_LAYERS blocks of which XLSTM_TRAIN_SLSTM are
+# sLSTM (one of each kind: a step is a host loop over the sequence's steps
+# in every block, about 6.6 s a block at 2 x 4096 on an H100, so the
+# config's 12 blocks do not fit the script's time), random weights from
+# seed 0, remat on (which xLSTM ignores: it rematerialises per chunk), AdamW
+# as in phase 14: one step at XLSTM_TRAIN_BATCH x XLSTM_TRAIN_SEQ with the
+# config's chunk (64), timed, its peak memory from its start; one step at
+# XLSTM_CHECK_BATCH x XLSTM_CHECK_SEQ at chunk 64 under FlopCounterMode and
+# one with a single chunk as long as the sequence, both from the seed-0
+# state. Phase 17's dry run predicts the two chunk-64 steps
+XLSTM_TRAIN_ARCH, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SLSTM = "xlstm-125m", 2, (1,)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 2, 4096
+XLSTM_CHECK_BATCH, XLSTM_CHECK_SEQ = 2, 1024
 METRIC_RTOL = {"loss": 5e-3, "ce": 5e-3, "moe_aux": 5e-3, "grad_norm": 2e-2}
 
 
@@ -1003,6 +1037,8 @@ def main():
     done("phase 15, sharded serving")
     mesh_train_path(dev, card, report)
     done("phase 16, mesh training")
+    xlstm_train_path(dev, card, report)
+    done("phase 18, xLSTM training")
     dryrun_path(card, report)
     done("phase 17, dry run")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
@@ -4230,7 +4266,8 @@ def train_path(dev, card, report, cfg=None):
         f"{off['wall_s'] * 1e3:.1f} ms, peak {off['peak_gb']:.2f} GB; phase "
         f"{time.perf_counter() - t_phase:.1f} s  ({card})")
     report["training"] = {
-        "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "matmul_params": n_mm,
+        "arch": cfg.name, "layers": cfg.n_layers, "slstm_layers": cfg.slstm_layers,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "matmul_params": n_mm,
         "pipeline_s": pipe_s, "walls_s": walls, "wall_per_step_s": wall,
         "tokens_per_s": tokens / wall, "flops_6nt": flops, "flop_rate": rate,
         "peak_share_bf16": rate / BF16_OPS_PER_S, "peak_gb_remat_on": peak_on,
@@ -4609,44 +4646,142 @@ def mesh_paged(dev, cfg, model, params, one_rank, card):
 
 def dryrun_path(card, report):
     """Phase 17: the dry run in a subprocess (DRYRUN_CODE: the fake process
-    group is the process's one default group). Each report is printed; phase
-    14's step's predicted FLOPs must equal its FlopCounterMode count and its
-    predicted peak memory must lie within DRYRUN_PEAK_RATIO of its measured
-    one."""
+    group is the process's one default group). Each report is printed with
+    its per-rank peak; for phase 14's step and phase 18's (where it ran),
+    the predicted FLOPs must equal the real step's FlopCounterMode count and
+    the predicted peak memory must lie within DRYRUN_PEAK_RATIO of the
+    measured one."""
     import os
 
     tag = "[dryrun]"
     t0 = time.perf_counter()
-    train = report["training"]
-    step = {"arch": train["arch"], "batch": train["batch"], "seq": train["seq"]}
+    real = [(name, report[name]) for name in ("training", "xlstm_training", "xlstm_check")
+            if name in report]
+    steps = [{k: r[k] for k in ("arch", "batch", "seq", "layers", "slstm_layers")}
+             for _, r in real]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_PAIRS),
-                          json.dumps(step)], env=env, capture_output=True, text=True,
-                         timeout=600)
+                          json.dumps(steps)], env=env, capture_output=True, text=True,
+                         timeout=900)
     if res.returncode != 0:
         fail(f"{tag} the dry run failed (rc {res.returncode}): {res.stderr[-3000:]}")
     reps = [json.loads(line[len("DRYRUN "):]) for line in res.stdout.splitlines()
             if line.startswith("DRYRUN ")]
-    if len(reps) != len(DRYRUN_PAIRS) + 1:
-        fail(f"{tag} expected {len(DRYRUN_PAIRS) + 1} reports: {res.stdout[-3000:]}")
+    if len(reps) != len(DRYRUN_PAIRS) + len(steps):
+        fail(f"{tag} expected {len(DRYRUN_PAIRS) + len(steps)} reports: {res.stdout[-3000:]}")
     for rep in reps:
         log(f"{tag} {json.dumps(rep)}")
-    mine = reps[-1]
-    predicted, measured = mine["memory"]["peak_bytes"], train["peak_bytes_remat_on"]
-    ratio = predicted / measured
-    log(f"{tag} phase 14's step ({step['arch']}, batch {step['batch']} x {step['seq']}, remat, "
-        f"1x1): predicted {mine['flops_per_device']} FLOP against FlopCounterMode's "
-        f"{train['flop_counter_flops']} on the real step; predicted peak "
-        f"{predicted / 1e9:.3f} GB against the measured max_memory_allocated "
-        f"{measured / 1e9:.3f} GB: ratio {ratio:.4f}; trace {mine['trace_s']:.1f} s; phase "
-        f"{time.perf_counter() - t0:.1f} s  ({card})")
-    if mine["flops_per_device"] != train["flop_counter_flops"]:
-        fail(f"{tag} predicted FLOPs {mine['flops_per_device']} != the real step's "
-             f"{train['flop_counter_flops']}")
-    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
-        fail(f"{tag} peak-memory ratio {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
-    report["dryrun"] = {"reports": reps, "peak_ratio": ratio,
+    for rep in reps[:len(DRYRUN_PAIRS)]:
+        log(f"{tag} {rep['arch']}/{rep['shape']} at {rep['n_layers']} layers, fake (16, 16): "
+            f"per-rank peak {rep['memory']['peak_bytes'] / 1e9:.3f} GB, "
+            f"{rep['flops_per_device']:.4e} FLOP, {rep['collective_bytes_per_device'] / 1e9:.3f} "
+            f"GB of collectives, trace {rep['trace_s']:.1f} s")
+    ratios = {}
+    for (name, r), step, mine in zip(real, steps, reps[len(DRYRUN_PAIRS):]):
+        predicted, measured = mine["memory"]["peak_bytes"], r["peak_bytes_remat_on"]
+        ratio = ratios[name] = predicted / measured
+        log(f"{tag} the {name} step ({step['arch']} at {step['layers']} layers, batch "
+            f"{step['batch']} x {step['seq']}, remat, 1x1): predicted {mine['flops_per_device']} "
+            f"FLOP against FlopCounterMode's {r['flop_counter_flops']} on the real step; "
+            f"predicted peak {predicted / 1e9:.3f} GB against the measured max_memory_allocated "
+            f"{measured / 1e9:.3f} GB: ratio {ratio:.4f}; trace {mine['trace_s']:.1f} s  ({card})")
+        if r["flop_counter_flops"] is not None and \
+                mine["flops_per_device"] != r["flop_counter_flops"]:
+            fail(f"{tag} {name}: predicted FLOPs {mine['flops_per_device']} != the real step's "
+                 f"{r['flop_counter_flops']}")
+        if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+            fail(f"{tag} {name}: peak-memory ratio {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    log(f"{tag} phase 17 took {time.perf_counter() - t0:.1f} s  ({card})")
+    report["dryrun"] = {"reports": reps, "peak_ratio": ratios,
                         "phase_s": time.perf_counter() - t0}
+
+
+def xlstm_train_path(dev, card, report, cfg=None, batch=XLSTM_TRAIN_BATCH, seq=XLSTM_TRAIN_SEQ,
+                     check=(XLSTM_CHECK_BATCH, XLSTM_CHECK_SEQ)):
+    """Phase 18: XLSTM_TRAIN_ARCH at full width and XLSTM_TRAIN_LAYERS blocks
+    through ``Trainer.train_step``, random weights from seed 0: one step at
+    batch x seq with the config's chunk, timed by the host clock around a
+    synchronised step, its peak memory from its start; then at ``check``
+    one step with the config's chunk under FlopCounterMode and one with a
+    single chunk as long as the sequence, from the seed-0 state: loss,
+    grad_norm and the first moments bitwise equal. ``cfg`` lets a CPU
+    rehearsal run a reduced config."""
+    import itertools
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import AdamWConfig, Trainer
+
+    on_card = dev.type == "cuda"
+    cfg = cfg or dataclasses.replace(get_config(XLSTM_TRAIN_ARCH), n_layers=XLSTM_TRAIN_LAYERS,
+                                     slstm_layers=XLSTM_TRAIN_SLSTM)
+    tag = f"[xlstm-train] {cfg.name}"
+    t_phase = time.perf_counter()
+    _, sync = seeded(dev, 0)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+
+    def step_from_seed(b, s, chunk=None, count=False):
+        """One step at b x s from the seed-0 state (the model's scans at
+        ``chunk``, default the config's), timed from a synchronised start:
+        its metrics, wall, peak memory from its start, FLOPs (``count``)
+        and first moments on the host."""
+        model = build_model(cfg)
+        if chunk is not None:
+            model._impl.xcfg = dataclasses.replace(model._impl.xcfg, chunk=chunk)
+        trainer = Trainer(model, opt, loss_chunk=TRAIN_LOSS_CHUNK)
+        host = next(itertools.islice(lm_batches(cfg, DataConfig(batch=b, seq_len=s, seed=0)), 1))
+        data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        params, state = trainer.init_state(seed=0, device=dev)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        counter = FlopCounterMode(display=False) if count else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with counter:
+            _, state, m = trainer.train_step(params, state, data)
+        sync()
+        out = {"arch": cfg.name, "layers": cfg.n_layers, "slstm_layers": cfg.slstm_layers,
+               "batch": b, "seq": s, "chunk": model._impl.xcfg.chunk,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_s": time.perf_counter() - t0,
+               "peak_bytes_remat_on": torch.cuda.max_memory_allocated() if on_card else 0,
+               "flop_counter_flops": counter.get_total_flops() if count else None}
+        if not (math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])):
+            fail(f"{tag}: non-finite loss or grad_norm at {b} x {s}: {out}")
+        return out, {k: v.to("cpu") for k, v in tree_leaves(state.m)}
+
+    main, _ = step_from_seed(batch, seq)
+    log(f"{tag}: {cfg.n_layers} blocks (sLSTM at {list(cfg.slstm_layers)}), d_model "
+        f"{cfg.d_model}, batch {batch} x {seq}, chunk {main['chunk']}: one step "
+        f"{main['wall_s']:.2f} s, loss {main['loss']:.4f}, grad_norm {main['grad_norm']:.4f}, "
+        f"peak memory {main['peak_bytes_remat_on'] / 1e9:.3f} GB from the step's start  ({card})")
+
+    # the config's chunk against one chunk as long as the sequence
+    b, s = check
+    grain, grain_m = step_from_seed(b, s, count=True)
+    whole_seq, whole_m = step_from_seed(b, s, chunk=s)
+    same = (grain["loss"] == whole_seq["loss"] and grain["grad_norm"] == whole_seq["grad_norm"]
+            and all(torch.equal(v, whole_m[k]) for k, v in grain_m.items()))
+    if not same:
+        gaps = {k: float((v - whole_m[k]).abs().max()) for k, v in grain_m.items()}
+        fail(f"{tag}: chunk {grain['chunk']} against one chunk of {s} at {b} x {s}: loss "
+             f"{grain['loss']} / {whole_seq['loss']}, grad_norm {grain['grad_norm']} / "
+             f"{whole_seq['grad_norm']}, first moments' max abs gaps {gaps}")
+    log(f"{tag}: {b} x {s}, chunk {grain['chunk']} against one chunk of {s}: loss "
+        f"{grain['loss']:.6f}, grad_norm {grain['grad_norm']:.6f} and the first moments of all "
+        f"{len(grain_m)} leaves bitwise equal; peak {grain['peak_bytes_remat_on'] / 1e9:.3f} / "
+        f"{whole_seq['peak_bytes_remat_on'] / 1e9:.3f} GB, {whole_seq['wall_s']:.2f} s a step "
+        f"with one chunk; FlopCounterMode over the chunk-{grain['chunk']} step: "
+        f"{grain['flop_counter_flops']} FLOP ({grain['wall_s']:.1f} s under the counter); phase "
+        f"{time.perf_counter() - t_phase:.1f} s  ({card})")
+    report["xlstm_training"] = main
+    report["xlstm_check"] = {**grain, "one_chunk": whole_seq}
+    report["xlstm_phase_s"] = time.perf_counter() - t_phase
 
 
 def mesh_train_path(dev, card, report, cfgs=None, attn_shape=SEQ_ATTN_SHAPE,

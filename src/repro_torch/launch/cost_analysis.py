@@ -25,11 +25,16 @@ skipped. Conventions, after the reference's:
 
 XLA's flat cost analysis counts a while-loop body once, which is why the
 reference multiplies by trip counts. Eager torch runs every layer and every
-loop iteration as it goes, so each is counted as it runs and no correction
-is needed.
+loop iteration as it goes, so each is counted as it runs, with one
+exception that counts as the reference does: a chunked scan
+(``models/scan.py``) under ``counting_chunks`` runs one full chunk and adds
+its counts (``measured``) once for each full chunk it skips (``add``),
+allocating the skipped chunks' states uncounted (``uncounted``) so that
+the memory high-water mark still sees them.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import weakref
 from typing import Any, Dict, Iterable, Optional
@@ -106,6 +111,40 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._storages = WeakIdKeyDictionary()
+        self._silent = 0
+
+    def _totals(self) -> Dict[str, Any]:
+        return {"flops": self.flops, "bytes": self.bytes,
+                "collective_bytes": dict(self.collective_bytes),
+                "collective_counts": dict(self.collective_counts)}
+
+    @contextlib.contextmanager
+    def measured(self):
+        """Yields a dict that holds, once the block ends, what the block
+        counted (FLOPs, bytes, collective bytes and counts by kind)."""
+        before, delta = self._totals(), {}
+        yield delta
+        after = self._totals()
+        delta.update({k: after[k] - before[k] for k in ("flops", "bytes")})
+        for k in ("collective_bytes", "collective_counts"):
+            delta[k] = {kind: after[k][kind] - before[k][kind] for kind in COLLECTIVES}
+
+    def add(self, delta: Dict[str, Any], times: int) -> None:
+        """Count ``times`` more what a ``measured`` block counted."""
+        self.flops += delta["flops"] * times
+        self.bytes += delta["bytes"] * times
+        for kind in COLLECTIVES:
+            self.collective_bytes[kind] += delta["collective_bytes"][kind] * times
+            self.collective_counts[kind] += delta["collective_counts"][kind] * times
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Ops within it are not counted; the storages they make are live."""
+        self._silent += 1
+        try:
+            yield
+        finally:
+            self._silent -= 1
 
     def _add_storage(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -140,6 +179,10 @@ class CostCounter(TorchDispatchMode):
             # eager's wait returns its input; the fake kernel makes a new tensor
             return args[0]
         out = func(*args, **kwargs)
+        if self._silent:
+            for t in _tensors(out):
+                self._add_storage(t)
+            return out
         if name in _METADATA or _in_sharding_propagation():
             return out
         packet = func._overloadpacket

@@ -32,7 +32,10 @@ high-water mark of live storages over the step, arguments included),
 ``hbm_bytes`` (the card's, or the caller's number without one) and
 ``fits``; ``trace_s`` is the wall time of the step's one fake call. XLA's
 ``lower_s``/``compile_s``, temp and code sizes have no counterpart.
-Tokens are int64 (the reference's int32).
+Tokens are int64 (the reference's int32). A chunked scan (xLSTM's) runs
+one full chunk and counts it for all of them (``models/scan.py``,
+``counting_chunks``), as the reference's count multiplies a loop body by
+its trip count; its outputs and boundary states are still allocated whole.
 
 Usage (``--device cpu`` for a mesh of CPU ranks; the default is ``cuda``):
 
@@ -59,6 +62,7 @@ from ..models import build_model
 from ..models.common import tree_leaves, tree_unflatten
 from ..models.inputs import input_specs
 from ..models.model import COMPUTE_DTYPE
+from ..models.scan import counting_chunks
 from ..sharding.specs import MeshRules, sharded_compute, use_rules
 from ..training import AdamWConfig, Trainer
 from ..training.optimizer import init_opt_state
@@ -140,10 +144,11 @@ def build_step(arch: Union[str, ModelConfig], shape_name: Union[str, InputShape]
 def run_dryrun(arch: Union[str, ModelConfig], shape_name: Union[str, InputShape],
                multi_pod: bool = False, mesh=None, verbose: bool = True,
                optimized: bool = False, device: str = "cuda",
-               hbm_bytes: Optional[int] = None) -> Dict[str, Any]:
+               hbm_bytes: Optional[int] = None, count_chunks: bool = True) -> Dict[str, Any]:
     """The report of one pair (see the module doc) on ``mesh`` (default: the
     production mesh as a fake one, which initialises this process's
-    group)."""
+    group). ``count_chunks`` False traces every step of a chunked scan
+    instead of one chunk for all (the check of that count)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     if mesh is None:
@@ -161,7 +166,7 @@ def run_dryrun(arch: Union[str, ModelConfig], shape_name: Union[str, InputShape]
                               device=mesh.device_type)
         counter = CostCounter()
         arg_bytes = counter.track(local_tensors(args))
-        with counter:
+        with counter, counting_chunks(counter if count_chunks else None):
             out = fn(*args)
         out_bytes = sum(t.untyped_storage().nbytes() for t in local_tensors(out))
     trace_s = time.perf_counter() - t0

@@ -687,19 +687,20 @@ class _XLSTM:
                         state=state)
         return add_residual(x, out), state
 
-    def _run(self, params, x: torch.Tensor, cache: Dict, remat: bool = False) -> torch.Tensor:
+    def _run(self, params, x: torch.Tensor, cache: Dict) -> torch.Tensor:
         """Every block over x, each from its state in ``cache``, which takes
-        the new states in place. With ``remat`` each block is recomputed in
-        the backward (the reference rematerialises inside its chunked scan;
-        one checkpoint a block is the port's analogue)."""
-        block = rematerialised(self._block, remat)
+        the new states in place."""
         for i in range(self.cfg.n_layers):
-            x, cache[f"block_{i}"] = block(i, params[f"block_{i}"], x, cache[f"block_{i}"])
+            x, cache[f"block_{i}"] = self._block(i, params[f"block_{i}"], x, cache[f"block_{i}"])
         return x
 
     def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool):
+        """``remat`` is ignored, as in the reference: the recurrences
+        rematerialise inside their chunked scans (``models/scan.py``), and a
+        checkpoint around a block would make the backward run each scan a
+        third time."""
         x = shard_act(_embed(params, batch["tokens"]), ("batch", "act_seq", "act_embed"))
-        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device), remat)
+        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device))
         return _final_norm(params, x, self.cfg), torch.zeros((), dtype=torch.float32,
                                                              device=x.device)
 

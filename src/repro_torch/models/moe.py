@@ -32,8 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..sharding import serve as serve_mesh  # its row_split, read at call time
-from ..sharding.specs import MeshRules, current_rules, local_shard, mesh_placements, \
-    replicated, shard_act, wrap_local
+from ..sharding.specs import MeshRules, current_rules, local_shard, mesh_placements, wrap_local
 from .common import swish
 
 DISPATCHES = ("scatter", "gather", "ep_shard_map")
@@ -42,6 +41,10 @@ DISPATCHES = ("scatter", "gather", "ep_shard_map")
 # (over capacity; a 0-d int64 tensor on the device, this rank's), read by
 # the caller after the step: nothing syncs with the host here
 DROP_LOG = None
+# None, or a list to which every call under installed mesh rules appends
+# (its first expert, its first capacity slot, its x_buf block) (the tests
+# hold the block to the 1×1 buffer's)
+BLOCK_LOG = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,10 +178,11 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
     aux loss, a 0-d f32 tensor). The capacity is computed over the call's
     own b·s tokens. ``ep_shard_map`` runs ``moe_ffn_ep`` under installed
     mesh rules and the ``gather`` dispatch without them, as in the
-    reference. Under rules the routing and the combine run replicated
-    (``sharding.specs.replicated``: DTensor has no strategy for their
-    sorts and index writes) and the expert buffers take their logical
-    layout ("expert" over 'model', "expert_capacity" over the data axes).
+    reference. Under rules the expert buffer is laid out by its logical
+    axes ("expert" over 'model', "expert_capacity" over the data axes) and
+    each rank fills, computes and combines only its block
+    (``_moe_ffn_blocks``), with the 1×1 path's slots, drops, aux loss and
+    forward values.
 
     On a serve mesh whose data ranks each hold some rows of the batch
     (``sharding.serve.row_split``), the call's tokens are the whole
@@ -201,24 +205,170 @@ def _moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
         if current_rules() is not None:
             return moe_ffn_ep(x, params, cfg, prefix)
         cfg = dataclasses.replace(cfg, dispatch="gather")
+    if current_rules() is not None:
+        return _moe_ffn_blocks(x, params, cfg, prefix)
     p = prefix
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    x_buf, aux, sw, order, keep, buf_pos = replicated(
-        lambda xt_, router: _dispatch(xt_, router, cfg, cfg.capacity(t)))(
-        xt, params[f"{p}router"])
-    x_buf = shard_act(x_buf, ("expert", "expert_capacity", "act_embed"))
+    x_buf, aux, sw, order, keep, buf_pos = _dispatch(xt, params[f"{p}router"], cfg,
+                                                     cfg.capacity(t))
     gate = torch.bmm(x_buf, params[f"{p}we_gate"])
     up = torch.bmm(x_buf, params[f"{p}we_up"])
-    h = shard_act(swish(gate) * up, ("expert", "expert_capacity", "ffn"))
-    y_buf = shard_act(torch.bmm(h, params[f"{p}we_down"]),
-                      ("expert", "expert_capacity", "act_embed"))
-    y = replicated(lambda yb, w: _combine(yb, w, order, keep, buf_pos, t, cfg.top_k, x.dtype))(
-        y_buf, sw)
+    y_buf = torch.bmm(swish(gate) * up, params[f"{p}we_down"])
+    y = _combine(y_buf, sw, order, keep, buf_pos, t, cfg.top_k, x.dtype)
     if cfg.shared_expert:
         y = y + _shared_expert(xt, params, p)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# the dispatch sharded over the mesh: each rank its block of the buffer
+# ---------------------------------------------------------------------------
+
+
+def _coordinate(mesh, axis) -> int:
+    """This rank's index along a mesh axis or tuple of axes (major to
+    minor, as a dim sharded over them splits); 0 for None."""
+    index = 0
+    for name in MeshRules._axis_names(axis):
+        index = index * int(mesh.size(mesh.mesh_dim_names.index(name))) + \
+            int(mesh.get_local_rank(name))
+    return index
+
+
+def _gather_rows(local: torch.Tensor, mesh, rows_pl: tuple, n: int, grad_pl=None) -> torch.Tensor:
+    """Every rank's rows of a (n/ranks, ...) tensor laid out ``rows_pl``,
+    whole (an all-gather; differentiable, ``grad_pl`` the layout of the
+    gradient that comes back, as ``local_shard`` takes it)."""
+    dt = wrap_local(local, mesh, rows_pl, (n, *local.shape[1:]))
+    return local_shard(dt, mesh_placements(mesh, {}), grad_pl)
+
+
+def _moe_ffn_blocks(x, params: Dict[str, torch.Tensor], cfg: MoEConfig, p: str):
+    """``_moe_ffn`` under installed rules, the expert buffer laid out as
+    the reference's ``shard_act(x_buf, ("expert", "expert_capacity",
+    "act_embed"))`` asks: a rank fills and computes only its block, its
+    experts (over 'model') × its capacity slots (over the data axes), on
+    local tensors with explicit collectives.
+
+    The t tokens are split by rows over the data axes (where the batch
+    divides them). A data rank routes its own rows; a token's rank within
+    its expert is its local stable rank plus the earlier data ranks'
+    counts for that expert (an exclusive prefix over the all-gathered (E,)
+    counts), which is ``dispatch_plan``'s rank over all t·K assignments,
+    so the slots and drops are the 1×1 path's, capacity over all t
+    tokens. The tokens and their slots are all-gathered over the data
+    axes (t·d and t·K elements a rank) and each rank takes its block's
+    rows: its x_buf block is that block of the 1×1 buffer. The aux loss is
+    the 1×1 path's arithmetic on the all-gathered (t, E) probabilities.
+
+    The combine keeps ``_combine``'s order. For each j < K, every rank
+    writes the weighted output of each token's j-th assignment (ascending
+    expert) that its block holds into a (t, d) part, zero elsewhere; the
+    parts are summed over the ranks that split the buffer onto the
+    token's owner, exact since one rank holds each assignment; the owner
+    adds the K parts in order. No rank holds more than t·d elements of a
+    kind: not the (E, cap, d) buffer, the (E·cap, d) result or the (t·K,
+    d) contributions. Both dispatches (``scatter``, ``gather``) fill the
+    block the same way."""
+    from torch.distributed.tensor import DTensor
+
+    rules = current_rules()
+    mesh = rules.mesh
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = cfg.capacity(t)
+    dp_axis = rules.rules.get("batch")
+    rows = dp_axis if b % rules.axis_size(dp_axis) == 0 else None
+    n_rows, r_rows = rules.axis_size(rows), _coordinate(mesh, rows)
+    t_loc = t // n_rows
+    exp_axis, cap_axis = (tuple(rules.spec(("expert", "expert_capacity", "act_embed"),
+                                           (e, cap, d))) + (None, None))[:2]
+    e_loc, c_loc = e // rules.axis_size(exp_axis), cap // rules.axis_size(cap_axis)
+    e0, c0 = _coordinate(mesh, exp_axis) * e_loc, _coordinate(mesh, cap_axis) * c_loc
+    n_blk = e_loc * c_loc
+    split = MeshRules._axis_names(exp_axis) + MeshRules._axis_names(cap_axis)
+    whole = mesh_placements(mesh, {})
+    rows_pl = mesh_placements(mesh, {rows: 0} if rows else {})
+    # a rank's block takes part in sums over the ranks that split the
+    # buffer; the other axes hold copies of it
+    blk_partial = mesh_placements(mesh, {}, split)
+
+    xt = x.redistribute(mesh, rows_pl).reshape(t, d)
+    xl = local_shard(xt, rows_pl)  # (t_loc, d): this data rank's rows
+    xt_all = local_shard(xt, whole, blk_partial)  # (t, d)
+    router = local_shard(params[f"{p}router"], whole, mesh_placements(mesh, {}, rows))
+    w_pl = mesh_placements(mesh, {exp_axis: 0} if exp_axis else {})
+    w_grad = mesh_placements(mesh, {exp_axis: 0} if exp_axis else {}, cap_axis)
+    we_gate, we_up, we_down = (local_shard(params[f"{p}{n}"], w_pl, w_grad)
+                               for n in ("we_gate", "we_up", "we_down"))
+    dev = xl.device
+
+    # ---- routing: this data rank's rows; the rank over all t tokens ----
+    probs, top_w, top_e = route(xl, router, cfg)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    first = torch.searchsorted(se, torch.arange(e, device=dev), side="left")
+    counts = torch.diff(first, append=first.new_full((1,), se.numel()))
+    before = _gather_rows(counts[None], mesh, rows_pl, n_rows)[:r_rows].sum(dim=0)
+    grank = before[se] + torch.arange(se.numel(), device=dev) - first[se]
+    keep = grank < cap
+    if DROP_LOG is not None:
+        DROP_LOG.append((~keep).sum())
+    pos = torch.empty_like(se)
+    pos[order] = torch.where(keep, se * cap + grank, torch.full_like(se, e * cap))
+    pos_all = _gather_rows(pos.reshape(t_loc, k), mesh, rows_pl, t)  # (t, K), token order
+    top_e_all = _gather_rows(top_e, mesh, rows_pl, t)
+    probs_all = _gather_rows(probs, mesh, rows_pl, t)
+    w_all = _gather_rows(top_w, mesh, rows_pl, t, blk_partial)
+
+    # Switch-style load-balance aux loss, the 1×1 arithmetic on all tokens
+    assign = torch.zeros((t, e), dtype=torch.float32, device=dev)
+    assign.scatter_add_(1, top_e_all, torch.ones_like(w_all))
+    aux = e * torch.sum(probs_all.mean(dim=0) * (assign.mean(dim=0) / k)) * \
+        cfg.router_aux_weight
+
+    # ---- this rank's block of slots: the assignment in each ----
+    ex, slot = pos_all.reshape(-1) // cap, pos_all.reshape(-1) % cap
+    mine = (ex >= e0) & (ex < e0 + e_loc) & (slot >= c0) & (slot < c0 + c_loc)
+    row = torch.where(mine, (ex - e0) * c_loc + slot - c0, torch.full_like(ex, n_blk))
+    slot_asg = torch.full((n_blk + 1,), t * k, dtype=torch.int64, device=dev)
+    slot_asg[row] = torch.arange(t * k, device=dev)  # (a dropped one lands past the block)
+    slot_asg = slot_asg[:n_blk]
+    filled = slot_asg < t * k
+    slot_tok = torch.clamp(slot_asg // k, max=t - 1)
+    x_blk = torch.where(filled[:, None], xt_all[slot_tok], xt_all.new_zeros(()))
+    x_blk = x_blk.reshape(e_loc, c_loc, d)
+    del xt_all  # (t, d): not kept for the backward, so not past the dispatch
+    if BLOCK_LOG is not None:
+        BLOCK_LOG.append((e0, c0, x_blk.detach()))
+    y_blk = torch.bmm(swish(torch.bmm(x_blk, we_gate)) * torch.bmm(x_blk, we_up), we_down)
+
+    # ---- combine: each slot's output weighted, as the 1×1 path weighs it;
+    # then per j < K the tokens' j-th assignments (by ascending expert),
+    # summed onto their owners, and added in that order ----
+    asg = torch.clamp(slot_asg, max=t * k - 1)
+    w_slot = torch.where(filled, w_all.reshape(-1)[asg], w_all.new_zeros(()))
+    contrib = (y_blk.reshape(n_blk, d) * w_slot[:, None].to(y_blk.dtype)).to(x.dtype)
+    by_expert = torch.sort(top_e_all, dim=1, stable=True).indices  # (t, K): k of the j-th
+    j_of = torch.empty_like(by_expert)
+    j_of.scatter_(1, by_expert, torch.arange(k, device=dev).expand(t, k).contiguous())
+    j_slot = torch.where(filled, j_of.reshape(-1)[asg], torch.full_like(asg, k))
+    y = None
+    for j in range(k):
+        vals = torch.where((j_slot == j)[:, None], contrib, contrib.new_zeros(()))
+        part = contrib.new_zeros((t, d)).index_put((slot_tok,), vals, accumulate=True)
+        part = DTensor.from_local(part, mesh, blk_partial, run_check=False,
+                                  shape=torch.Size((t, d)), stride=(d, 1))
+        part = local_shard(part, rows_pl)  # (t_loc, d): one rank's term, exact
+        y = part if y is None else y + part
+    y = wrap_local(y, mesh, rows_pl, (t, d)).reshape(b, s, d)
+    if cfg.shared_expert:
+        y = y + _shared_expert(xt, params, p).reshape(b, s, d)
+    return y, DTensor.from_local(aux, mesh, whole, run_check=False)
 
 
 # ---------------------------------------------------------------------------

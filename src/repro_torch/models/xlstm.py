@@ -5,15 +5,19 @@ mLSTM: a matrix memory C (dh × dh) per head with exponential gating and a
 max-stabiliser state; the block up-projects by 2, takes q/k/v from the inner
 stream, gates the output and projects down. sLSTM: a scalar memory whose
 gates mix the previous hidden state head by head, then a gelu feed-forward
-(factor 4/3). Both run their recurrence step by step in f32. The reference
-pads the sequence to whole chunks of 64 steps (its ``XLSTMConfig.chunk``,
-a rematerialisation grain) whose padded steps never touch the state; they
-are skipped here, so a decode step is one step, not 64, and the config has
-no chunk. The m states start at −1e30.
+(factor 4/3). Both run their recurrence in f32 as a chunked scan
+(``models/scan.py``): chunks of ``XLSTMConfig.chunk`` = 64 steps, as in the
+reference, only each chunk's start state kept for the backward and the
+chunk's steps recomputed there, so training at 4k tokens does not keep
+every step's matrix memory. The reference pads the sequence to whole
+chunks whose padded steps never touch the state; here a tail chunk runs
+only its own steps, so a decode step is one step, not 64. The m states
+start at −1e30.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 
 from ..sharding.specs import over_batch, shard_act
 from .common import gelu, rms_norm, swish
+from .scan import chunked_scan
 
 NEG_M = -1e30  # the initial max-stabiliser, as in the reference
 
@@ -32,6 +37,7 @@ class XLSTMConfig:
     n_heads: int
     m_proj_factor: float = 2.0
     s_ff_factor: float = 1.3334
+    chunk: int = 64  # the scans' rematerialisation grain, in steps
 
     @property
     def d_inner(self) -> int:
@@ -82,26 +88,28 @@ def mlstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
             torch.full((batch, h), NEG_M, dtype=torch.float32, device=device))
 
 
-def _mlstm_scan(q, k, v, log_i, f_pre, c, n, m):
+def _mlstm_step(state, qt, kt, vt, li, lf):
+    """One mLSTM step: (b, h, dh) q/k/v and (b, h) log gates, from (c, n,
+    m); returns (the new state, y_t (b, h, dh))."""
+    c, n, m = state
+    m_new = torch.maximum(lf + m, li)
+    i_p = torch.exp(li - m_new)[..., None]  # (b, h, 1)
+    f_p = torch.exp(lf + m - m_new)[..., None]
+    c = f_p[..., None] * c + i_p[..., None] * torch.einsum("bhv,bhk->bhvk", vt, kt)
+    n = f_p * n + i_p * kt
+    num = torch.einsum("bhvk,bhk->bhv", c, qt)
+    den = torch.einsum("bhk,bhk->bh", n, qt).abs()
+    den = torch.maximum(den, torch.exp(-m_new))[..., None]
+    return (c, n, m_new), num / den
+
+
+def _mlstm_scan(chunk, q, k, v, log_i, f_pre, c, n, m):
     """The mLSTM recurrence over (b, s, h, dh) f32 inputs and the forget
-    gate's pre-activations, one step at a time, from the state (c, n, m).
-    Returns (y (b, s, h, dh), the state after the last step). On a mesh
-    each data rank runs its batch rows (``over_batch``)."""
-    log_f = F.logsigmoid(f_pre)
-    ys = []
-    for t in range(q.shape[1]):
-        qt, kt, vt, li, lf = q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t]
-        m_new = torch.maximum(lf + m, li)
-        i_p = torch.exp(li - m_new)[..., None]  # (b, h, 1)
-        f_p = torch.exp(lf + m - m_new)[..., None]
-        c = f_p[..., None] * c + i_p[..., None] * torch.einsum("bhv,bhk->bhvk", vt, kt)
-        n = f_p * n + i_p * kt
-        num = torch.einsum("bhvk,bhk->bhv", c, qt)
-        den = torch.einsum("bhk,bhk->bh", n, qt).abs()
-        den = torch.maximum(den, torch.exp(-m_new))[..., None]
-        m = m_new
-        ys.append(num / den)
-    return torch.stack(ys, dim=1), (c, n, m)
+    gate's pre-activations from the state (c, n, m), chunked by ``chunk``
+    steps. Returns (y (b, s, h, dh), the state after the last step). On a
+    mesh each data rank runs its batch rows (``over_batch``)."""
+    return chunked_scan(_mlstm_step, (q, k, v, log_i, F.logsigmoid(f_pre)), (), (c, n, m),
+                        chunk, q.shape[2:])
 
 
 def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
@@ -119,8 +127,12 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     f_pre = (xm @ params["w_fg"] + params["b_fg"]).to(torch.float32)
     if state is None:
         state = mlstm_state_init(cfg, b, x.device)
-    y, state = over_batch(_mlstm_scan)(qf, kf, vf, log_i, f_pre, *state)
-    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
+    y, state = over_batch(functools.partial(_mlstm_scan, cfg.chunk))(qf, kf, vf, log_i, f_pre,
+                                                                    *state)
+    # laid out by rows alone, so that its gradient comes back so: sharded
+    # over 'model' along d_inner, it could not be viewed as (h, dh) where
+    # the heads do not divide the axis (xLSTM-125M's 4 over 16)
+    y = shard_act(y.reshape(b, s, cfg.d_inner), ("batch", None, None)).to(x.dtype)
     y = rms_norm(y, params["norm_w"]) * swish(z)
     return y @ params["w_down"], state
 
@@ -158,33 +170,37 @@ def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
     if state is None:
         state = slstm_state_init(cfg, x.shape[0], x.device)
-    ys, state = over_batch(_slstm_scan, weights=(1,))(pre, params["r_gates"].to(torch.float32),
-                                                      *state)
+    ys, state = over_batch(functools.partial(_slstm_scan, cfg.chunk), weights=(1,))(
+        pre, params["r_gates"].to(torch.float32), *state)
     y = rms_norm(ys.to(x.dtype), params["norm_w"])
     return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], state
 
 
-def _slstm_scan(pre, r_w, c, n, m, h_prev):
-    """The sLSTM recurrence over the (b, s, 4d) f32 gate pre-activations
-    with the head-wise recurrent mix r_w (h, sdh, 4 sdh), one step at a
-    time, from the state (c, n, m, h_prev). Returns (the hidden states (b,
-    s, d) f32, the state after the last step). On a mesh each data rank
-    runs its batch rows (``over_batch``)."""
-    b, s, d4 = pre.shape
+def _slstm_step(state, pre_t, r_w):
+    """One sLSTM step: the (b, 4d) gate pre-activations with the head-wise
+    recurrent mix r_w (h, sdh, 4 sdh), from (c, n, m, h_prev); returns (the
+    new state, the new hidden state (b, d))."""
+    c, n, m, h_prev = state
+    b, d4 = pre_t.shape
     h, sdh = r_w.shape[0], r_w.shape[1]
-    ys = []
-    for t in range(s):
-        rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
-        # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
-        rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, d4)
-        zt, it, ft, ot = (pre[:, t] + rec).chunk(4, dim=-1)
-        zt, ot, log_f = torch.tanh(zt), torch.sigmoid(ot), F.logsigmoid(ft)
-        m_new = torch.maximum(log_f + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(log_f + m - m_new)
-        c = f_p * c + i_p * zt
-        n = f_p * n + i_p
-        h_prev = ot * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        ys.append(h_prev)
-    return torch.stack(ys, dim=1), (c, n, m, h_prev)
+    rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
+    # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
+    rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, d4)
+    zt, it, ft, ot = (pre_t + rec).chunk(4, dim=-1)
+    zt, ot, log_f = torch.tanh(zt), torch.sigmoid(ot), F.logsigmoid(ft)
+    m_new = torch.maximum(log_f + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c = f_p * c + i_p * zt
+    n = f_p * n + i_p
+    h_prev = ot * c / torch.clamp(n, min=1e-6)
+    return (c, n, m_new, h_prev), h_prev
+
+
+def _slstm_scan(chunk, pre, r_w, c, n, m, h_prev):
+    """The sLSTM recurrence over the (b, s, 4d) f32 gate pre-activations
+    with the head-wise recurrent mix r_w from the state (c, n, m, h_prev),
+    chunked by ``chunk`` steps. Returns (the hidden states (b, s, d) f32,
+    the state after the last step). On a mesh each data rank runs its batch
+    rows (``over_batch``)."""
+    return chunked_scan(_slstm_step, (pre,), (r_w,), (c, n, m, h_prev), chunk, h_prev.shape[1:])

@@ -251,15 +251,17 @@ def wrap_local(local: torch.Tensor, mesh: Any, placements: tuple, shape) -> Any:
     ``local_shard``'s inverse)."""
     from torch.distributed.tensor import DTensor
 
-    stride = torch.empty(tuple(shape), device="meta").stride()
+    # the whole tensor's contiguous strides, computed: an empty tensor on the
+    # meta device would be a whole-size allocation to the dry run's counter
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return DTensor.from_local(local.contiguous(), mesh, placements, run_check=False,
                               shape=torch.Size(shape), stride=stride)
 
 
 def replicated(fn):
     """``fn`` run on whole tensors on every rank where the installed rules
-    leave DTensor no sharding strategy to follow (the MoE dispatch's
-    sort, searchsorted and index writes): each DTensor argument is
+    leave DTensor no sharding strategy to follow (Whisper's lookup of its
+    decoder positions by computed indices): each DTensor argument is
     gathered whole, ``fn`` runs on the local copies, each tensor it returns
     is a replicated DTensor. Every rank computes the same values, so the
     gradients that come back are replicated too. The identity with no
@@ -287,13 +289,13 @@ def replicated(fn):
 def over_batch(fn, weights: Tuple[int, ...] = ()):
     """``fn`` run on each data rank's batch rows where the installed rules
     leave DTensor no sharding strategy to follow (the xLSTM recurrences,
-    step by step over time): every argument but the ``weights`` (their
-    positions) has the batch as dim 0 and is taken local over the batch
-    axes (whole where they do not divide it), replicated over the rest;
-    the weights are taken whole, their gradients partial sums over the
-    batch axes. Each tensor ``fn`` returns, in nested tuples, has the batch
-    as dim 0 too. A plain tensor argument counts as replicated. The
-    identity with no rules installed."""
+    chunked scans over time, ``models/scan.py``): every argument but the
+    ``weights`` (their positions) has the batch as dim 0 and is taken
+    local over the batch axes (whole where they do not divide it),
+    replicated over the rest; the weights are taken whole, their gradients
+    partial sums over the batch axes. Each tensor ``fn`` returns, in nested
+    tuples, has the batch as dim 0 too. A plain tensor argument counts as
+    replicated. The identity with no rules installed."""
     @functools.wraps(fn)
     def run(*args):
         rules = current_rules()

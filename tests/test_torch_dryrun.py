@@ -22,6 +22,19 @@ plus exactly those:
     rows sum in the 1×1 order), which are not products,
     where XLA's are ``dot``s: 4·b·h·P·hd a layer fewer (P = 64 cache
     positions, −1.7 to −3.6 % here).
+xLSTM's scans, one chunk of 64 steps here in both packages, part them in
+two more places:
+  * train, each mLSTM step's backward: the outer product v ⊗ k is a
+    broadcast multiply in torch and a ``dot`` with no contracted dim in
+    XLA, so neither counts it forward; backward, XLA counts its two
+    gradients (contractions over dh, 2·2·b·h·dh²) and torch none, while
+    torch counts the gradient of C in C·q (a ``bmm`` over a dim of one,
+    2·b·h·dh²) and the two gradients of n·q (2·2·b·h·dh), which XLA makes
+    multiplies: 4·b·h·dh − 2·b·h·dh² a step and mLSTM block;
+  * decode: the reference runs a one-token step as a whole chunk, 63 of
+    its 64 steps padded, and counts them; the port runs one step: 63 times
+    a step's forward products fewer (mLSTM 2·b·h·dh² + 2·b·h·dh, sLSTM
+    2·b·h·sdh·4·sdh).
 Prefill agrees to the FLOP.
 """
 import math
@@ -55,6 +68,7 @@ from repro_torch.launch.cost_analysis import CostCounter, collective_kind
 from repro_torch.launch.mesh import make_dry_mesh
 from repro_torch.models import build_model
 from repro_torch.models.inputs import input_specs, make_dummy_batch
+from repro_torch.models.xlstm import XLSTMConfig
 from repro_torch.training import AdamWConfig, Trainer
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -177,11 +191,21 @@ def flop_gap(arch: str, kind: str) -> int:
     over 64 positions (see the module doc)."""
     cfg = get_config(arch).reduced()
     b, positions, chunk = 2, 64, 512
-    if kind == "train":
-        return 2 * b * chunk * cfg.d_model * cfg.vocab_size
+    gap = 2 * b * chunk * cfg.d_model * cfg.vocab_size if kind == "train" else 0
+    if cfg.slstm_layers:  # xLSTM
+        xc = XLSTMConfig(cfg.d_model, cfg.n_heads)
+        h, dh, sdh = xc.n_heads, xc.head_dim, xc.s_head_dim
+        n_s = len(cfg.slstm_layers)
+        n_m = cfg.n_layers - n_s
+        if kind == "train":
+            gap += positions * n_m * (4 * b * h * dh - 2 * b * h * dh * dh)
+        if kind == "decode":
+            gap -= (xc.chunk - 1) * (n_m * (2 * b * h * dh * dh + 2 * b * h * dh)
+                                     + n_s * 2 * b * h * sdh * 4 * sdh)
+        return gap
     if kind == "decode":
         return -4 * b * cfg.n_heads * positions * cfg.resolved_head_dim * cfg.n_layers
-    return 0
+    return gap
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -35,7 +35,7 @@ from repro_torch.training.train_step import BATCH_AXES
 
 # the reduced steps' shapes: a 64-position prompt or cache, batch 2
 SMALL = {kind: InputShape(f"{kind}_small", 64, 2, kind) for kind in ("train", "prefill", "decode")}
-FLOP_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b", "internvl2-76b")
+FLOP_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b", "internvl2-76b", "xlstm-125m")
 MESHES = (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")))
 
 
