@@ -181,11 +181,20 @@ Phases, each of which fails the run on error:
      destroyed at the end.
  16. training on the one-rank (data, model) mesh (see ``mesh_train_path``).
  17. the dry run (``repro_torch.launch.dryrun``) in a subprocess, on torch's
-     fake process group with device type ``cuda``: DRYRUN_PAIRS on the fake
+     fake process group with device type ``cuda`` (it starts after the
+     build and works beside phases 3-18 on one thread of the host's CPU,
+     at a lower priority): DRYRUN_PAIRS on the fake
      (16, 16) production mesh (tinyllama-1.1b/train_4k at 6 of 22 layers,
      internvl2-76b/decode_32k at 40 of 80, xlstm-125m/train_4k at 4 of 12,
-     olmoe-1b-7b/train_4k at 4 of 16: depths cut for time; whole models:
-     ``--all`` on the CPU, PERF.md), each report and per-rank peak printed;
+     olmoe-1b-7b/train_4k at 4 of 16, olmoe-1b-7b/prefill_32k at 1 of 16,
+     llama4-scout-17b-a16e/train_4k at 1 of 48 and xlstm-125m/prefill_32k
+     at 4 of 12: depths cut for time; whole models:
+     ``--all`` on the CPU, PERF.md), each report and per-rank peak,
+     FLOPs and trace seconds printed; a prefill's output bytes a rank
+     (its cache and last logits) must not exceed the whole cache over the
+     ranks its shapes divide it over (DRYRUN_CACHE_RANKS: 256 for OLMoE,
+     16 for xLSTM) plus the logits' bound, and the placements' blocks must
+     be that share (its peak is printed beside the whole cache's bytes);
      then on a fake 1×1 mesh phase 14's own step (TinyLlama-1.1B, batch 8 x
      512, remat) and phase 18's two chunk-64 steps, whose predicted peak
      memory, against the real step's measured ``max_memory_allocated``,
@@ -370,25 +379,72 @@ SEQ_ATTN_SHAPE = (1, 4096, 36, 128)
 
 # phase 17: the dry run. DRYRUN_PAIRS (arch, shape, layers) on the fake
 # production (16, 16) mesh, depth cut for the script's time limit (the
-# whole models' reports: `--all`, PERF.md); phase 14's step whole on a
-# fake 1×1 mesh, its predicted peak memory within DRYRUN_PEAK_RATIO of
-# phase 14's measured one
+# whole models' reports: `--all`, PERF.md), among them a prefill whose
+# cache each rank makes as its block (its output bytes a rank held to the
+# cache's blocks plus the logits), an attention whose 40 heads the model
+# axis does not divide (each model rank's query rows) and the mLSTM scan
+# split over 'model'; phase 14's step whole on a fake 1×1 mesh, its
+# predicted peak memory within DRYRUN_PEAK_RATIO of phase 14's measured
+# one. The subprocess starts after the build and runs beside phases 3-18,
+# on one CPU thread at a lower priority (fake tensors: it never touches
+# the card)
 DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k", 6), ("internvl2-76b", "decode_32k", 40),
-                ("xlstm-125m", "train_4k", 4), ("olmoe-1b-7b", "train_4k", 4))
+                ("xlstm-125m", "train_4k", 4), ("olmoe-1b-7b", "train_4k", 4),
+                ("olmoe-1b-7b", "prefill_32k", 1), ("llama4-scout-17b-a16e", "train_4k", 1),
+                ("xlstm-125m", "prefill_32k", 4))
+# the ranks over which each prefill pair's cache divides, from its shapes
+# alone: OLMoE's (L, b, S, kv, hd) K and V with the batch's 32 rows over
+# 'data' (16) and the 16 kv heads over 'model' (16); xLSTM-125M's states
+# with the batch over 'data' and whole over 'model' (its 4 heads do not
+# divide 16, as in the reference)
+DRYRUN_CACHE_RANKS = {("olmoe-1b-7b", "prefill_32k"): 256, ("xlstm-125m", "prefill_32k"): 16}
 DRYRUN_PEAK_RATIO = (0.8, 1.25)
 DRYRUN_CODE = r"""
-import dataclasses, json, sys
+import dataclasses, json, math, os, sys
+import torch
 import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch.dryrun import run_dryrun
 from repro_torch.launch.mesh import make_dry_mesh, production_shape
 
+from repro_torch.configs.shapes import get_shape
+from repro_torch.models import build_model
+from repro_torch.models.common import Leaf, tree_leaves
+from repro_torch.sharding import MeshRules
+
+# beside the card's phases: one thread, a lower priority
+torch.set_num_threads(1)
+os.nice(10)
+
+
+def cache_bytes(cfg, shape, rules):
+    # the bytes of the pair's whole cache, and of one rank's blocks of it
+    # (its leaves' whole shapes over the ranks their placements divide
+    # them over)
+    model = build_model(cfg)
+    axes, whole, blocks = dict(tree_leaves(model.cache_axes())), 0, 0
+    for path, leaf in tree_leaves(model.cache_layout(shape.global_batch, shape.seq_len)):
+        pairs = zip(leaf, axes[path]) if isinstance(leaf, tuple) else [(leaf, axes[path])]
+        for lf, ax in pairs:
+            if isinstance(lf, Leaf):
+                block = rules.block_shape(lf.shape, rules.placements(ax, lf.shape))
+                whole += math.prod(lf.shape) * lf.dtype.itemsize
+                blocks += math.prod(block) * lf.dtype.itemsize
+    return whole, blocks
+
+
 pairs, steps = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 mesh = make_dry_mesh(*production_shape(False), device_type="cuda")
 for arch, shape, layers in pairs:
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     rep = run_dryrun(cfg, shape, mesh=mesh, verbose=False)
+    if get_shape(shape).kind == "prefill":
+        rules = MeshRules.for_mesh(mesh, fsdp=cfg.fsdp)
+        rep["cache_whole_bytes"], rep["cache_block_bytes"] = cache_bytes(cfg, get_shape(shape),
+                                                                         rules)
+        rep["logits_bound_bytes"] = (get_shape(shape).global_batch
+                                     // rules.axis_size(rules.rules["batch"])) * cfg.vocab_size * 4
     print("DRYRUN " + json.dumps({**rep, "n_layers": layers}), flush=True)
 dist.destroy_process_group()
 mesh = make_dry_mesh((1, 1), ("data", "model"), device_type="cuda")
@@ -992,6 +1048,7 @@ def main():
     from repro_torch.configs import get_config
 
     done("phases 1-2 (card, build)")
+    dry = start_dryrun(dry_steps())  # phase 17's subprocess, on the host's CPU meanwhile
     kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH),
                   [get_config(arch) for arch in DENSE_ARCHS])
     done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
@@ -1039,7 +1096,7 @@ def main():
     done("phase 16, mesh training")
     xlstm_train_path(dev, card, report)
     done("phase 18, xLSTM training")
-    dryrun_path(card, report)
+    dryrun_path(card, report, dry)
     done("phase 17, dry run")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
@@ -4644,31 +4701,76 @@ def mesh_paged(dev, cfg, model, params, one_rank, card):
     return out
 
 
-def dryrun_path(card, report):
-    """Phase 17: the dry run in a subprocess (DRYRUN_CODE: the fake process
-    group is the process's one default group). Each report is printed with
-    its per-rank peak; for phase 14's step and phase 18's (where it ran),
-    the predicted FLOPs must equal the real step's FlopCounterMode count and
-    the predicted peak memory must lie within DRYRUN_PEAK_RATIO of the
-    measured one."""
-    import os
+def dry_steps():
+    """Phase 14's step and phase 18's two as their reports name them
+    (DRYRUN_CODE's ``steps``), known before they run."""
+    from repro_torch.configs import get_config
 
+    train = get_config(TRAIN_ARCH)
+    xlstm = dataclasses.replace(get_config(XLSTM_TRAIN_ARCH), n_layers=XLSTM_TRAIN_LAYERS,
+                                slstm_layers=XLSTM_TRAIN_SLSTM)
+    return [{"arch": c.name, "batch": b, "seq": s, "layers": c.n_layers,
+             "slstm_layers": list(c.slstm_layers)}
+            for c, b, s in ((train, TRAIN_BATCH, TRAIN_SEQ),
+                            (xlstm, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ),
+                            (xlstm, XLSTM_CHECK_BATCH, XLSTM_CHECK_SEQ))]
+
+
+def start_dryrun(steps):
+    """Phase 17's subprocess on DRYRUN_PAIRS and ``steps``, started now
+    (DRYRUN_CODE; the fake process group is its process's one default
+    group), its output into temporary files: (its start, the process,
+    ``steps``, the files). It is killed at exit if it still runs (a phase
+    failed first)."""
+    import atexit
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_PAIRS),
+                             json.dumps(steps)], env=env, stdout=out, stderr=err, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return time.perf_counter(), proc, steps, (out, err)
+
+
+def dryrun_path(card, report, started=None):
+    """Phase 17: the dry run (``start_dryrun``'s subprocess: ``started``,
+    begun before the card's phases on ``dry_steps()``, or begun now):
+    DRYRUN_PAIRS, then phase 14's step and phase 18's (where they ran) on a
+    fake 1×1 mesh. Each report is printed with its per-rank peak; a
+    prefill's output bytes a rank are held to its cache's bytes over
+    DRYRUN_CACHE_RANKS plus the last logits; for the steps the predicted
+    FLOPs must equal the real step's FlopCounterMode count and the
+    predicted peak memory must lie within DRYRUN_PEAK_RATIO of the
+    measured one."""
     tag = "[dryrun]"
     t0 = time.perf_counter()
     real = [(name, report[name]) for name in ("training", "xlstm_training", "xlstm_check")
             if name in report]
-    steps = [{k: r[k] for k in ("arch", "batch", "seq", "layers", "slstm_layers")}
-             for _, r in real]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_PAIRS),
-                          json.dumps(steps)], env=env, capture_output=True, text=True,
-                         timeout=900)
-    if res.returncode != 0:
-        fail(f"{tag} the dry run failed (rc {res.returncode}): {res.stderr[-3000:]}")
-    reps = [json.loads(line[len("DRYRUN "):]) for line in res.stdout.splitlines()
+    steps = json.loads(json.dumps([{k: r[k] for k in ("arch", "batch", "seq", "layers",
+                                                      "slstm_layers")} for _, r in real]))
+    t_start, proc, planned, (out_f, err_f) = started or start_dryrun(steps)
+    if planned != steps:
+        fail(f"{tag} the dry run was started on the steps {planned}, not on those that ran: "
+             f"{steps}")
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"{tag} the dry run did not finish within 900 s of phase 17's start")
+    out_f.seek(0)
+    err_f.seek(0)
+    out, err = out_f.read(), err_f.read()
+    if proc.returncode != 0:
+        fail(f"{tag} the dry run failed (rc {proc.returncode}): {err[-3000:]}")
+    reps = [json.loads(line[len("DRYRUN "):]) for line in out.splitlines()
             if line.startswith("DRYRUN ")]
     if len(reps) != len(DRYRUN_PAIRS) + len(steps):
-        fail(f"{tag} expected {len(DRYRUN_PAIRS) + len(steps)} reports: {res.stdout[-3000:]}")
+        fail(f"{tag} expected {len(DRYRUN_PAIRS) + len(steps)} reports: {out[-3000:]}")
+    log(f"{tag} the subprocess started {time.perf_counter() - t_start:.1f} s before phase 17 "
+        f"read its reports, having waited {time.perf_counter() - t0:.1f} s for it; its traces "
+        f"took {sum(r['trace_s'] for r in reps):.1f} s")
     for rep in reps:
         log(f"{tag} {json.dumps(rep)}")
     for rep in reps[:len(DRYRUN_PAIRS)]:
@@ -4676,6 +4778,28 @@ def dryrun_path(card, report):
             f"per-rank peak {rep['memory']['peak_bytes'] / 1e9:.3f} GB, "
             f"{rep['flops_per_device']:.4e} FLOP, {rep['collective_bytes_per_device'] / 1e9:.3f} "
             f"GB of collectives, trace {rep['trace_s']:.1f} s")
+        if "cache_block_bytes" in rep:
+            # a prefill's output: its cache, the whole over the ranks its
+            # shapes divide it over, and the last logits (the peak printed
+            # beside the whole cache)
+            name = f"{rep['arch']}/{rep['shape']}"
+            ranks = DRYRUN_CACHE_RANKS.get((rep["arch"], rep["shape"]))
+            if ranks is None:
+                fail(f"{tag} {name}: no entry in DRYRUN_CACHE_RANKS")
+            out, whole = rep["memory"]["output_bytes"], rep["cache_whole_bytes"]
+            allowed = whole / ranks + rep["logits_bound_bytes"]
+            log(f"{tag} {name}: output {out / 1e9:.4f} GB a rank against the whole cache over "
+                f"{ranks} ranks {whole / ranks / 1e9:.4f} GB (the placements' blocks "
+                f"{rep['cache_block_bytes'] / 1e9:.4f} GB) + the logits' bound "
+                f"{rep['logits_bound_bytes'] / 1e9:.4f} GB; peak "
+                f"{rep['memory']['peak_bytes'] / 1e9:.3f} GB against the whole cache's "
+                f"{whole / 1e9:.3f} GB")
+            if rep["cache_block_bytes"] * ranks != whole:
+                fail(f"{tag} {name}: the placements' blocks ({rep['cache_block_bytes']} bytes) "
+                     f"are not the whole cache ({whole}) over {ranks} ranks")
+            if out > allowed:
+                fail(f"{tag} {name}: a rank's output holds {out} bytes, more than the whole "
+                     f"cache over {ranks} ranks and the logits ({allowed:.0f})")
     ratios = {}
     for (name, r), step, mine in zip(real, steps, reps[len(DRYRUN_PAIRS):]):
         predicted, measured = mine["memory"]["peak_bytes"], r["peak_bytes_remat_on"]

@@ -48,7 +48,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import time
 from typing import Any, Dict, Optional, Union
@@ -59,7 +58,7 @@ from ..configs import ARCH_IDS, get_config
 from ..configs.base import InputShape, ModelConfig
 from ..configs.shapes import SHAPES, get_shape
 from ..models import build_model
-from ..models.common import tree_leaves, tree_unflatten
+from ..models.common import tree_unflatten
 from ..models.inputs import input_specs
 from ..models.model import COMPUTE_DTYPE
 from ..models.scan import counting_chunks
@@ -78,17 +77,7 @@ def _placed_empty(shape, dtype, axes, rules: MeshRules, device):
     """A DTensor of ``shape`` laid out by its logical ``axes`` whose local
     shard is an empty tensor (under a ``FakeTensorMode``, one that holds no
     storage)."""
-    from torch.distributed.tensor import DTensor, Shard
-
-    placements = rules.placements(axes, shape)
-    local = list(shape)
-    for mesh_dim, p in enumerate(placements):
-        if isinstance(p, Shard):
-            local[p.dim] //= rules.mesh.size(mesh_dim)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(torch.empty(local, dtype=dtype, device=device), rules.mesh,
-                              placements, run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+    return rules.full(shape, axes, None, dtype, device)
 
 
 def fake_params(model, rules: MeshRules, device):
@@ -127,12 +116,8 @@ def build_step(arch: Union[str, ModelConfig], shape_name: Union[str, InputShape]
                 return model.prefill(params, batch, shape.seq_len)
 
         return prefill, (params, batch)
+    # under the installed rules each rank makes only its block of the cache
     cache = model.init_cache(shape.global_batch, shape.seq_len, torch.device(device))
-    cache_axes = dict(tree_leaves(model.cache_axes()))
-    cache = tree_unflatten(
-        (path, _placed_empty(leaf.shape, leaf.dtype, cache_axes[path], rules, device)
-         if isinstance(leaf, torch.Tensor) and leaf.dim() else leaf)
-        for path, leaf in tree_leaves(cache))
 
     def decode(params, token, cache):
         with sharded_compute():

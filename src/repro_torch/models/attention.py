@@ -7,10 +7,14 @@ Prefill dispatches as the reference does: up to ``BLOCKWISE_THRESHOLD``
 positions the direct (materialized-scores) attention, above it the
 blockwise online-softmax attention, whose score memory is one (block_q,
 block_kv) tile per head; either masks keys outside a sliding ``window``.
-Under installed mesh rules whose head count does not divide the model
-axis (StarCoder2-7B's 36 heads), a causal self-attention over more than
-2048 positions may shard its query sequence over 'model' instead
-(``_seq_sharded_attention``, with the rules' ``seq_shard_attention``).
+Under installed mesh rules whose model axis does not divide the head
+count (Scout's 40 heads, StarCoder2-7B's 36 on 16 model ranks) and does
+divide the sequence, q's layout puts the sequence on 'model' (the
+``act_seq`` fallback), and a causal attention keeps that split: each model
+rank runs its own query rows against the whole keys and values
+(``_seq_split``), on the direct and the blockwise path alike;
+the rules' ``seq_shard_attention`` (``--optimized``) takes that path at
+over 2048 positions in any case, as the reference's ``shard_map`` does.
 The cache is updated in place (PyTorch idiom; the reference returns new
 arrays).
 
@@ -36,7 +40,7 @@ import torch
 
 from ..sharding.specs import current_rules, local_shard, mesh_placements, shard_act, \
     wrap_local
-from .common import apply_rope, causal_mask
+from .common import Leaf, apply_rope, causal_mask
 
 # a decode cache length: a host int, or an int32 (b,) device tensor per slot
 Length = Union[int, torch.Tensor]
@@ -127,6 +131,11 @@ def split_heads(y: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return y.reshape(y.shape[0], y.shape[1], n_heads, head_dim)
 
 
+# the logical layout of q (the sequence takes 'model' only where the heads
+# cannot: a fallback)
+Q_AXES = ("batch", "act_seq", "heads", "head_dim")
+
+
 def _want_seq_shard_map(n_heads: int, q_shape) -> bool:
     """The reference's test for the sequence-sharded attention: rules with
     ``seq_shard_attention`` installed, a model axis over 1 that the head
@@ -141,39 +150,60 @@ def _want_seq_shard_map(n_heads: int, q_shape) -> bool:
     return tp > 1 and n_heads % tp != 0 and s > 2048 and s % tp == 0 and b % dp == 0
 
 
-def _seq_sharded_attention(q, k, v, window: Optional[int]) -> torch.Tensor:
-    """Causal attention with the query sequence sharded over 'model' (the
-    reference's ``shard_map``): each model rank runs the blockwise attention
-    for its ``s / tp`` query rows from their absolute offset ``shard ·
-    s / tp``, against the whole keys and values (all-gathered over 'model';
-    their gradients come back as partial sums over it). The batch stays on
-    the data axes. q, k, v: (b, s, h, hd) DTensors; the result is laid out
-    as q."""
+def _seq_on_model(q_shape) -> bool:
+    """Whether the installed rules lay q's sequence out over 'model': the
+    ``act_seq`` fallback, where the head count does not divide the model
+    axis and the sequence does (Scout's 40 heads, StarCoder2's 24 and 36 on
+    16 model ranks), as the reference's baseline layout does."""
+    rules = current_rules()
+    if rules is None:
+        return False
+    spec = rules.spec(Q_AXES, q_shape)
+    return len(spec) > 1 and spec[1] is not None
+
+
+def _seq_split(q, k, v, attend) -> torch.Tensor:
+    """Attention with the query sequence sharded over 'model' (the
+    reference's ``shard_map``, and its baseline layout where the heads do
+    not divide the model axis): each model rank runs ``attend(q_rows, k,
+    v, row0)`` for its ``s / tp`` query rows, ``row0`` = ``shard · s / tp``
+    the index of its first, against the whole keys and values (gathered
+    over 'model'; their gradients come back as partial sums over it). The
+    batch stays on the data axes where they divide it. q, k, v: (b, s, h,
+    hd) DTensors; the result is laid out as q."""
     rules = current_rules()
     mesh = rules.mesh
     dp_axis = rules.rules.get("batch")
-    tp = rules.axis_size("model")
-    s_local = q.shape[1] // tp
-    q_pl = mesh_placements(mesh, {dp_axis: 0, "model": 1})
-    kv_pl = mesh_placements(mesh, {dp_axis: 0})
-    kv_grad = mesh_placements(mesh, {dp_axis: 0}, partial="model")
+    rows = {dp_axis: 0} if q.shape[0] % rules.axis_size(dp_axis) == 0 else {}
+    s_local = q.shape[1] // rules.axis_size("model")
+    q_pl = mesh_placements(mesh, {**rows, "model": 1})
+    kv_pl = mesh_placements(mesh, rows)
+    kv_grad = mesh_placements(mesh, rows, partial="model")
     qb = local_shard(q, q_pl)
     kb, vb = (local_shard(t, kv_pl, kv_grad) for t in (k, v))
-    q_offset = mesh.get_local_rank("model") * s_local
-    out = _blockwise_attention(qb, kb, vb, q_offset, True, window)
+    out = attend(qb, kb, vb, mesh.get_local_rank("model") * s_local)
     return wrap_local(out, mesh, q_pl, q.shape)
+
+
+def _seq_sharded_attention(q, k, v, window: Optional[int]) -> torch.Tensor:
+    """The reference's ``shard_map`` (``--optimized``): the causal
+    blockwise attention of each model rank's query rows (``_seq_split``)."""
+    return _seq_split(q, k, v, lambda qb, kb, vb, row0: _blockwise_attention(
+        qb, kb, vb, row0, True, window))
 
 
 def _per_head(core, q, k, v) -> torch.Tensor:
     """``core(q, k, v)``, an attention over (b, s, h, hd) tensors, with its
     heads merged: (b, s, h·hd). Under installed rules each rank runs it on
     its batch rows (data axes) and, where the model axis divides the heads,
-    its heads: every (row, head) is independent, so nothing is exchanged
-    but the layout, and DTensor propagates none of its steps. The heads
-    merge on the local block, so the gradient arriving from the output
-    projection is brought to this layout before it is split into heads
-    again (split over 'model' it would not divide 12 heads on 16 ranks).
-    Plain tensors go straight through."""
+    its heads: q, k and v are gathered into that layout (a causal attention
+    whose heads the model axis does not divide keeps q's sequence split
+    instead, ``_seq_split``). Every (row, head) is independent,
+    so DTensor propagates none of the core's steps. The heads merge on the
+    local block, so the gradient arriving from the output projection is
+    brought to this layout before it is split into heads again (split over
+    'model' it would not divide 12 heads on 16 ranks). Plain tensors go
+    straight through."""
     rules = current_rules()
     if rules is None:
         return core(q, k, v).flatten(2)
@@ -186,6 +216,15 @@ def _per_head(core, q, k, v) -> torch.Tensor:
     pl = mesh_placements(rules.mesh, dims)
     out = core(*(local_shard(t, pl) for t in (q, k, v)))
     return wrap_local(out.flatten(2), rules.mesh, pl, q.shape[:2] + (h * q.shape[3],))
+
+
+def _attention_mask(sq: int, sk: int, q_offset: int, window: Optional[int], device):
+    """The direct attention's (sq, sk) causal mask for queries at q_offset
+    + i, keys j; with a ``window``, also key j > query i − window."""
+    mask = causal_mask(sq, sk, q_offset, device)
+    if window is not None:
+        mask = mask & ~causal_mask(sq, sk, q_offset - window, device)
+    return mask
 
 
 def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
@@ -221,8 +260,7 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
         k, v = kv_override
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
-    # the sequence takes 'model' only where the heads cannot (a fallback)
-    q = shard_act(q, ("batch", "act_seq", "heads", "head_dim"))
+    q = shard_act(q, Q_AXES)
     k = shard_act(k, ("batch", None, "kv_heads", "head_dim"))
     v = shard_act(v, ("batch", None, "kv_heads", "head_dim"))
     n_rep = n_heads // k.shape[2]
@@ -230,16 +268,28 @@ def multi_head_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], n_hea
     sk = k.shape[1]
     if blockwise_threshold is None:
         blockwise_threshold = BLOCKWISE_THRESHOLD
-    if causal and _want_seq_shard_map(n_heads, q.shape):
-        out = _seq_sharded_attention(q, k, v, window).reshape(b, s, n_heads * head_dim)
-    elif max(s, sk) > blockwise_threshold:
-        out = _per_head(lambda *qkv: _blockwise_attention(*qkv, sk - s if causal else 0, causal,
-                                                          window), q, k, v)
+    q_offset = sk - s if causal else 0
+
+    seq_map = causal and _want_seq_shard_map(n_heads, q.shape)  # --optimized
+
+    # the attention of q's rows from row ``row0`` on (the whole sequence
+    # from 0, a model rank's rows from its shard's first)
+    if seq_map or max(s, sk) > blockwise_threshold:
+        def attend(qb, kb, vb, row0):
+            return _blockwise_attention(qb, kb, vb, q_offset + row0, causal, window)
     else:
-        mask = causal_mask(s, sk, sk - s, x.device) if causal else None
-        if causal and window is not None:  # and key j > query i - window
-            mask = mask & ~causal_mask(s, sk, sk - s - window, x.device)
-        out = _per_head(lambda *qkv: _direct_attention(*qkv, mask), q, k, v)
+        def attend(qb, kb, vb, row0):
+            mask = _attention_mask(qb.shape[1], sk, q_offset + row0, window, qb.device) \
+                if causal else None
+            return _direct_attention(qb, kb, vb, mask)
+    if seq_map or (causal and _seq_on_model(q.shape)):
+        # the merged heads take 'model' from the sequence for the o
+        # projection (one all_to_all): DTensor has no product of a
+        # sequence-sharded input and a head-sharded weight
+        out = shard_act(_seq_split(q, k, v, attend).reshape(b, s, n_heads * head_dim),
+                        ("batch", None, "heads"))
+    else:
+        out = _per_head(lambda *qkv: attend(*qkv, 0), q, k, v)
     return out @ params[f"{p}wo"]
 
 
@@ -259,19 +309,17 @@ class CacheSpec:
         return min(self.max_seq, self.window) if self.window else self.max_seq
 
 
-def init_kv_cache(spec: CacheSpec, n_layers: int, dtype, device=None) -> Dict:
-    shape = (n_layers, spec.batch, spec.physical_len, spec.n_kv_heads, spec.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "length": 0,  # tokens written so far (host int: never data-dependent)
-    }
+def kv_cache_layout(spec: CacheSpec, n_layers: int, dtype) -> Dict:
+    """The (L, b, P, kv, hd) K and V leaves of a linear or rotating cache
+    (``common.Leaf``s: ``Model.init_cache`` makes them) and its length."""
+    kv = Leaf((n_layers, spec.batch, spec.physical_len, spec.n_kv_heads, spec.head_dim), dtype)
+    return {"k": kv, "v": kv, "length": 0}  # length: a host int, never data-dependent
 
 
 def init_paged_kv_cache(n_pages: int, page_tokens: int, batch: int, max_pages: int,
                         n_kv_heads: int, head_dim: int, n_layers: int, dtype,
                         device=None) -> Dict:
-    """The paged twin of ``init_kv_cache``: per-layer page pools (L,
+    """The paged twin of ``kv_cache_layout``: per-layer page pools (L,
     n_pages, page_tokens, kv, hd), a (batch, max_pages) int32 page table
     and per-slot int32 lengths (b,), all on ``device``. ``max_pages ·
     page_tokens`` is the logical ``max_seq``, so the gathered view has the

@@ -2,13 +2,15 @@
 positions and the causal mask (the port's copy of ``repro.models.common``;
 params are plain dicts of tensors); the per-layer views of stacked leaves
 the per-layer rematerialisation of the training forward; and the flat
-view of the nested param dict (paths ``top`` or ``top/sub``).
+view of the nested param dict (paths ``top`` or ``top/sub``); ``Leaf``, a
+cache leaf described before it is made.
 
 A parameter table maps each leaf's name to (shape, init std or
 'ones'/'zeros', logical axes): the reference's ``ParamDef``, so the axes
 that shard a leaf come from the table that makes it."""
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -85,6 +87,21 @@ def tree_unflatten(pairs) -> Dict[str, Any]:
             node = node.setdefault(top, {})
         node[last] = leaf
     return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A tensor not made yet: its whole shape, dtype and fill value. A
+    cache is described as a tree of these (``Model``'s ``cache_layout``),
+    so that under mesh rules each rank can make only its block."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    fill: float = 0.0
+
+    def new(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device``."""
+        return torch.full(self.shape, self.fill, dtype=self.dtype, device=device)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -26,7 +26,8 @@ them, as in the reference.
     model.init(seed, device)                       -> params (stacked leaves)
     model.init_cache(b, max_seq, device)           -> the family's cache (a KV
         cache rotates past WINDOW_ENGAGE_THRESHOLD positions:
-        ``effective_window``)
+        ``effective_window``); under installed mesh rules each rank makes
+        only its block of each leaf (``cache_layout``, ``cache_axes``)
     model.init_paged_cache(b, max_seq, page_tokens, n_pages, device)
                                                    -> paged KV cache (decoders)
     model.forward(params, batch, remat=None)       -> (hidden, aux): the
@@ -61,6 +62,7 @@ reference's params over with ``models/convert.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -74,17 +76,17 @@ from .attention import (
     CacheSpec,
     cache_layer_update,
     decode_attention,
-    init_kv_cache,
+    kv_cache_layout,
     init_paged_kv_cache,
     multi_head_attention,
     project_kv_for_decode,
 )
-from .common import BLOCK_AXES, layer_norm, rematerialised, rms_norm, sinusoidal_positions, tree_leaves, \
+from .common import BLOCK_AXES, Leaf, layer_norm, rematerialised, rms_norm, sinusoidal_positions, tree_leaves, \
     tree_unflatten, unstack, with_axes
 from .mlp import gelu_mlp
 from .moe import moe_param_shapes
 from .ssm import Mamba2Config, mamba2_decode_step, mamba2_forward, mamba2_param_shapes, \
-    mamba2_state_init
+    mamba2_state_layout
 from .transformer import (
     apply_norm,
     block_decode,
@@ -97,13 +99,14 @@ from .transformer import (
     stack_prefill,
 )
 from .xlstm import (
+    MLSTM_STATE_AXES,
     XLSTMConfig,
     mlstm_forward,
     mlstm_param_shapes,
-    mlstm_state_init,
+    mlstm_state_layout,
     slstm_forward,
     slstm_param_shapes,
-    slstm_state_init,
+    slstm_state_layout,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -122,18 +125,27 @@ DEC_POSITIONS = 4096
 WHOLE_SEQ = ("batch", None, "act_embed")
 
 
-def _place_cache(cache: Dict, axes) -> Dict:
-    """A fresh cache laid out by its logical ``axes`` under installed mesh
-    rules (the reference's cache shardings, so a prefill's writes meet a
-    DTensor of their own kind); the cache as it is without rules."""
+def _new_cache(impl, batch_size: int, max_seq: int, device) -> Dict:
+    """The family ``impl``'s empty cache (``impl.cache_layout``) on
+    ``device``: whole tensors; under installed mesh rules DTensors laid out
+    by their logical axes (``impl.cache_axes()``, the reference's cache
+    shardings, so a prefill's writes meet a DTensor of their own kind), of
+    which this rank makes only its block (``MeshRules.full``), as GSPMD
+    gives each device of the reference's jitted prefill only its block."""
     rules = current_rules()
-    if rules is None:
-        return cache
-    ax = dict(tree_leaves(axes))
-    return tree_unflatten(
-        (path, rules.distribute(leaf, ax[path])
-         if isinstance(leaf, torch.Tensor) and leaf.dim() and ax.get(path) else leaf)
-        for path, leaf in tree_leaves(cache))
+    axes = dict(tree_leaves(impl.cache_axes()))
+
+    def make(leaf, logical):
+        if isinstance(leaf, tuple):  # a recurrent block's state
+            return tuple(map(make, leaf, logical))
+        if not isinstance(leaf, Leaf):
+            return leaf  # the length
+        if rules is None:
+            return leaf.new(device)
+        return rules.full(leaf.shape, logical, leaf.fill, leaf.dtype, device)
+
+    return tree_unflatten((path, make(leaf, axes[path]))
+                          for path, leaf in tree_leaves(impl.cache_layout(batch_size, max_seq)))
 
 
 def effective_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
@@ -295,8 +307,16 @@ class Model:
     def init_cache(self, batch_size: int, max_seq: int, device=None) -> Dict:
         """The family's empty decode cache for ``max_seq`` positions on
         ``device`` (default ``cuda``): a KV cache (rotating past the window
-        threshold), recurrent states, or both."""
-        return self._impl.init_cache(batch_size, max_seq, resolve_device(device))
+        threshold), recurrent states, or both. Under installed mesh rules
+        each leaf is a DTensor laid out by ``cache_axes``, this rank making
+        only its block."""
+        return _new_cache(self._impl, batch_size, max_seq, resolve_device(device))
+
+    def cache_layout(self, batch_size: int, max_seq: int) -> Dict:
+        """``init_cache``'s tree before it is made: a ``common.Leaf`` (whole
+        shape, dtype, fill) per tensor, tuples of them for a recurrent
+        block's state, and the length."""
+        return self._impl.cache_layout(batch_size, max_seq)
 
     def cache_axes(self):
         """The logical axes of ``init_cache``'s tree, in its structure: a
@@ -416,13 +436,13 @@ class _DecoderLM:
         return {**_embed_shapes(self.cfg),
                 **_nested("layers", block_param_shapes(self.cfg), self.cfg.n_layers)}
 
-    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+    def cache_layout(self, batch_size: int, max_seq: int) -> Dict:
         """A linear KV cache of ``max_seq`` positions, or past the window
         threshold a rotating one of ``min(max_seq, sliding_window)``."""
         cfg = self.cfg
         spec = CacheSpec(batch=batch_size, max_seq=max_seq, n_kv_heads=cfg.n_cache_kv_heads,
                          head_dim=cfg.resolved_head_dim, window=effective_window(cfg, max_seq))
-        return init_kv_cache(spec, cfg.n_layers, COMPUTE_DTYPE, device)
+        return kv_cache_layout(spec, cfg.n_layers, COMPUTE_DTYPE)
 
     def cache_axes(self):
         kv = ("layer", "batch", "cache_seq", "cache_kv_heads", "head_dim")
@@ -470,7 +490,7 @@ class _DecoderLM:
         b, s, _ = x.shape
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
-        cache = _place_cache(self.init_cache(b, max_seq, x.device), self.cache_axes())
+        cache = _new_cache(self, b, max_seq, x.device)
         x = stack_prefill(params["layers"], x, self.cfg, _positions(b, s, x.device), cache,
                           effective_window(self.cfg, max_seq))
         return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
@@ -566,19 +586,17 @@ class _Zamba:
                 x = block_forward(params["shared"], x, cfg, positions, window)[0]
         return _final_norm(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+    def cache_layout(self, batch_size: int, max_seq: int) -> Dict:
         cfg = self.cfg
-        phys = _phys_len(cfg, max_seq)
 
         def stacked_state(n):
-            st = mamba2_state_init(self.mcfg, batch_size, COMPUTE_DTYPE, device)
-            return {k: v[None].repeat(n, *([1] * v.ndim)) for k, v in st.items()}
+            return {k: dataclasses.replace(leaf, shape=(n, *leaf.shape)) for k, leaf in
+                    mamba2_state_layout(self.mcfg, batch_size, COMPUTE_DTYPE).items()}
 
-        kv = (self.n_groups, batch_size, phys, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kv = Leaf((self.n_groups, batch_size, _phys_len(cfg, max_seq), cfg.n_kv_heads,
+                   cfg.resolved_head_dim), COMPUTE_DTYPE)
         cache = {"mamba_groups": stacked_state(self.n_groups * self.group_size),
-                 "attn_k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
-                 "attn_v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
-                 "length": 0}
+                 "attn_k": kv, "attn_v": kv, "length": 0}
         if self.n_tail:
             cache["mamba_tail"] = stacked_state(self.n_tail)
         return cache
@@ -614,7 +632,7 @@ class _Zamba:
         cfg = self.cfg
         x = _embed(params, batch["tokens"])
         b, s, _ = x.shape
-        cache = _place_cache(self.init_cache(b, max_seq, x.device), self.cache_axes())
+        cache = _new_cache(self, b, max_seq, x.device)
         positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)
         phys = cache["attn_k"].shape[2]
         for lp, stack, i, app in self._layers(params):
@@ -700,29 +718,26 @@ class _XLSTM:
         checkpoint around a block would make the backward run each scan a
         third time."""
         x = shard_act(_embed(params, batch["tokens"]), ("batch", "act_seq", "act_embed"))
-        x = self._run(params, x, self.init_cache(x.shape[0], x.shape[1], x.device))
+        x = self._run(params, x, _new_cache(self, x.shape[0], x.shape[1], x.device))
         return _final_norm(params, x, self.cfg), torch.zeros((), dtype=torch.float32,
                                                              device=x.device)
 
-    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
-        cache = {f"block_{i}": (slstm_state_init(self.xcfg, batch_size, device)
-                                if self._is_slstm(i)
-                                else mlstm_state_init(self.xcfg, batch_size, device))
+    def cache_layout(self, batch_size: int, max_seq: int) -> Dict:
+        cache = {f"block_{i}": (slstm_state_layout(self.xcfg, batch_size) if self._is_slstm(i)
+                                else mlstm_state_layout(self.xcfg, batch_size))
                  for i in range(self.cfg.n_layers)}
         cache["length"] = 0
         return cache
 
     def cache_axes(self):
-        axes = {f"block_{i}": ((("batch", None),) * 4 if self._is_slstm(i) else
-                               (("batch", "heads", None, None), ("batch", "heads", None),
-                                ("batch", "heads")))
+        axes = {f"block_{i}": (("batch", None),) * 4 if self._is_slstm(i) else MLSTM_STATE_AXES
                 for i in range(self.cfg.n_layers)}
         axes["length"] = ()
         return axes
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         x = _embed(params, batch["tokens"])
-        cache = _place_cache(self.init_cache(x.shape[0], max_seq, x.device), self.cache_axes())
+        cache = _new_cache(self, x.shape[0], max_seq, x.device)
         x = self._run(params, x, cache)
         cache["length"] = x.shape[1]
         return _logits(params, _final_norm(params, x, self.cfg)[:, -1], self.cfg), cache
@@ -835,16 +850,12 @@ class _Whisper:
             x = layer(lp, x, enc, positions, window)
         return _final_norm(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def init_cache(self, batch_size: int, max_seq: int, device) -> Dict:
+    def cache_layout(self, batch_size: int, max_seq: int) -> Dict:
         cfg = self.cfg
         kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        shape = (cfg.n_layers, batch_size, _phys_len(cfg, max_seq), kv, hd)
-        enc_shape = (cfg.n_layers, batch_size, cfg.frontend_tokens, kv, hd)
-        return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                "enc_k": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
-                "enc_v": torch.zeros(enc_shape, dtype=COMPUTE_DTYPE, device=device),
-                "length": 0}
+        self_kv = Leaf((cfg.n_layers, batch_size, _phys_len(cfg, max_seq), kv, hd), COMPUTE_DTYPE)
+        enc_kv = Leaf((cfg.n_layers, batch_size, cfg.frontend_tokens, kv, hd), COMPUTE_DTYPE)
+        return {"k": self_kv, "v": self_kv, "enc_k": enc_kv, "enc_v": enc_kv, "length": 0}
 
     def cache_axes(self):
         kv = ("layer", "batch", "cache_seq", "cache_kv_heads", "head_dim")
@@ -858,7 +869,7 @@ class _Whisper:
         cfg = self.cfg
         enc = self._encode(params, batch["frontend"])
         b, s = batch["tokens"].shape
-        cache = _place_cache(self.init_cache(b, max_seq, enc.device), self.cache_axes())
+        cache = _new_cache(self, b, max_seq, enc.device)
         x = _embed(params, batch["tokens"])
         x = x + self._dec_pos(params, torch.arange(s, device=x.device))[None]
         positions, window = _positions(b, s, x.device), effective_window(cfg, max_seq)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding.specs import over_batch, shard_act
-from .common import rms_norm, swish
+from .common import Leaf, rms_norm, swish
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +73,9 @@ def _split_in_proj(zxbcdt: torch.Tensor, cfg: Mamba2Config):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d_conv: int):
     """Depthwise causal conv over (b, s, c), then swish; the taps are summed
-    in f32 and rounded once to xbc's dtype. On a mesh each data rank runs
-    its batch rows (``over_batch``)."""
+    in f32 and rounded once to xbc's dtype. Every channel is independent:
+    on a mesh each data rank runs its batch rows and each model rank its
+    channels (``over_batch``)."""
     s = xbc.shape[1]
     pad = F.pad(xbc, (0, 0, d_conv - 1, 0))
     views = torch.stack([pad[:, i: i + s] for i in range(d_conv)])  # (d_conv, b, s, c)
@@ -103,8 +104,10 @@ def _dt_decay(dt: torch.Tensor, params, cfg: Mamba2Config):
 def _ssd_chunks(xs_f, b_h, c_h, dt, da, q: int, d_state: int):
     """The chunked SSD scan over (b, s, h, ·) inputs (x in f32, B and C,
     the step sizes and log-decays), from a zero state: (y (b, s, h, p) f32
-    before the skip, the state at the end (b, h, p, n) f32). On a mesh
-    each data rank runs its batch rows (``over_batch``)."""
+    before the skip, the state at the end (b, h, p, n) f32). Every head is
+    independent: on a mesh each data rank runs its batch rows and each
+    model rank its heads (``over_batch``), B and C taken from the groups'
+    whole repeat."""
     b, s, h, pdim = xs_f.shape
     pad = (-s) % q
     if pad:  # padded steps: dt = 0 (decay 1), no input
@@ -138,6 +141,26 @@ def _ssd_chunks(xs_f, b_h, c_h, dt, da, q: int, d_state: int):
     return torch.cat(ys, dim=1)[:, :s], state
 
 
+def _conv_region(d_conv: int):
+    """The causal conv on local blocks (``over_batch``): each data rank its
+    batch rows, each model rank its channels of xBC and of the taps and
+    bias (conv_dim over 'model', as the reference lays them out), where the
+    model axis divides conv_dim; else every channel on every model rank."""
+    return over_batch(functools.partial(_causal_conv, d_conv=d_conv), weights=(1, 2),
+                      model={0: 2, 1: 1, 2: 0}, out_model=2)
+
+
+def _ssd_region(q: int, d_state: int):
+    """The SSD scan on local blocks (``over_batch``): each data rank its
+    batch rows, each model rank its SSD heads of every input (ssm_heads
+    over 'model'), where the model axis divides them; else every head on
+    every model rank. B and C come whole, repeated over the heads, and each
+    rank takes its heads' copies: their gradients come back as those
+    heads' slices, exact, and are gathered whole."""
+    return over_batch(functools.partial(_ssd_chunks, q=q, d_state=d_state),
+                      model={i: 2 for i in range(5)}, out_model=(2, 1))
+
+
 def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2Config,
                    return_state: bool = False):
     """Full-sequence chunked SSD forward: (b, s, d) → (b, s, d). With
@@ -147,14 +170,14 @@ def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2
     b, s, _ = x.shape
     zxbcdt = x @ params["w_in"]
     z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
-    xbc = over_batch(functools.partial(_causal_conv, d_conv=cfg.d_conv), weights=(1, 2))(
-        xbc_raw, params["conv_w"], params["conv_b"])
+    xbc = _conv_region(cfg.d_conv)(xbc_raw, params["conv_w"], params["conv_b"])
+    # whole over 'model' before the x / B / C lanes are sliced off it
+    xbc = shard_act(xbc, ("batch", None, None))
     xs, b_h, c_h = _heads(xbc, cfg)  # (b, s, h, p), (b, s, h, n) x2
     xs = shard_act(xs, ("batch", None, "ssm_heads", None))
     dt, a = _dt_decay(dt, params, cfg)  # (b, s, h), (h,)
     xs_f = xs.to(torch.float32)
-    y, state = over_batch(functools.partial(_ssd_chunks, q=cfg.chunk, d_state=cfg.d_state))(
-        xs_f, b_h, c_h, dt, dt * a)
+    y, state = _ssd_region(cfg.chunk, cfg.d_state)(xs_f, b_h, c_h, dt, dt * a)
     y = y + xs_f * params["d_skip"].to(torch.float32)[None, None, :, None]
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
     out = rms_norm(y * swish(z), params["norm_w"]) @ params["w_out"]
@@ -165,14 +188,16 @@ def mamba2_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: Mamba2
     return out, {"conv": conv.to(x.dtype), "ssm": state}
 
 
+def mamba2_state_layout(cfg: Mamba2Config, batch: int, dtype) -> Dict[str, Leaf]:
+    """The decode state's leaves: the conv window (b, d_conv − 1,
+    conv_dim) in ``dtype`` and the SSM state (b, h, p, n) in f32."""
+    return {"conv": Leaf((batch, cfg.d_conv - 1, cfg.conv_dim), dtype),
+            "ssm": Leaf((batch, cfg.n_heads, cfg.head_dim, cfg.d_state), torch.float32)}
+
+
 def mamba2_state_init(cfg: Mamba2Config, batch: int, dtype, device=None) -> Dict:
-    """A zero decode state: the conv window (b, d_conv − 1, conv_dim) in
-    ``dtype`` and the SSM state (b, h, p, n) in f32."""
-    return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.conv_dim), dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
-                           dtype=torch.float32, device=device),
-    }
+    """A zero decode state (``mamba2_state_layout``)."""
+    return {k: leaf.new(device) for k, leaf in mamba2_state_layout(cfg, batch, dtype).items()}
 
 
 def mamba2_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],

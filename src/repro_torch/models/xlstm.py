@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding.specs import over_batch, shard_act
-from .common import gelu, rms_norm, swish
+from .common import Leaf, gelu, rms_norm, swish
 from .scan import chunked_scan
 
 NEG_M = -1e30  # the initial max-stabiliser, as in the reference
@@ -80,12 +80,17 @@ def mlstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object, tuple
     }
 
 
-def mlstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
-    """(C (b, h, dh, dh), n (b, h, dh), m (b, h)), f32."""
+def mlstm_state_layout(cfg: XLSTMConfig, batch: int) -> Tuple[Leaf, ...]:
+    """The leaves of (C (b, h, dh, dh), n (b, h, dh), m (b, h)), f32; m at
+    −1e30."""
     h, dh = cfg.n_heads, cfg.head_dim
-    return (torch.zeros((batch, h, dh, dh), dtype=torch.float32, device=device),
-            torch.zeros((batch, h, dh), dtype=torch.float32, device=device),
-            torch.full((batch, h), NEG_M, dtype=torch.float32, device=device))
+    return (Leaf((batch, h, dh, dh), torch.float32), Leaf((batch, h, dh), torch.float32),
+            Leaf((batch, h), torch.float32, NEG_M))
+
+
+def mlstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
+    """(C, n, m) of ``mlstm_state_layout``."""
+    return tuple(leaf.new(device) for leaf in mlstm_state_layout(cfg, batch))
 
 
 def _mlstm_step(state, qt, kt, vt, li, lf):
@@ -106,10 +111,28 @@ def _mlstm_step(state, qt, kt, vt, li, lf):
 def _mlstm_scan(chunk, q, k, v, log_i, f_pre, c, n, m):
     """The mLSTM recurrence over (b, s, h, dh) f32 inputs and the forget
     gate's pre-activations from the state (c, n, m), chunked by ``chunk``
-    steps. Returns (y (b, s, h, dh), the state after the last step). On a
-    mesh each data rank runs its batch rows (``over_batch``)."""
+    steps. Returns (y (b, s, h, dh), the state after the last step). Each
+    value row of C, and so each element of y, depends only on its row of v
+    and on q, k, the gates, n and m whole, so v and C may hold a share of
+    the rows (dh / tp of every head on a mesh, ``_mlstm_region``): y and C
+    come back with those rows, by the same ops on each element."""
     return chunked_scan(_mlstm_step, (q, k, v, log_i, F.logsigmoid(f_pre)), (), (c, n, m),
-                        chunk, q.shape[2:])
+                        chunk, v.shape[2:])
+
+
+# the mLSTM state's logical axes: (C, n, m)
+MLSTM_STATE_AXES = (("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads"))
+
+
+def _mlstm_region(chunk: int):
+    """The mLSTM scan on local blocks (``over_batch``): each data rank its
+    batch rows and, where the model axis divides dh, each model rank the
+    dh / tp value rows of every head of v and C (and so of y), with q, k,
+    the gates, n and m whole, as the reference's layouts split its
+    products along d_inner over 'model'. Where it does not divide dh, the
+    scan runs whole on every model rank."""
+    return over_batch(functools.partial(_mlstm_scan, chunk), model={2: 3, 5: 2},
+                      out_model=(3, (2, None, None)))
 
 
 def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
@@ -127,11 +150,14 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     f_pre = (xm @ params["w_fg"] + params["b_fg"]).to(torch.float32)
     if state is None:
         state = mlstm_state_init(cfg, b, x.device)
-    y, state = over_batch(functools.partial(_mlstm_scan, cfg.chunk))(qf, kf, vf, log_i, f_pre,
-                                                                    *state)
-    # laid out by rows alone, so that its gradient comes back so: sharded
-    # over 'model' along d_inner, it could not be viewed as (h, dh) where
-    # the heads do not divide the axis (xLSTM-125M's 4 over 16)
+    y, (c, n, m) = _mlstm_region(cfg.chunk)(qf, kf, vf, log_i, f_pre, *state)
+    # the state as the cache lays it out: one gather of C's rows
+    state = tuple(shard_act(t, axes) for t, axes in zip((c, n, m), MLSTM_STATE_AXES))
+    # y gathered whole over 'model' (it came back by value rows), and after
+    # its heads merge laid out by rows alone, so that its gradient comes back
+    # so: sharded over 'model' along d_inner, it could not be viewed as (h,
+    # dh) where the heads do not divide the axis (xLSTM-125M's 4 over 16)
+    y = shard_act(y, ("batch", None, None, None))
     y = shard_act(y.reshape(b, s, cfg.d_inner), ("batch", None, None)).to(x.dtype)
     y = rms_norm(y, params["norm_w"]) * swish(z)
     return y @ params["w_down"], state
@@ -157,10 +183,15 @@ def slstm_param_shapes(cfg: XLSTMConfig) -> Dict[str, Tuple[tuple, object, tuple
     }
 
 
+def slstm_state_layout(cfg: XLSTMConfig, batch: int) -> Tuple[Leaf, ...]:
+    """The leaves of (c, n, m, h), each (b, d) f32; m at −1e30."""
+    z = Leaf((batch, cfg.d_model), torch.float32)
+    return (z, z, Leaf(z.shape, torch.float32, NEG_M), z)
+
+
 def slstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
-    """(c, n, m, h), each (b, d) f32; m at −1e30."""
-    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
-    return (z, z.clone(), torch.full_like(z, NEG_M), z.clone())
+    """(c, n, m, h) of ``slstm_state_layout``."""
+    return tuple(leaf.new(device) for leaf in slstm_state_layout(cfg, batch))
 
 
 def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,

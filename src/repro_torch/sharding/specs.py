@@ -172,6 +172,29 @@ class MeshRules:
         return tuple(Shard(on[name]) if name in on else Replicate()
                      for name in mesh_axis_sizes(self.mesh))
 
+    def block_shape(self, shape: Sequence[int], placements: tuple) -> Tuple[int, ...]:
+        """This rank's block of a tensor of ``shape`` laid out as
+        ``placements``: each sharded dim divided by the sizes of the mesh
+        dims that shard it (``spec`` takes only axes that divide)."""
+        from torch.distributed.tensor import Shard
+
+        local = list(shape)
+        for mesh_dim, p in enumerate(placements):
+            if isinstance(p, Shard):
+                local[p.dim] //= self.mesh.size(mesh_dim)
+        return tuple(local)
+
+    def full(self, shape: Sequence[int], logical: Sequence[Optional[str]],
+             fill: Optional[float], dtype: torch.dtype, device=None):
+        """A DTensor of ``shape`` filled with ``fill`` (left empty where it
+        is None), laid out by its logical axes, of which this rank
+        allocates only its block: nothing of the whole size is made."""
+        pl = self.placements(logical, shape)
+        block = self.block_shape(shape, pl)
+        local = (torch.empty(block, dtype=dtype, device=device) if fill is None
+                 else torch.full(block, fill, dtype=dtype, device=device))
+        return wrap_local(local, self.mesh, pl, shape)
+
     def distribute(self, x: torch.Tensor, logical: Sequence[Optional[str]]):
         """A whole tensor (the same on every rank) as a DTensor laid out by
         its logical axes: each rank keeps its slice, nothing is sent."""
@@ -286,16 +309,66 @@ def replicated(fn):
     return run
 
 
-def over_batch(fn, weights: Tuple[int, ...] = ()):
-    """``fn`` run on each data rank's batch rows where the installed rules
-    leave DTensor no sharding strategy to follow (the xLSTM recurrences,
-    chunked scans over time, ``models/scan.py``): every argument but the
-    ``weights`` (their positions) has the batch as dim 0 and is taken
-    local over the batch axes (whole where they do not divide it),
-    replicated over the rest; the weights are taken whole, their gradients
-    partial sums over the batch axes. Each tensor ``fn`` returns, in nested
-    tuples, has the batch as dim 0 too. A plain tensor argument counts as
-    replicated. The identity with no rules installed."""
+class _GradOnFirstModelRank(torch.autograd.Function):
+    """The identity, whose gradient is kept on model rank 0 and zero on the
+    others: the gradient of a value every model rank computed whole, fed
+    into sums over the model ranks (``over_batch``'s partial gradients),
+    so that it is counted once."""
+
+    @staticmethod
+    def forward(ctx, x, first: bool):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+class _SumGradOverModel(torch.autograd.Function):
+    """The identity on a block laid out as ``placements`` (whole over
+    'model'), whose gradient, each model rank's part of a sum, is summed
+    over 'model' (one all-reduce): it leaves replicated, as a gradient of a
+    whole operand does. Left partial, it would make DTensor run the
+    products it flows back through whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+
+        names = tuple(mesh_axis_sizes(ctx.mesh))
+        parts = tuple(Partial() if name == "model" else p
+                      for name, p in zip(names, ctx.placements))
+        summed = DTensor.from_local(g, ctx.mesh, parts, run_check=False)
+        return summed.redistribute(ctx.mesh, ctx.placements).to_local(), None, None
+
+
+def over_batch(fn, weights: Tuple[int, ...] = (), model: Optional[Dict[int, int]] = None,
+               out_model=None):
+    """``fn`` run on local blocks where the installed rules leave DTensor no
+    sharding strategy to follow (the xLSTM recurrences, chunked scans over
+    time, ``models/scan.py``; Mamba2's causal conv and SSD scan). Every
+    argument but the ``weights`` (their positions) has the batch as dim 0
+    and is taken local over the batch axes (whole where they do not divide
+    it); the weights are taken whole over them, their gradients partial
+    sums over the batch axes. Each tensor ``fn`` returns, in nested tuples,
+    has the batch as dim 0 too.
+
+    Over 'model' every argument is taken whole, unless ``model`` = {position:
+    dim} names some to be taken local along ``dim`` and a model axis over 1
+    divides each of those dims: each model rank then runs its share of the
+    work. The other arguments stay whole on every model rank, and each
+    rank's share adds a part to their gradients, which are summed over
+    'model' as they leave; ``out_model`` mirrors what ``fn`` returns: for
+    each tensor the dim along which it comes back local over 'model', or
+    None for one every model rank computed whole (its gradient is counted
+    on model rank 0 only, so those sums stay exact). A plain tensor
+    argument counts as replicated. The identity with no rules installed."""
     @functools.wraps(fn)
     def run(*args):
         rules = current_rules()
@@ -305,25 +378,40 @@ def over_batch(fn, weights: Tuple[int, ...] = ()):
 
         mesh = rules.mesh
         dp_axis = rules.rules.get("batch")
-        dp = rules.axis_size(dp_axis)
+        dp, tp = rules.axis_size(dp_axis), rules.axis_size("model")
         b = next(a.shape[0] for i, a in enumerate(args) if i not in weights)
         rows = {dp_axis: 0} if b % dp == 0 else {}
-        whole = mesh_placements(mesh, {})
-        pl = mesh_placements(mesh, rows)
-        summed = mesh_placements(mesh, {}, dp_axis if rows else None)
+        split = dict(model or {})
+        if tp == 1 or any(args[i].shape[d] % tp for i, d in split.items()):
+            split = {}
+        first = mesh.get_local_rank("model") == 0 if split else True
 
         def take(i, a):
             if not isinstance(a, DTensor):
-                a = DTensor.from_local(a, mesh, whole, run_check=False)
-            return local_shard(a, whole, summed) if i in weights else local_shard(a, pl)
+                a = DTensor.from_local(a, mesh, mesh_placements(mesh, {}), run_check=False)
+            dims = {} if i in weights else dict(rows)
+            if i in split:
+                dims["model"] = split[i]
+            pl = mesh_placements(mesh, dims)
+            local = local_shard(a, pl, mesh_placements(mesh, dims, dp_axis)
+                                if i in weights and rows else None)
+            if split and i not in split:
+                local = _SumGradOverModel.apply(local, mesh, pl)
+            return local
 
-        def give(o):
+        def give(o, dim):
             if isinstance(o, tuple):
-                return tuple(map(give, o))
-            n = o.shape[0] * (dp if rows else 1)
-            return wrap_local(o, mesh, pl, (n, *o.shape[1:]))
+                return tuple(give(x, d) for x, d in zip(o, dim or (None,) * len(o)))
+            dims, shape = dict(rows), list(o.shape)
+            shape[0] *= dp if rows else 1
+            if split and dim is not None:
+                dims["model"] = dim
+                shape[dim] *= tp
+            elif split:
+                o = _GradOnFirstModelRank.apply(o, first)
+            return wrap_local(o, mesh, mesh_placements(mesh, dims), tuple(shape))
 
-        return give(fn(*(take(i, a) for i, a in enumerate(args))))
+        return give(fn(*(take(i, a) for i, a in enumerate(args))), out_model)
 
     return run
 
