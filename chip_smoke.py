@@ -295,14 +295,18 @@ DEADLINE_GAP_STEPS, DEADLINE_STEPS = 2.0, (24.0, 16.0, 40.0)
 VLM_SLOTS, VLM_REQUESTS, VLM_SLOT_NEW = 4, 8, 8
 
 
-# phase 11: the other dense decoders at full width and depth, served as
-# phase 4 serves TinyLlama (StarCoder2-7B: LayerNorm, the gelu MLP through
-# K1; Granite-3-2B: the tied head, K2); then the rotating window on
-# StarCoder2-7B's weights: a cache for WINDOW_MAX_SEQ positions (past the
-# 65,536-position threshold, so it holds sliding_window = 4096), a prompt of
-# WINDOW_PROMPT tokens (over the window, so rolled, and over
-# BLOCKWISE_THRESHOLD), WINDOW_DECODE decode steps
-DENSE_ARCHS, WINDOW_ARCH = ("starcoder2-7b", "granite-3-2b"), "starcoder2-7b"
+# phase 11: the other dense decoders at full width, (arch, layers kept),
+# served as phase 4 serves TinyLlama (StarCoder2-7B: LayerNorm, the gelu
+# MLP through K1; Granite-3-2B: the tied head, K2); depth cut to 8 of 32
+# and 10 of 40 layers for the script's time limit (the phase took 174 s of
+# 904 at full depth on a typical host; slow hosts ran the script past its
+# 1200 s): every kernel keeps its widths, its launch counts scale with the
+# layers. Then the rotating window on StarCoder2-7B's weights: a cache for
+# WINDOW_MAX_SEQ positions (past the 65,536-position threshold, so it holds
+# sliding_window = 4096), a prompt of WINDOW_PROMPT tokens (over the
+# window, so rolled, and over BLOCKWISE_THRESHOLD), WINDOW_DECODE decode
+# steps
+DENSE_ARCHS, WINDOW_ARCH = (("starcoder2-7b", 8), ("granite-3-2b", 10)), "starcoder2-7b"
 WINDOW_MAX_SEQ, WINDOW_PROMPT, WINDOW_DECODE = 65_600, 4_160, 16
 
 
@@ -396,8 +400,22 @@ DRYRUN_PAIRS = (("tinyllama-1.1b", "train_4k", 6), ("internvl2-76b", "decode_32k
 # alone: OLMoE's (L, b, S, kv, hd) K and V with the batch's 32 rows over
 # 'data' (16) and the 16 kv heads over 'model' (16); xLSTM-125M's states
 # with the batch over 'data' and whole over 'model' (its 4 heads do not
-# divide 16, as in the reference)
+# divide 16; the sLSTM's (b, d) state stays whole over 'model', as the
+# reference's cache_axes lay it out, though its scan splits the gates'
+# columns over 'model')
 DRYRUN_CACHE_RANKS = {("olmoe-1b-7b", "prefill_32k"): 256, ("xlstm-125m", "prefill_32k"): 16}
+# the reference's own FLOPs a device for a pair (its dry run's
+# trip-count-corrected ``analyze_hlo`` count of the compiled step on its
+# (16, 16) mesh, at the pair's layers), and the relative gap allowed. From
+#   XLA_FLAGS=--xla_force_host_platform_device_count=512 JAX_PLATFORMS=cpu
+#   python: build_step("xlstm-125m", "prefill_32k", mesh, rules) of
+#   repro.launch.dryrun with get_config's n_layers replaced by 4, jitted
+#   with its in_shardings on jax.make_mesh((16, 16), ("data", "model"),
+#   axis_types=(AxisType.Auto,) * 2), lowered, compiled, analyze_hlo(hlo)
+#   ["flops"] (jax 0.9.0 on the CPU; 12 layers give 9.93657053184e11, the
+#   reference's --all figure)
+DRYRUN_REF_FLOPS = {("xlstm-125m", "prefill_32k", 4): 312921513984.0}
+DRYRUN_REF_RTOL = 0.005
 DRYRUN_PEAK_RATIO = (0.8, 1.25)
 DRYRUN_CODE = r"""
 import dataclasses, json, math, os, sys
@@ -416,6 +434,25 @@ from repro_torch.sharding import MeshRules
 # beside the card's phases: one thread, a lower priority
 torch.set_num_threads(1)
 os.nice(10)
+
+# the sLSTM scans' FLOPs a rank, counted apart (the dry run's counter)
+from repro_torch.models import scan, xlstm
+slstm_flops, slstm_region = [0], xlstm._slstm_region
+
+
+def counted_region(chunk):
+    run = slstm_region(chunk)
+
+    def go(*args):
+        with scan.chunk_counter().measured() as delta:
+            out = run(*args)
+        slstm_flops[0] += delta["flops"]
+        return out
+
+    return go
+
+
+xlstm._slstm_region = counted_region
 
 
 def cache_bytes(cfg, shape, rules):
@@ -438,7 +475,9 @@ pairs, steps = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 mesh = make_dry_mesh(*production_shape(False), device_type="cuda")
 for arch, shape, layers in pairs:
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    slstm_flops[0] = 0
     rep = run_dryrun(cfg, shape, mesh=mesh, verbose=False)
+    rep["slstm_flops"] = slstm_flops[0]
     if get_shape(shape).kind == "prefill":
         rules = MeshRules.for_mesh(mesh, fsdp=cfg.fsdp)
         rep["cache_whole_bytes"], rep["cache_block_bytes"] = cache_bytes(cfg, get_shape(shape),
@@ -1050,7 +1089,7 @@ def main():
     done("phases 1-2 (card, build)")
     dry = start_dryrun(dry_steps())  # phase 17's subprocess, on the host's CPU meanwhile
     kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH),
-                  [get_config(arch) for arch in DENSE_ARCHS])
+                  [get_config(arch) for arch, _ in DENSE_ARCHS])
     done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
     kernels += vlm_path(dev, get_config(VLM_ARCH), card, report)
     done("phase 7")
@@ -1072,8 +1111,10 @@ def main():
     kernels += lane_rows(report)
     kernels += slot_path(dev, get_config("tinyllama-1.1b"), card, report)
     done("phase 10, TinyLlama continuous batching")
-    for arch in DENSE_ARCHS:
-        model, params, rows = dense_path(dev, get_config(arch), card, report)
+    for arch, n_layers in DENSE_ARCHS:
+        model, params, rows = dense_path(dev, dataclasses.replace(get_config(arch),
+                                                                  n_layers=n_layers),
+                                         card, report)
         kernels += rows
         done(f"phase 11, {arch}")
         if arch == WINDOW_ARCH:
@@ -3326,7 +3367,7 @@ def dense_width_checks(dev, dcfgs, randn, check, failures):
 
 
 def dense_path(dev, cfg, card, report):
-    """Phase 11, one arch: ``cfg`` at full width and depth, random weights
+    """Phase 11, one arch: ``cfg`` at full width (DENSE_ARCHS' depth), random weights
     from seed 0, batch BATCH, prompt PROMPT, DECODE decode tokens through
     ``ServeEngine``, ``--method chunk --sparsity 0.4 --device nano
     --backend kernel``, at wbits 16 and 8, as phase 4 runs TinyLlama. The
@@ -3334,7 +3375,7 @@ def dense_path(dev, cfg, card, report):
     and must be exact: K1 at q, k, v, o (and the gelu MLP's fc and proj) of
     every layer each step, K2 at every layer of a SwiGLU MLP, K5 once per
     refresh step. The first REF_DECODE + 1 tokens must equal the reference
-    backend's (the twin, at full depth). Then, outside the counted runs: the
+    backend's (the twin, at the same depth). Then, outside the counted runs: the
     timings as in phase 5 (K1 per site, fc and proj set apart; the plain
     version per site too), every K1, K2 and K5 call timed bitwise against
     its plain version, wall per decode step and the profiled idle share.
@@ -3353,7 +3394,7 @@ def dense_path(dev, cfg, card, report):
     gelu_family = cfg.mlp == "gelu"
     k1_per_layer = 6 if gelu_family else 4
     tag = f"[dense] {cfg.name}"
-    log(f"{tag}: {n_layers} layers (all), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+    log(f"{tag}: {n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
         f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{cfg.norm}, {cfg.mlp} MLP, head {'tied (embed.T)' if cfg.tie_embeddings else 'own'}; "
         f"random weights from seed 0; batch {BATCH}, prompt {PROMPT}, {DECODE} decode tokens")
@@ -4734,6 +4775,35 @@ def start_dryrun(steps):
     return time.perf_counter(), proc, steps, (out, err)
 
 
+def shape_cache_bytes(cfg, shape, dp=16, tp=16):
+    """A prefill pair's whole cache and one rank's share of it, in bytes,
+    from the config's shapes alone (not from the port's cache layout or
+    its placements): a dense or MoE decoder's K and V, (L, b, S, kv, hd)
+    in bf16, the batch over 'data' where dp divides it and the kv heads
+    over 'model' where tp divides them, else the sequence; xLSTM's states
+    in f32, mLSTM (C (b, h, dh, dh), n (b, h, dh), m (b, h)) with the heads
+    over 'model' where tp divides them, the sLSTM's four (b, d), the batch
+    over 'data'."""
+    b, seq = shape.global_batch, shape.seq_len
+    rows = dp if b % dp == 0 else 1
+    leaves = []  # (whole bytes, ranks)
+    if cfg.slstm_layers or cfg.name.startswith("xlstm"):
+        d, h = cfg.d_model, cfg.n_heads
+        dh = 2 * d // h
+        heads = tp if h % tp == 0 else 1
+        for i in range(cfg.n_layers):
+            if i in cfg.slstm_layers:
+                leaves += [(b * d * 4, rows)] * 4
+            else:
+                leaves += [(b * h * dh * dh * 4, rows * heads), (b * h * dh * 4, rows * heads),
+                           (b * h * 4, rows * heads)]
+    else:
+        kv, hd = cfg.n_cache_kv_heads, cfg.resolved_head_dim
+        over = tp if kv % tp == 0 or seq % tp == 0 else 1
+        leaves += [(cfg.n_layers * b * seq * kv * hd * 2, rows * over)] * 2
+    return sum(n for n, _ in leaves), sum(n // r for n, r in leaves)
+
+
 def dryrun_path(card, report, started=None):
     """Phase 17: the dry run (``start_dryrun``'s subprocess: ``started``,
     begun before the card's phases on ``dry_steps()``, or begun now):
@@ -4744,6 +4814,9 @@ def dryrun_path(card, report, started=None):
     FLOPs must equal the real step's FlopCounterMode count and the
     predicted peak memory must lie within DRYRUN_PEAK_RATIO of the
     measured one."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import get_shape
+
     tag = "[dryrun]"
     t0 = time.perf_counter()
     real = [(name, report[name]) for name in ("training", "xlstm_training", "xlstm_check")
@@ -4778,6 +4851,31 @@ def dryrun_path(card, report, started=None):
             f"per-rank peak {rep['memory']['peak_bytes'] / 1e9:.3f} GB, "
             f"{rep['flops_per_device']:.4e} FLOP, {rep['collective_bytes_per_device'] / 1e9:.3f} "
             f"GB of collectives, trace {rep['trace_s']:.1f} s")
+        key = (rep["arch"], rep["shape"], rep["n_layers"])
+        if rep.get("slstm_flops"):
+            # the sLSTM scans' forward products (the backward runs outside
+            # the region), split over all 256 ranks
+            xc, shp = get_config(rep["arch"]), get_shape(rep["shape"])
+            n_s = sum(1 for i in xc.slstm_layers if i < rep["n_layers"])
+            sdh = xc.d_model // xc.n_heads
+            n_steps = 1 if shp.kind == "decode" else shp.seq_len
+            one = n_s * 2 * shp.global_batch * n_steps * xc.n_heads * sdh * 4 * sdh
+            log(f"{tag} {rep['arch']}/{rep['shape']}: the sLSTM scans' forward "
+                f"{rep['slstm_flops']:.4e} FLOP a rank; at 1x1 {one:.4e}, over 256 "
+                f"{one / 256:.4e}")
+            if rep["slstm_flops"] * 256 != one:
+                fail(f"{tag} {rep['arch']}/{rep['shape']}: the sLSTM scans count "
+                     f"{rep['slstm_flops']} FLOP a rank, not 1/256 of {one}")
+        if key in DRYRUN_REF_FLOPS:
+            ref = DRYRUN_REF_FLOPS[key]
+            gap = rep["flops_per_device"] / ref - 1
+            log(f"{tag} {rep['arch']}/{rep['shape']} at {rep['n_layers']} layers: "
+                f"{rep['flops_per_device']:.6e} FLOP a rank against the reference's "
+                f"{ref:.6e}: {100 * gap:+.3f} % (allowed {100 * DRYRUN_REF_RTOL:.1f} %)")
+            if abs(gap) > DRYRUN_REF_RTOL:
+                fail(f"{tag} {rep['arch']}/{rep['shape']}: FLOPs a rank "
+                     f"{rep['flops_per_device']} are {100 * gap:+.3f} % off the reference's "
+                     f"{ref}")
         if "cache_block_bytes" in rep:
             # a prefill's output: its cache, the whole over the ranks its
             # shapes divide it over, and the last logits (the peak printed
@@ -4797,6 +4895,16 @@ def dryrun_path(card, report, started=None):
             if rep["cache_block_bytes"] * ranks != whole:
                 fail(f"{tag} {name}: the placements' blocks ({rep['cache_block_bytes']} bytes) "
                      f"are not the whole cache ({whole}) over {ranks} ranks")
+            # the same from the shapes alone, leaf by leaf
+            cfg = dataclasses.replace(get_config(rep["arch"]), n_layers=rep["n_layers"])
+            s_whole, s_block = shape_cache_bytes(cfg, get_shape(rep["shape"]))
+            log(f"{tag} {name}: from the shapes alone the cache is {s_whole / 1e9:.4f} GB, "
+                f"{s_block / 1e9:.4f} GB a rank")
+            if (s_whole, s_block) != (whole, rep["cache_block_bytes"]) or \
+                    s_block * ranks != s_whole:
+                fail(f"{tag} {name}: the shapes give the cache {s_whole} bytes and a rank "
+                     f"{s_block}; the port's layout {whole} and its placements' blocks "
+                     f"{rep['cache_block_bytes']}; DRYRUN_CACHE_RANKS {ranks}")
             if out > allowed:
                 fail(f"{tag} {name}: a rank's output holds {out} bytes, more than the whole "
                      f"cache over {ranks} ranks and the logits ({allowed:.0f})")

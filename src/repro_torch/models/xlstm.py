@@ -13,6 +13,11 @@ every step's matrix memory. The reference pads the sequence to whole
 chunks whose padded steps never touch the state; here a tail chunk runs
 only its own steps, so a decode step is one step, not 64. The m states
 start at −1e30.
+
+Under mesh rules both scans run on local blocks (``over_batch``): each
+data rank its batch rows; over 'model' the mLSTM splits its matrix
+memory's value rows (``_mlstm_region``) and the sLSTM its gate columns
+(``_slstm_region``), as the reference's compiled steps split them.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding.specs import over_batch, shard_act
+from ..sharding.specs import current_rules, over_batch, shard_act
 from .common import Leaf, gelu, rms_norm, swish
 from .scan import chunked_scan
 
@@ -201,37 +206,164 @@ def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
     if state is None:
         state = slstm_state_init(cfg, x.shape[0], x.device)
-    ys, state = over_batch(functools.partial(_slstm_scan, cfg.chunk), weights=(1,))(
-        pre, params["r_gates"].to(torch.float32), *state)
+    ys, state = _slstm_region(cfg.chunk)(pre, params["r_gates"].to(torch.float32), *state)
     y = rms_norm(ys.to(x.dtype), params["norm_w"])
     return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], state
 
 
-def _slstm_step(state, pre_t, r_w):
-    """One sLSTM step: the (b, 4d) gate pre-activations with the head-wise
-    recurrent mix r_w (h, sdh, 4 sdh), from (c, n, m, h_prev); returns (the
-    new state, the new hidden state (b, d))."""
-    c, n, m, h_prev = state
-    b, d4 = pre_t.shape
-    h, sdh = r_w.shape[0], r_w.shape[1]
-    rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
-    # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
-    rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, d4)
-    zt, it, ft, ot = (pre_t + rec).chunk(4, dim=-1)
+def _slstm_cell(state, g):
+    """The sLSTM's update of (c, n, m, h_prev) from the (b, 4d) gate sums
+    (pre-activations plus the recurrent mix, gate-major: z, i, f, o);
+    returns (the new state, the new hidden state (b, d))."""
+    c, n, m, _ = state
+    zt, it, ft, ot = g.chunk(4, dim=-1)
     zt, ot, log_f = torch.tanh(zt), torch.sigmoid(ot), F.logsigmoid(ft)
     m_new = torch.maximum(log_f + m, it)
     i_p = torch.exp(it - m_new)
     f_p = torch.exp(log_f + m - m_new)
     c = f_p * c + i_p * zt
     n = f_p * n + i_p
-    h_prev = ot * c / torch.clamp(n, min=1e-6)
-    return (c, n, m_new, h_prev), h_prev
+    h_new = ot * c / torch.clamp(n, min=1e-6)
+    return (c, n, m_new, h_new), h_new
+
+
+def _slstm_step(state, pre_t, r_w):
+    """One sLSTM step: the (b, 4d) gate pre-activations with the head-wise
+    recurrent mix r_w (h, sdh, 4 sdh), from (c, n, m, h_prev); returns (the
+    new state, the new hidden state (b, d))."""
+    h_prev = state[3]
+    b, d4 = pre_t.shape
+    h, sdh = r_w.shape[0], r_w.shape[1]
+    rec = torch.einsum("bhk,hkj->bhj", h_prev.reshape(b, h, sdh), r_w)
+    # (b, h, 4 sdh) → the (b, 4d) gate layout: gate-major, then heads
+    rec = rec.reshape(b, h, 4, sdh).transpose(1, 2).reshape(b, d4)
+    return _slstm_cell(state, pre_t + rec)
 
 
 def _slstm_scan(chunk, pre, r_w, c, n, m, h_prev):
     """The sLSTM recurrence over the (b, s, 4d) f32 gate pre-activations
     with the head-wise recurrent mix r_w from the state (c, n, m, h_prev),
     chunked by ``chunk`` steps. Returns (the hidden states (b, s, d) f32,
-    the state after the last step). On a mesh each data rank runs its batch
-    rows (``over_batch``)."""
+    the state after the last step)."""
     return chunked_scan(_slstm_step, (pre,), (r_w,), (c, n, m, h_prev), chunk, h_prev.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM over 'model'
+# ---------------------------------------------------------------------------
+
+
+def slstm_block(d: int, sdh: int, tp: int, rank: int):
+    """Where model rank ``rank`` of ``tp`` sits in the (b, 4d) gate layout
+    (gate-major, then heads) when its 4d columns are split into ``tp``
+    contiguous blocks, as the gate projection's output is over 'model':
+    (first head, heads, gates) of its block, whose recurrent mix it
+    computes from whole heads of h. None where a block is neither whole
+    gates of every head nor whole heads of one gate."""
+    w = 4 * d // tp
+    if (4 * d) % tp:
+        return None
+    if w % d == 0:
+        return 0, d // sdh, w // d
+    if d % w or w % sdh:
+        return None
+    return rank * w % d // sdh, w // sdh, 1
+
+
+def gate_rows(r_w: torch.Tensor) -> torch.Tensor:
+    """The recurrent mix (h, sdh, 4 sdh) as (4d, sdh): row (gate, head,
+    column) holds that gate column's weights over its head's sdh inputs,
+    in the (b, 4d) gate layout's order."""
+    h, sdh = r_w.shape[0], r_w.shape[1]
+    return r_w.reshape(h, sdh, 4, sdh).permute(2, 0, 3, 1).reshape(4 * h * sdh, sdh)
+
+
+def slstm_block_sums(block, h_prev, pre_t, rows):
+    """A model rank's block of the (b, 4d) gate sums (``slstm_block``):
+    pre_t (b, w) its w = 4d/tp columns plus their recurrent mix from the
+    whole h_prev (b, d), ``rows`` (w, sdh) their rows of ``gate_rows``:
+    1/tp of the step's product."""
+    j0, hl, gl = block
+    b, sdh = h_prev.shape[0], rows.shape[1]
+    heads = h_prev.reshape(b, -1, sdh)[:, j0: j0 + hl]
+    rec = torch.einsum("bhi,ghki->bghk", heads, rows.reshape(gl, hl, sdh, sdh)).reshape(b, -1)
+    return pre_t + rec
+
+
+def _slstm_block_step(block, gather, state, pre_t, rows):
+    """One sLSTM step on a model rank's block: its gate sums, gathered
+    whole in rank order (``gather``), then the whole update, as on one
+    process."""
+    return _slstm_cell(state, gather(slstm_block_sums(block, state[3], pre_t, rows)))
+
+
+class _GatherOverModel(torch.autograd.Function):
+    """Every model rank's (b, w) block, whole (b, tp·w) in rank order: one
+    all-gather over the model group. The gradient that comes back is a
+    part of a sum on each rank (over_batch counts a whole output's
+    cotangent on model rank 0 alone); it leaves summed over the model
+    ranks, each rank its own block: one reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ..sharding.serve import _all_gather
+
+        ctx.group = group
+        return _all_gather(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        b, tp = g.shape[0], dist.get_world_size(ctx.group)
+        parts = g.reshape(b, tp, -1).permute(1, 0, 2).reshape(tp * b, -1).contiguous()
+        out = parts.new_empty((b, parts.shape[1]))
+        # reduce_scatter_single is the name since torch 2.13, as in _all_gather
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        scatter(out, parts, group=ctx.group)
+        return out, None
+
+
+def _slstm_block_scan(chunk, block, rank, group, pre, r_w, c, n, m, h_prev):
+    """``_slstm_scan`` on model rank ``rank``'s block of the gate columns:
+    pre (b, s, w) its columns, r_w and the state whole; each step issues
+    one all-gather of the (b, w) gate sums over ``group`` (one
+    reduce-scatter in the backward). Returns the whole hidden states and
+    state, the same on every model rank."""
+    w = pre.shape[2]
+    rows = gate_rows(r_w)[rank * w: (rank + 1) * w]
+    def gather(x):
+        return _GatherOverModel.apply(x, group)
+
+    return chunked_scan(functools.partial(_slstm_block_step, block, gather), (pre,), (rows,),
+                        (c, n, m, h_prev), chunk, h_prev.shape[1:])
+
+
+def _slstm_region(chunk: int):
+    """The sLSTM scan on local blocks (``over_batch``): each data rank its
+    batch rows, and, where the model axis splits the 4d gate columns into
+    blocks ``slstm_block`` places, each model rank its block of the gate
+    pre-activations as the gate projection left them and of the recurrent
+    mix, whose product is its 1/tp of the work; the block's gate sums are
+    all-gathered over 'model' each step and every model rank updates the
+    whole state, which it keeps whole as the cache lays it out
+    (``("batch", None)``). The reference's compiled step at (16, 16) splits
+    the product alike, one gate of one head a rank, and gathers each
+    head's gate sums over 4 ranks, keeping the state split 4 ways inside
+    its scan. Elsewhere (one model rank, or no such block) the scan runs
+    whole on every model rank."""
+    def run(pre, r_w, *state):
+        rules = current_rules()
+        tp = rules.axis_size("model") if rules is not None else 1
+        d, sdh = state[3].shape[1], r_w.shape[1]
+        rank = rules.mesh.get_local_rank("model") if tp > 1 else 0
+        block = slstm_block(d, sdh, tp, rank) if tp > 1 else None
+        if block is None:
+            return over_batch(functools.partial(_slstm_scan, chunk), weights=(1,))(pre, r_w,
+                                                                                  *state)
+        fn = functools.partial(_slstm_block_scan, chunk, block, rank,
+                               rules.mesh.get_group("model"))
+        return over_batch(fn, weights=(1,), model={0: 2}, out_model=(None, (None,) * 4))(
+            pre, r_w, *state)
+
+    return run

@@ -4,8 +4,12 @@
 
 The port's dry runs run in one subprocess (``tests/torch_dryrun_worker.py``:
 each takes the process's one default process group, torch's fake one) and
-the real 2×2 step in four spawned gloo ranks, both started by a module
-fixture while this process computes the reference's side.
+the real 2×2 step in four spawned gloo ranks, both started by one module
+fixture while this process computes the reference's side; a test waits
+only for the processes whose results it reads (``port``: the dry runs;
+``gloo``: the ranks, which only ``test_fake_mesh_equals_real_gloo_mesh``
+reads), and a failed process fails with the tail of its log
+(``tests/torch_procs.py``).
 
 Tolerances: shapes, argument bytes, collective counts and bytes are exact,
 and so are FLOPs. Against the reference's ``analyze_hlo`` of its compiled
@@ -42,13 +46,11 @@ import os
 import pickle
 import subprocess
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
-import torch.multiprocessing as mp
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
@@ -73,41 +75,43 @@ from repro_torch.training import AdamWConfig, Trainer
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_dryrun_worker as worker  # noqa: E402
+import torch_procs as procs  # noqa: E402
 from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("train", "prefill", "decode")
 
 
-def _join(procs, seconds=600):
-    deadline = time.monotonic() + seconds
-    while not procs.join(timeout=2):
-        if time.monotonic() > deadline:
-            for p in procs.processes:
-                p.kill()
-            pytest.fail(f"the 2x2 ranks did not finish within {seconds} s")
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    """The port's dry runs (one subprocess) and the real 2×2 step (four
+    gloo ranks), started together when the module's first test needs
+    either; each test waits only for what it reads (``port``, ``gloo``)."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    fake = procs.Sub([os.path.join(ROOT, "tests", "torch_dryrun_worker.py"), tmp / "fake.pkl"],
+                     tmp, "fake")
+    real = procs.Ranks(worker.real_2x2, (4, str(tmp / "store"), str(tmp)), 4, tmp, "real2x2")
+    yield tmp, fake, real
+    fake.stop()
+    real.stop()
 
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
-    """The port's dry runs (one subprocess) and the real 2×2 step (four
-    gloo ranks), started together; this process waits for both."""
-    tmp = tmp_path_factory.mktemp("dryrun")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    sub = subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "torch_dryrun_worker.py"),
-                            str(tmp / "fake.pkl")], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-    procs = mp.start_processes(worker.real_2x2, args=(4, str(tmp / "store"), str(tmp)),
-                               nprocs=4, join=False, start_method="spawn")
-    out, _ = sub.communicate(timeout=600)
-    assert sub.returncode == 0, out[-4000:]
-    _join(procs)
+def port(started):
+    """The fake dry runs' pickle (``torch_dryrun_worker.fake_main``)."""
+    tmp, fake, _ = started
+    fake.wait()
     with open(tmp / "fake.pkl", "rb") as f:
-        fake = pickle.load(f)
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def gloo(started):
+    """Rank 0's summary of the real 2×2 step (``torch_dryrun_worker.real_2x2``)."""
+    tmp, _, real = started
+    real.wait()
     with open(tmp / "real2x2.pkl", "rb") as f:
-        real = pickle.load(f)
-    return fake, real
+        return pickle.load(f)
 
 
 def test_shapes_equal_reference():
@@ -164,8 +168,7 @@ def test_argument_bytes_equal_reference_recount(port, arch, mesh):
     """Per-rank bytes of the placed train step's arguments (params, AdamW
     m, v and step) on the fake production meshes, against a recount from
     the reference's ``MeshRules.spec`` over its ``eval_shape``d init."""
-    fake, _ = port
-    assert fake[(mesh[0], arch)] == _ref_train_argument_bytes(arch, *mesh)
+    assert port[(mesh[0], arch)] == _ref_train_argument_bytes(arch, *mesh)
 
 
 def _ref_step(arch, kind):
@@ -213,10 +216,9 @@ def flop_gap(arch: str, kind: str) -> int:
 def test_flops_agree_with_reference_analyze_hlo(port, arch, kind):
     """The dry run's per-device FLOPs at 1×1 against ``analyze_hlo`` of the
     reference's compiled step: equal once the known gap is added."""
-    fake, _ = port
     fn, args = _ref_step(arch, kind)
     want = analyze_hlo(jax.jit(fn).lower(*args).compile().as_text())["flops"]
-    got = fake[("flops", arch, kind)]
+    got = port[("flops", arch, kind)]
     assert got > 0
     assert got == want + flop_gap(arch, kind), (got, want)
 
@@ -244,25 +246,23 @@ def test_flops_equal_flop_counter_of_real_step(port, arch, kind):
     """The fake 1×1 step (DTensors on a one-rank fake mesh, no storage)
     predicts exactly what ``FlopCounterMode`` counts of the real step on
     plain tensors (the check chip_smoke.py phase 17 makes on the card)."""
-    fake, _ = port
     step = _real_step(arch, kind)
     with FlopCounterMode(display=False) as fc:
         step()
-    assert fake[("flops", arch, kind)] == fc.get_total_flops()
+    assert port[("flops", arch, kind)] == fc.get_total_flops()
 
 
-def test_fake_mesh_equals_real_gloo_mesh(port):
+def test_fake_mesh_equals_real_gloo_mesh(port, gloo):
     """Reduced TinyLlama's FSDP train step on a fake 2×2 mesh and on four
     real gloo ranks: the same collectives (counts and bytes by kind), FLOPs
     and argument bytes for rank 0."""
-    fake, real = port
-    rep, got = fake["fake2x2"], real["summary"]
+    rep, got = port["fake2x2"], gloo["summary"]
     assert rep["mesh"]["axes"] == {"data": 2, "model": 2}
     assert rep["collectives"]["counts"] == got["collectives"]["counts"]
     assert rep["collective_per_kind"] == got["collective_per_kind"]
     assert rep["collective_bytes_per_device"] == got["collective_bytes"] > 0
     assert rep["flops_per_device"] == got["flops"] > 0
-    assert rep["memory"]["argument_bytes"] == real["argument_bytes"]
+    assert rep["memory"]["argument_bytes"] == gloo["argument_bytes"]
     assert rep["memory"]["peak_bytes"] >= rep["memory"]["argument_bytes"]
     assert rep["memory"]["fits"] and rep["trace_s"] > 0
 

@@ -56,7 +56,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro.configs import get_config as jget
 from repro.models import build_model as jbuild
@@ -77,8 +76,9 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.sharding import MeshRules
 from repro_torch.training import load_checkpoint
 from torch_mesh_ranks import (CASES, CLI, DTYPES, FAMILIES, GRAD_COS, GRAD_REL, LINE, LOSS_CHUNK, M_REL,
-                              METRIC_RTOL, OPT, PIECE_TOL, ROOT, V_REL, WORLD, _batch, _cfg, _join,
+                              METRIC_RTOL, OPT, PIECE_TOL, ROOT, V_REL, WORLD, _batch, _cfg,
                               _rank_main, _reference_rank_main, _step)
+import torch_procs as procs
 from torch_threads import one_thread  # noqa: F401
 
 def _pieces():
@@ -118,8 +118,8 @@ def runs(tmp_path_factory):
     process works while they run."""
     tmp = tmp_path_factory.mktemp("mesh_train")
     pieces = _pieces()
-    procs = mp.start_processes(_rank_main, args=(WORLD, str(tmp / "store"), str(tmp), pieces),
-                               nprocs=WORLD, join=False, start_method="spawn")
+    rank_procs = procs.Ranks(_rank_main, (WORLD, str(tmp / "store"), str(tmp), pieces), WORLD,
+                             tmp, "mesh_train")
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -135,7 +135,7 @@ def runs(tmp_path_factory):
         cli = buf.getvalue()
     finally:
         torch.set_num_threads(n)
-    _join(procs)
+    rank_procs.wait()
     ranks = []
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
@@ -401,10 +401,8 @@ def test_reference_mesh_step_equals_port_mesh_step(tmp_path):
     res = subprocess.run([sys.executable, "-c", JAX_MESH, str(ROOT), str(ref_path)], env=env,
                          capture_output=True, text=True, timeout=900, cwd=str(ROOT))
     assert res.returncode == 0, res.stderr[-4000:]
-    procs = mp.start_processes(_reference_rank_main,
-                               args=(WORLD, str(tmp_path / "store"), str(tmp_path), str(ref_path)),
-                               nprocs=WORLD, join=False, start_method="spawn")
-    _join(procs)
+    procs.Ranks(_reference_rank_main, (WORLD, str(tmp_path / "store"), str(tmp_path),
+                                       str(ref_path)), WORLD, tmp_path, "ref_ranks").wait()
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
     for r in range(WORLD):

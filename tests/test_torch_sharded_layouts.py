@@ -1,14 +1,20 @@
 """What one rank of a mesh computes and holds, where the layouts split the
 work: a prefill's KV cache made as each rank's block, the causal attention
 of each model rank's query rows where the heads do not divide the model
-axis, and the mLSTM, Mamba2 SSD and causal-conv regions split over
+axis, and the mLSTM, sLSTM, Mamba2 SSD and causal-conv regions split over
 'model'. Each against the same port on one process (the 1×1 run).
+
+The processes start together in one module fixture (``started``: the
+ranks and the fake mesh's two subprocesses, ``tests/torch_procs.py``) and
+each test waits only for those whose results it reads (``mesh``,
+``fake``); ``one`` runs the 1×1 cases in this process meanwhile.
 
 On a 2×2 (data, model) mesh of four spawned gloo ranks
 (``tests/torch_layout_ranks.py``), f32:
   * TinyLlama (reduced): prefill, then four greedy decode steps: the same
     tokens as 1×1, logits within 1e-5, each rank's K cache a quarter of
-    the whole;
+    the whole; reduced xLSTM-125M (block 1 an sLSTM) alike: the same
+    tokens, logits within 1e-5;
   * an attention sublayer of 3 heads over 1 kv head (Scout's GQA shape at
     a size the model axis of 2 does not divide), on the direct path and,
     with ``attention.BLOCKWISE_THRESHOLD`` lowered, the blockwise one: the
@@ -42,7 +48,18 @@ On a 2×2 (data, model) mesh of four spawned gloo ranks
     time, which is the same sum in either order): each rank computes op
     for op what one process computes on its rows, heads or channels, so
     the gap to the whole 1×1 run is the CPU's arithmetic at the smaller
-    shapes, not the mesh.
+    shapes, not the mesh;
+  * the sLSTM split over 'model' by its gate columns (``xlstm.
+    _slstm_region``: at 2 model ranks each rank two gates of every head,
+    its half of the recurrent mix, the gate sums all-gathered each step,
+    the state whole on both). Nothing of it is bitwise the whole 1×1 run:
+    a rank's half of the recurrent mix is a product over half the gate
+    columns, whose summation order the CPU picks by its shape, and every
+    output and gradient depends on it; all within 1e-5 relative (2e-7 in
+    fact). Bitwise ``torch_layout_ranks._slstm_by_rank``: the model ranks
+    run in lockstep in one process, each on its block with the same ops,
+    the gathered sums concatenated, the parts of a gradient added two at
+    a time.
 
 On a fake (4, 4) mesh (a subprocess; fake tensors):
   * reduced OLMoE's and Zamba2's prefill: each cache leaf's local storage
@@ -52,6 +69,9 @@ On a fake (4, 4) mesh (a subprocess; fake tensors):
     every rank);
   * 6 heads over 4 model ranks: the largest f32 storage of the attention's
     forward and backward is the score tile of s/4 query rows, not of s;
+  * the sLSTM region's forward at reduced xLSTM-125M's widths: a rank's
+    FLOPs are the 1×1 run's over 16, and each step issues one all-gather
+    of its data rank's (b/4, 4d) gate sums;
   * reduced xLSTM-125M's train step: the dry run that counts one chunk
     for all equals a trace of every step (FLOPs, bytes, collectives),
     with the mLSTM split over 'model'.
@@ -59,16 +79,15 @@ On a fake (4, 4) mesh (a subprocess; fake tensors):
 import os
 import pickle
 import re
-import subprocess
 import sys
 
 import numpy as np
 import pytest
-import torch.multiprocessing as mp
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_layout_ranks as ranks  # noqa: E402
-from torch_mesh_ranks import GRAD_COS, GRAD_REL, _join  # noqa: E402
+import torch_procs as procs  # noqa: E402
+from torch_mesh_ranks import GRAD_COS, GRAD_REL  # noqa: E402
 from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,41 +96,58 @@ SUM_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The four ranks' results and the fake mesh's, started together; this
-    process runs the 1×1 cases meanwhile."""
+def started(tmp_path_factory):
+    """The fake mesh's two subprocesses and the four gloo ranks, started
+    together when the module's first test needs any of them; a test waits
+    only for what it reads (``one``, ``mesh``, ``fake``)."""
     tmp = tmp_path_factory.mktemp("sharded_layouts")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    subs = {mode: subprocess.Popen([sys.executable, os.path.join(ROOT, "tests",
-                                                                 "torch_layout_ranks.py"),
-                                    mode, str(tmp / f"{mode}.pkl")], env=env,
-                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for mode in ("fake", "steps")}
-    procs = mp.start_processes(ranks.rank_main, args=(ranks.WORLD, str(tmp / "store"), str(tmp)),
-                               nprocs=ranks.WORLD, join=False, start_method="spawn")
+    subs = {mode: procs.Sub([os.path.join(ROOT, "tests", "torch_layout_ranks.py"), mode,
+                             tmp / f"{mode}.pkl"], tmp, mode) for mode in ("fake", "steps")}
+    rank_procs = procs.Ranks(ranks.rank_main, (ranks.WORLD, str(tmp / "store"), str(tmp)),
+                             ranks.WORLD, tmp, "layouts")
+    yield tmp, subs, rank_procs
+    for p in (*subs.values(), rank_procs):
+        p.stop()
+
+
+@pytest.fixture(scope="module")
+def one(started):
+    """The 1×1 cases, run in this process while the others work."""
     data = ranks.case_inputs()
-    one = {"decode": ranks.prefill_decode(), "mlstm": ranks.mlstm(data["mlstm"]),
-           "ssd": ranks.ssd(data["ssd"]), "conv": ranks.conv(data["conv"])}
+    res = {"decode": ranks.prefill_decode(), "xlstm_decode": ranks.xlstm_prefill_decode()}
     for region in REGIONS:
-        one[("by_rank", region)] = ranks.region_by_rank(region, data[region])
+        res[region] = getattr(ranks, region)(data[region])
+        res[("by_rank", region)] = ranks.region_by_rank(region, data[region])
     for path in ranks.ATTN_PATHS:
-        one[("attn", path)] = ranks.attention(path, data["attn"])
-        one[("core", path)] = ranks.attention_core(path, data["core"])
-    for sub in subs.values():
-        out, _ = sub.communicate(timeout=600)
-        assert sub.returncode == 0, out[-4000:]
-    _join(procs)
-    mesh = []
+        res[("attn", path)] = ranks.attention(path, data["attn"])
+        res[("core", path)] = ranks.attention_core(path, data["core"])
+    return res
+
+
+@pytest.fixture(scope="module")
+def mesh(started):
+    """The four gloo ranks' results (``torch_layout_ranks.rank_main``)."""
+    tmp, _, rank_procs = started
+    rank_procs.wait()
+    res = []
     for r in range(ranks.WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
-            mesh.append(pickle.load(f))
-    fake = {}
-    for mode in subs:
+            res.append(pickle.load(f))
+    return res
+
+
+@pytest.fixture(scope="module")
+def fake(started):
+    """The fake (4, 4) mesh's results (``torch_layout_ranks.fake_main``),
+    the trace of every step under "steps"."""
+    tmp, subs, _ = started
+    res = {}
+    for mode, sub in subs.items():
+        sub.wait()
         with open(tmp / f"{mode}.pkl", "rb") as f:
-            fake[mode] = pickle.load(f)
-    fake["fake"]["steps"] = fake["steps"]
-    return one, mesh, fake["fake"]
+            res[mode] = pickle.load(f)
+    res["fake"]["steps"] = res["steps"]
+    return res["fake"]
 
 
 def _close(got, want, rtol=SUM_RTOL):
@@ -128,8 +164,7 @@ def _within_mesh_bounds(got, want):
 # --- A: the cache as each rank's block -------------------------------------
 
 
-def test_prefill_then_decode_tokens_equal_one_process(runs):
-    one, mesh, _ = runs
+def test_prefill_then_decode_tokens_equal_one_process(one, mesh):
     want = one["decode"]
     for res in mesh:
         got = res["decode"]
@@ -143,9 +178,20 @@ def test_prefill_then_decode_tokens_equal_one_process(runs):
         assert got["k_local"][3] == whole_k.n_cache_kv_heads // 2
 
 
+def test_xlstm_prefill_then_decode_tokens_equal_one_process(one, mesh):
+    """Reduced xLSTM-125M, its sLSTM block split over 'model' (each model
+    rank its two gates' columns, the gate sums all-gathered a step)."""
+    want = one["xlstm_decode"]
+    for res in mesh:
+        got = res["xlstm_decode"]
+        for g, w in zip(got["tokens"], want["tokens"]):
+            np.testing.assert_array_equal(g, w)
+        for g, w in zip(got["logits"], want["logits"]):
+            _close(g, w)
+
+
 @pytest.mark.parametrize("arch", ranks.PREFILL_ARCHS)
-def test_fake_4x4_prefill_cache_is_each_ranks_block(runs, arch):
-    _, _, fake = runs
+def test_fake_4x4_prefill_cache_is_each_ranks_block(fake, arch):
     leaves = fake[arch]["leaves"]
     assert leaves
     for path, whole_bytes, local_bytes, n_ranks in leaves:
@@ -156,8 +202,7 @@ def test_fake_4x4_prefill_cache_is_each_ranks_block(runs, arch):
 
 
 @pytest.mark.parametrize("arch", ranks.PREFILL_ARCHS)
-def test_fake_4x4_prefill_largest_allocation_is_under_one_layers_cache(runs, arch):
-    _, _, fake = runs
+def test_fake_4x4_prefill_largest_allocation_is_under_one_layers_cache(fake, arch):
     assert fake[arch]["largest"] < fake[arch]["layer_k"]
 
 
@@ -165,8 +210,7 @@ def test_fake_4x4_prefill_largest_allocation_is_under_one_layers_cache(runs, arc
 
 
 @pytest.mark.parametrize("path", ranks.ATTN_PATHS)
-def test_attention_core_rows_bitwise_equal_one_process(runs, path):
-    one, mesh, _ = runs
+def test_attention_core_rows_bitwise_equal_one_process(one, mesh, path):
     want = one[("core", path)]
     for res in mesh:
         got = res[("core", path)]
@@ -177,8 +221,7 @@ def test_attention_core_rows_bitwise_equal_one_process(runs, path):
 
 
 @pytest.mark.parametrize("path", ranks.ATTN_PATHS)
-def test_attention_sublayer_odd_heads_agrees_with_one_process(runs, path):
-    one, mesh, _ = runs
+def test_attention_sublayer_odd_heads_agrees_with_one_process(one, mesh, path):
     want = one[("attn", path)]
     assert not want["seq_split"]
     for res in mesh:
@@ -191,8 +234,7 @@ def test_attention_sublayer_odd_heads_agrees_with_one_process(runs, path):
             _close(g, w)
 
 
-def test_fake_4x4_score_tile_is_a_quarter_of_the_rows(runs):
-    _, _, fake = runs
+def test_fake_4x4_score_tile_is_a_quarter_of_the_rows(fake):
     a = ranks.FAKE_ATTN
     assert fake["attention"]["seq_split"]
     # one data rank's row × every head × s/4 query rows × s keys
@@ -204,13 +246,13 @@ def test_fake_4x4_score_tile_is_a_quarter_of_the_rows(runs):
 # --- C: the recurrences over 'model' ---------------------------------------
 
 
-REGIONS = ("mlstm", "ssd", "conv")
+REGIONS = ("mlstm", "ssd", "conv", "slstm")
 # the outputs (flat: the mLSTM's y, C, n, m; the SSD's y, state; the
 # conv's output) and the arguments (``torch_layout_ranks.mlstm`` / ``ssd``
 # / ``conv``) whose values and gradients are bitwise those of 1×1, by
 # position; the others agree within SUM_RTOL, see the module doc
-BITWISE_OUT = {"mlstm": (1, 2, 3), "ssd": (0, 1), "conv": ()}
-BITWISE_GRADS = {"mlstm": (2, 5), "ssd": (0, 1, 2, 3), "conv": ()}
+BITWISE_OUT = {"mlstm": (1, 2, 3), "ssd": (0, 1), "conv": (), "slstm": ()}
+BITWISE_GRADS = {"mlstm": (2, 5), "ssd": (0, 1, 2, 3), "conv": (), "slstm": ()}
 
 
 def _equal(bitwise, got, want):
@@ -221,8 +263,7 @@ def _equal(bitwise, got, want):
 
 
 @pytest.mark.parametrize("region", REGIONS)
-def test_region_outputs_and_blocks_equal_one_process(runs, region):
-    one, mesh, _ = runs
+def test_region_outputs_and_blocks_equal_one_process(one, mesh, region):
     want = one[region]["out"]
     for res in mesh:
         got = res[region]
@@ -247,8 +288,7 @@ def _block_index(local_shape, placements, coords):
 
 
 @pytest.mark.parametrize("region", REGIONS)
-def test_region_gradients_equal_one_process(runs, region):
-    one, mesh, _ = runs
+def test_region_gradients_equal_one_process(one, mesh, region):
     want = one[region]["grads"]
     for res in mesh:
         got = res[region]["grads"]
@@ -261,8 +301,7 @@ def test_region_gradients_equal_one_process(runs, region):
 
 
 @pytest.mark.parametrize("region", REGIONS)
-def test_region_bitwise_equals_each_ranks_own_one_process_run(runs, region):
-    one, mesh, _ = runs
+def test_region_bitwise_equals_each_ranks_own_one_process_run(one, mesh, region):
     want = one[("by_rank", region)]
     for res in mesh:
         got = res[region]
@@ -276,8 +315,21 @@ def test_region_bitwise_equals_each_ranks_own_one_process_run(runs, region):
             np.testing.assert_array_equal(g, w)
 
 
-def test_fake_4x4_chunk_count_equals_every_step(runs):
-    _, _, fake = runs
+def test_fake_4x4_slstm_splits_the_product_and_gathers_each_step(fake):
+    """The sLSTM region on 4 × 4 ranks: a rank's FLOPs (the recurrent mix,
+    the region's one product) are the 1×1 run's over 16 (its data rank's
+    rows, its gate's columns), and each step issues one collective, an
+    all-gather of the (b/4, 4d) gate sums over 'model'."""
+    f, d = ranks.FAKE_SLSTM, ranks._X.d_model
+    got, whole = fake["slstm"]["mesh"], fake["slstm"]["one"]
+    assert whole["flops"] > 0 and whole["collective_bytes"] == 0
+    assert got["flops"] * 16 == whole["flops"]
+    counts = got["collectives"]["counts"]
+    assert counts == {**{k: 0 for k in counts}, "all-gather": f["s"]}
+    assert got["collective_per_kind"]["all-gather"] == f["s"] * (f["b"] // 4) * 4 * d * 4
+
+
+def test_fake_4x4_chunk_count_equals_every_step(fake):
     chunks, steps = fake["chunks"], fake["steps"]
     for key in ("flops_per_device", "bytes_per_device", "collective_bytes_per_device"):
         assert chunks[key] == steps[key], key

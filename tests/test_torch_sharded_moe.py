@@ -26,19 +26,18 @@ E·cap·d elements, more than t·d here.
 """
 import os
 import pickle
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro_torch.models import moe as tmoe
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_moe_ranks as ranks  # noqa: E402
-from torch_mesh_ranks import GRAD_COS, GRAD_REL, _join  # noqa: E402
+import torch_procs as procs  # noqa: E402
+from torch_mesh_ranks import GRAD_COS, GRAD_REL  # noqa: E402
 from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,28 +45,45 @@ IDS = [f"{a.split('-')[0]}-cf{cf}-{disp}-b{b}" for a, cf, disp, b in ranks.CASES
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The four ranks' results and the fake mesh's allocations, started
-    together; this process runs the 1×1 path meanwhile."""
+def started(tmp_path_factory):
+    """The four ranks and the fake mesh's subprocess, started together when
+    the module's first test needs either; a test waits only for what it
+    reads (``mesh``, ``largest``)."""
     tmp = tmp_path_factory.mktemp("sharded_moe")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    sub = subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "torch_moe_ranks.py"),
-                            str(tmp / "largest.pkl")], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-    procs = mp.start_processes(ranks.rank_main, args=(ranks.WORLD, str(tmp / "store"), str(tmp)),
-                               nprocs=ranks.WORLD, join=False, start_method="spawn")
-    one = {case: ranks.run(*case[:3], ranks.inputs(case[0], case[3])) for case in ranks.CASES}
-    out, _ = sub.communicate(timeout=600)
-    assert sub.returncode == 0, out[-4000:]
-    _join(procs)
-    mesh = []
+    sub = procs.Sub([os.path.join(ROOT, "tests", "torch_moe_ranks.py"), tmp / "largest.pkl"], tmp,
+                    "largest")
+    rank_procs = procs.Ranks(ranks.rank_main, (ranks.WORLD, str(tmp / "store"), str(tmp)),
+                             ranks.WORLD, tmp, "moe_mesh")
+    yield tmp, sub, rank_procs
+    sub.stop()
+    rank_procs.stop()
+
+
+@pytest.fixture(scope="module")
+def one(started):
+    """The 1×1 path's results, run in this process while the others work."""
+    return {case: ranks.run(*case[:3], ranks.inputs(case[0], case[3])) for case in ranks.CASES}
+
+
+@pytest.fixture(scope="module")
+def mesh(started):
+    """The four ranks' results (``torch_moe_ranks.rank_main``)."""
+    tmp, _, rank_procs = started
+    rank_procs.wait()
+    res = []
     for r in range(ranks.WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
-            mesh.append(pickle.load(f))
+            res.append(pickle.load(f))
+    return res
+
+
+@pytest.fixture(scope="module")
+def largest(started):
+    """The fake (4, 4) mesh's largest allocations (``torch_moe_ranks``)."""
+    tmp, sub, _ = started
+    sub.wait()
     with open(tmp / "largest.pkl", "rb") as f:
-        largest = pickle.load(f)
-    return one, mesh, largest
+        return pickle.load(f)
 
 
 def _one_process_buffer(arch, cf, dispatch, batch):
@@ -81,8 +97,7 @@ def _one_process_buffer(arch, cf, dispatch, batch):
 
 
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
-def test_each_rank_fills_its_block_of_the_one_process_buffer(runs, case):
-    _, mesh, _ = runs
+def test_each_rank_fills_its_block_of_the_one_process_buffer(mesh, case):
     buf = _one_process_buffer(*case)
     e, cap, _ = buf.shape
     seen = set()
@@ -95,8 +110,7 @@ def test_each_rank_fills_its_block_of_the_one_process_buffer(runs, case):
 
 
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
-def test_forward_aux_and_drops_equal_one_process(runs, case):
-    one, mesh, _ = runs
+def test_forward_aux_and_drops_equal_one_process(one, mesh, case):
     want = one[case]
     for res in mesh:
         np.testing.assert_array_equal(res[case]["y"], want["y"])
@@ -111,8 +125,7 @@ def test_forward_aux_and_drops_equal_one_process(runs, case):
 
 
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
-def test_gradients_agree_with_one_process(runs, case):
-    one, mesh, _ = runs
+def test_gradients_agree_with_one_process(one, mesh, case):
     want = one[case]["grads"]
     for res in mesh:
         got = res[case]["grads"]
@@ -126,8 +139,7 @@ def test_gradients_agree_with_one_process(runs, case):
 
 
 @pytest.mark.parametrize("arch", ranks.ARCHS)
-def test_fake_4x4_largest_allocation_is_at_most_t_by_d(runs, arch):
-    _, _, largest = runs
+def test_fake_4x4_largest_allocation_is_at_most_t_by_d(largest, arch):
     cfg = ranks.moe_cfg(arch, ranks.FAKE_CF, "scatter")
     t = ranks.FAKE_BATCH * ranks.FAKE_SEQ
     td = t * cfg.d_model

@@ -30,13 +30,11 @@ import pathlib
 import pickle
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
@@ -52,6 +50,10 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.sparse_exec import plan_transfer_bytes
 from repro_torch.sharding import ServeMesh
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_procs as procs  # noqa: E402
+from torch_procs import drain  # noqa: E402
 
 WORLD = 4
 CASES = [(b, w) for b in ("reference", "kernel") for w in (16, 8)]
@@ -258,19 +260,9 @@ def _rank_main(rank, world, store, out_dir):
         res["cli_streams"] = _cli(CLI_STREAMS + ["--mesh", "2,2"])
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        drain()
     finally:
         dist.destroy_process_group()
-
-
-def _join(procs, seconds=600):
-    """Wait for spawned ranks (a rank's exception re-raises here); kill them
-    and fail past ``seconds``."""
-    deadline = time.monotonic() + seconds
-    while not procs.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in procs.processes:
-                p.kill()
-            pytest.fail(f"the 2x2 ranks did not finish within {seconds} s")
 
 
 @pytest.fixture(scope="module")
@@ -278,8 +270,8 @@ def runs(tmp_path_factory):
     """(the four ranks' results, the 1×1 runs): the ranks spawn first and
     this process serves the 1×1 runs while they work."""
     tmp = tmp_path_factory.mktemp("mesh")
-    procs = mp.start_processes(_rank_main, args=(WORLD, str(tmp / "store"), str(tmp)),
-                               nprocs=WORLD, join=False, start_method="spawn")
+    rank_procs = procs.Ranks(_rank_main, (WORLD, str(tmp / "store"), str(tmp)), WORLD, tmp,
+                             "serve_mesh")
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -291,7 +283,7 @@ def runs(tmp_path_factory):
         single["cli_streams"] = _cli(CLI_STREAMS)
     finally:
         torch.set_num_threads(n)
-    _join(procs)
+    rank_procs.wait()
     ranks = []
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
@@ -565,6 +557,7 @@ def _reference_rank_main(rank, world, store, out_dir, ref_path):
         out = eng.decode(torch.argmax(last, -1)[:, None], N_TOKENS)
         with open(os.path.join(out_dir, f"ref_rank{rank}.pkl"), "wb") as f:
             pickle.dump({"tokens": out.numpy(), "shard": eng.shard_summary()}, f)
+        drain()
     finally:
         dist.destroy_process_group()
 
@@ -584,9 +577,8 @@ def test_reference_mesh_per_shard_bytes_equal_port(tmp_path):
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
     np.testing.assert_array_equal(ref["2x2"]["tokens"], ref["1x1"]["tokens"])
-    _join(mp.start_processes(_reference_rank_main,
-                             args=(WORLD, str(tmp_path / "store"), str(tmp_path), str(ref_path)),
-                             nprocs=WORLD, join=False, start_method="spawn"))
+    procs.Ranks(_reference_rank_main, (WORLD, str(tmp_path / "store"), str(tmp_path),
+                                       str(ref_path)), WORLD, tmp_path, "ref_ranks").wait()
     with open(tmp_path / "ref_rank0.pkl", "rb") as f:
         port = pickle.load(f)
     np.testing.assert_allclose(port["shard"]["io_bytes_per_shard"],

@@ -20,8 +20,6 @@ dry run's one-chunk count equals a trace of every step.
 """
 import os
 import pickle
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +31,7 @@ from repro.models import xlstm as jx
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.models import xlstm as tx
+import torch_procs as procs
 from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -157,29 +156,22 @@ def test_decode_step_runs_one_step_a_block(monkeypatch):
 @pytest.fixture(autouse=True, scope="module")
 def dry_runs(tmp_path_factory):
     """The two dry runs of the last test, started with the module so that
-    they run beside its other tests."""
+    they run beside its other tests (``tests/torch_procs.py``)."""
     tmp = tmp_path_factory.mktemp("xlstm_dry")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    procs = {mode: subprocess.Popen([sys.executable, WORKER, mode, str(tmp / f"{mode}.pkl")],
-                                    env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for mode in ("chunks", "steps")}
-    yield tmp, procs
-    for p in procs.values():
-        if p.poll() is None:
-            p.kill()
-            p.communicate()
+    subs = {mode: procs.Sub([WORKER, mode, tmp / f"{mode}.pkl"], tmp, mode)
+            for mode in ("chunks", "steps")}
+    yield tmp, subs
+    for sub in subs.values():
+        sub.stop()
 
 
 def test_dryrun_counts_one_chunk_as_every_step(dry_runs):
     """One chunk counted for all against every step traced: equal counts,
     the peak within 2 %."""
-    tmp, procs = dry_runs
+    tmp, subs = dry_runs
     reps = {}
-    for mode, p in procs.items():
-        out, _ = p.communicate(timeout=600)
-        assert p.returncode == 0, out[-4000:]
+    for mode, sub in subs.items():
+        sub.wait()
         with open(tmp / f"{mode}.pkl", "rb") as f:
             reps[mode] = pickle.load(f)
     got, want = reps["chunks"], reps["steps"]

@@ -10,7 +10,8 @@ the JAX package.
   * ``"fake2x2"`` → the dry run's report of reduced TinyLlama's FSDP train
     step on a fake 2×2 mesh.
 ``real_2x2(rank, world, store, out_dir)`` is one gloo rank of the same
-FSDP step on a real 2×2 mesh, under ``CostCounter``.
+FSDP step on a real 2×2 mesh, under ``CostCounter``; it drains its
+collectives before it leaves the group (``torch_procs.drain``).
 """
 import dataclasses
 import datetime
@@ -32,6 +33,9 @@ from repro_torch.sharding import MeshRules, use_rules
 from repro_torch.training import AdamWConfig, Trainer
 from repro_torch.training.optimizer import init_opt_state
 from repro_torch.training.train_step import BATCH_AXES
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_procs import drain  # noqa: E402
 
 # the reduced steps' shapes: a 64-position prompt or cache, batch 2
 SMALL = {kind: InputShape(f"{kind}_small", 64, 2, kind) for kind in ("train", "prefill", "decode")}
@@ -79,10 +83,11 @@ def fake_main(out_path: str) -> None:
         pickle.dump(res, f)
 
 
-def real_2x2(rank: int, world: int, store: str, out_dir: str) -> None:
+def real_2x2(rank: int, world: int, store: str, out_dir: str, drain_first: bool = True) -> None:
     """Reduced TinyLlama's FSDP train step on four gloo ranks of a real 2×2
     mesh, seeded weights and prompt, under ``CostCounter``: rank 0 writes
-    its summary and argument bytes."""
+    its summary and argument bytes. ``drain_first`` False leaves the group
+    without draining it (``tools/stress_fixtures.py --no-drain``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     torch.set_num_threads(1)
@@ -103,6 +108,8 @@ def real_2x2(rank: int, world: int, store: str, out_dir: str) -> None:
         if rank == 0:
             with open(os.path.join(out_dir, "real2x2.pkl"), "wb") as f:
                 pickle.dump({"summary": counter.summary(), "argument_bytes": args}, f)
+        if drain_first:
+            drain()
     finally:
         dist.destroy_process_group()
 

@@ -3,15 +3,17 @@ worker. It imports only the port (a spawned rank imports this module, not
 the test module).
 
 Four spawned gloo ranks of a 2×2 (data, model) mesh run ``rank_main``:
-TinyLlama's prefill and decode, an attention whose heads the model axis
-does not divide, and the mLSTM, SSD and conv regions, each on seeded
-inputs the test module's 1×1 runs share (``case_inputs``).
+TinyLlama's and reduced xLSTM-125M's prefill and decode, an attention
+whose heads the model axis does not divide, and the mLSTM, sLSTM, SSD
+and conv regions, each on seeded inputs the test module's 1×1 runs share
+(``case_inputs``); a rank drains its collectives before it leaves the
+group (``torch_procs.drain``).
 
 ``python tests/torch_layout_ranks.py fake|steps OUT`` runs the fake (4, 4)
 mesh's cases in a process of its own (torch's fake process group is its
 process's one default group): the prefills' cache blocks and largest
-allocation, the attention's largest score tile, and the xLSTM dry run's
-chunk count ("fake"); the trace of every step it is held to ("steps", a
+allocation, the attention's largest score tile, the sLSTM region's FLOPs
+and collectives, and the xLSTM dry run's chunk count ("fake"); the trace of every step it is held to ("steps", a
 second process, run beside the first).
 """
 import contextlib
@@ -36,9 +38,13 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import ssm as tssm
 from repro_torch.models import xlstm as txl
 from repro_torch.models.common import BLOCK_AXES, tree_leaves
+from repro_torch.models.scan import chunked_scan
 from repro_torch.sharding import MeshRules, use_rules
 from repro_torch.sharding.specs import sharded_compute
 from repro_torch.training.optimizer import whole
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_procs import drain  # noqa: E402
 
 WORLD = 4
 
@@ -60,6 +66,7 @@ _ZCFG = get_config("zamba2-7b").reduced()
 _Z = tssm.Mamba2Config(d_model=_ZCFG.d_model, d_state=_ZCFG.ssm_state, d_conv=_ZCFG.ssm_conv,
                        expand=_ZCFG.ssm_expand, head_dim=_ZCFG.ssm_head_dim)
 MLSTM = dict(b=2, s=24, h=_X.n_heads, dh=_X.head_dim, chunk=8)
+SLSTM = dict(b=2, s=24, d=_X.d_model, h=_X.n_heads, chunk=8)
 SSD = dict(b=2, s=24, h=_Z.n_heads, p=_Z.head_dim, n=_Z.d_state, chunk=8)
 CONV = dict(b=2, s=24, c=_Z.conv_dim, d_conv=_Z.d_conv)
 
@@ -109,7 +116,16 @@ def case_inputs(seed=0):
     c = CONV
     conv = {"x": normal(c["b"], c["s"], c["c"]), "w": normal(c["d_conv"], c["c"], scale=0.5),
             "bias": normal(c["c"]), "g": normal(c["b"], c["s"], c["c"])}
-    return {"attn": attn, "core": core, "mlstm": mlstm, "ssd": ssd, "conv": conv}
+    lc = SLSTM
+    b, s, d, h = lc["b"], lc["s"], lc["d"], lc["h"]
+    sdh = d // h
+    slstm = {"pre": normal(b, s, 4 * d), "r_w": normal(h, sdh, 4 * sdh, scale=sdh ** -0.5),
+             "c": normal(b, d, scale=0.1), "n": np.abs(normal(b, d)) + 0.5,
+             "m": normal(b, d, scale=0.1), "h": normal(b, d, scale=0.1),
+             "gy": normal(b, s, d), "gc": normal(b, d), "gn": normal(b, d), "gm": normal(b, d),
+             "gh": normal(b, d)}
+    return {"attn": attn, "core": core, "mlstm": mlstm, "ssd": ssd, "conv": conv,
+            "slstm": slstm}
 
 
 def _numpy(tensors):
@@ -240,7 +256,8 @@ def _region_run(region, args, axes, cots, rules):
 REGION_NAMES = {"mlstm": (("q", "k", "v", "log_i", "f_pre", "c", "n", "m"),
                           ("gy", "gc", "gn", "gm")),
                 "ssd": (("xs", "b_h", "c_h", "dt", "da"), ("gy", "gs")),
-                "conv": (("x", "w", "bias"), ("g",))}
+                "conv": (("x", "w", "bias"), ("g",)),
+                "slstm": (("pre", "r_w", "c", "n", "m", "h"), ("gy", "gc", "gn", "gm", "gh"))}
 REGION_SPLITS = {
     "mlstm": (lambda: functools.partial(txl._mlstm_scan, MLSTM["chunk"]), (),
               (None, None, 3, None, None, 2, None, None), (3, 2, None, None)),
@@ -261,6 +278,8 @@ def region_by_rank(region, data, grid=(2, 2)):
     the model ranks, those of a weight over the data ranks (two parts: the
     same sum in either order). A whole output's cotangent enters on model
     rank 0 only, as ``over_batch`` counts it."""
+    if region == "slstm":
+        return _slstm_by_rank(data, grid)
     make, weights, arg_dims, out_dims = REGION_SPLITS[region]
     fn = make()
     names, cot_names = REGION_NAMES[region]
@@ -299,6 +318,64 @@ def region_by_rank(region, data, grid=(2, 2)):
     return {"out": outs, "grads": grads}
 
 
+def _slstm_by_rank(data, grid):
+    """``region_by_rank`` of the sLSTM (``xlstm._slstm_region``): for each
+    data rank's rows, the model ranks' scans run in lockstep in one
+    chunked scan, each model rank with its own copy of the whole state and
+    r_w, its block of the gate pre-activations and of ``gate_rows``
+    (``slstm_block_sums``, the same op as on its rank); each rank's
+    update takes every block's gate sums concatenated in rank order (the
+    all-gather), whose gradient is the sum of the ranks' parts (the
+    reduce-scatter). Model rank 0's outputs are the outputs (every model
+    rank computes the same; the cotangents enter on rank 0); the gradients
+    of the whole state and of r_w are summed over the ranks (two parts at
+    a time, or disjoint blocks), those of the pre-activations placed by
+    block."""
+    dp, tp = grid
+    names, cot_names = REGION_NAMES["slstm"]
+    (pre, r_w, *state), cots = [data[n] for n in names], [data[g] for g in cot_names]
+    b, d = state[0].shape
+    sdh, w = r_w.shape[1], pre.shape[2] // tp
+    blocks = [txl.slstm_block(d, sdh, tp, m) for m in range(tp)]
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
+
+    def step(st, *args):
+        states = [tuple(st[4 * m: 4 * m + 4]) for m in range(tp)]
+        sums = [txl.slstm_block_sums(blocks[m], states[m][3], args[m], args[tp + m])
+                for m in range(tp)]
+        new, ys = [], []
+        for m in range(tp):
+            st_m, y = txl._slstm_cell(states[m], torch.cat(sums, dim=1))
+            new.extend(st_m)
+            ys.append(y)
+        return tuple(new), ys[0]
+
+    outs = [np.zeros_like(g) for g in cots]
+    grads = [np.zeros_like(a) for a in (pre, r_w, *state)]
+    for dc in range(dp):
+        rows = slice(dc * b // dp, (dc + 1) * b // dp)
+        pres = [leaf(pre[rows, :, m * w: (m + 1) * w]) for m in range(tp)]
+        rws = [leaf(r_w) for _ in range(tp)]
+        sts = [leaf(a[rows]) for _ in range(tp) for a in state]
+        gate_rows = [txl.gate_rows(rws[m])[m * w: (m + 1) * w] for m in range(tp)]
+        ys, final = chunked_scan(step, tuple(pres), tuple(gate_rows), tuple(sts),
+                                  SLSTM["chunk"], (d,))
+        flat = [ys, *final[:4]]
+        parts = torch.autograd.grad(flat, pres + rws + sts,
+                                    [torch.from_numpy(np.ascontiguousarray(g[rows]))
+                                     for g in cots])
+        for o, whole_o in zip(flat, outs):
+            whole_o[rows] = o.detach().numpy()
+        for m in range(tp):
+            grads[0][rows, :, m * w: (m + 1) * w] = parts[m].numpy()
+            grads[1] = grads[1] + parts[tp + m].numpy()
+        for i in range(4):
+            grads[2 + i][rows] = sum(parts[2 * tp + 4 * m + i].numpy() for m in range(tp))
+    return {"out": outs, "grads": grads}
+
+
 def _region_args(region, data):
     names, cot_names = REGION_NAMES[region]
     return [data[n] for n in names], [data[g] for g in cot_names]
@@ -325,6 +402,38 @@ def conv(data, rules=None):
     return _region_run(tssm._conv_region(CONV["d_conv"]), args, axes, cots, rules)
 
 
+def slstm(data, rules=None):
+    axes = (("batch", None, "ffn"), ("heads", None, None)) + (("batch", None),) * 4
+    args, cots = _region_args("slstm", data)
+    return _region_run(txl._slstm_region(SLSTM["chunk"]), args, axes, cots, rules)
+
+
+def xlstm_prefill_decode(rules=None):
+    """Reduced xLSTM-125M (block 0 an mLSTM, block 1 an sLSTM; f32): the
+    prefill's last logits and every decode step's logits and greedy
+    tokens, whole, as ``prefill_decode``."""
+    cfg = get_config("xlstm-125m").reduced()
+    assert cfg.slstm_layers == (1,)
+    model = build_model(cfg)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(DECODE_BATCH, PROMPT)))
+    with f32(), use_rules(rules), sharded_compute():
+        params = model.init(seed=0, device="cpu")
+        if rules is not None:
+            params = rules.place(params, model.param_axes())
+            tokens = rules.distribute(tokens, ("batch", None))
+        logits, cache = model.prefill(params, {"tokens": tokens}, MAX_SEQ)
+        out = {"logits": [whole(logits).numpy()], "tokens": []}
+        for _ in range(N_DECODE):
+            tok = whole(logits).argmax(-1)[:, None]
+            out["tokens"].append(tok.numpy())
+            if rules is not None:
+                tok = rules.distribute(tok, ("batch", None))
+            logits, _ = model.decode_step(params, tok, cache)
+            out["logits"].append(whole(logits).numpy())
+    return out
+
+
 def rank_main(rank, world, store, out_dir):
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore")
@@ -337,12 +446,14 @@ def rank_main(rank, world, store, out_dir):
         res = {"coords": (mesh.get_local_rank("data"), mesh.get_local_rank("model")),
                "decode": prefill_decode(rules),
                "mlstm": mlstm(data["mlstm"], rules), "ssd": ssd(data["ssd"], rules),
-               "conv": conv(data["conv"], rules)}
+               "conv": conv(data["conv"], rules), "slstm": slstm(data["slstm"], rules),
+               "xlstm_decode": xlstm_prefill_decode(rules)}
         for path in ATTN_PATHS:
             res[("attn", path)] = attention(path, data["attn"], rules)
             res[("core", path)] = attention_core(path, data["core"], rules)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        drain()
     finally:
         dist.destroy_process_group()
 
@@ -364,6 +475,9 @@ FAKE_ATTN = dict(b=4, s=128, d=48, h=6, kv=2, hd=8)
 # d_model 64 (dh 32, which the 4 model ranks divide), batch 4 × 128, two
 # chunks of 64
 XLSTM_TRAIN = InputShape("train_128", 128, 4, "train")
+# the sLSTM region's forward at reduced xLSTM-125M's widths (d 256, 4 heads
+# of 64): batch 4 (a row a data rank) × 32 steps, chunks of 8
+FAKE_SLSTM = dict(b=4, s=32, chunk=8)
 XLSTM_CUT = dict(n_layers=1, slstm_layers=(), d_model=64, head_dim=16)
 
 
@@ -446,6 +560,31 @@ def _fake_attention(rules):
             "seq_split": seq_split}
 
 
+def _fake_slstm(rules):
+    """The sLSTM region's forward (``xlstm._slstm_region``) on fake tensors,
+    placed as ``slstm_forward`` gets them under ``rules`` ("mesh": the gate
+    pre-activations over 'model' by their 4d columns, r_w whole, the state
+    whole over 'model') and on plain tensors ("one"): the CostCounter's
+    summary of each (every step traced)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.cost_analysis import CostCounter
+
+    f, d, h = FAKE_SLSTM, _X.d_model, _X.n_heads
+    shapes = ((f["b"], f["s"], 4 * d), (h, d // h, 4 * d // h)) + ((f["b"], d),) * 4
+    axes = (("batch", None, "ffn"), (None, None, None)) + (("batch", None),) * 4
+    res = {}
+    for name, r in (("mesh", rules), ("one", None)):
+        with FakeTensorMode(), use_rules(r), sharded_compute():
+            args = [rules.full(sh, ax, None, torch.float32, "cpu") if r is not None
+                    else torch.empty(sh) for sh, ax in zip(shapes, axes)]
+            counter = CostCounter()
+            with counter:
+                txl._slstm_region(f["chunk"])(*args)
+        res[name] = counter.summary()
+    return res
+
+
 def _fake_dryrun(mesh, mode):
     """Reduced xLSTM-125M's train step on the fake mesh, one chunk counted
     for all (``mode`` "chunks") or every step traced ("steps"): the
@@ -472,6 +611,7 @@ def fake_main(mode, out_path):
         rules = MeshRules.for_mesh(mesh)
         res = {arch: _fake_prefill(arch, rules) for arch in PREFILL_ARCHS}
         res["attention"] = _fake_attention(rules)
+        res["slstm"] = _fake_slstm(rules)
         res["chunks"] = _fake_dryrun(mesh, "chunks")
     dist.destroy_process_group()
     with open(out_path, "wb") as f:

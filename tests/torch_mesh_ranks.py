@@ -11,11 +11,9 @@ import os
 import pathlib
 import pickle
 import re
-import time
 import warnings
 
 import numpy as np
-import pytest
 import torch
 import torch.distributed as dist
 
@@ -32,6 +30,7 @@ from repro_torch.sharding import MeshRules, use_rules
 from repro_torch.sharding.specs import sharded_compute
 from repro_torch.training import AdamWConfig, Trainer, load_checkpoint
 from repro_torch.training.optimizer import whole
+from torch_procs import drain
 
 WORLD = 4
 OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
@@ -191,19 +190,9 @@ def _rank_main(rank, world, store, out_dir, pieces):
             res["cli"].pop("params")
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        drain()
     finally:
         dist.destroy_process_group()
-
-
-def _join(procs, seconds=600):
-    """Wait for spawned ranks (a rank's exception re-raises here); kill them
-    and fail past ``seconds``."""
-    deadline = time.monotonic() + seconds
-    while not procs.join(timeout=2):
-        if time.monotonic() > deadline:
-            for p in procs.processes:
-                p.kill()
-            pytest.fail(f"the 2x2 ranks did not finish within {seconds} s")
 
 
 def _reference_rank_main(rank, world, store, out_dir, ref_path):
@@ -232,6 +221,7 @@ def _reference_rank_main(rank, world, store, out_dir, ref_path):
             out[fsdp] = {k: float(v) for k, v in m.items()}
         with open(os.path.join(out_dir, f"ref_rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
+        drain()
     finally:
         dist.destroy_process_group()
 

@@ -20,6 +20,7 @@ from repro_torch.models.transformer import moe_cfg_of
 from repro_torch.sharding import MeshRules, use_rules
 from repro_torch.sharding.specs import sharded_compute
 from repro_torch.training.optimizer import whole
+from torch_procs import drain
 
 WORLD = 4
 ARCHS = ("olmoe-1b-7b", "llama4-scout-17b-a16e")
@@ -96,6 +97,7 @@ def rank_main(rank, world, store, out_dir):
             res[case] = run(*case[:3], inputs(case[0], case[3]), rules)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        drain()
     finally:
         dist.destroy_process_group()
 
