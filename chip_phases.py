@@ -16,7 +16,8 @@ at full width and depth (``train_path``), and phase 17 the dry run
 (``dryrun_path``: its ``[dryrun]`` lines), which needs phase 14 before it
 in the same run and judges phase 18's step too where phase 18 ran before it
 (``xlstm_train_path``: xLSTM-125M trained at the scans' chunk grain; run
-``--phases 14,18,17``). Each tree builds its own
+``--phases 14,18,17``); phase 19 is the 2×2 mesh on the host's CPU
+(``mesh2x2_path``: four gloo ranks, its ``[mesh2x2]`` lines). Each tree builds its own
 kernels from its own sources. Each run prints the card's name and power
 limit, the phases' own log (the decode step's wall is on its ``[vlm] ...
 served`` and ``[slots] main path`` lines) and, as its last line, one JSON
@@ -35,7 +36,7 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("7", "10", "14", "15", "16", "18", "17")  # 18 before 17, which judges it
+PHASES = ("7", "10", "14", "15", "16", "18", "17", "19")  # 18 before 17, which judges it
 
 
 def run_tree(tree: Path, phases, index: int, settings) -> None:
@@ -78,6 +79,8 @@ def run_tree(tree: Path, phases, index: int, settings) -> None:
             smoke.mesh_train_path(dev, card, report)
         elif phase == "18":
             smoke.xlstm_train_path(dev, card, report)
+        elif phase == "19":
+            smoke.mesh2x2_path(card, report)
         else:
             if "training" not in report:
                 sys.exit("phase 17 compares with phase 14's step: run --phases 14,17")

@@ -195,6 +195,8 @@ Phases, each of which fails the run on error:
      ranks its shapes divide it over (DRYRUN_CACHE_RANKS: 256 for OLMoE,
      16 for xLSTM) plus the logits' bound, and the placements' blocks must
      be that share (its peak is printed beside the whole cache's bytes);
+     tinyllama-1.1b/train_4k's and xlstm-125m/train_4k's FLOPs a rank must
+     equal the port's count on the CPU tests' torch (DRYRUN_PORT_FLOPS);
      then on a fake 1×1 mesh phase 14's own step (TinyLlama-1.1B, batch 8 x
      512, remat) and phase 18's two chunk-64 steps, whose predicted peak
      memory, against the real step's measured ``max_memory_allocated``,
@@ -211,6 +213,22 @@ Phases, each of which fails the run on error:
      ``FlopCounterMode`` and one with a single chunk as long as the
      sequence, from the same state: loss, grad_norm and the first moments
      bitwise equal, each step's peak memory printed.
+ 19. the 2×2 (data, model) mesh under this machine's torch, on its CPU
+     (NCCL refuses two ranks on one device): ``tests/torch_mesh_phase.py``
+     in a subprocess that starts after the build and works beside phases
+     3-18, four gloo ranks of one intra-op thread each at a lower priority
+     while it runs the 1×1 side, the checks those of the CPU tests,
+     defined once in the rank modules under ``tests/``: (a) sharded
+     serving, TinyLlama-1.1B at full width and 2 of 22 layers (its
+     SERVE_LAYERS), greedy tokens at wbits 16 and 8 equal to the unsharded
+     engine's, paged KV on the mesh and the MoE decoders at data 2 at the
+     tests' sizes; (b) one f32 step of each family's reduced config
+     against its 1×1 step; (c) the mLSTM, SSD, conv and sLSTM splits
+     bitwise per rank, the core of attention's ``_seq_split`` and the
+     prefill-then-decode tokens against one process; (d) the MoE's
+     per-rank blocks, forward and gradients. It prints the torch version,
+     the CPU count, its wall and one line a check with its largest
+     difference; a failed check or a dead rank fails the run.
 
 Prints the kernel table as one JSON line (K1-K5 from phases 4-6, phase
 7's K1, K2 and K5 rows, phase 8's and phase 9's checksum-lane rows, phase
@@ -416,6 +434,14 @@ DRYRUN_CACHE_RANKS = {("olmoe-1b-7b", "prefill_32k"): 256, ("xlstm-125m", "prefi
 #   reference's --all figure)
 DRYRUN_REF_FLOPS = {("xlstm-125m", "prefill_32k", 4): 312921513984.0}
 DRYRUN_REF_RTOL = 0.005
+# the port's own FLOPs a rank for a pair, counted with the CPU tests' torch
+# (2.13): `python3 tools/xlstm_dry_split.py port --arch tinyllama-1.1b
+# --layers 6 --shape train_4k` and `... port --layers 4 --slstm 3,9 --shape
+# train_4k` (xLSTM-125M's own sLSTM blocks). The card's torch must count
+# the same: a placement that leaves DTensor a choice of strategy let torch
+# 2.11 compute the mLSTM's whole w_down gradient on every model rank
+DRYRUN_PORT_FLOPS = {("tinyllama-1.1b", "train_4k", 6): 12300786335744,
+                     ("xlstm-125m", "train_4k", 4): 2225967464448}
 DRYRUN_PEAK_RATIO = (0.8, 1.25)
 DRYRUN_CODE = r"""
 import dataclasses, json, math, os, sys
@@ -495,6 +521,11 @@ for step in steps:
                               slstm_layers=tuple(step["slstm_layers"]))
     print("DRYRUN " + json.dumps(run_dryrun(cfg, shape, mesh=mesh, verbose=False)), flush=True)
 """
+
+# phase 19: the 2×2 mesh on the host's CPU (``tests/torch_mesh_phase.py``)
+# in a subprocess that starts after the build and must end within
+# MESH2X2_TIMEOUT_S of its start
+MESH2X2_TIMEOUT_S = 1000
 
 # phase 18: xLSTM training at the scans' chunk grain. XLSTM_TRAIN_ARCH at
 # full width, XLSTM_TRAIN_LAYERS blocks of which XLSTM_TRAIN_SLSTM are
@@ -1088,6 +1119,7 @@ def main():
 
     done("phases 1-2 (card, build)")
     dry = start_dryrun(dry_steps())  # phase 17's subprocess, on the host's CPU meanwhile
+    mesh2x2 = start_mesh2x2()  # phase 19's, beside it
     kernels = run(dev, get_config("tinyllama-1.1b"), card, report, get_config(VLM_ARCH),
                   [get_config(arch) for arch, _ in DENSE_ARCHS])
     done("phases 3-6")  # phase 4-6's engines and weights go before phase 7's
@@ -1139,6 +1171,8 @@ def main():
     done("phase 18, xLSTM training")
     dryrun_path(card, report, dry)
     done("phase 17, dry run")
+    mesh2x2_path(card, report, mesh2x2)
+    done("phase 19, 2x2 mesh on the CPU")
     (OUT / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4775,6 +4809,63 @@ def start_dryrun(steps):
     return time.perf_counter(), proc, steps, (out, err)
 
 
+def start_mesh2x2():
+    """Phase 19's subprocess (``tests/torch_mesh_phase.py``), started now in
+    a session of its own, its output into a temporary file: (its start, the
+    process, the file). The session (the subprocess and its four ranks) is
+    killed at exit if it still runs (a phase failed first)."""
+    import atexit
+    import os
+    import signal
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_mesh_phase.py"),
+                             str(OUT / "mesh2x2")], env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return time.perf_counter(), proc, out, stop
+
+
+def mesh2x2_path(card, report, started=None):
+    """Phase 19: the 2×2 mesh's checks on the host's CPU (``start_mesh2x2``'s
+    subprocess: ``started``, begun before the card's phases, or begun now).
+    Logs its lines; fails the run if it did not end within
+    MESH2X2_TIMEOUT_S of its start, exited non-zero, or reported a failed
+    check."""
+    tag = "[mesh2x2]"
+    t0 = time.perf_counter()
+    t_start, proc, out_f, stop = started or start_mesh2x2()
+    try:
+        proc.wait(timeout=max(MESH2X2_TIMEOUT_S - (t0 - t_start), 1))
+    except subprocess.TimeoutExpired:
+        stop()
+        fail(f"{tag} the 2x2 checks did not finish within {MESH2X2_TIMEOUT_S} s of their start")
+    out_f.seek(0)
+    out = out_f.read()
+    (OUT / "mesh2x2.log").write_text(out)
+    summary = [json.loads(line[len("MESH2X2 "):]) for line in out.splitlines()
+               if line.startswith("MESH2X2 ")]
+    for line in out.splitlines():
+        if line.startswith(tag):
+            log(line)
+    if proc.returncode != 0 or len(summary) != 1 or not summary[0]["ok"]:
+        fail(f"{tag} the 2x2 checks failed (rc {proc.returncode}); the output ends:\n"
+             f"{out[-3000:]}")
+    summary = summary[0]
+    log(f"{tag} phase 19: torch {summary['torch']}, {summary['cpus']} CPUs, "
+        f"{len(summary['checks'])} checks passed; its subprocess ran {summary['wall_s']:.1f} s "
+        f"beside phases 3-18, phase 19 waited {time.perf_counter() - t0:.1f} s  ({card})")
+    report["mesh2x2"] = {**summary, "waited_s": time.perf_counter() - t0}
+
+
 def shape_cache_bytes(cfg, shape, dp=16, tp=16):
     """A prefill pair's whole cache and one rank's share of it, in bytes,
     from the config's shapes alone (not from the port's cache layout or
@@ -4814,6 +4905,8 @@ def dryrun_path(card, report, started=None):
     FLOPs must equal the real step's FlopCounterMode count and the
     predicted peak memory must lie within DRYRUN_PEAK_RATIO of the
     measured one."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import get_shape
 
@@ -4866,6 +4959,14 @@ def dryrun_path(card, report, started=None):
             if rep["slstm_flops"] * 256 != one:
                 fail(f"{tag} {rep['arch']}/{rep['shape']}: the sLSTM scans count "
                      f"{rep['slstm_flops']} FLOP a rank, not 1/256 of {one}")
+        if key in DRYRUN_PORT_FLOPS:
+            want = DRYRUN_PORT_FLOPS[key]
+            log(f"{tag} {rep['arch']}/{rep['shape']} at {rep['n_layers']} layers: "
+                f"{rep['flops_per_device']} FLOP a rank on torch {torch.__version__}, {want} "
+                f"counted on the CPU tests' torch")
+            if rep["flops_per_device"] != want:
+                fail(f"{tag} {rep['arch']}/{rep['shape']}: FLOPs a rank "
+                     f"{rep['flops_per_device']} != {want}, the CPU's count")
         if key in DRYRUN_REF_FLOPS:
             ref = DRYRUN_REF_FLOPS[key]
             gap = rep["flops_per_device"] / ref - 1

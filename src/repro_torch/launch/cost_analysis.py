@@ -40,6 +40,7 @@ import weakref
 from typing import Any, Dict, Iterable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -176,7 +177,13 @@ class CostCounter(TorchDispatchMode):
             return NotImplemented  # DTensor runs it: its local ops come back here
         name = func._overloadpacket.__name__
         if name == "wait_tensor" and func.namespace == "_c10d_functional":
-            # eager's wait returns its input; the fake kernel makes a new tensor
+            # eager's wait returns its input once the collective is done; the
+            # fake kernel makes a new tensor. A real collective is waited:
+            # unwaited, its output could be read, or freed, while the process
+            # group still writes it (a gloo rank died at exit, "malloc():
+            # unaligned tcache chunk detected")
+            if not isinstance(args[0], FakeTensor):
+                func(*args, **kwargs)
             return args[0]
         out = func(*args, **kwargs)
         if self._silent:

@@ -18,6 +18,7 @@ whose collectives move nothing (the dry run's mesh; ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Tuple
@@ -53,6 +54,44 @@ def join_process_group(device_type: str = "cuda") -> None:
     if device_type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo", init_method="env://")
+
+
+def drain_process_groups() -> None:
+    """Wait for every collective this rank issued on every group it is in:
+    one barrier a group (a group's barrier completes after its earlier
+    work), in the order the groups were made, which every rank shares."""
+    from torch.distributed.distributed_c10d import _world
+
+    for group in list(_world.pg_map):
+        dist.barrier(group=group)
+
+
+@contextlib.contextmanager
+def leaving_process_group():
+    """A block that may join the process group torchrun set up
+    (``join_process_group``, through a mesh it makes): a group it joined is
+    left when it ends, drained and destroyed (``leave_process_group``) when
+    it ends normally, only destroyed when it raises (a peer may never reach
+    the barriers). A group initialised before the block stays."""
+    joined = not dist.is_initialized()
+    try:
+        yield
+        if joined:
+            leave_process_group()
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def leave_process_group() -> None:
+    """Leave the process group ``join_process_group`` joined, on the way out
+    of a rank that finished its work: drain every group
+    (``drain_process_groups``), then destroy them, so that no collective
+    of this rank is in flight when its group goes (gloo runs them on
+    threads of its own)."""
+    if dist.is_initialized():
+        drain_process_groups()
+        dist.destroy_process_group()
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str = "cuda"):

@@ -66,7 +66,7 @@ from ..models import build_model
 from ..models.inputs import FRONT_DTYPE, make_dummy_batch
 from ..serving import SERVE_METHODS, PoissonArrivalDriver, Request, Scheduler, ServeEngine
 from ..sharding.serve import ServeMesh, parse_mesh_spec, validate_serve_mesh
-from .mesh import world_size
+from .mesh import leaving_process_group, world_size
 
 
 def _nonneg(kind, name: str):
@@ -233,6 +233,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """The CLI. A process group its ``--mesh`` joins (the one torchrun set
+    up) is left when it ends, drained and destroyed
+    (``launch.mesh.leaving_process_group``); a caller's group stays."""
+    with leaving_process_group():
+        return _main(argv)
+
+
+def _main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.torch_device)
     cfg = get_config(args.arch)

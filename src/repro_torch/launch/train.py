@@ -34,7 +34,7 @@ from ..data import DataConfig, lm_batches
 from ..models import build_model
 from ..sharding import MeshRules, use_rules
 from ..training import AdamWConfig, Trainer, save_checkpoint
-from .mesh import TORCHRUN_HINT, make_mesh, world_size
+from .mesh import TORCHRUN_HINT, leaving_process_group, make_mesh, world_size
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,6 +99,14 @@ def log_line(i: int, m, t0: float) -> str:
 
 
 def main(argv=None):
+    """The CLI. A process group its ``--mesh`` joins (the one torchrun set
+    up) is left when it ends, drained and destroyed
+    (``launch.mesh.leaving_process_group``); a caller's group stays."""
+    with leaving_process_group():
+        return _main(argv)
+
+
+def _main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.torch_device)
     cfg = get_config(args.arch)

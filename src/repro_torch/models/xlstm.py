@@ -146,7 +146,12 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     from ``mlstm_state_init``."""
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
-    xm, z = (x @ params["w_up"]).chunk(2, dim=-1)  # (b, s, di) each
+    # the up projection as two products, one a half of w_up's columns, each
+    # half laid out as w_up is (its columns over 'model'): split after the
+    # product, the (b, s, 2·di) output would be gathered whole on every
+    # model rank, and the weight's gradient computed whole on each
+    w_x, w_z = (shard_act(w, ("embed", "ffn")) for w in params["w_up"].chunk(2, dim=-1))
+    xm, z = x @ w_x, x @ w_z  # (b, s, di) each
     xm = shard_act(xm, ("batch", None, "ffn"))
     qf = (xm @ params["w_q"]).reshape(b, s, h, dh).to(torch.float32)
     kf = (xm @ params["w_k"]).reshape(b, s, h, dh).to(torch.float32) / (dh ** 0.5)
@@ -164,7 +169,12 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     # dh) where the heads do not divide the axis (xLSTM-125M's 4 over 16)
     y = shard_act(y, ("batch", None, None, None))
     y = shard_act(y.reshape(b, s, cfg.d_inner), ("batch", None, None)).to(x.dtype)
-    y = rms_norm(y, params["norm_w"]) * swish(z)
+    # the normed y laid out as z and w_down's rows are (d_inner over
+    # 'model', a local slice), so that each model rank multiplies its share
+    # of d_inner and computes its block of w_down's gradient: left to
+    # DTensor's propagation, torch 2.11 computed the whole gradient on every
+    # model rank (2.13 sliced)
+    y = shard_act(rms_norm(y, params["norm_w"]), ("batch", None, "ffn")) * swish(z)
     return y @ params["w_down"], state
 
 

@@ -383,11 +383,6 @@ class ServeEngine:
         r = self.mesh.rank("data")
         return range(r * n, (r + 1) * n)
 
-    def _put_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """A request batch on the serving device, cut to this data rank's
-        rows."""
-        return {k: self.mesh.put_batch(v.to(self.torch_device)) for k, v in batch.items()}
-
     # -- stages ----------------------------------------------------------------
     def _prefill_charge(self, n: int, name: str, wall: float) -> float:
         """Log a prefill: it streams every matrix once, contiguously, and is
@@ -410,10 +405,14 @@ class ServeEngine:
                                       "admit_slot (a single-stream prefill would bypass "
                                       "the page allocator)")
         t0 = time.perf_counter()
-        batch = self._put_batch(batch)
-        with self.mesh.split_rows():
-            last, self.cache = self.model.prefill(self.params, batch, self.max_seq)
-        last = self.mesh.gather_batch(last)
+        batch = {k: v.to(self.torch_device) for k, v in batch.items()}
+        # on a sharded mesh every rank runs the whole batch's prompt (its
+        # logits are every rank's answer) and keeps its data rank's rows of
+        # the cache, as an admission does: a product's rounding on the CPU
+        # and on cards depends on how many rows it multiplies, so a prefill
+        # of a data rank's rows alone would not be the 1×1 mesh's
+        last, cache = self.model.prefill(self.params, batch, self.max_seq)
+        self.cache = self.mesh.place_cache(cache, self.model.cache_axes())
         self._host_lengths = None
         self._prefill_charge(int(batch["tokens"].shape[1]), "prefill", time.perf_counter() - t0)
         self._plan = None  # new sequence → stale plan

@@ -267,6 +267,17 @@ def test_fake_mesh_equals_real_gloo_mesh(port, gloo):
     assert rep["memory"]["fits"] and rep["trace_s"] > 0
 
 
+def test_real_step_under_the_counter_waits_its_collectives(started, gloo):
+    """Under the counter a real collective's wait runs (a fake one's it
+    skips): no rank of the real 2×2 step ends with a collective unwaited.
+    Unwaited, gloo wrote into outputs the step had freed, and a rank died
+    at exit ("malloc(): unaligned tcache chunk detected")."""
+    _, _, real = started
+    for log in real.logs:
+        with open(log) as f:
+            assert "unwaited collective" not in f.read(), log
+
+
 def test_cost_counter_conventions():
     """A product's FLOPs, a materialized op's bytes (views are free), the
     collective kinds by the reference's names, and the live high-water

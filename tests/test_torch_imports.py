@@ -12,6 +12,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+# what chip_smoke.py's phase 19 runs on the card's machine, which has no JAX:
+# its script and the rank modules it imports
+PHASE19 = ("torch_mesh_phase", "torch_procs", "torch_layout_ranks", "torch_mesh_ranks",
+           "torch_moe_ranks", "torch_serve_ranks")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro(\.|\s))",
                        re.M)
 
@@ -84,10 +88,30 @@ def test_dryrun_modules_stand_alone():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py", ROOT / "chip_phases.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_phases.py"]
+                         + [ROOT / "tests" / f"{m}.py" for m in PHASE19],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_repro(path):
     assert not FORBIDDEN.search(path.read_text())
+
+
+def test_phase19_modules_stand_alone():
+    """Importing phase 19's script, and with it every rank module it runs,
+    loads neither jax nor the reference package and starts no process
+    group."""
+    code = (
+        "import importlib, sys\n"
+        "import torch.distributed as dist\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        f"for m in {list(PHASE19)!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad, dist.is_initialized())\n"
+        "sys.exit(1 if bad or dist.is_initialized() else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 @pytest.fixture

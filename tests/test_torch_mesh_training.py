@@ -75,9 +75,9 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models.common import tree_leaves
 from repro_torch.sharding import MeshRules
 from repro_torch.training import load_checkpoint
-from torch_mesh_ranks import (CASES, CLI, DTYPES, FAMILIES, GRAD_COS, GRAD_REL, LINE, LOSS_CHUNK, M_REL,
-                              METRIC_RTOL, OPT, PIECE_TOL, ROOT, V_REL, WORLD, _batch, _cfg,
-                              _rank_main, _reference_rank_main, _step)
+from torch_mesh_ranks import (CASES, CLI, DTYPES, FAMILIES, LINE, LOSS_CHUNK, METRIC_RTOL, OPT,
+                              PIECE_TOL, ROOT, WORLD, _batch, _cfg, _rank_main,
+                              _reference_rank_main, _step, hold, hold_mesh_step)
 import torch_procs as procs
 from torch_threads import one_thread  # noqa: F401
 
@@ -144,36 +144,6 @@ def runs(tmp_path_factory):
             "cli": cli, "ckpt": str(tmp / "ckpt")}
 
 
-def _rel_cos(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    nb = np.linalg.norm(b)
-    if nb == 0:
-        return float(np.linalg.norm(a)), 1.0
-    return (float(np.linalg.norm(a - b) / nb),
-            float((a * b).sum() / max(np.linalg.norm(a) * nb, 1e-300)))
-
-
-def _grads(step):
-    """The clipped-then-unclipped gradients from the first step's m."""
-    scale = min(1.0, 1.0 / max(step["metrics"]["grad_norm"], 1e-9))
-    return {k: m / ((1 - 0.9) * scale) for k, m in step["m"].items()}
-
-
-def _hold(got, want, moments=True):
-    for key, rtol in METRIC_RTOL.items():
-        assert np.isfinite(got["metrics"][key]), key
-        assert got["metrics"][key] == pytest.approx(want["metrics"][key], rel=rtol, abs=1e-12), key
-    if not moments:
-        return
-    assert sorted(got["m"]) == sorted(want["m"])
-    g_got, g_want = _grads(got), _grads(want)
-    for key in got["m"]:
-        rel, cos = _rel_cos(g_got[key], g_want[key])
-        assert rel <= GRAD_REL and cos >= GRAD_COS, (key, rel, cos)
-        assert _rel_cos(got["m"][key], want["m"][key])[0] <= M_REL, key
-        assert _rel_cos(got["v"][key], want["v"][key])[0] <= V_REL, key
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_mesh_step_equals_single(runs, case):
     """A 2×2 step equals the same port's 1×1 step of the same seed and
@@ -183,10 +153,8 @@ def test_mesh_step_equals_single(runs, case):
     ranks = runs["ranks"]
     assert sorted(r["coords"] for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     for dtype in DTYPES:
-        got = ranks[0][case][dtype]
-        assert all(r[case][dtype]["metrics"] == got["metrics"] for r in ranks)
-        assert got["sharded"] > 0
-        _hold(got, runs["single"][arch, optimized, dtype], moments=dtype == "f32")
+        hold_mesh_step([r[case][dtype] for r in ranks], runs["single"][arch, optimized, dtype],
+                       moments=dtype == "f32")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -194,7 +162,7 @@ def test_mesh_step_equals_reference(runs, case):
     """A 2×2 bf16 step's metrics equal the reference's unsharded
     ``Trainer.train_step``'s on the same weights and batch."""
     arch, _, optimized = CASES[case]
-    _hold(runs["ranks"][0][case]["bf16"], runs["reference"][arch, optimized], moments=False)
+    hold(runs["ranks"][0][case]["bf16"], runs["reference"][arch, optimized], moments=False)
 
 
 def test_expert_parallel_ran(runs):

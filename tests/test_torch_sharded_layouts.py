@@ -72,13 +72,15 @@ On a fake (4, 4) mesh (a subprocess; fake tensors):
   * the sLSTM region's forward at reduced xLSTM-125M's widths: a rank's
     FLOPs are the 1×1 run's over 16, and each step issues one all-gather
     of its data rank's (b/4, 4d) gate sums;
+  * an mLSTM block's forward and backward at those widths: a rank
+    computes its block of w_up's and w_down's gradients, never the whole
+    weight's (see the test);
   * reduced xLSTM-125M's train step: the dry run that counts one chunk
     for all equals a trace of every step (FLOPs, bytes, collectives),
     with the mLSTM split over 'model'.
 """
 import os
 import pickle
-import re
 import sys
 
 import numpy as np
@@ -91,8 +93,8 @@ from torch_mesh_ranks import GRAD_COS, GRAD_REL  # noqa: E402
 from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# where a sum over model ranks is reordered (never bitwise)
-SUM_RTOL = 1e-5
+REGIONS, BITWISE_OUT, BITWISE_GRADS = ranks.REGIONS, ranks.BITWISE_OUT, ranks.BITWISE_GRADS
+_close = ranks.close
 
 
 @pytest.fixture(scope="module")
@@ -150,11 +152,6 @@ def fake(started):
     return res["fake"]
 
 
-def _close(got, want, rtol=SUM_RTOL):
-    assert np.isfinite(got).all()
-    assert np.linalg.norm(got - want) <= rtol * np.linalg.norm(want)
-
-
 def _within_mesh_bounds(got, want):
     norm = np.linalg.norm(want)
     assert np.linalg.norm(got - want) <= GRAD_REL * norm
@@ -168,10 +165,7 @@ def test_prefill_then_decode_tokens_equal_one_process(one, mesh):
     want = one["decode"]
     for res in mesh:
         got = res["decode"]
-        for g, w in zip(got["tokens"], want["tokens"]):
-            np.testing.assert_array_equal(g, w)
-        for g, w in zip(got["logits"], want["logits"]):
-            _close(g, w)
+        ranks.hold_decode(got, want)
         # (L, b, S, kv, hd): the batch over 2 data ranks, the kv heads over 2
         whole_k = ranks.get_config("tinyllama-1.1b").reduced()
         assert got["k_local"][1] == ranks.DECODE_BATCH // 2
@@ -183,11 +177,7 @@ def test_xlstm_prefill_then_decode_tokens_equal_one_process(one, mesh):
     rank its two gates' columns, the gate sums all-gathered a step)."""
     want = one["xlstm_decode"]
     for res in mesh:
-        got = res["xlstm_decode"]
-        for g, w in zip(got["tokens"], want["tokens"]):
-            np.testing.assert_array_equal(g, w)
-        for g, w in zip(got["logits"], want["logits"]):
-            _close(g, w)
+        ranks.hold_decode(res["xlstm_decode"], want)
 
 
 @pytest.mark.parametrize("arch", ranks.PREFILL_ARCHS)
@@ -213,11 +203,7 @@ def test_fake_4x4_prefill_largest_allocation_is_under_one_layers_cache(fake, arc
 def test_attention_core_rows_bitwise_equal_one_process(one, mesh, path):
     want = one[("core", path)]
     for res in mesh:
-        got = res[("core", path)]
-        np.testing.assert_array_equal(got["out"], want["out"])
-        np.testing.assert_array_equal(got["grads"][0], want["grads"][0])  # q
-        for g, w in zip(got["grads"][1:], want["grads"][1:]):  # k, v: sums over ranks
-            _close(g, w)
+        ranks.hold_core(res[("core", path)], want)
 
 
 @pytest.mark.parametrize("path", ranks.ATTN_PATHS)
@@ -246,15 +232,6 @@ def test_fake_4x4_score_tile_is_a_quarter_of_the_rows(fake):
 # --- C: the recurrences over 'model' ---------------------------------------
 
 
-REGIONS = ("mlstm", "ssd", "conv", "slstm")
-# the outputs (flat: the mLSTM's y, C, n, m; the SSD's y, state; the
-# conv's output) and the arguments (``torch_layout_ranks.mlstm`` / ``ssd``
-# / ``conv``) whose values and gradients are bitwise those of 1×1, by
-# position; the others agree within SUM_RTOL, see the module doc
-BITWISE_OUT = {"mlstm": (1, 2, 3), "ssd": (0, 1), "conv": (), "slstm": ()}
-BITWISE_GRADS = {"mlstm": (2, 5), "ssd": (0, 1, 2, 3), "conv": (), "slstm": ()}
-
-
 def _equal(bitwise, got, want):
     if bitwise:
         np.testing.assert_array_equal(got, want)
@@ -272,19 +249,7 @@ def test_region_outputs_and_blocks_equal_one_process(one, mesh, region):
         # each rank's block is the 1×1 output's block at its coordinates
         for i, ((blk, placements), w) in enumerate(zip(got["local"], want)):
             _equal(i in BITWISE_OUT[region], blk,
-                   w[_block_index(blk.shape, placements, res["coords"])])
-
-
-def _block_index(local_shape, placements, coords):
-    """The slice of the whole output that a rank at ``coords`` (data,
-    model) holds, from its placements' string (Shard(dim) per mesh dim)."""
-    index = [slice(None)] * len(local_shape)
-    for coord, (_, dim) in zip(coords, re.findall(r"(Shard\(dim=(\d+)\)|Replicate\(\))",
-                                                  placements)):
-        if dim:
-            n = local_shape[int(dim)]
-            index[int(dim)] = slice(coord * n, (coord + 1) * n)
-    return tuple(index)
+                   w[ranks.block_index(blk.shape, placements, res["coords"])])
 
 
 @pytest.mark.parametrize("region", REGIONS)
@@ -304,15 +269,7 @@ def test_region_gradients_equal_one_process(one, mesh, region):
 def test_region_bitwise_equals_each_ranks_own_one_process_run(one, mesh, region):
     want = one[("by_rank", region)]
     for res in mesh:
-        got = res[region]
-        for g, w in zip(got["out"], want["out"]):
-            np.testing.assert_array_equal(g, w)
-        for (blk, placements), w in zip(got["local"], want["out"]):
-            np.testing.assert_array_equal(blk, w[_block_index(blk.shape, placements,
-                                                              res["coords"])])
-        assert len(got["grads"]) == len(want["grads"])
-        for g, w in zip(got["grads"], want["grads"]):
-            np.testing.assert_array_equal(g, w)
+        ranks.hold_by_rank(res, region, want)
 
 
 def test_fake_4x4_slstm_splits_the_product_and_gathers_each_step(fake):
@@ -327,6 +284,24 @@ def test_fake_4x4_slstm_splits_the_product_and_gathers_each_step(fake):
     counts = got["collectives"]["counts"]
     assert counts == {**{k: 0 for k in counts}, "all-gather": f["s"]}
     assert got["collective_per_kind"]["all-gather"] == f["s"] * (f["b"] // 4) * 4 * d * 4
+
+
+def test_fake_4x4_mlstm_projections_split_their_weight_gradients(fake):
+    """The mLSTM block's up and down projections on 4 × 4 ranks. The up
+    projection's two halves (the cell's input and the output gate) are
+    products on w_up's halves of columns as the weight lays them out over
+    'model', so a rank computes its block of the weight's gradient, (d,
+    di / 4) a half, and no product makes the whole (d, 2·di) one (the 1×1
+    block's), as when the product's output was split after it and gathered
+    whole on every model rank. The down projection's input is laid out by
+    d_inner over 'model' before it, so a rank computes its (di / 4, d)
+    block of w_down's gradient (torch 2.11's propagation, left to itself,
+    gathered the input and computed the whole (di, d) one)."""
+    d, di = ranks._X.d_model, ranks._X.d_inner
+    got, one = fake["mlstm_products"]["mesh"], fake["mlstm_products"]["one"]
+    assert one.count((d, di)) == 2 and (d, 2 * di) not in one and one.count((di, d)) == 1
+    assert (d, 2 * di) not in got and (d, di) not in got and (di, d) not in got
+    assert got.count((d, di // 4)) == 2 and got.count((di // 4, d)) == 1
 
 
 def test_fake_4x4_chunk_count_equals_every_step(fake):

@@ -28,7 +28,6 @@ import os
 import pickle
 import sys
 
-import numpy as np
 import pytest
 import torch
 
@@ -37,7 +36,6 @@ from repro_torch.models import moe as tmoe
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_moe_ranks as ranks  # noqa: E402
 import torch_procs as procs  # noqa: E402
-from torch_mesh_ranks import GRAD_COS, GRAD_REL  # noqa: E402
 from torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,56 +84,19 @@ def largest(started):
         return pickle.load(f)
 
 
-def _one_process_buffer(arch, cf, dispatch, batch):
-    """The 1×1 path's whole (E, cap, d) buffer on the case's inputs."""
-    cfg = ranks.moe_cfg(arch, cf, dispatch)
-    data = ranks.inputs(arch, batch)
-    xt = torch.from_numpy(data["x"]).reshape(-1, cfg.d_model)
-    x_buf, *_ = tmoe._dispatch(xt, torch.from_numpy(data["params"]["router"]), cfg,
-                               cfg.capacity(xt.shape[0]))
-    return x_buf.numpy()
-
-
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
 def test_each_rank_fills_its_block_of_the_one_process_buffer(mesh, case):
-    buf = _one_process_buffer(*case)
-    e, cap, _ = buf.shape
-    seen = set()
-    for res in mesh:
-        (e0, c0, blk), = res[case]["blocks"]
-        assert blk.shape[0] < e and blk.shape[1] < cap  # a block, not the buffer
-        np.testing.assert_array_equal(blk, buf[e0: e0 + blk.shape[0], c0: c0 + blk.shape[1]])
-        seen.add((e0, c0))
-    assert len(seen) == ranks.WORLD  # four distinct blocks tile the buffer
+    ranks.hold_blocks(mesh, case)
 
 
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
 def test_forward_aux_and_drops_equal_one_process(one, mesh, case):
-    want = one[case]
-    for res in mesh:
-        np.testing.assert_array_equal(res[case]["y"], want["y"])
-        np.testing.assert_array_equal(res[case]["aux"], want["aux"])
-    # a data rank logs its own rows' drops (every row's where the batch
-    # does not divide over them): add model rank 0's of each
-    split = case[3] % 2 == 0
-    drops = sum(res[case]["drops"][0] for res in mesh
-                if res["coords"][1] == 0 and (split or res["coords"][0] == 0))
-    assert [drops] == want["drops"]
-    assert (drops > 0) == (case[1] == 1.25)
+    ranks.hold_forward(mesh, case, one[case])
 
 
 @pytest.mark.parametrize("case", ranks.CASES, ids=IDS)
 def test_gradients_agree_with_one_process(one, mesh, case):
-    want = one[case]["grads"]
-    for res in mesh:
-        got = res[case]["grads"]
-        assert set(got) == set(want)
-        for name, w in want.items():
-            g = got[name]
-            assert np.isfinite(g).all(), name
-            norm = np.linalg.norm(w)
-            assert np.linalg.norm(g - w) <= GRAD_REL * norm, name
-            assert float(np.dot(g.ravel(), w.ravel())) >= GRAD_COS * norm * np.linalg.norm(g), name
+    ranks.hold_grads(mesh, case, one[case]["grads"])
 
 
 @pytest.mark.parametrize("arch", ranks.ARCHS)

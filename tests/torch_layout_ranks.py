@@ -7,13 +7,17 @@ TinyLlama's and reduced xLSTM-125M's prefill and decode, an attention
 whose heads the model axis does not divide, and the mLSTM, sLSTM, SSD
 and conv regions, each on seeded inputs the test module's 1×1 runs share
 (``case_inputs``); a rank drains its collectives before it leaves the
-group (``torch_procs.drain``).
+group (``torch_procs.drain``). The checks against one process
+(``hold_decode``, ``hold_core``, ``hold_by_rank``, ``close``) are defined
+here once, for the test module and for chip_smoke.py's phase 19
+(``tests/torch_mesh_phase.py``).
 
 ``python tests/torch_layout_ranks.py fake|steps OUT`` runs the fake (4, 4)
 mesh's cases in a process of its own (torch's fake process group is its
 process's one default group): the prefills' cache blocks and largest
 allocation, the attention's largest score tile, the sLSTM region's FLOPs
-and collectives, and the xLSTM dry run's chunk count ("fake"); the trace of every step it is held to ("steps", a
+and collectives, the mLSTM block's product shapes, and the xLSTM dry run's
+chunk count ("fake"); the trace of every step it is held to ("steps", a
 second process, run beside the first).
 """
 import contextlib
@@ -22,6 +26,7 @@ import datetime
 import functools
 import os
 import pickle
+import re
 import sys
 import warnings
 
@@ -434,6 +439,82 @@ def xlstm_prefill_decode(rules=None):
     return out
 
 
+# where a sum over model ranks is reordered (never bitwise)
+SUM_RTOL = 1e-5
+REGIONS = ("mlstm", "ssd", "conv", "slstm")
+# the outputs (flat: the mLSTM's y, C, n, m; the SSD's y, state; the
+# conv's output) and the arguments (``mlstm`` / ``ssd`` / ``conv``) whose
+# values and gradients are bitwise those of 1×1, by position; the others
+# agree within SUM_RTOL (tests/test_torch_sharded_layouts.py's doc)
+BITWISE_OUT = {"mlstm": (1, 2, 3), "ssd": (0, 1), "conv": (), "slstm": ()}
+BITWISE_GRADS = {"mlstm": (2, 5), "ssd": (0, 1, 2, 3), "conv": (), "slstm": ()}
+
+
+def max_abs(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) if got.size else 0.0
+
+
+def equal(got, want) -> float:
+    """got bitwise want (raises otherwise); the largest difference, 0."""
+    np.testing.assert_array_equal(got, want)
+    return max_abs(got, want)
+
+
+def close(got, want, rtol=SUM_RTOL) -> float:
+    """got finite and within ``rtol`` of want in relative L2 (raises
+    otherwise); that relative distance."""
+    assert np.isfinite(got).all()
+    dist_, norm = float(np.linalg.norm(got - want)), float(np.linalg.norm(want))
+    assert dist_ <= rtol * norm, (dist_, norm)
+    return dist_ / norm if norm else dist_
+
+
+def block_index(local_shape, placements, coords):
+    """The slice of the whole output that a rank at ``coords`` (data,
+    model) holds, from its placements' string (Shard(dim) per mesh dim)."""
+    index = [slice(None)] * len(local_shape)
+    for coord, (_, dim) in zip(coords, re.findall(r"(Shard\(dim=(\d+)\)|Replicate\(\))",
+                                                  placements)):
+        if dim:
+            n = local_shape[int(dim)]
+            index[int(dim)] = slice(coord * n, (coord + 1) * n)
+    return tuple(index)
+
+
+def hold_decode(got, want) -> float:
+    """A rank's prefill-then-decode (``prefill_decode``,
+    ``xlstm_prefill_decode``) against one process's: the same tokens, the
+    logits within SUM_RTOL; the largest relative logits distance."""
+    for g, w in zip(got["tokens"], want["tokens"]):
+        np.testing.assert_array_equal(g, w)
+    return max((close(g, w) for g, w in zip(got["logits"], want["logits"])), default=0.0)
+
+
+def hold_core(got, want) -> float:
+    """A rank's ``attention_core`` against one process's: the output and
+    q's gradient bitwise, k's and v's (sums over the model ranks) within
+    SUM_RTOL; the largest relative distance of those two."""
+    equal(got["out"], want["out"])
+    equal(got["grads"][0], want["grads"][0])  # q
+    return max(close(g, w) for g, w in zip(got["grads"][1:], want["grads"][1:]))
+
+
+def hold_by_rank(res, region, want) -> float:
+    """A rank's ``region`` results (``res``: its coords and its results)
+    bitwise ``region_by_rank``'s: every output whole, the rank's blocks of
+    them, every gradient; the largest difference, 0."""
+    got, worst = res[region], 0.0
+    for g, w in zip(got["out"], want["out"]):
+        worst = max(worst, equal(g, w))
+    for (blk, placements), w in zip(got["local"], want["out"]):
+        worst = max(worst, equal(blk, w[block_index(blk.shape, placements, res["coords"])]))
+    assert len(got["grads"]) == len(want["grads"])
+    for g, w in zip(got["grads"], want["grads"]):
+        worst = max(worst, equal(g, w))
+    return worst
+
+
 def rank_main(rank, world, store, out_dir):
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore")
@@ -585,6 +666,50 @@ def _fake_slstm(rules):
     return res
 
 
+def _fake_mlstm_products(rules):
+    """An mLSTM block (``xlstm.mlstm_forward``, reduced xLSTM-125M's widths,
+    FAKE_SLSTM's batch and sequence) forward and backward on fake tensors,
+    placed as the train step places them under ``rules`` ("mesh") and
+    plain ("one"): the result shape of every product the dry run's counter
+    counts (one rank's local ops), in order."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import _placed_empty
+
+    class Products(CostCounter):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = self.flops
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if self.flops != before:  # a product it counted (one rank's, local)
+                self.shapes.append(tuple(out.shape))
+            return out
+
+    f, x_cfg = FAKE_SLSTM, _X
+    res = {}
+    for name, r in (("mesh", rules), ("one", None)):
+        with FakeTensorMode(), use_rules(r), sharded_compute():
+            def make(shape, axes):
+                t = (_placed_empty(shape, torch.float32, axes, r, "cpu") if r is not None
+                     else torch.empty(shape))
+                return t.requires_grad_(True)
+
+            params = {n: make(shape, axes) for n, (shape, _, axes)
+                      in txl.mlstm_param_shapes(x_cfg).items()}
+            x = make((f["b"], f["s"], x_cfg.d_model), ("batch", None, "act_embed"))
+            counter = Products()
+            with counter:
+                y, _ = txl.mlstm_forward(x, params, dataclasses.replace(x_cfg, chunk=f["chunk"]))
+                loss = y.sum()
+                torch.autograd.grad(loss.full_tensor() if r is not None else loss,
+                                    [x, *params.values()])
+        res[name] = counter.shapes
+    return res
+
+
 def _fake_dryrun(mesh, mode):
     """Reduced xLSTM-125M's train step on the fake mesh, one chunk counted
     for all (``mode`` "chunks") or every step traced ("steps"): the
@@ -612,6 +737,7 @@ def fake_main(mode, out_path):
         res = {arch: _fake_prefill(arch, rules) for arch in PREFILL_ARCHS}
         res["attention"] = _fake_attention(rules)
         res["slstm"] = _fake_slstm(rules)
+        res["mlstm_products"] = _fake_mlstm_products(rules)
         res["chunks"] = _fake_dryrun(mesh, "chunks")
     dist.destroy_process_group()
     with open(out_path, "wb") as f:

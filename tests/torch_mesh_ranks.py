@@ -2,7 +2,9 @@
 four spawned gloo ranks of a 2×2 (data, model) mesh runs, and the settings
 the test module shares with them. It imports only the port (a spawned
 rank imports this module, not the test module, which imports the JAX
-package)."""
+package). The comparisons of a step with another (``hold``,
+``hold_mesh_step``) are defined here once, for the test module and for
+chip_smoke.py's phase 19 (``tests/torch_mesh_phase.py``)."""
 import contextlib
 import dataclasses
 import datetime
@@ -109,6 +111,63 @@ def _step(cfg, rules, dtype="bf16", keep=True):
     if keep:
         out.update(m=m_np, v=v_np, init=init)
     return out
+
+
+def rel_cos(a, b):
+    """(relative L2 distance of a from b, cosine of a and b), in f64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nb = np.linalg.norm(b)
+    if nb == 0:
+        return float(np.linalg.norm(a)), 1.0
+    return (float(np.linalg.norm(a - b) / nb),
+            float((a * b).sum() / max(np.linalg.norm(a) * nb, 1e-300)))
+
+
+def step_grads(step):
+    """The clipped-then-unclipped gradients from the first step's m."""
+    scale = min(1.0, 1.0 / max(step["metrics"]["grad_norm"], 1e-9))
+    return {k: m / ((1 - 0.9) * scale) for k, m in step["m"].items()}
+
+
+def hold(got, want, moments=True):
+    """A step's results (``_step``) held to another's: every metric within
+    METRIC_RTOL (relative, at least 1e-12 absolute) and finite; with
+    ``moments``, every leaf's gradient (from m) within GRAD_REL relative L2
+    and GRAD_COS cosine, m within M_REL and v within V_REL. Raises
+    AssertionError naming the first that is not; returns the largest
+    relative difference of each kind (and the smallest gradient cosine)."""
+    worst = {"metric_rel": 0.0}
+    for key, rtol in METRIC_RTOL.items():
+        g, w = got["metrics"][key], want["metrics"][key]
+        assert np.isfinite(g), key
+        assert abs(g - w) <= max(rtol * abs(w), 1e-12), (key, g, w)
+        worst["metric_rel"] = max(worst["metric_rel"], abs(g - w) / max(abs(w), 1e-12))
+    if not moments:
+        return worst
+    assert sorted(got["m"]) == sorted(want["m"])
+    worst.update(grad_rel=0.0, grad_cos=1.0, m_rel=0.0, v_rel=0.0)
+    g_got, g_want = step_grads(got), step_grads(want)
+    for key in got["m"]:
+        rel, cos = rel_cos(g_got[key], g_want[key])
+        assert rel <= GRAD_REL and cos >= GRAD_COS, (key, rel, cos)
+        m_rel, v_rel = rel_cos(got["m"][key], want["m"][key])[0], \
+            rel_cos(got["v"][key], want["v"][key])[0]
+        assert m_rel <= M_REL, key
+        assert v_rel <= V_REL, key
+        worst.update(grad_rel=max(worst["grad_rel"], rel), grad_cos=min(worst["grad_cos"], cos),
+                     m_rel=max(worst["m_rel"], m_rel), v_rel=max(worst["v_rel"], v_rel))
+    return worst
+
+
+def hold_mesh_step(steps, want, moments=True):
+    """The ranks' results of one mesh step (``steps``, rank 0's first: it
+    alone keeps the moments): the same metrics on every rank, params
+    sharded, and rank 0's held to ``want`` (``hold``, whose largest
+    differences it returns)."""
+    got = steps[0]
+    assert all(s["metrics"] == got["metrics"] for s in steps), "the ranks' metrics differ"
+    assert got["sharded"] > 0
+    return hold(got, want, moments)
 
 
 def _moe_ep(mesh, inputs):

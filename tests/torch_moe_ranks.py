@@ -2,7 +2,9 @@
 spawned gloo ranks of a 2×2 (data, model) mesh runs, and the cases the
 test module shares with them. It imports only the port (a spawned rank
 imports this module, not the test module, which imports the JAX
-package)."""
+package). The checks against one process (``hold_blocks``,
+``hold_forward``, ``hold_grads``) are defined here once, for the test
+module and for chip_smoke.py's phase 19 (``tests/torch_mesh_phase.py``)."""
 import dataclasses
 import datetime
 import os
@@ -20,6 +22,7 @@ from repro_torch.models.transformer import moe_cfg_of
 from repro_torch.sharding import MeshRules, use_rules
 from repro_torch.sharding.specs import sharded_compute
 from repro_torch.training.optimizer import whole
+from torch_mesh_ranks import GRAD_COS, GRAD_REL
 from torch_procs import drain
 
 WORLD = 4
@@ -82,6 +85,74 @@ def run(arch, cf, dispatch, data, rules=None):
     finally:
         tmoe.DROP_LOG = tmoe.BLOCK_LOG = None
     return out
+
+
+def one_process_buffer(arch, cf, dispatch, batch):
+    """The 1×1 path's whole (E, cap, d) buffer on the case's inputs."""
+    cfg = moe_cfg(arch, cf, dispatch)
+    data = inputs(arch, batch)
+    xt = torch.from_numpy(data["x"]).reshape(-1, cfg.d_model)
+    x_buf, *_ = tmoe._dispatch(xt, torch.from_numpy(data["params"]["router"]), cfg,
+                               cfg.capacity(xt.shape[0]))
+    return x_buf.numpy()
+
+
+def hold_blocks(mesh, case) -> float:
+    """Every rank's x_buf block (``mesh``: the four ranks' results) is
+    bitwise that block of the 1×1 buffer, and the four blocks differ (they
+    tile it); the largest difference, 0."""
+    buf = one_process_buffer(*case)
+    e, cap, _ = buf.shape
+    seen, worst = set(), 0.0
+    for res in mesh:
+        (e0, c0, blk), = res[case]["blocks"]
+        assert blk.shape[0] < e and blk.shape[1] < cap  # a block, not the buffer
+        want = buf[e0: e0 + blk.shape[0], c0: c0 + blk.shape[1]]
+        np.testing.assert_array_equal(blk, want)
+        worst = max(worst, float(np.abs(blk - want).max()) if blk.size else 0.0)
+        seen.add((e0, c0))
+    assert len(seen) == WORLD  # four distinct blocks tile the buffer
+    return worst
+
+
+def hold_forward(mesh, case, want) -> float:
+    """y and the aux loss of every rank bitwise the 1×1 path's (``want``),
+    and the drops over the data ranks adding up to its; the largest
+    difference, 0."""
+    worst = 0.0
+    for res in mesh:
+        np.testing.assert_array_equal(res[case]["y"], want["y"])
+        np.testing.assert_array_equal(res[case]["aux"], want["aux"])
+        worst = max(worst, float(np.abs(res[case]["y"] - want["y"]).max()))
+    # a data rank logs its own rows' drops (every row's where the batch
+    # does not divide over them): add model rank 0's of each
+    split = case[3] % 2 == 0
+    drops = sum(res[case]["drops"][0] for res in mesh
+                if res["coords"][1] == 0 and (split or res["coords"][0] == 0))
+    assert [drops] == want["drops"], (drops, want["drops"])
+    assert (drops > 0) == (case[1] == 1.25)
+    return worst
+
+
+def hold_grads(mesh, case, want):
+    """Every rank's gradients of x and every param within the f32 bounds
+    of tests/test_torch_mesh_training.py (relative L2 GRAD_REL, cosine
+    GRAD_COS) of the 1×1 path's (``want``: its gradients); (the largest
+    relative distance, the smallest cosine)."""
+    worst = (0.0, 1.0)
+    for res in mesh:
+        got = res[case]["grads"]
+        assert set(got) == set(want)
+        for name, w in want.items():
+            g = got[name]
+            assert np.isfinite(g).all(), name
+            norm, dist_ = np.linalg.norm(w), np.linalg.norm(g - w)
+            dot = float(np.dot(g.ravel(), w.ravel()))
+            assert dist_ <= GRAD_REL * norm, name
+            assert dot >= GRAD_COS * norm * np.linalg.norm(g), name
+            worst = (max(worst[0], float(dist_ / norm) if norm else float(dist_)),
+                     min(worst[1], dot / max(float(norm * np.linalg.norm(g)), 1e-300)))
+    return worst
 
 
 def rank_main(rank, world, store, out_dir):

@@ -4,22 +4,24 @@ worker script in a subprocess (``Sub``) and spawned gloo ranks
 file of its own, and a failure quotes the tail of every log, so that a
 test run's report names the cause. It imports only the port.
 
-A rank that ends its process group must first wait for every collective it
-issued (``drain``): DTensor's redistributes leave functional collectives
-whose results nothing reads (169 in one reduced TinyLlama FSDP step), and
-gloo runs them on its own threads. A rank that destroyed its group while
-such a collective was still in flight died at its exit, after its work was
-done (SIGABRT "terminate called without an active exception", SIGSEGV, or
-"malloc(): unaligned tcache chunk detected"): 7 runs of 18 of four ranks,
-three sets of ranks at once; none of 18 with the barriers.
+A rank that ends its process group first waits for every collective it
+issued (``drain``: a barrier on each group), so that none is in flight
+when the group goes. Ranks of the real 2×2 step under the dry run's
+counter died at their exit, after their work (SIGABRT "terminate called
+without an active exception", SIGSEGV, "malloc(): unaligned tcache chunk
+detected"): the counter skipped the waits of the step's functional
+collectives (169 left unwaited in one reduced TinyLlama FSDP step), so
+gloo's threads wrote into outputs the step had freed. It waits them now;
+``tools/stress_fixtures.py ranks --no-drain`` reruns that stress without
+the barriers.
 """
 import os
+import socket
 import subprocess
 import sys
 import time
 
 import pytest
-import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
@@ -45,12 +47,14 @@ def port_env() -> dict:
 
 
 class Sub:
-    """``python argv...`` started now, its output in ``<log_dir>/<name>.log``."""
+    """``python argv...`` started now (``env``: variables added to
+    ``port_env()``'s), its output in ``<log_dir>/<name>.log``."""
 
-    def __init__(self, argv, log_dir, name):
+    def __init__(self, argv, log_dir, name, env=None):
         self.name, self.log = name, os.path.join(str(log_dir), f"{name}.log")
         with open(self.log, "w") as out:
-            self.proc = subprocess.Popen([sys.executable, *map(str, argv)], env=port_env(),
+            self.proc = subprocess.Popen([sys.executable, *map(str, argv)],
+                                         env={**port_env(), **(env or {})},
                                          stdout=out, stderr=subprocess.STDOUT)
 
     def wait(self, seconds=WAIT_S):
@@ -68,6 +72,25 @@ class Sub:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+def free_port() -> int:
+    """A TCP port of this host's loopback that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_ranks(module, args, world, log_dir, name):
+    """``python -m module args...`` in ``world`` processes with the
+    environment torchrun gives its ranks (``RANK``, ``LOCAL_RANK``,
+    ``WORLD_SIZE``, a loopback ``MASTER_ADDR`` and free ``MASTER_PORT``; one
+    intra-op thread), started now: a ``Sub`` a rank, rank r's output in
+    ``<log_dir>/<name>-rank<r>.log``."""
+    env = {"WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "OMP_NUM_THREADS": "1"}
+    return [Sub(["-m", module, *args], log_dir, f"{name}-rank{r}",
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}) for r in range(world)]
 
 
 def _logged(rank, fn, log_dir, name, args):
@@ -117,11 +140,10 @@ class Ranks:
 
 def drain():
     """Wait for every collective this rank issued on every group it is in
-    (one barrier a group: gloo's barrier completes after the group's
-    earlier work), in the order the groups were made, which every rank
-    shares. Call it before ``dist.destroy_process_group()`` on the way out
-    of a rank that finished its work (the module doc)."""
-    from torch.distributed.distributed_c10d import _world
+    (``repro_torch.launch.mesh.drain_process_groups``: one barrier a group,
+    in the order the groups were made). Call it before
+    ``dist.destroy_process_group()`` on the way out of a rank that finished
+    its work (the module doc)."""
+    from repro_torch.launch.mesh import drain_process_groups
 
-    for group in list(_world.pg_map):
-        dist.barrier(group=group)
+    drain_process_groups()
