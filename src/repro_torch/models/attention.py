@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import current_rules, local_shard, mesh_placements, shard_act, \
     wrap_local
 from .common import Leaf, apply_rope, causal_mask
@@ -482,14 +483,30 @@ def append_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], layer_k: 
     and each new query attends causally to all history and to the new
     tokens before it. Returns (b, n, h*hd), through ``wo`` unless
     ``project_out`` is False (the sparse path masks before wo)."""
-    b, n, _ = x.shape
+    out = attend_appended(x @ params["wq"], x @ params["wk"], x @ params["wv"], layer_k,
+                          layer_v, length, n_heads, n_kv_heads, head_dim, rope_theta,
+                          kv_replicate)
+    return out @ params["wo"] if project_out else out
+
+
+def attend_appended(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layer_k: torch.Tensor,
+                    layer_v: torch.Tensor, length: int, n_heads: int, n_kv_heads: int,
+                    head_dim: int, rope_theta: Optional[float],
+                    kv_replicate: int = 1) -> torch.Tensor:
+    """``append_attention`` after its q/k/v projections (b, n, h·hd) and
+    (b, n, kv·hd), before the o projection: the cache write and the causal
+    attention over it. Returns (b, n, h·hd). Its products round by the row
+    count (at a few tokens a frame), so on a data-split serve mesh the
+    attention runs at the whole batch's, this rank's rows padded
+    (``whole_rows``)."""
+    b, n, _ = q.shape
     phys = layer_k.shape[1]
     if length + n > phys:
         raise ValueError(f"appending {n} tokens at {length} overflows a cache of {phys}")
-    positions = (length + torch.arange(n, device=x.device))[None].expand(b, n)
-    q = (x @ params["wq"]).reshape(b, n, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, n, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, n, n_kv_heads, head_dim)
+    positions = (length + torch.arange(n, device=q.device))[None].expand(b, n)
+    q = q.reshape(b, n, n_heads, head_dim)
+    k = k.reshape(b, n, n_kv_heads, head_dim)
+    v = v.reshape(b, n, n_kv_heads, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -498,8 +515,12 @@ def append_attention(x: torch.Tensor, params: Dict[str, torch.Tensor], layer_k: 
     layer_k[:, length: length + n] = k
     layer_v[:, length: length + n] = v
     n_rep = n_heads // (n_kv_heads * kv_replicate)
-    slot = torch.arange(phys, device=x.device)[None, :]
-    q_pos = (length + torch.arange(n, device=x.device))[:, None]
-    out = _direct_attention(q, repeat_kv(layer_k, n_rep), repeat_kv(layer_v, n_rep),
-                            slot <= q_pos).reshape(b, n, n_heads * head_dim)
-    return out @ params["wo"] if project_out else out
+    slot = torch.arange(phys, device=q.device)[None, :]
+    q_pos = (length + torch.arange(n, device=q.device))[:, None]
+
+    def attend(q, layer_k, layer_v):
+        return _direct_attention(q, repeat_kv(layer_k, n_rep), repeat_kv(layer_v, n_rep),
+                                 slot <= q_pos)
+
+    out = serve_mesh.whole_rows(attend, local=(q, layer_k, layer_v))
+    return out.reshape(b, n, n_heads * head_dim)

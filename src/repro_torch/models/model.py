@@ -63,6 +63,7 @@ reference's params over with ``models/convert.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -70,6 +71,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import add_residual, current_rules, over_batch, replicated, shard_act
 from .attention import (
     split_heads,
@@ -242,6 +244,14 @@ def _final_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _logits(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return hidden @ head.to(hidden.dtype)
+
+
+def _decode_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A decode step's f32 logits (b, vocab) from the last layer's (b, 1,
+    d): the final norm and the head, over the whole batch's rows on a
+    data-split serve mesh (``whole_rows``)."""
+    return serve_mesh.whole_rows(
+        lambda x: _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32), x)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -505,7 +515,7 @@ class _DecoderLM:
         seconds, a scalar tensor)."""
         x = frame_embeds.to(device).to(COMPUTE_DTYPE)
         if "projector" in params:
-            x = x @ params["projector"].to(COMPUTE_DTYPE)
+            x = serve_mesh.whole_rows(lambda x: x @ params["projector"].to(COMPUTE_DTYPE), x)
         x, io = stack_append(params["layers"], x, cache, self.cfg, sparse_ctx)
         return _final_norm(params, x, self.cfg), io
 
@@ -523,8 +533,7 @@ class _DecoderLM:
         window = None if "page_table" in cache else _decode_window(cfg, cache["k"].shape[2])
         x = _embed(params, token)
         x, io = stack_decode(params["layers"], x, cache, cfg, sparse_ctx, plan, refresh, window)
-        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
-        return shard_act(logits, ("batch", "vocab")), io
+        return shard_act(_decode_logits(params, x, cfg), ("batch", "vocab")), io
 
 
 # ---------------------------------------------------------------------------
@@ -666,8 +675,8 @@ class _Zamba:
                 x, _ = block_decode(params["shared"], x, cache["attn_k"][app],
                                     cache["attn_v"][app], length, cfg, window=window)
         cache["length"] = length + 1
-        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return _decode_logits(params, x, cfg), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -746,8 +755,8 @@ class _XLSTM:
         """Every block's recurrent step; ``sparse_ctx`` is ignored."""
         x = self._run(params, _embed(params, token), cache)
         cache["length"] += 1
-        logits = _logits(params, _final_norm(params, x, self.cfg)[:, 0], self.cfg)
-        return logits.to(torch.float32), torch.zeros((), dtype=torch.float32, device=x.device)
+        return _decode_logits(params, x, self.cfg), torch.zeros((), dtype=torch.float32,
+                                                                device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -891,6 +900,17 @@ class _Whisper:
         cache["length"] = s
         return _logits(params, _final_norm(params, x, cfg)[:, -1], cfg), cache
 
+    def _dec_qkv(self, lp, x: torch.Tensor):
+        """A decode step's self-attention projections of x (b, 1, d)."""
+        h = apply_norm(x, lp, self.cfg, "ln1")
+        return h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+
+    def _dec_rest(self, lp, x: torch.Tensor, attn: torch.Tensor, enc_k: torch.Tensor,
+                  enc_v: torch.Tensor) -> torch.Tensor:
+        """A decode step's layer after its self-attention: the o projection,
+        a residual, then ``_cross_mlp`` over the encoder's keys and values."""
+        return self._cross_mlp(lp, x + attn @ lp["wo"], (enc_k, enc_v))
+
     def decode_step(self, params, token: torch.Tensor, cache: Dict, sparse_ctx=None):
         """Self-attention against the cache, cross-attention against the
         encoder's keys and values, the MLP; ``sparse_ctx`` is ignored."""
@@ -900,17 +920,20 @@ class _Whisper:
         x = _embed(params, token) + self._dec_pos(params, length)
         window = _decode_window(cfg, cache["k"].shape[2])
         for layer, lp in enumerate(unstack(params["decoder"])):
+            # at the whole batch's row count on a data-split serve mesh
+            # (whole_rows), but the self-attention over this rank's KV
+            # cache, which it writes in place (its rows are independent)
             lk, lv = cache["k"][layer], cache["v"][layer]
-            h = apply_norm(x, lp, cfg, "ln1")
-            nk, nv = project_kv_for_decode(h @ lp["wk"], h @ lp["wv"], n_kv, hd, length, None)
+            q, k, v = serve_mesh.whole_rows(functools.partial(self._dec_qkv, lp), x)
+            nk, nv = project_kv_for_decode(k, v, n_kv, hd, length, None)
             cache_layer_update(lk, lv, nk, nv, length, window)
-            attn = decode_attention(h @ lp["wq"], lk, lv, length + 1, cfg.n_heads, n_kv, hd,
-                                    None, x.dtype, window)
-            x = x + attn @ lp["wo"]
-            x = self._cross_mlp(lp, x, (cache["enc_k"][layer], cache["enc_v"][layer]))
+            attn = decode_attention(q, lk, lv, length + 1, cfg.n_heads, n_kv, hd, None, x.dtype,
+                                    window)
+            x = serve_mesh.whole_rows(functools.partial(self._dec_rest, lp), x, attn,
+                                      local=(cache["enc_k"][layer], cache["enc_v"][layer]))
         cache["length"] = length + 1
-        logits = _logits(params, _final_norm(params, x, cfg)[:, 0], cfg).to(torch.float32)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return _decode_logits(params, x, cfg), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
 
 
 _FAMILIES = {"dense": _DecoderLM, "moe": _DecoderLM, "vlm": _DecoderLM, "hybrid": _Zamba,

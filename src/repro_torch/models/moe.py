@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..sharding import serve as serve_mesh  # its row_split, read at call time
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import MeshRules, current_rules, local_shard, mesh_placements, wrap_local
 from .common import swish
 
@@ -186,16 +186,15 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
 
     On a serve mesh whose data ranks each hold some rows of the batch
     (``sharding.serve.row_split``), the call's tokens are the whole
-    batch's: the rows are gathered over ``data`` in rank order, routed and
-    computed as the 1×1 mesh does, and this rank keeps its own rows, so a
+    batch's (``sharding.serve.whole_rows``): the rows are gathered over
+    ``data`` in rank order, routed and computed as the 1×1 mesh does, and
+    this rank keeps its own rows, so a
     rank's rows never change another row's capacity, drops or arithmetic."""
     if cfg.dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch must be one of {DISPATCHES}, got {cfg.dispatch!r}")
-    split = serve_mesh.row_split()
-    if split is not None and current_rules() is None:
-        y, aux = _moe_ffn(split.replicate(x), params, cfg, prefix)
-        return split.put_batch(y), aux
-    return _moe_ffn(x, params, cfg, prefix)
+    if current_rules() is not None:
+        return _moe_ffn(x, params, cfg, prefix)
+    return serve_mesh.whole_rows(lambda x: _moe_ffn(x, params, cfg, prefix), x)
 
 
 def _moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import over_batch, shard_act
 from .common import Leaf, rms_norm, swish
 
@@ -202,17 +203,25 @@ def mamba2_state_init(cfg: Mamba2Config, batch: int, dtype, device=None) -> Dict
 
 def mamba2_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
                        params: Dict[str, torch.Tensor], cfg: Mamba2Config):
-    """One recurrent step: x (b, 1, d) → (out (b, 1, d), the new state)."""
+    """One recurrent step: x (b, 1, d) → (out (b, 1, d), the new state). On
+    a data-split serve mesh it runs at the whole batch's row count
+    (``whole_rows``: x gathered, the state this rank's rows padded)."""
+    return serve_mesh.whole_rows(functools.partial(_decode_step, params=params, cfg=cfg), x,
+                                 local=(state["conv"], state["ssm"]))
+
+
+def _decode_step(x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                 params: Dict[str, torch.Tensor], cfg: Mamba2Config):
     b = x.shape[0]
     z, xbc, dt = _split_in_proj(x[:, 0] @ params["w_in"], cfg)
-    conv_win = torch.cat([state["conv"], xbc[:, None, :]], dim=1)  # (b, d_conv, c)
+    conv_win = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (b, d_conv, c)
     conv = torch.einsum("bkc,kc->bc", conv_win.to(torch.float32),
                         params["conv_w"].to(torch.float32)).to(conv_win.dtype)
     xbc = swish(conv + params["conv_b"])
     xs, b_h, c_h = _heads(xbc, cfg)  # (b, h, p), (b, h, n) x2
     dt, a = _dt_decay(dt, params, cfg)  # (b, h)
     xs_f = xs.to(torch.float32)
-    ssm = state["ssm"] * torch.exp(dt * a)[..., None, None] + torch.einsum(
+    ssm = ssm_state * torch.exp(dt * a)[..., None, None] + torch.einsum(
         "bhp,bhn->bhpn", xs_f * dt[..., None], b_h.to(torch.float32))
     y = torch.einsum("bhpn,bhn->bhp", ssm, c_h.to(torch.float32))
     y = y + xs_f * params["d_skip"].to(torch.float32)[None, :, None]

@@ -52,7 +52,7 @@ from ..configs.base import ModelConfig
 from ..kernels.quantize import QUANT_SUFFIX_CHECKSUM, QUANT_SUFFIX_PAYLOAD, streamed_operand
 from .attention import (
     Length,
-    append_attention,
+    attend_appended,
     cache_layer_update,
     decode_attention,
     gather_paged_kv,
@@ -62,6 +62,7 @@ from .attention import (
     scatter_paged_kv,
     split_heads,
 )
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import add_residual, shard_act
 from .common import apply_rope, gelu, layer_norm, rematerialised, rms_norm, swish, unstack
 from .mlp import gelu_mlp, gelu_mlp_planned, swiglu_mlp, swiglu_mlp_planned
@@ -238,25 +239,47 @@ def stack_forward(stacked, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
     return x, aux
 
 
+def _unplanned_qkv(params, x: torch.Tensor, cfg: ModelConfig, sparse_ctx):
+    """The unplanned paths' attention input: the ln1 norm of x, the
+    hidden_attn site's mask selected from it and the masked q/k/v
+    products, over the whole batch's rows on a data-split serve mesh
+    (``whole_rows``). Returns (q, k, v, estimated I/O seconds)."""
+    def run(x):
+        h = apply_norm(x, params, cfg, "ln1")
+        mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
+        h = _apply_mask(h, mask_q)
+        return h @ params["wq"], h @ params["wk"], h @ params["wv"], io
+
+    return serve_mesh.whole_rows(run, x)
+
+
+def _unplanned_out_mlp(params, x: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig,
+                       sparse_ctx):
+    """The unplanned paths' rest of the block after the attention core: the
+    attn_out site's mask and the o projection, the residual, the ln2 norm
+    and the MLP (with its sites' masks), over the whole batch's rows on a
+    data-split serve mesh. Returns (x_out, the attn_out site's and the
+    MLP's estimated I/O seconds)."""
+    def run(x, attn):
+        mask_o, io_o = _site_mask(sparse_ctx, "attn_out", attn)
+        x = x + _apply_mask(attn, mask_o) @ params["wo"]
+        y, io_mlp = _mlp_maybe_sparse(apply_norm(x, params, cfg, "ln2"), params, cfg, sparse_ctx)
+        return x + y, io_o, io_mlp
+
+    return serve_mesh.whole_rows(run, x, attn)
+
+
 def block_append(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
                  length: int, cfg: ModelConfig, sparse_ctx=None):
     """n new tokens x (b, n, d) through one layer, extending its cache in
     place at ``length …``. With a sparse context every site selects its
     mask from this frame's activations. Returns (x_out, estimated I/O
     seconds)."""
-    h = apply_norm(x, params, cfg, "ln1")
-    mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
-    attn = append_attention(_apply_mask(h, mask_q), params, layer_k, layer_v, length,
-                            cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-                            cfg.rope_theta, project_out=sparse_ctx is None,
-                            kv_replicate=cfg.kv_replicate)
-    if sparse_ctx is not None:
-        mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
-        io = io + lat
-        attn = _apply_mask(attn, mask_o) @ params["wo"]
-    x = x + attn
-    y, lat = _mlp_maybe_sparse(apply_norm(x, params, cfg, "ln2"), params, cfg, sparse_ctx)
-    return x + y, io + lat
+    q, k, v, io = _unplanned_qkv(params, x, cfg, sparse_ctx)
+    attn = attend_appended(q, k, v, layer_k, layer_v, length, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, cfg.rope_theta, cfg.kv_replicate)
+    x, io_o, io_mlp = _unplanned_out_mlp(params, x, attn, cfg, sparse_ctx)
+    return x, io + io_o + io_mlp
 
 
 def stack_append(stacked, x: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig,
@@ -317,8 +340,8 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
     b = x.shape[0]
     planned = sparse_ctx is not None and bool(plan)
     io = 0.0
-    h = apply_norm(x, params, cfg, "ln1")
     if planned:
+        h = apply_norm(x, params, cfg, "ln1")
         mask_q = plan["hidden_attn"]["mask"][layer]
         sparse_ctx.record_importance("hidden_attn", h, plan, layer)
         hs, hz = sparse_ctx.kernel_tables(plan, "hidden_attn", layer)
@@ -331,30 +354,25 @@ def block_decode(params, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.
             outs.append(y.to(h.dtype).reshape(b, 1, -1))
         q, k, v = outs
     else:
-        mask_q, io = _site_mask(sparse_ctx, "hidden_attn", h)
-        h = _apply_mask(h, mask_q)
-        q, k, v = (h @ params[name] for name in ("wq", "wk", "wv"))
+        q, k, v, io = _unplanned_qkv(params, x, cfg, sparse_ctx)
     new_k, new_v = project_kv_for_decode(k, v, cfg.n_kv_heads, hd, length, cfg.rope_theta)
     if cfg.kv_replicate > 1:  # the cache stores each kv head kv_replicate times
         new_k, new_v = repeat_kv(new_k, cfg.kv_replicate), repeat_kv(new_v, cfg.kv_replicate)
     cache_layer_update(layer_k, layer_v, new_k, new_v, length, window)
     attn = decode_attention(q, layer_k, layer_v, length + 1, cfg.n_heads, cfg.n_cache_kv_heads, hd,
                             cfg.rope_theta, x.dtype, window)
-    if planned:
-        mask_o = plan["attn_out"]["mask"][layer]
-        sparse_ctx.record_importance("attn_out", attn, plan, layer)
-        w_o, sc_o = _site_weight(params, sparse_ctx, "wo")
-        y_o = sparse_ctx.backend.project(w_o, attn.reshape(b, -1), mask_o,
-                                         *sparse_ctx.kernel_tables(plan, "attn_out", layer),
-                                         sc_o, params.get("wo" + QUANT_SUFFIX_CHECKSUM))
-        attn = y_o.to(attn.dtype).reshape(b, 1, -1)
-    else:
-        mask_o, lat = _site_mask(sparse_ctx, "attn_out", attn)
-        io = io + lat
-        attn = _apply_mask(attn, mask_o) @ params["wo"]
-    x = x + attn
+    if not planned:
+        x, io_o, io_mlp = _unplanned_out_mlp(params, x, attn, cfg, sparse_ctx)
+        return x, io + io_o + io_mlp
+    mask_o = plan["attn_out"]["mask"][layer]
+    sparse_ctx.record_importance("attn_out", attn, plan, layer)
+    w_o, sc_o = _site_weight(params, sparse_ctx, "wo")
+    y_o = sparse_ctx.backend.project(w_o, attn.reshape(b, -1), mask_o,
+                                     *sparse_ctx.kernel_tables(plan, "attn_out", layer),
+                                     sc_o, params.get("wo" + QUANT_SUFFIX_CHECKSUM))
+    x = x + y_o.to(attn.dtype).reshape(b, 1, -1)
     h = apply_norm(x, params, cfg, "ln2")
-    if planned and not cfg.has_moe:
+    if not cfg.has_moe:
         return x + _planned_mlp(h, params, cfg, sparse_ctx, plan, layer), io
     y, lat = _mlp_maybe_sparse(h, params, cfg, sparse_ctx)
     return x + y, io + lat

@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import serve as serve_mesh  # whole_rows reads the split at call time
 from ..sharding.specs import current_rules, over_batch, shard_act
 from .common import Leaf, gelu, rms_norm, swish
 from .scan import chunked_scan
@@ -143,7 +144,17 @@ def _mlstm_region(chunk: int):
 def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
                   state=None):
     """(b, s, d) → (out (b, s, d), the new state); ``state`` None starts
-    from ``mlstm_state_init``."""
+    from ``mlstm_state_init``. On a data-split serve mesh it runs at the
+    whole batch's row count (``whole_rows``: x gathered, the state this
+    rank's rows padded)."""
+    if state is None:
+        state = mlstm_state_init(cfg, x.shape[0], x.device)
+    return serve_mesh.whole_rows(functools.partial(_mlstm_block, params=params, cfg=cfg), x,
+                                 local=state)
+
+
+def _mlstm_block(x: torch.Tensor, c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                 params: Dict[str, torch.Tensor], cfg: XLSTMConfig):
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     # the up projection as two products, one a half of w_up's columns, each
@@ -158,9 +169,7 @@ def mlstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMCo
     vf = (xm @ params["w_v"]).reshape(b, s, h, dh).to(torch.float32)
     log_i = (xm @ params["w_ig"] + params["b_ig"]).to(torch.float32)
     f_pre = (xm @ params["w_fg"] + params["b_fg"]).to(torch.float32)
-    if state is None:
-        state = mlstm_state_init(cfg, b, x.device)
-    y, (c, n, m) = _mlstm_region(cfg.chunk)(qf, kf, vf, log_i, f_pre, *state)
+    y, (c, n, m) = _mlstm_region(cfg.chunk)(qf, kf, vf, log_i, f_pre, c, n, m)
     # the state as the cache lays it out: one gather of C's rows
     state = tuple(shard_act(t, axes) for t, axes in zip((c, n, m), MLSTM_STATE_AXES))
     # y gathered whole over 'model' (it came back by value rows), and after
@@ -212,10 +221,16 @@ def slstm_state_init(cfg: XLSTMConfig, batch: int, device=None):
 def slstm_forward(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: XLSTMConfig,
                   state=None):
     """sLSTM with the head-wise recurrent gate mix, then the feed-forward:
-    (b, s, d) → (out, the new state)."""
-    pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
+    (b, s, d) → (out, the new state). On a data-split serve mesh it runs at
+    the whole batch's row count, as ``mlstm_forward`` does."""
     if state is None:
         state = slstm_state_init(cfg, x.shape[0], x.device)
+    return serve_mesh.whole_rows(functools.partial(_slstm_block, params=params, cfg=cfg), x,
+                                 local=state)
+
+
+def _slstm_block(x: torch.Tensor, *state, params: Dict[str, torch.Tensor], cfg: XLSTMConfig):
+    pre = (x @ params["w_gates"] + params["b_gates"]).to(torch.float32)  # (b, s, 4d)
     ys, state = _slstm_region(cfg.chunk)(pre, params["r_gates"].to(torch.float32), *state)
     y = rms_norm(ys.to(x.dtype), params["norm_w"])
     return gelu(y @ params["w_ff_up"]) @ params["w_ff_down"], state

@@ -69,12 +69,24 @@ cache and runs the model on them; the decode-streamed weights are
 model-sharded at rest and gathered at the compute boundary; selection is
 replicated, so the plan, the simulator and every counter are the same on
 every rank, and ``prefill`` / ``append_frame`` / ``decode`` return the
-whole batch, gathered in row order. Greedy tokens equal the 1×1 mesh's.
+whole batch, gathered in row order. Greedy tokens equal the 1×1 mesh's,
+and so do the logits, each frame's hidden states and each rank's rows of
+the cache, bitwise at full width (``tests/test_torch_sharded_full_width.
+py``). A product rounds by how many rows it multiplies, so ``prefill``
+runs the whole batch's prompt on every rank and keeps its rows, and the
+calls on split rows run inside ``ServeMesh.split_rows``, where every
+computation but the planned path's K1/K2 products and the decode
+attention (whose rows are independent) runs at the whole batch's row
+count (``whole_rows``): the LM head, a frame's projector and block, the
+unplanned decode (``dense``, ``dense_free``) and the Zamba2, xLSTM and
+Whisper decode steps gather their activations over ``data``, compute the
+whole batch and keep this rank's rows, while what reads this rank's cache
+(a recurrent state, a frame's or Whisper's cross-attention) runs on its
+rows padded with zeros, so no cache is gathered. A MoE layer routes the
+whole batch so (its capacity and drops span it, as in the reference).
 The model-sharded sites log their bytes per shard (``IOEvent.
 shard_bytes``, ``shard_summary``); on the unsharded path nothing changes.
-The engine's calls on split rows run inside ``ServeMesh.split_rows``, so a
-MoE layer routes the whole batch (its capacity and drops span it, as in
-the reference) and keeps this rank's rows. A paged pool is split by page
+A paged pool is split by page
 over ``data`` (``kv_pages`` rounds up to a multiple of it, as in the
 reference); the allocator stays the reference's, global and replicated on
 every rank, and each pushed table carries its ``PageExchange``: per layer

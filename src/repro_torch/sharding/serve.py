@@ -29,14 +29,17 @@ rules.
 Serve slots partition over ``data``: each data rank holds batch / data rows
 of the tokens and the KV cache (``put_batch``, ``place_cache``), and the
 engine's outputs are gathered back to the full batch in row order
-(``gather_batch``), as the reference returns its global arrays. Two things
-span the batch and are resolved explicitly where GSPMD resolves them in
-the reference:
+(``gather_batch``), as the reference returns its global arrays. Three
+things span the batch and are resolved explicitly where GSPMD resolves
+them in the reference:
 
-  * **A MoE layer's capacity and drops** are the whole batch's: inside
-    ``split_rows`` (the engine's calls on split rows) ``models/moe.py``
-    gathers the layer's rows over ``data``, routes the whole batch and keeps
-    this rank's rows (``row_split``).
+  * **A product's rounding** follows how many rows it multiplies (on the
+    CPU and on cards), so inside ``split_rows`` (the engine's calls on
+    split rows) the model computes at the whole batch's row count
+    (``whole_rows``): activations gathered over ``data``, this rank's rows
+    of a cache padded with zeros, this rank's rows of the result kept.
+  * **A MoE layer's capacity and drops** are the whole batch's:
+    ``models/moe.py`` routes the whole batch the same way.
   * **A paged KV pool** is split by page over ``data`` (``place_cache``
     keeps a contiguous slice of the "kv_page" dim), while the allocator's
     page ids are global and a slot's table may name a page another rank
@@ -147,14 +150,27 @@ def gather_shards(w):
 
 
 # the serve mesh inside whose ``split_rows`` the model runs (None outside
-# one, or where the batch is not split over more than one data rank)
+# one, where the batch is not split over more than one data rank, and
+# inside ``whole_rows``, whose function holds the whole batch)
 _row_split: Optional["ServeMesh"] = None
+# the serve mesh inside whose ``whole_rows`` the model runs: its
+# activations are the whole batch's already, so ``replicate`` keeps them
+_whole: Optional["ServeMesh"] = None
 
 
 def row_split() -> Optional["ServeMesh"]:
     """The serve mesh whose data ranks each hold some rows of the batch the
     model is running on (inside ``ServeMesh.split_rows``), or None."""
     return _row_split
+
+
+def whole_rows(fn, *xs, local=()):
+    """``ServeMesh.whole_rows`` of the mesh whose data ranks split the batch
+    now (``row_split``): ``fn(*xs, *local)`` itself outside a split."""
+    split = _row_split
+    if split is None:
+        return fn(*xs, *local)
+    return split.whole_rows(fn, *xs, local=local)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -253,8 +269,18 @@ class ServeMesh:
     def split_rows(self):
         """The model calls inside run on this data rank's rows of the batch
         (``row_split`` names this mesh while more than one data rank splits
-        it): a layer whose arithmetic spans the batch gathers its rows over
-        ``data`` first."""
+        it), and compute at the whole batch's row count (``whole_rows``): a
+        product rounds by how many rows it multiplies, on the CPU and on
+        cards, so a product of this rank's rows alone would not be the 1×1
+        mesh's, and a layer whose arithmetic spans the batch (a MoE layer's
+        capacity) needs every row. The LM head, a frame's projector and
+        blocks, the unplanned decode (methods ``dense`` and ``dense_free``)
+        and the Zamba2, xLSTM and Whisper decodes gather their activations;
+        what reads this rank's cache, which stays its own (a recurrent
+        state's update, a frame's or Whisper's cross-attention), pads its
+        rows with zeros. Only the planned path's K1/K2 products and the
+        decode attention run on this rank's rows alone: each of their rows
+        is summed in one fixed order, however many rows share the call."""
         global _row_split
         prev = _row_split
         _row_split = self if self.is_sharded and self.data > 1 else None
@@ -263,13 +289,79 @@ class ServeMesh:
         finally:
             _row_split = prev
 
+    def whole_rows(self, fn, *xs, local=()):
+        """``fn(*xs, *local)`` at the row count of the 1×1 mesh, and this data
+        rank's rows of what it returns: a product's rounding follows how
+        many rows it multiplies, not the other rows' values, so this rank's
+        rows come out as the 1×1 mesh's bits. Inside ``split_rows``:
+
+          * the activations ``xs`` (this rank's batch rows, dim 0) are
+            gathered over ``data`` in rank order, in one collective
+            (``_gather_rows``);
+          * each tensor of ``local`` (this rank's rows of a cache, or values
+            read from it, which stay its own) takes this rank's rows of a
+            zero tensor of the whole batch's rows (``_pad_rows``): no
+            collective, and the other rows' results are discarded;
+          * ``fn`` runs on the whole batch, where nothing gathers again
+            (``row_split`` is None and ``replicate`` the identity);
+          * each tensor it returns, in nested tuples and dicts too, keeps
+            this rank's rows (``put_batch``); a 0-d one (a loss, an I/O
+            estimate) and any other value pass through.
+
+        Elsewhere (no split, or one data rank) it is ``fn(*xs, *local)``:
+        no collective and no copy."""
+        global _row_split, _whole
+        if _row_split is not self:
+            return fn(*xs, *local)
+        args = self._gather_rows(xs) + self._pad_rows(local)
+        _row_split, _whole = None, self
+        try:
+            out = fn(*args)
+        finally:
+            _row_split, _whole = self, None
+
+        def keep(y):
+            if isinstance(y, tuple):
+                return tuple(map(keep, y))
+            if isinstance(y, dict):
+                return {k: keep(v) for k, v in y.items()}
+            return self.put_batch(y) if isinstance(y, torch.Tensor) and y.ndim else y
+
+        return keep(out)
+
+    def _pad_rows(self, xs):
+        """Each tensor of ``xs`` (this rank's rows, dim 0) at this rank's rows
+        of a zero tensor of every data rank's rows."""
+        out = []
+        for x in xs:
+            whole = x.new_zeros((x.shape[0] * self.data,) + tuple(x.shape[1:]))
+            self._rows(whole, 0).copy_(x)
+            out.append(whole)
+        return out
+
+    def _gather_rows(self, xs):
+        """Every data rank's rows of each tensor of ``xs`` (dim 0), in rank
+        order: one all-gather, of their bytes side by side where there are
+        several."""
+        if len(xs) <= 1:
+            return [self.replicate(x) for x in xs]
+        flat = [x.contiguous().view(x.shape[0], -1).view(torch.uint8) for x in xs]
+        rows = _all_gather(torch.cat(flat, dim=1), self.mesh.get_group("data"), 0)
+        out, lo = [], 0
+        for x, f in zip(xs, flat):
+            part = rows[:, lo: lo + f.shape[1]].contiguous()
+            out.append(part.view(x.dtype).view((rows.shape[0],) + tuple(x.shape[1:])))
+            lo += f.shape[1]
+        return out
+
     # -- batch rows over 'data' ------------------------------------------------
     def replicate(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's batch rows (dim 0) → every data rank's, in data-rank
         order: the whole batch the 1×1 mesh holds. Applied to activations
         before any cross-batch reduction, so its f32 summation order does
-        not depend on the mesh."""
-        if not self.is_sharded:
+        not depend on the mesh. Inside ``whole_rows`` the activations are
+        the whole batch's already and come back as they are."""
+        if not self.is_sharded or _whole is self:
             return x
         return _all_gather(x, self.mesh.get_group("data"), 0)
 

@@ -14,7 +14,13 @@ those modules, never JAX or the JAX package.
       the unsharded engine (``torch_serve_ranks.hold_tokens``); paged KV on
       the 2×2 mesh against the dense cache and the unsharded engine, and
       the MoE decoders at data 2 against the unsharded engine
-      (``torch_serve_ranks._extra``, the test's cases and sizes);
+      (``torch_serve_ranks._extra``, the test's cases and sizes); and the
+      full-width cases of ``tests/test_torch_sharded_full_width.py``
+      (``torch_serve_ranks.WIDE_CASES``: frame append, ``dense`` and
+      ``dense_free`` decode, the StarCoder2, Zamba2, xLSTM and Whisper
+      decodes), each frame's hidden states, each rank's cache rows, every
+      step's logits and the tokens bitwise the unsharded engine's
+      (``hold_wide``);
   (b) training: one f32 step of every case of ``torch_mesh_ranks.CASES``
       against its 1×1 step (``torch_mesh_ranks.hold``: METRIC_RTOL,
       GRAD_REL, GRAD_COS, M_REL, V_REL);
@@ -82,6 +88,7 @@ def serve_group(mesh_or_none):
         out[wbits] = {k: res[k] for k in ("tokens", "selection", "io_bytes")}
     del params
     out["extra"] = serve._extra(mesh_or_none)
+    out["wide"] = {case: serve._wide_serve(mesh_or_none, case) for case in serve.WIDE_CASES}
     return out
 
 
@@ -210,6 +217,10 @@ def hold_serve(rep, ranks, one):
             rep.check("a", f"{key[0]} wbits {key[1]} at data 2: 2x2 tokens = unsharded",
                       lambda key=key, want=want: max(serve.hold_moe(r["extra"][key], want)
                                                      for r in ranks))
+    for case, want in one["wide"].items():
+        rep.check("a", f"{case} full width: 2x2 frames, cache rows, logits, tokens = unsharded",
+                  lambda case=case, want=want: serve.hold_wide([r["wide"][case] for r in ranks],
+                                                               want))
 
 
 def main(argv=None) -> int:

@@ -8,7 +8,9 @@ phase 19 runs it too.
 The settings are the reference's ``tests/test_sharded_serving.py``:
 reduced InternVL2-76B, ``max_seq`` 64, batch 2, ``nano``, sparsity 0.5,
 chunk, seed 5, refresh every 2, ``cache_mb`` 2.0, 6 tokens, both backends
-(their plain versions on CPU tensors) at wbits 16 and 8.
+(their plain versions on CPU tensors) at wbits 16 and 8. The full-width
+cases of ``tests/test_torch_sharded_full_width.py`` (``WIDE_CASES``,
+``_wide_serve``, ``hold_wide``) live here too, for phase 19.
 """
 import contextlib
 import dataclasses
@@ -239,6 +241,139 @@ def _wide_prefill(mesh):
     last = eng.prefill(make_dummy_batch(cfg, SMOKE, seed=0, device="cpu"))
     return {"last": last.float().numpy(), "rows": list(eng._local_rows),
             **{key: eng.cache[key].float().numpy() for key in ("k", "v")}}
+
+
+# the full-width serve cases: (arch, the layers kept, method, the token
+# counts of the frames appended between the prefill and the decode; a
+# frame's attention rounds by its row count at a few tokens).
+# Depth is cut, never width: one layer of TinyLlama-1.1B and StarCoder2-3B
+# (whose 3072 → 49152 head rounds by its row count; StarCoder2-7B's 1-layer
+# process peaked at 2.45 GB), Zamba2-7B as one group of 2 Mamba2 layers and
+# the shared block once (attn_every 2; its group of 6 peaked at 3.14 GB),
+# xLSTM-125M and Whisper-small whole
+WIDE_CASES = {
+    "tinyllama-chunk-frames": ("tinyllama-1.1b", 1, "chunk", (8, 8, 1)),
+    "tinyllama-dense": ("tinyllama-1.1b", 1, "dense", ()),
+    "tinyllama-dense_free": ("tinyllama-1.1b", 1, "dense_free", ()),
+    "starcoder2-3b-chunk": ("starcoder2-3b", 1, "chunk", ()),
+    "starcoder2-3b-dense_free": ("starcoder2-3b", 1, "dense_free", ()),
+    "zamba2-7b": ("zamba2-7b", 2, "chunk", ()),
+    "xlstm-125m": ("xlstm-125m", None, "chunk", ()),
+    "whisper-small": ("whisper-small", None, "chunk", ()),
+}
+# Whisper's encoder frames a prompt carries (the input's length, not a width)
+WIDE_AUDIO_FRAMES = 16
+
+
+def _wide_cfg(arch, layers):
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    if cfg.attn_every:  # one group of ``layers`` Mamba2 layers
+        return dataclasses.replace(cfg, n_layers=layers, attn_every=layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+# the last case's weights, {(arch, layers): params}
+_WIDE_PARAMS = {}
+
+
+def _wide_params(arch, layers):
+    """The seed-0 weights of a case's model, shared by the consecutive
+    cases of one model (the engine does not change them); the previous
+    model's are dropped before the next one's are made."""
+    if (arch, layers) not in _WIDE_PARAMS:
+        _WIDE_PARAMS.clear()
+        _WIDE_PARAMS[(arch, layers)] = build_model(_wide_cfg(arch, layers)).init(
+            seed=0, device="cpu")
+    return _WIDE_PARAMS[(arch, layers)]
+
+
+def _cache_rows(eng):
+    """{path: (its batch dim, this rank's rows as f32 numpy)} of every
+    tensor of the engine's cache."""
+    out = {}
+
+    def walk(c, axes, path):
+        if isinstance(c, dict):
+            for k, v in c.items():
+                walk(v, axes[k], f"{path}/{k}")
+        elif isinstance(c, (tuple, list)):
+            for i, (v, a) in enumerate(zip(c, axes, strict=True)):
+                walk(v, a, f"{path}/{i}")
+        elif isinstance(c, torch.Tensor):
+            out[path] = (list(axes).index("batch"), c.float().numpy())
+
+    walk(eng.cache, eng.model.cache_axes(), "")
+    return out
+
+
+def _wide_serve(mesh, case):
+    """One full-width case of ``WIDE_CASES`` at batch 2 (wbits 16, the
+    kernel backend's plain versions): prefill, the frames, then N_TOKENS
+    greedy tokens. Returns this rank's batch rows, each frame's returned
+    hidden states (the whole batch), every decode step's logits (this
+    rank's rows), the tokens (the whole batch) and this rank's rows of
+    every cache tensor after the last step, as numpy."""
+    arch, layers, method, frame_tokens = WIDE_CASES[case]
+    cfg = _wide_cfg(arch, layers)
+    model = build_model(cfg)
+    eng = ServeEngine(model, _wide_params(arch, layers), backend="kernel", wbits=16, mesh=mesh,
+                      **{**ENGINE, "method": method})
+    logits = []
+    step = model.decode_step_planned
+
+    def recorded(*args, **kw):
+        out, io = step(*args, **kw)
+        logits.append(out.float().numpy().copy())
+        return out, io
+
+    model.decode_step_planned = recorded
+    prompt = (dataclasses.replace(cfg, frontend_tokens=WIDE_AUDIO_FRAMES) if cfg.is_encdec
+              else cfg)
+    last = eng.prefill(make_dummy_batch(prompt, SMOKE, seed=0, device="cpu"))
+    rng = np.random.default_rng(1)
+    frames = [eng.append_frame(torch.from_numpy(rng.normal(
+        0, 1, (ENGINE["batch_size"], n, cfg.d_frontend or cfg.d_model)))
+        .to(torch.bfloat16)).float().numpy() for n in frame_tokens]
+    tokens = eng.decode(torch.argmax(last, -1)[:, None], N_TOKENS).numpy()
+    del model.decode_step_planned  # (the recorder refers to the model)
+    return {"rows": list(eng._local_rows), "frames": frames, "logits": logits,
+            "tokens": tokens, "cache": _cache_rows(eng)}
+
+
+def wide_diffs(got, want) -> dict:
+    """A rank's full-width case (``_wide_serve``) against the 1×1 mesh's:
+    the largest absolute difference of the frames' hidden states, of this
+    rank's cache rows and of the decode steps' logits, and how many tokens
+    differ."""
+    rows = got["rows"]
+
+    def worst(pairs):
+        return max((float(np.abs(g - w).max()) for g, w in pairs), default=0.0)
+
+    return {
+        "frames": worst(zip(got["frames"], want["frames"], strict=True)),
+        "cache": worst((rows_g, np.take(want["cache"][path][1], rows, axis=dim))
+                       for path, (dim, rows_g) in got["cache"].items()),
+        "logits": worst((g, w[rows]) for g, w in zip(got["logits"], want["logits"],
+                                                      strict=True)),
+        "tokens": int((got["tokens"] != want["tokens"]).sum()),
+    }
+
+
+def hold_wide(ranks, want) -> dict:
+    """Every rank's full-width case bitwise the 1×1 mesh's: each frame's
+    hidden states, the rank's rows of every cache tensor, every decode
+    step's logits and the tokens (``wide_diffs``, all 0). Returns the
+    largest of each over the ranks."""
+    for got in ranks:
+        assert sorted(got["cache"]) == sorted(want["cache"])
+        assert len(got["logits"]) == N_TOKENS
+    diffs = [wide_diffs(got, want) for got in ranks]
+    worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
+    assert not any(worst.values()), worst
+    return worst
 
 
 def hold_tokens(got, want) -> float:
